@@ -16,6 +16,11 @@ slicing off its layer and renaming `a/b/c` to `a.b.c`:
 
 A tree is given as numpy arrays (np.asarray of each JAX leaf), or read from
 a `params.npz` whose keys are the tree's paths joined with `/`.
+
+A training state carries over the same way (lion_state_from_jax /
+lion_state_to_jax): the step, the parameters, and the Lion momentum, a tree
+in the parameters' layout, so that a run started by the JAX trainer can go
+on in the port and back.
 """
 
 from __future__ import annotations
@@ -144,3 +149,37 @@ def numpy_init(cfg: Config, seed: int = 0) -> dict:
   if not cfg.tie_embeddings:
     tree["unembed"] = normal((d, cfg.vocab_size), d ** -0.5)
   return tree
+
+
+def lion_state_from_jax(model: torch.nn.Module, step, params, momentum,
+                        count=None):
+  """A JAX LMTrainState trained with Lion, as numpy trees, -> the port's
+  LMTrainState (automl_tpu_torch/train/lm_trainer.py) for `model`.
+
+  params and momentum are JAX-layout trees (the momentum is
+  opt_state[0].momentum of optax.chain(scale_by_lion, add_decayed_weights,
+  scale_by_learning_rate)); count is that chain's schedule count
+  (opt_state[2].count), the step when not given. The model's parameters
+  are set in place. The state fits train.optimizers.lion /
+  build_optimizer("lion")."""
+  from automl_tpu_torch.train.lm_trainer import LMTrainState
+  load_jax_params(model, params)
+  named = dict(model.named_parameters())
+  mom = jax_to_torch_state(momentum)
+  if set(mom) != set(named):
+    raise ValueError("momentum tree does not match the model's parameters: "
+                     f"{sorted(set(mom) ^ set(named))}")
+  mu = {k: mom[k].to(device=p.device, dtype=p.dtype) for k, p in named.items()}
+  step = int(np.asarray(step))
+  count = step if count is None else int(np.asarray(count))
+  return LMTrainState(step, named, ({"momentum": mu}, {}, {"count": count}))
+
+
+def lion_state_to_jax(state) -> dict:
+  """The port's Lion LMTrainState -> {step, params, momentum, count} with
+  JAX-layout numpy trees (blocks stacked on a leading [L] axis)."""
+  lion_state, _, sched = state.opt_state
+  return {"step": int(state.step),
+          "params": torch_to_jax_tree(state.params),
+          "momentum": torch_to_jax_tree(lion_state["momentum"]),
+          "count": int(sched["count"])}

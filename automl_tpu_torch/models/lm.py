@@ -1,10 +1,12 @@
-"""Decoder-only Transformer LM in PyTorch: greedy serving with a KV cache.
+"""Decoder-only Transformer LM in PyTorch: training and greedy serving.
 
-The counterpart of automl_tpu/models/lm.py for the serving path: configs,
-RoPE, masks, RMSNorm, gated FFN, attention with GQA, per-dim query scale
-and logit caps, the rank-3 KV cache, and greedy / sampled generation. The
-KV-cached attention runs through ops/decode_attention.py, the port of the
-TPU decode kernel.
+The counterpart of automl_tpu/models/lm.py: configs, RoPE, masks, RMSNorm,
+gated FFN, attention with GQA, per-dim query scale and logit caps, the
+rank-3 KV cache, greedy / sampled generation, full-block rematerialisation
+and the LM loss. The KV-cached attention runs through
+ops/decode_attention.py (the port of the TPU decode kernel), the
+full-sequence attention with use_flash_attention through ops/attention.py
+(the ports of the TPU flash forward and fused backward kernels).
 
 Parameters keep the JAX package's layouts, so one parameter tree drives
 both packages (convert.py): wq/wk/wv/wo [d, n, h], per_dim_scale [h],
@@ -25,8 +27,10 @@ from typing import Optional
 import torch
 from torch import nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from automl_tpu_torch.config import Config
+from automl_tpu_torch.ops import attention as attention_lib
 from automl_tpu_torch.ops import decode_attention as decode_attention_lib
 
 ATTN_LOGIT_CAP = 50.0
@@ -152,7 +156,6 @@ def get_lm_config(name: str = "") -> Config:
 # Options of the JAX model not ported yet, with the ROADMAP item that ports
 # each. A config that turns one on is refused rather than run another way.
 _UNPORTED = (
-    ("use_flash_attention", "K1 (flash-attention forward)"),
     ("use_window_chunk", "M6 (chunked local attention)"),
     ("moe_num_experts", "M6 (MoE FFN)"),
     ("use_combined_qkv", "M7 (combined qkv projection)"),
@@ -168,6 +171,15 @@ def _check_ported(cfg: Config):
     if cfg.get(key):
       raise NotImplementedError(
           f"{key} is not ported to automl_tpu_torch yet: ROADMAP {item}")
+  if cfg.get("use_flash_attention") and not cfg.get("flash_bwd_fused", True):
+    raise NotImplementedError(
+        "flash_bwd_fused=False (the split flash backward) is not ported to "
+        "automl_tpu_torch yet: ROADMAP K5")
+  policy = cfg.get("remat_policy") or "full"
+  if cfg.get("use_remat") and policy != "full":
+    raise NotImplementedError(
+        f"remat_policy={policy!r} is not ported to automl_tpu_torch yet "
+        "(only 'full'): ROADMAP M6")
 
 
 # ---------------------------------------------------------------------------
@@ -211,8 +223,7 @@ def causal_mask(q_positions, k_positions, window_size: Optional[int] = None,
 
 
 def _param(shape, dtype, device):
-  return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                      requires_grad=False)
+  return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +249,10 @@ class Attention(nn.Module):
     if cfg.get("use_per_dim_scale"):
       self.per_dim_scale = _param((hd,), torch.float32, device)
 
-  def forward(self, x, positions, mask, cache=None, cache_index=None):
-    """x: [B, T, D]; mask: [B, T, S] bool. cache: optional
+  def forward(self, x, positions, mask, cache=None, cache_index=None,
+              segment_ids=None):
+    """x: [B, T, D]; mask: [B, T, S] bool, or None where the flash kernel
+    masks by itself (causal, window and segment_ids [B, T]). cache: optional
     {k: [B*n_kv, hd, S], v: [B*n_kv, S, hd]} (TransformerLM.init_cache),
     written at cache_index in place. Returns (out [B, T, D], cache)."""
     cfg = self.cfg
@@ -263,6 +276,15 @@ class Attention(nn.Module):
       q = q * (self.head_dim ** -0.5)
 
     if cache is None:
+      if mask is None:
+        # TransformerLM passes mask=None exactly when the flash path
+        # should mask by itself (JAX: uses_fused_mask).
+        out = attention_lib.flash_attention(
+            q, k, v, causal=True, window=cfg.window_size,
+            logit_cap=cfg.attn_logit_cap or 0.0, sm_scale=1.0,
+            segment_ids=segment_ids,
+            bwd_fused=bool(cfg.get("flash_bwd_fused", True)))
+        return torch.einsum("bqnh,dnh->bqd", out.to(adt), wo), None
       return self._dense(q, k, v, mask, wo, adt), None
 
     b, t = x.shape[0], x.shape[1]
@@ -379,9 +401,10 @@ class TransformerBlock(nn.Module):
     self.post_attn_norm = RMSNorm(d, device) if cfg.use_post_ln else None
     self.post_ffn_norm = RMSNorm(d, device) if cfg.use_post_ln else None
 
-  def forward(self, x, positions, mask, cache=None, cache_index=None):
+  def forward(self, x, positions, mask, cache=None, cache_index=None,
+              segment_ids=None):
     attn_out, new_cache = self.attn(self.pre_attn_norm(x), positions, mask,
-                                    cache, cache_index)
+                                    cache, cache_index, segment_ids)
     if self.post_attn_norm is not None:
       attn_out = self.post_attn_norm(attn_out)
     x = x + attn_out
@@ -435,13 +458,29 @@ class TransformerLM(nn.Module):
     if kv_positions is None:
       kv_positions = positions
     x = F.embedding(tokens, self.embed).to(adt) * (cfg.model_dim ** 0.5)
-    mask = causal_mask(positions, kv_positions, cfg.window_size,
-                       segment_ids, segment_ids,
-                       prefix_q=causal_attention, prefix_k=causal_attention)
+    # The flash kernel masks by itself (causal, window, segments); a
+    # prefix-LM mask or a cache takes the materialised mask (JAX:
+    # uses_fused_mask).
+    uses_fused_mask = (causal_attention is None and cache is None
+                       and cfg.get("use_flash_attention"))
+    mask = None if uses_fused_mask else causal_mask(
+        positions, kv_positions, cfg.window_size, segment_ids, segment_ids,
+        prefix_q=causal_attention, prefix_k=causal_attention)
+    # remat_policy "full" (the only one ported): each block's forward runs
+    # again in the backward, as jax.checkpoint with no policy does. The JAX
+    # model remats only its scanned layers, hence use_scan.
+    remat = (cache is None and cfg.use_remat and cfg.get("use_scan", True)
+             and torch.is_grad_enabled())
     new_caches = []
     for i, block in enumerate(self.blocks):
-      x, nc = block(x, positions, mask, None if cache is None else cache[i],
-                    cache_index)
+      if remat:
+        x, nc = torch.utils.checkpoint.checkpoint(
+            block, x, positions, mask, None, None, segment_ids,
+            use_reentrant=False)
+      else:
+        x, nc = block(x, positions, mask,
+                      None if cache is None else cache[i], cache_index,
+                      segment_ids)
       new_caches.append(nc)
     new_cache = tuple(new_caches) if cache is not None else None
     x = self.final_norm(x)
@@ -511,6 +550,17 @@ def unembed_logits(model: TransformerLM, x):
   if cfg.final_logit_cap:
     logits = cfg.final_logit_cap * torch.tanh(logits / cfg.final_logit_cap)
   return logits
+
+
+def lm_loss(logits, targets, loss_weights=None):
+  """Masked next-token cross-entropy in f32: the mean over tokens, or the
+  loss_weights-weighted mean (weights summed to at least 1)."""
+  logp = torch.log_softmax(logits.float(), dim=-1)
+  nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+  if loss_weights is None:
+    return nll.mean()
+  w = loss_weights.float()
+  return (nll * w).sum() / w.sum().clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------

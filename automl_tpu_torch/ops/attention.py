@@ -1,0 +1,340 @@
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
+
+The counterpart of automl_tpu/ops/attention.py. Two kernels, in
+csrc/flash_attention.cu:
+  * K1, the forward (replaces _fwd_kernel): out and the row logsumexp lse;
+  * K2, the fused backward (replaces _bwd_fused_kernel): dq, dk, dv from one
+    recompute of s/p/ds per tile.
+
+The kernels' interface: q, k, v, g, out, dq, dk, dv [B, T, N, H] (q/k/v/g
+through their strides, unit H stride), lse and delta [B*N, T] f32 with row
+r = b*N + n, segment ids [B, T] int32. The TPU kernels' [B*N, T, H]
+transposes and lane-broadcast operands have no counterpart here.
+
+Semantics, as in the JAX package: s = sm_scale * (q . k) with the operands'
+products summed in f32; an optional tanh cap s = cap * tanh(s / cap); keys
+masked by causality, the sliding window (q - k < window), the sequence end
+and unequal segment ids; softmax over the live keys; p . v in f32. A masked
+key gets -1e30 and an explicit p = 0.
+
+`flash_attention` dispatches on the device of q: CUDA tensors go to the
+kernels, which raise if they cannot be built or launched; CPU tensors go to
+flash_fwd_reference / flash_bwd_reference. There is no fallback from the one
+to the other. `flash_attention.launches_fwd` / `.launches_bwd` count kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HEAD_DIM = 128
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the kernels' interface).
+# ---------------------------------------------------------------------------
+
+
+def _mask(t, causal, window, segs, device):
+  """[B or 1, 1, T, T] bool, True = attend."""
+  q_pos = torch.arange(t, device=device)[:, None]
+  k_pos = torch.arange(t, device=device)[None, :]
+  mask = torch.ones((t, t), dtype=torch.bool, device=device)
+  if causal:
+    mask &= q_pos >= k_pos
+  if window is not None:
+    mask &= (q_pos - k_pos) < window
+  mask = mask[None, None]
+  if segs is not None:
+    mask = mask & (segs[:, None, :, None] == segs[:, None, None, :])
+  return mask
+
+
+def _scores(q, k, logit_cap, sm_scale):
+  """(s_eff, dcap), [B, N, T, T] f32: the capped scaled scores and the cap's
+  derivative (1.0 without a cap). Operands are upcast to f32 first, which
+  gives the same products as input-dtype operands with f32 accumulation."""
+  s = sm_scale * torch.einsum("bqnh,bknh->bnqk", q.float(), k.float())
+  if logit_cap:
+    capped = torch.tanh(s / logit_cap)
+    return logit_cap * capped, 1.0 - capped * capped
+  return s, 1.0
+
+
+def _lse_rows(x):
+  """[B, N, T] -> [B*N, T]."""
+  return x.reshape(-1, x.shape[-1])
+
+
+def flash_fwd_reference(q, k, v, segs=None, *, causal=True, window=None,
+                        logit_cap=0.0, sm_scale=1.0):
+  """Plain-PyTorch K1: q, k, v [B, T, N, H] (N equal) -> (out [B, T, N, H]
+  in q's dtype, lse [B*N, T] f32).
+
+  m = max(-1e30, live scores); p = exp(s - m) on live keys, 0 elsewhere;
+  l = sum(p); out = (p . v) / max(l, 1e-30); lse = m + log(max(l, 1e-30))."""
+  b, t, n, h = q.shape
+  s, _ = _scores(q, k, logit_cap, sm_scale)
+  mask = _mask(t, causal, window, segs, q.device)
+  s = torch.where(mask, s, NEG_INF)
+  m = s.amax(dim=-1, keepdim=True)
+  p = torch.where(mask, torch.exp(s - m), 0.0)
+  l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+  out = torch.einsum("bnqk,bknh->bqnh", p, v.float()) / l.transpose(1, 2)
+  lse = (m + torch.log(l))[..., 0]
+  return out.to(q.dtype), _lse_rows(lse)
+
+
+def _delta(g, out):
+  """rowsum(g * out) in f32: [B, T, N, H] -> [B*N, T]."""
+  d = (g.float() * out.float()).sum(dim=-1)         # [B, T, N]
+  return _lse_rows(d.transpose(1, 2))
+
+
+def flash_bwd_reference(q, k, v, g, out, lse, segs=None, *, causal=True,
+                        window=None, logit_cap=0.0, sm_scale=1.0):
+  """Plain-PyTorch K2: -> (dq, dk, dv), each [B, T, N, H] in its input's dtype.
+
+  The math of the TPU kernel's _bwd_compute: p = exp(s_eff - lse) on live
+  keys, 0 elsewhere; dp = g . v; ds = p * (dp - delta) * dcap with
+  delta = rowsum(g * out); dq = sm_scale * ds . k, dk = sm_scale * ds^T . q,
+  dv = p^T . g, all in f32."""
+  b, t, n, h = q.shape
+  s, dcap = _scores(q, k, logit_cap, sm_scale)
+  mask = _mask(t, causal, window, segs, q.device)
+  lse4 = lse.reshape(b, n, t, 1)
+  delta4 = _delta(g, out).reshape(b, n, t, 1)
+  p = torch.where(mask, torch.exp(torch.where(mask, s, NEG_INF) - lse4), 0.0)
+  gf = g.float()
+  dp = torch.einsum("bqnh,bknh->bnqk", gf, v.float())
+  ds = torch.where(mask, p * (dp - delta4) * dcap, 0.0)
+  dq = sm_scale * torch.einsum("bnqk,bknh->bqnh", ds, k.float())
+  dk = sm_scale * torch.einsum("bnqk,bqnh->bknh", ds, q.float())
+  dv = torch.einsum("bnqk,bqnh->bknh", p, gf)
+  return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels.
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _kernel_fns():
+  """The kernels' C entry points (fwd, bwd), built and bound at first use."""
+  from automl_tpu_torch.ops import cuda_build
+  lib = cuda_build.load("flash_attention")
+  ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_float)
+  strides = [i64] * 3
+  common = [i32] * 6 + [f32, f32]   # B T N H causal window, cap, scale
+  fwd = lib.automl_flash_fwd
+  # q k v seg out lse | dtype | q k v strides | common | stream
+  fwd.argtypes = [ptr] * 6 + [i32] + strides * 3 + common + [ptr]
+  fwd.restype = i32
+  bwd = lib.automl_flash_bwd
+  # q k v g seg lse delta dq32 dq_turn dk dv | dtype | q k v g strides |
+  # common
+  bwd.argtypes = [ptr] * 11 + [i32] + strides * 4 + common + [ptr]
+  bwd.restype = i32
+  return fwd, bwd
+
+
+def _check_kernel_inputs(tensors, segs):
+  q = tensors[0]
+  if q.dtype not in _DTYPE_CODES:
+    raise TypeError(f"flash attention kernels take float32 or bfloat16, "
+                    f"got {q.dtype}")
+  for x in tensors:
+    if x.dtype != q.dtype or x.shape != q.shape or x.device != q.device:
+      raise ValueError("flash attention kernels need q, k, v (and g, out) "
+                       "of one dtype, shape and device; got "
+                       f"{[(tuple(y.shape), y.dtype) for y in tensors]}")
+    if x.stride(-1) != 1:
+      raise ValueError("flash attention kernels need a unit head-dim stride")
+  if q.shape[-1] > _MAX_HEAD_DIM:
+    raise ValueError(f"flash attention kernels take head_dim <= "
+                     f"{_MAX_HEAD_DIM}, got {q.shape[-1]}")
+  if segs is not None and (segs.dtype != torch.int32 or not
+                           segs.is_contiguous() or segs.device != q.device):
+    raise ValueError("segment ids must be a contiguous int32 [B, T] tensor "
+                     "on q's device")
+
+
+def _strides(x):
+  return x.stride(0), x.stride(1), x.stride(2)
+
+
+def _common(q, causal, window, logit_cap, sm_scale):
+  b, t, n, h = q.shape
+  return (b, t, n, h, int(bool(causal)), -1 if window is None else int(window),
+          float(logit_cap or 0.0), float(sm_scale))
+
+
+def _raise_on(err, which):
+  if err != 0:
+    raise RuntimeError(f"flash attention {which} kernel launch failed: CUDA "
+                       f"error {err}")
+
+
+def flash_fwd_kernel(q, k, v, segs=None, *, causal=True, window=None,
+                     logit_cap=0.0, sm_scale=1.0):
+  """K1 on the card: the interface of flash_fwd_reference."""
+  _check_kernel_inputs((q, k, v), segs)
+  b, t, n, h = q.shape
+  fwd, _ = _kernel_fns()
+  out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)
+  lse = torch.empty((b * n, t), dtype=torch.float32, device=q.device)
+  with torch.cuda.device(q.device):
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              None if segs is None else segs.data_ptr(),
+              out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
+              *_strides(q), *_strides(k), *_strides(v),
+              *_common(q, causal, window, logit_cap, sm_scale),
+              torch.cuda.current_stream(q.device).cuda_stream)
+  _raise_on(err, "forward")
+  flash_attention.launches_fwd += 1
+  return out, lse
+
+
+def flash_bwd_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
+                     window=None, logit_cap=0.0, sm_scale=1.0):
+  """K2 on the card: the interface of flash_bwd_reference. dq is summed
+  over key tiles with f32 atomics into one [B, T, N, H] f32 buffer, in an
+  order that one counter per (row, q tile) fixes, then cast to q's dtype:
+  the result is the same from run to run."""
+  _check_kernel_inputs((q, k, v, g, out), segs)
+  b, t, n, h = q.shape
+  if tuple(lse.shape) != (b * n, t) or lse.dtype != torch.float32 or \
+      not lse.is_contiguous():
+    raise ValueError(f"lse must be contiguous f32 [{b * n}, {t}]")
+  _, bwd = _kernel_fns()
+  delta = _delta(g, out).contiguous()
+  dq32 = torch.zeros((b, t, n, h), dtype=torch.float32, device=q.device)
+  dq_turn = torch.zeros((b * n, t), dtype=torch.int32, device=q.device)
+  dk = torch.empty((b, t, n, h), dtype=k.dtype, device=q.device)
+  dv = torch.empty((b, t, n, h), dtype=v.dtype, device=q.device)
+  with torch.cuda.device(q.device):
+    err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+              None if segs is None else segs.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), dq32.data_ptr(),
+              dq_turn.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              _DTYPE_CODES[q.dtype],
+              *_strides(q), *_strides(k), *_strides(v), *_strides(g),
+              *_common(q, causal, window, logit_cap, sm_scale),
+              torch.cuda.current_stream(q.device).cuda_stream)
+  _raise_on(err, "backward")
+  flash_attention.launches_bwd += 1
+  return dq32.to(q.dtype), dk, dv
+
+
+def _on(x, cpu_fn, cuda_fn):
+  if x.device.type == "cpu":
+    return cpu_fn
+  if x.device.type == "cuda":
+    return cuda_fn
+  raise ValueError(f"flash attention: no implementation on {x.device}")
+
+
+def flash_fwd(q, k, v, segs=None, **kw):
+  """K1 for CUDA tensors, its plain version for CPU tensors."""
+  return _on(q, flash_fwd_reference, flash_fwd_kernel)(q, k, v, segs, **kw)
+
+
+def flash_bwd(q, k, v, g, out, lse, segs=None, **kw):
+  """K2 for CUDA tensors, its plain version for CPU tensors."""
+  return _on(q, flash_bwd_reference, flash_bwd_kernel)(
+      q, k, v, g, out, lse, segs, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+  """out = attention(q, k, v); the backward is K2 (or its plain version)."""
+
+  @staticmethod
+  def forward(ctx, q, k, v, segs, causal, window, logit_cap, sm_scale):
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+              sm_scale=sm_scale)
+    out, lse = flash_fwd(q, k, v, segs, **kw)
+    ctx.save_for_backward(q, k, v, out, lse, segs)
+    ctx.kw = kw
+    return out
+
+  @staticmethod
+  def backward(ctx, g):
+    q, k, v, out, lse, segs = ctx.saved_tensors
+    if g.stride(-1) != 1:
+      g = g.contiguous()
+    dq, dk, dv = flash_bwd(q, k, v, g, out, lse, segs, **ctx.kw)
+    return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    logit_cap: float = 0.0, sm_scale: float | None = None,
+                    segment_ids=None, block_q: int = 512, block_k: int = 512,
+                    block_q_bwd: int | None = None,
+                    block_k_bwd: int | None = None, bwd_fused: bool = True):
+  """Multi-head flash attention with gradients.
+
+  q: [B, T, N, H]; k, v: [B, T, Nkv, H] (Nkv divides N: GQA, k and v are
+  repeated here so that autograd sums dk/dv over each group). Returns
+  [B, T, N, H] in q's dtype. `window`: sliding-window size (None = full
+  causal). `logit_cap`: tanh soft cap on the scores. `sm_scale` defaults to
+  1/sqrt(H). `segment_ids`: optional [B, T] int, attention only within equal
+  ids (packed sequences).
+
+  block_q / block_k / block_q_bwd / block_k_bwd are the TPU kernels' tile
+  sizes. They are accepted for the JAX signature and steer nothing: the CUDA
+  kernels' tiles are their own constants. bwd_fused=True (the default here;
+  the JAX function's default is False, its LM's is True) is the fused
+  backward K2; the split backward (False) is not ported: ROADMAP K5."""
+  del block_q, block_k, block_q_bwd, block_k_bwd
+  if not bwd_fused:
+    raise NotImplementedError(
+        "the split flash backward (bwd_fused=False) is not ported to "
+        "automl_tpu_torch yet: ROADMAP K5")
+  b, t, n, h = q.shape
+  nkv = k.shape[2]
+  if nkv != n:
+    if n % nkv != 0:
+      raise ValueError(f"GQA requires n_heads ({n}) divisible by "
+                       f"n_kv_heads ({nkv})")
+    k = k.repeat_interleave(n // nkv, dim=2)
+    v = v.repeat_interleave(n // nkv, dim=2)
+  if sm_scale is None:
+    sm_scale = 1.0 / math.sqrt(h)
+  segs = None
+  if segment_ids is not None:
+    if tuple(segment_ids.shape) != (b, t):
+      raise ValueError(f"segment_ids must be [B={b}, T={t}], "
+                       f"got {tuple(segment_ids.shape)}")
+    segs = segment_ids.to(torch.int32).contiguous()
+  return _FlashAttention.apply(q, k, v, segs, causal, window, logit_cap,
+                               sm_scale)
+
+
+flash_attention.launches_fwd = 0
+flash_attention.launches_bwd = 0
+
+
+def dense_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
+                    sm_scale=None, segment_ids=None):
+  """Reference O(T^2) attention in f32 (the JAX package's dense_attention)."""
+  b, t, n, h = q.shape
+  nkv = k.shape[2]
+  if nkv != n:
+    k = k.repeat_interleave(n // nkv, dim=2)
+    v = v.repeat_interleave(n // nkv, dim=2)
+  if sm_scale is None:
+    sm_scale = 1.0 / math.sqrt(h)
+  s, _ = _scores(q, k, logit_cap, sm_scale)
+  mask = _mask(t, causal, window, segment_ids, q.device)
+  p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+  return torch.einsum("bnqk,bknh->bqnh", p, v.float()).to(q.dtype)

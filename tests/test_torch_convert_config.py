@@ -99,9 +99,12 @@ def test_import_automl_tpu_torch_loads_no_jax():
           "import automl_tpu_torch\n"
           "from automl_tpu_torch import config, convert\n"
           "from automl_tpu_torch.models import lm\n"
-          "from automl_tpu_torch.ops import decode_attention, cuda_build\n"
+          "from automl_tpu_torch.ops import attention, decode_attention\n"
+          "from automl_tpu_torch.ops import cuda_build\n"
           "from automl_tpu_torch.data import lm_pipeline\n"
-          "from automl_tpu_torch.cli import generate_lm\n"
+          "from automl_tpu_torch.train import (checkpoint, lm_trainer,\n"
+          "                                    metrics, optimizers, schedules)\n"
+          "from automl_tpu_torch.cli import generate_lm, main_lm\n"
           "bad = sorted(m for m in sys.modules\n"
           "             if m.split('.')[0] in ('jax', 'jaxlib', 'automl_tpu'))\n"
           "assert not bad, bad\n")

@@ -1,0 +1,448 @@
+"""automl_tpu_torch LM training vs automl_tpu's on the CPU.
+
+One config and one JAX-layout parameter tree made with numpy from a seed
+(norm and per-dim scales perturbed away from zero) go into both packages,
+on lm-test with use_flash_attention=True and f32 activations: JAX runs its
+Pallas flash kernels in interpret mode, the port the plain versions of its
+CUDA kernels. JAX matmuls run at "highest" precision (tests/conftest.py).
+Tolerances are stated per test.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from automl_tpu.data import lm_pipeline as jdata
+from automl_tpu.models import lm as jlm
+from automl_tpu.train import lm_trainer as jtrain
+from automl_tpu.train import optimizers as jopt
+from automl_tpu.train import schedules as jsched
+from automl_tpu_torch import convert
+from automl_tpu_torch.cli import main_lm as tcli
+from automl_tpu_torch.data import lm_pipeline as tdata
+from automl_tpu_torch.models import lm as tlm
+from automl_tpu_torch.ops import attention as tattn
+from automl_tpu_torch.train import checkpoint as tckpt
+from automl_tpu_torch.train import lm_trainer as ttrain
+from automl_tpu_torch.train import optimizers as topt
+from automl_tpu_torch.train import schedules as tsched
+
+torch.set_num_threads(1)
+
+FLASH = dict(activation_dtype="float32", use_flash_attention=True)
+
+
+def _cfgs(**kw):
+  jcfg, tcfg = jlm.get_lm_config("lm-test"), tlm.get_lm_config("lm-test")
+  kw = dict(FLASH, **kw)
+  jcfg.override(kw)
+  tcfg.override(kw)
+  return jcfg, tcfg
+
+
+def _tree(tcfg, seed=0):
+  """numpy_init with the zero-init scales perturbed."""
+  tree = convert.numpy_init(tcfg, seed)
+  rng = np.random.default_rng(seed + 100)
+  flat = convert.flatten_tree(tree)
+  for path, value in flat.items():
+    if path.endswith("scale"):
+      flat[path] = (0.3 * rng.standard_normal(value.shape)).astype(np.float32)
+  return convert.unflatten_tree(flat)
+
+
+def _models(seed=0, **kw):
+  jcfg, tcfg = _cfgs(**kw)
+  tree = _tree(tcfg, seed)
+  jmodel = jlm.TransformerLM(jcfg)
+  jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+  tmodel = convert.load_jax_params(tlm.TransformerLM(tcfg), tree)
+  return jmodel, jparams, tmodel
+
+
+def _batch(seed=1, segments=True, b=2, t=64, v=384):
+  """tokens [B, T+1]; packed documents with segment ids and loss weights
+  (the last document padded) when segments."""
+  rng = np.random.default_rng(seed)
+  if not segments:
+    return {"tokens": rng.integers(3, v, (b, t + 1)).astype(np.int32)}
+  docs = [rng.integers(3, v, rng.integers(5, 30)).tolist() for _ in range(9)]
+  rows = list(tdata.pack_documents(docs, t))[:b]
+  return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def _tbatch(batch):
+  return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _jbatch(batch):
+  return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _flat(tree):
+  return {k: np.asarray(v) for k, v in convert.flatten_tree(tree).items()}
+
+
+def _jax_loss_and_grads(jmodel, jparams, batch):
+  b = _jbatch(batch)
+  inputs, targets = b["tokens"][:, :-1], b["tokens"][:, 1:]
+  weights = b["loss_weights"][:, 1:] if "loss_weights" in b else None
+  segs = b["segment_ids"][:, :-1] if "segment_ids" in b else None
+
+  def loss_fn(params):
+    logits, _ = jmodel(params, inputs, segment_ids=segs)
+    return jlm.lm_loss(logits, targets, weights)
+
+  return jax.value_and_grad(loss_fn)(jparams)
+
+
+@pytest.mark.parametrize("remat,segments", [(True, True), (False, True),
+                                            (True, False)],
+                         ids=["remat_segments", "no_remat_segments",
+                              "remat_no_segments"])
+def test_loss_and_grads_match_jax(remat, segments):
+  """Loss rtol 1e-5; every gradient leaf atol 1e-5, rtol 1e-4 (f32 through
+  2 layers, flash backward in both). Full remat re-runs the forward kernel
+  in the backward: 2 forward launches per layer on the card, 0 here."""
+  jmodel, jparams, tmodel = _models(seed=2, use_remat=remat)
+  batch = _batch(segments=segments)
+  want_loss, want_grads = _jax_loss_and_grads(jmodel, jparams, batch)
+  before = tattn.flash_attention.launches_fwd
+  loss, grads = ttrain.lm_loss_and_grads(tmodel, _tbatch(batch))
+  assert tattn.flash_attention.launches_fwd == before
+  np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+  got = _flat(convert.torch_to_jax_tree(grads))
+  want = _flat(want_grads)
+  assert set(got) == set(want)
+  for path in want:
+    np.testing.assert_allclose(got[path], want[path], atol=1e-5, rtol=1e-4,
+                               err_msg=path)
+
+
+def test_flash_path_matches_dense_path():
+  """The port's flash branch against its own dense (materialised-mask)
+  branch on one batch: logits atol 1e-4 (f32, capped at 30)."""
+  _, tcfg = _cfgs()
+  tree = _tree(tcfg, seed=3)
+  flash = convert.load_jax_params(tlm.TransformerLM(tcfg), tree)
+  _, dcfg = _cfgs(use_flash_attention=False)
+  dense = convert.load_jax_params(tlm.TransformerLM(dcfg), tree)
+  b = _tbatch(_batch(seed=4))
+  seg = b["segment_ids"][:, :-1]
+  with torch.no_grad():
+    got, _ = flash(b["tokens"][:, :-1], segment_ids=seg)
+    want, _ = dense(b["tokens"][:, :-1], segment_ids=seg)
+  np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def _jax_state(jmodel, jparams, tx):
+  return jtrain.LMTrainState(jnp.zeros((), jnp.int32), jparams,
+                             tx.init(jparams))
+
+
+def test_sgd_train_step_matches_jax():
+  """One make_lm_train_step with sgd, the lm_lr schedule, grad clip 1.0 and
+  lr-scaled weight decay 0.1: loss rtol 1e-5, gnorm and unorm rtol 1e-4,
+  parameters rtol 2e-5 (atol 1e-7 for entries near 0)."""
+  jmodel, jparams, tmodel = _models(seed=5)
+  batch = _batch(seed=6)
+  lr_kw = dict(num_train_steps=10, warmup_steps=2, end_decay=0.1)
+  jlr = jsched.lm_lr("cosine_decay", 0.5, **lr_kw)
+  tlr = tsched.lm_lr("cosine_decay", 0.5, **lr_kw)
+  jtx = jopt.build_optimizer("sgd", jlr)
+  ttx = topt.build_optimizer("sgd", tlr)
+  jstep = jtrain.make_lm_train_step(jmodel, jtx, weight_decay=0.1,
+                                    lr_fn=jlr)
+  tstep = ttrain.make_lm_train_step(tmodel, ttx, weight_decay=0.1,
+                                    lr_fn=tlr)
+  jstate, jlogs = jstep(_jax_state(jmodel, jparams, jtx), _jbatch(batch))
+  tstate, tlogs = tstep(ttrain.init_train_state(tmodel, ttx), _tbatch(batch))
+  assert tstate.step == 1 == int(jstate.step)
+  np.testing.assert_allclose(float(tlogs["loss"]), float(jlogs["loss"]),
+                             rtol=1e-5)
+  for key in ("gnorm", "unorm"):
+    np.testing.assert_allclose(float(tlogs[key]), float(jlogs[key]),
+                               rtol=1e-4)
+  got = _flat(convert.torch_to_jax_tree(tstate.params))
+  for path, want in _flat(jstate.params).items():
+    np.testing.assert_allclose(got[path], want, rtol=2e-5, atol=1e-7,
+                               err_msg=path)
+
+
+def test_lion_matches_optax_lion_exactly_on_identical_grads():
+  """Lion (scale_by_lion, decayed weights, -lr) against the JAX package's
+  optax chain on the same params and grads for 3 updates: updates and
+  momentum bit-equal (elementwise f32 ops in the same order)."""
+  rng = np.random.default_rng(7)
+  params = {"a": rng.standard_normal((5, 7), dtype=np.float32),
+            "b": rng.standard_normal((11,), dtype=np.float32)}
+  params["b"][:3] = 0.0
+  jtx = jopt.lion(lambda count: 1e-3, weight_decay=0.1)
+  ttx = topt.lion(lambda count: 1e-3, weight_decay=0.1)
+  jp = {k: jnp.asarray(v) for k, v in params.items()}
+  tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+  js, ts = jtx.init(jp), ttx.init(tp)
+  for i in range(3):
+    grads = {k: rng.standard_normal(v.shape, dtype=np.float32)
+             for k, v in params.items()}
+    grads["a"][0, :2] = 0.0          # sign(0) = 0
+    ju, js = jtx.update({k: jnp.asarray(v) for k, v in grads.items()}, js,
+                        jp)
+    tu, ts = ttx.update({k: torch.from_numpy(v) for k, v in grads.items()},
+                        ts, tp)
+    for k in params:
+      np.testing.assert_array_equal(tu[k].numpy(), np.asarray(ju[k]))
+      np.testing.assert_array_equal(ts[0]["momentum"][k].numpy(),
+                                    np.asarray(js[0].momentum[k]))
+    jp = optax.apply_updates(jp, ju)
+    tp = {k: tp[k] + tu[k] for k in tp}
+  assert ts[2]["count"] == 3 == int(js[2].count)
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum"])
+def test_sgd_and_momentum_match_optax_exactly_on_identical_grads(name):
+  """build_optimizer("sgd" / "momentum") against the JAX package's optax
+  transformation with an lm_lr schedule, 3 updates on the same grads:
+  updates and the momentum trace bit-equal (elementwise f32 ops in the
+  same order)."""
+  rng = np.random.default_rng(18)
+  params = {"a": rng.standard_normal((4, 6), dtype=np.float32)}
+  lr_kw = dict(num_train_steps=5, warmup_steps=2)
+  jtx = jopt.build_optimizer(name, jsched.lm_lr("cosine_decay", 0.1, **lr_kw))
+  ttx = topt.build_optimizer(name, tsched.lm_lr("cosine_decay", 0.1, **lr_kw))
+  js = jtx.init({k: jnp.asarray(v) for k, v in params.items()})
+  ts = ttx.init({k: torch.from_numpy(v) for k, v in params.items()})
+  for _ in range(3):
+    grads = {k: rng.standard_normal(v.shape, dtype=np.float32)
+             for k, v in params.items()}
+    ju, js = jtx.update({k: jnp.asarray(v) for k, v in grads.items()}, js)
+    tu, ts = ttx.update({k: torch.from_numpy(v) for k, v in grads.items()},
+                        ts)
+    np.testing.assert_array_equal(tu["a"].numpy(), np.asarray(ju["a"]))
+    if name == "momentum":
+      np.testing.assert_array_equal(ts[0]["trace"]["a"].numpy(),
+                                    np.asarray(js[0].trace["a"]))
+
+
+def test_metrics_writer_and_step_timer_match_jax(tmp_path):
+  """MetricsWriter writes the JAX writer's metrics.jsonl records (the
+  `time` field aside); StepTimer reports at the same ticks with the same
+  keys."""
+  from automl_tpu.train import metrics as jmetrics
+  from automl_tpu_torch.train import metrics as tmetrics
+  records = []
+  for mod, d in ((jmetrics, tmp_path / "jax"), (tmetrics, tmp_path / "port")):
+    kw = {"use_tensorboard": False} if mod is jmetrics else {}
+    w = mod.MetricsWriter(str(d), **kw)
+    w.write(3, {"loss": np.float32(1.5), "lr": torch.tensor(0.25)})
+    w.write(4, {"loss": 1.25})
+    w.close()
+    records.append([{k: v for k, v in json.loads(line).items() if k != "time"}
+                    for line in (d / "metrics.jsonl").read_text().splitlines()])
+  assert records[0] == records[1] == [{"step": 3, "loss": 1.5, "lr": 0.25},
+                                      {"step": 4, "loss": 1.25}]
+  jt, tt = jmetrics.StepTimer(window=3), tmetrics.StepTimer(window=3)
+  for i in range(7):
+    want, got = jt.tick(examples=8), tt.tick(examples=8)
+    assert (want is None) == (got is None), i
+    if got is not None:
+      assert set(got) == set(want) == {"steps_per_sec", "examples_per_sec"}
+      assert got["steps_per_sec"] > 0
+      np.testing.assert_allclose(got["examples_per_sec"],
+                                 8 * got["steps_per_sec"], rtol=1e-9)
+
+
+def _lion_pair(seed):
+  jmodel, jparams, tmodel = _models(seed=seed)
+  lr_kw = dict(num_train_steps=10, warmup_steps=2, end_decay=0.1)
+  jlr = jsched.lm_lr("cosine_decay", 3e-3, **lr_kw)
+  tlr = tsched.lm_lr("cosine_decay", 3e-3, **lr_kw)
+  jtx, ttx = jopt.build_optimizer("lion", jlr), topt.build_optimizer(
+      "lion", tlr)
+  jstep = jtrain.make_lm_train_step(jmodel, jtx, weight_decay=0.1,
+                                    lr_fn=jlr)
+  tstep = ttrain.make_lm_train_step(tmodel, ttx, weight_decay=0.1,
+                                    lr_fn=tlr)
+  return jmodel, jparams, tmodel, jtx, ttx, jstep, tstep
+
+
+def _share_close(got, want, atol):
+  """Share of entries with |got - want| <= atol, over every leaf."""
+  n_ok = n = 0
+  for path, w in _flat(want).items():
+    n_ok += int(np.sum(np.abs(got[path] - w) <= atol))
+    n += w.size
+  return n_ok / n
+
+
+def test_lion_train_step_matches_jax():
+  """A Lion train step: >= 99.9% of parameters within 1e-6. Lion takes the
+  sign of (1-b1) g + b1 m, and with m = 0 a gradient that is ~0 (within
+  the grad tolerance) can flip sign, moving that entry by 2 * lr; so
+  exact agreement cannot be asked for."""
+  jmodel, jparams, tmodel, jtx, ttx, jstep, tstep = _lion_pair(seed=8)
+  batch = _batch(seed=9)
+  jstate, _ = jstep(_jax_state(jmodel, jparams, jtx), _jbatch(batch))
+  tstate, _ = tstep(ttrain.init_train_state(tmodel, ttx), _tbatch(batch))
+  got = _flat(convert.torch_to_jax_tree(tstate.params))
+  assert _share_close(got, jstate.params, 1e-6) >= 0.999
+
+
+def test_jax_train_state_carries_into_the_port_and_back():
+  """A JAX Lion state after 2 steps goes into the port (params, momentum,
+  step, count) and back bit-equal; one more step on each from it: >= 99.9%
+  of parameters within 1e-6 (see the Lion step test)."""
+  jmodel, jparams, tmodel, jtx, ttx, jstep, tstep = _lion_pair(seed=10)
+  jstate = _jax_state(jmodel, jparams, jtx)
+  for seed in (11, 12):
+    jstate, _ = jstep(jstate, _jbatch(_batch(seed=seed)))
+  host = jax.device_get(jstate)
+  tstate = convert.lion_state_from_jax(
+      tmodel, host.step, host.params, host.opt_state[0].momentum,
+      host.opt_state[2].count)
+  assert tstate.step == 2 and tstate.opt_state[2]["count"] == 2
+  back = convert.lion_state_to_jax(tstate)
+  assert back["step"] == 2 and back["count"] == 2
+  for tree_back, tree in ((back["params"], host.params),
+                          (back["momentum"], host.opt_state[0].momentum)):
+    got, want = _flat(tree_back), _flat(tree)
+    assert set(got) == set(want)
+    for path in want:
+      np.testing.assert_array_equal(got[path], want[path])
+
+  batch = _batch(seed=13)
+  jstate, _ = jstep(jstate, _jbatch(batch))
+  tstate, _ = tstep(tstate, _tbatch(batch))
+  got = _flat(convert.torch_to_jax_tree(tstate.params))
+  assert _share_close(got, jstate.params, 1e-6) >= 0.999
+
+
+@pytest.mark.parametrize("kw", [
+    dict(name="cosine_decay", warmup_steps=5),
+    dict(name="constant", warmup_steps=4),
+    dict(name="cosine_decay", warmup_steps=2, decay_start=0.5,
+         end_decay=0.0),
+    dict(name="cosine_decay", warmup_steps=3, steps_after_decay=4),
+    dict(name="cosine_decay", warmup_steps=1, decay_start=6, decay_steps=8),
+], ids=["cosine", "constant", "decay_start_fraction", "steps_after_decay",
+        "decay_steps"])
+def test_lm_lr_matches_jax(kw):
+  """20 steps of the schedule; rtol 1e-6 (both in f32)."""
+  kw = dict(kw)
+  name = kw.pop("name")
+  jfn = jsched.lm_lr(name, 3e-3, num_train_steps=20, **kw)
+  tfn = tsched.lm_lr(name, 3e-3, num_train_steps=20, **kw)
+  want = [float(jfn(s)) for s in range(20)]
+  np.testing.assert_allclose([tfn(s) for s in range(20)], want, rtol=1e-6)
+
+
+def test_packed_loader_and_synthetic_data_equal_jax(tmp_path):
+  """PackedLMLoader batches (repeating, from a text file, and the padded
+  last batch of a single pass) and SyntheticLMData's stream are equal to
+  the JAX package's."""
+  rng = np.random.default_rng(14)
+  words = ["alpha", "béta", "gamma", "δelta", "eps"]
+  docs = [" ".join(rng.choice(words, rng.integers(1, 12))) for _ in range(7)]
+  path = tmp_path / "docs.txt"
+  path.write_text("\n\n".join(docs))
+  pairs = [
+      (jdata.PackedLMLoader(docs, 3, 32), tdata.PackedLMLoader(docs, 3, 32)),
+      (jdata.PackedLMLoader.from_text_file(str(path), 2, 16, repeat=False),
+       tdata.PackedLMLoader.from_text_file(str(path), 2, 16, repeat=False)),
+      (jtrain.SyntheticLMData(2, 16, 50, seed=3),
+       ttrain.SyntheticLMData(2, 16, 50, seed=3)),
+  ]
+  for jl, tl in pairs:
+    jb = list(zip(range(6), jl))
+    tb = list(zip(range(6), tl))
+    assert len(jb) == len(tb) and jb
+    for (_, want), (_, got) in zip(jb, tb):
+      assert set(want) == set(got)
+      for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_eval_step_matches_jax():
+  """make_lm_eval_step on a packed batch: loss rtol 1e-5, weight exact."""
+  jmodel, jparams, tmodel = _models(seed=15)
+  batch = _batch(seed=16)
+  want_loss, want_w = jtrain.make_lm_eval_step(jmodel)(jparams,
+                                                      _jbatch(batch))
+  loss, w = ttrain.make_lm_eval_step(tmodel)(None, _tbatch(batch))
+  np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+  assert float(w) == float(want_w)
+
+
+def test_main_lm_cpu_trains_logs_and_resumes(tmp_path, capsys):
+  """main_lm --device=cpu on lm-test with flash attention: 12 steps with a
+  falling loss (mean of the last 4 below the first 4), metrics.jsonl with
+  one line per step, params.txt, a checkpoint; then a run to 14 steps
+  resumes from step 12."""
+  args = [f"--model_dir={tmp_path}", "--config_name=lm-test",
+          "--experiment_config=use_flash_attention=true",
+          "--device=cpu", "--log_every=1", "--learning_rate=0.01",
+          "--lr_schedule=constant", "--warmup_steps=1"]
+  logs = tcli.main(args + ["--train_steps=12"])
+  assert np.isfinite(logs["loss"])
+  recs = [json.loads(l) for l in (tmp_path / "metrics.jsonl").read_text()
+          .splitlines()]
+  assert [r["step"] for r in recs] == list(range(1, 13))
+  losses = [r["loss"] for r in recs]
+  assert np.all(np.isfinite(losses))
+  assert np.mean(losses[-4:]) < np.mean(losses[:4])
+  assert "total_params ::" in (tmp_path / "params.txt").read_text()
+  assert tckpt.CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 12
+
+  tcli.main(args + ["--train_steps=14"])
+  recs = [json.loads(l) for l in (tmp_path / "metrics.jsonl").read_text()
+          .splitlines()]
+  assert [r["step"] for r in recs][12:] == [13, 14]
+  assert "step 13 loss" in capsys.readouterr().out
+
+
+def test_checkpoint_manager_keeps_newest_and_restores(tmp_path):
+  _, tcfg = _cfgs()
+  model = convert.load_jax_params(tlm.TransformerLM(tcfg), _tree(tcfg, 17))
+  tx = topt.build_optimizer("lion", 1e-3)
+  state = ttrain.init_train_state(model, tx)
+  mngr = tckpt.CheckpointManager(str(tmp_path), max_to_keep=2)
+  saved = {}
+  for step in (1, 2, 3):
+    with torch.no_grad():
+      for p in state.params.values():
+        p.add_(1.0)
+    state = state._replace(step=step)
+    assert mngr.save(step, state)
+    saved[step] = {k: p.detach().clone() for k, p in state.params.items()}
+  assert not mngr.save(3, state)
+  assert mngr.all_steps() == [2, 3] and mngr.latest_step() == 3
+  restored = mngr.restore(state, step=2)
+  assert restored.step == 2
+  for k, p in restored.params.items():
+    assert torch.equal(p, saved[2][k]) and p is state.params[k]
+  mngr.wait_until_finished()
+
+
+def test_unported_training_options_raise():
+  _, tcfg = _cfgs()
+  model = tlm.TransformerLM(tcfg, device="meta")
+  for fused, item in (("pallas", "K3"), ("scan", "M6"), (True, "M6")):
+    tcfg.fused_softmax_loss = fused
+    with pytest.raises(NotImplementedError, match=item):
+      ttrain.make_lm_train_step(model, topt.build_optimizer("sgd", 0.1))
+  tcfg.fused_softmax_loss = False
+  for name in ("adam", "adamw", "rmsprop"):
+    with pytest.raises(NotImplementedError, match="M5"):
+      topt.build_optimizer(name, 0.1)
+  for flags in (["--mesh_shape=1,2"], ["--sharding_config=fsdp"],
+                ["--prefix_lm"], ["--num_processes=2"]):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+      tcli.main(["--model_dir=/nonexistent", "--device=cpu", *flags])
+  with pytest.raises(NotImplementedError, match="M10"):
+    ttrain.run_lm(tcfg, "/nonexistent", 1, mesh_shape=(1, 2))
