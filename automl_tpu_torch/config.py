@@ -180,11 +180,15 @@ class Config:
 
 
 def _coerce_like(text: str, like: Any) -> Any:
-  """Parse `text` trying to match the type of the existing value `like`."""
+  """Parse `text` trying to match the type of the existing value `like`.
+
+  A word other than true/false given for a bool key stays a string, so a
+  key whose default is False can take a mode ("fused_softmax_loss=pallas").
+  automl_tpu's Config turns such a word into False."""
   val = _parse_value(text) if isinstance(text, str) else text
   if isinstance(like, bool) and not isinstance(val, bool):
     if isinstance(val, str):
-      return val.lower() == "true"
+      return val.lower() == "true" if val.lower() in ("true", "false") else val
     return bool(val)
   if isinstance(like, float) and isinstance(val, int):
     return float(val)

@@ -3,10 +3,11 @@
 The counterpart of automl_tpu/models/lm.py: configs, RoPE, masks, RMSNorm,
 gated FFN, attention with GQA, per-dim query scale and logit caps, the
 rank-3 KV cache, greedy / sampled generation, full-block rematerialisation
-and the LM loss. The KV-cached attention runs through
-ops/decode_attention.py (the port of the TPU decode kernel), the
+and the LM losses (plain, chunked, fused). The KV-cached attention runs
+through ops/decode_attention.py (the port of the TPU decode kernel), the
 full-sequence attention with use_flash_attention through ops/attention.py
-(the ports of the TPU flash forward and fused backward kernels).
+(the ports of the TPU flash forward and fused backward kernels), the fused
+loss through ops/xent.py (the ports of the TPU xent kernels).
 
 Parameters keep the JAX package's layouts, so one parameter tree drives
 both packages (convert.py): wq/wk/wv/wo [d, n, h], per_dim_scale [h],
@@ -32,6 +33,7 @@ import torch.utils.checkpoint
 from automl_tpu_torch.config import Config
 from automl_tpu_torch.ops import attention as attention_lib
 from automl_tpu_torch.ops import decode_attention as decode_attention_lib
+from automl_tpu_torch.ops import xent as xent_lib
 
 ATTN_LOGIT_CAP = 50.0
 FINAL_LOGIT_CAP = 30.0
@@ -530,23 +532,59 @@ def _full_f32_matmul():
     torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def _bf16_mm(a, b):
+  """a @ b with bf16 operands and an f32 result. A bf16 product is exact in
+  f32, so the operands are rounded to bf16 and multiplied in full f32 (a
+  bf16 matmul would also round its output to bf16)."""
+  with _full_f32_matmul():
+    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+
+
+class _UnembedBf16Vjp(torch.autograd.Function):
+  """x @ w (or x @ w.T when tied, w [V, d]) with bf16 operands and an f32
+  result, whose backward casts the cotangent to bf16 and takes both
+  products with bf16 operands and f32 results: JAX's _unembed_mm_bf16.
+  dx comes back in x's dtype, dw in w's (f32), each rounded once."""
+
+  @staticmethod
+  def forward(ctx, x, w, tied):
+    ctx.save_for_backward(x.to(torch.bfloat16), w.to(torch.bfloat16))
+    ctx.tied, ctx.dtypes = tied, (x.dtype, w.dtype)
+    return _bf16_mm(x, w.t() if tied else w)
+
+  @staticmethod
+  def backward(ctx, g):
+    xb, wb = ctx.saved_tensors
+    gb = g.to(torch.bfloat16)
+    x2, g2 = xb.reshape(-1, xb.shape[-1]), gb.reshape(-1, gb.shape[-1])
+    if ctx.tied:                                  # w [V, d]
+      dx, dw = _bf16_mm(gb, wb), _bf16_mm(g2.t(), x2)
+    else:                                         # w [d, V]
+      dx, dw = _bf16_mm(gb, wb.t()), _bf16_mm(x2.t(), g2)
+    return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None
+
+
 def unembed_logits(model: TransformerLM, x):
   """Final projection [B, T, d] -> f32 logits [B, T, V], then the soft cap.
 
   unembed_matmul_dtype "float32" (the default) multiplies f32 operands in
-  full f32; the bf16 modes take bf16 operands and accumulate in f32."""
+  full f32; the bf16 modes take bf16 operands and accumulate in f32.
+  "bfloat16" differentiates by plain autograd (an f32 cotangent against the
+  bf16-rounded operands); "bfloat16_vjp" casts the cotangent to bf16 too,
+  as JAX's custom vjp does."""
   cfg = model.cfg
-  w = model.embed.t() if cfg.tie_embeddings else model.unembed   # [d, V]
+  tied = bool(cfg.tie_embeddings)
+  w = model.embed if tied else model.unembed     # [V, d] or [d, V]
   mm_dtype = cfg.get("unembed_matmul_dtype", "float32") or "float32"
-  if mm_dtype in ("bfloat16", "bfloat16_vjp"):
-    # bf16 operands with an f32 result: a bf16 product is exact in f32, so
-    # the operands are rounded to bf16 and multiplied in f32 (a bf16 matmul
-    # would also round its output to bf16).
-    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
-  elif mm_dtype != "float32":
+  if mm_dtype == "bfloat16":
+    logits = _bf16_mm(x, w.t() if tied else w)
+  elif mm_dtype == "bfloat16_vjp":
+    logits = _UnembedBf16Vjp.apply(x, w, tied)
+  elif mm_dtype == "float32":
+    with _full_f32_matmul():
+      logits = x.float() @ (w.t() if tied else w).float()
+  else:
     raise ValueError(f"unknown unembed_matmul_dtype: {mm_dtype!r}")
-  with _full_f32_matmul():
-    logits = x.float() @ w.float()
   if cfg.final_logit_cap:
     logits = cfg.final_logit_cap * torch.tanh(logits / cfg.final_logit_cap)
   return logits
@@ -561,6 +599,49 @@ def lm_loss(logits, targets, loss_weights=None):
     return nll.mean()
   w = loss_weights.float()
   return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+def lm_loss_fused(model: TransformerLM, x, targets, loss_weights=None,
+                  chunk_size: int = 256):
+  """Chunked unembed + xent over hidden states x [B, T, d] (JAX's
+  lm_loss_fused): the math of lm_loss(unembed_logits(model, x), ...), taken
+  one T-chunk at a time under a non-reentrant checkpoint, so that the
+  forward keeps only running (sum of weighted nll, sum of weights) and the
+  backward recomputes each chunk's [B, chunk, V] logits. The chunk is the
+  largest divisor of T that is <= chunk_size."""
+  b, t, _ = x.shape
+  if loss_weights is None:
+    loss_weights = torch.ones((b, t), dtype=torch.float32, device=x.device)
+  cs = max(c for c in range(1, min(chunk_size, t) + 1) if t % c == 0)
+
+  def body(xc, tc, wc):
+    logp = torch.log_softmax(unembed_logits(model, xc), dim=-1)
+    nll = -torch.gather(logp, -1, tc.long()[..., None])[..., 0]
+    w = wc.float()
+    return (nll * w).sum(), w.sum()
+
+  sum_nll = sum_w = torch.zeros((), dtype=torch.float32, device=x.device)
+  for i in range(0, t, cs):
+    s = slice(i, i + cs)
+    nll, w = torch.utils.checkpoint.checkpoint(
+        body, x[:, s], targets[:, s], loss_weights[:, s], use_reentrant=False)
+    sum_nll, sum_w = sum_nll + nll, sum_w + w
+  return sum_nll / sum_w.clamp_min(1.0)
+
+
+def lm_loss_fused_pallas(model: TransformerLM, x, targets, loss_weights=None):
+  """The fused unembed + xent of JAX's lm_loss_fused_pallas, which here runs
+  the hand-written CUDA kernels K3a-c (ops/xent.py) on the card and their
+  plain versions on the CPU: the [B, T, V] logits never exist. The products
+  take bf16 operands with f32 accumulation whatever unembed_matmul_dtype
+  says, as in JAX."""
+  cfg = model.cfg
+  tied = bool(cfg.tie_embeddings)
+  return xent_lib.fused_softmax_xent(
+      x, model.embed if tied else model.unembed, targets, loss_weights,
+      tied=tied, logit_cap=float(cfg.final_logit_cap or 0.0),
+      block_m=int(cfg.get("loss_block_m", 1024) or 1024),
+      block_v=int(cfg.get("loss_block_v", 1024) or 1024))
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ decay scaled by the learning rate (params -= lr * wd * params), then
 params += updates.
 
 run_lm runs on one device; a mesh, a sharding config and multi-process
-input are not ported yet (ROADMAP M10). Fused losses
-(fused_softmax_loss True / "scan" / "pallas") are ROADMAP M6 and K3.
+input are not ported yet (ROADMAP M10). The loss follows
+cfg.fused_softmax_loss as the JAX step's does; the eval step stays unfused,
+as JAX's does.
 """
 
 from __future__ import annotations
@@ -85,27 +86,31 @@ def _shifted(batch: dict):
           None if causal_attention is None else causal_attention[:, :-1])
 
 
-def _check_loss_ported(cfg):
+def _loss(model: lm_lib.TransformerLM, inputs, targets, weights, segment_ids,
+          causal_attention):
+  """The training loss, dispatched on cfg.fused_softmax_loss as in the JAX
+  step: False, the logits and lm_loss; "pallas", the fused kernels
+  (lm_loss_fused_pallas); any other true value ("scan", True), the chunked
+  lm_loss_fused."""
+  cfg = model.cfg
   fused = cfg.get("fused_softmax_loss", False)
-  if fused:
-    item = "K3 (ops/xent.py)" if fused == "pallas" else "M6 (lm_loss_fused)"
-    raise NotImplementedError(
-        f"fused_softmax_loss={fused!r} is not ported to automl_tpu_torch yet: "
-        f"ROADMAP {item}")
+  out, _ = model(inputs, segment_ids=segment_ids,
+                 causal_attention=causal_attention, return_hidden=bool(fused))
+  if not fused:
+    return lm_lib.lm_loss(out, targets, weights)
+  if fused == "pallas":
+    return lm_lib.lm_loss_fused_pallas(model, out, targets, weights)
+  return lm_lib.lm_loss_fused(model, out, targets, weights,
+                              int(cfg.get("loss_chunk_size", 256)))
 
 
 def lm_loss_and_grads(model: lm_lib.TransformerLM, batch: dict):
   """(loss, {name: grad}) of the LM loss on a device batch: tokens
   [B, T+1] (+ loss_weights, segment_ids, causal_attention)."""
-  _check_loss_ported(model.cfg)
-  inputs, targets, weights, segment_ids, causal_attention = _shifted(batch)
   params = dict(model.named_parameters())
   for p in params.values():
     p.grad = None
-  logits, _ = model(inputs, segment_ids=segment_ids,
-                    causal_attention=causal_attention)
-  loss = lm_lib.lm_loss(logits, targets, weights)
-  del logits
+  loss = _loss(model, *_shifted(batch))
   loss.backward()
   grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
            for k, p in params.items()}
@@ -126,7 +131,6 @@ def make_lm_train_step(model: lm_lib.TransformerLM, tx,
 
   Weight decay is scaled by lr_fn(step) when given (the raw coefficient
   otherwise), as in the JAX step."""
-  _check_loss_ported(model.cfg)
 
   def train_step(state: LMTrainState, batch):
     loss, grads = lm_loss_and_grads(model, batch)

@@ -2,7 +2,8 @@
 
   python3 chip_smoke.py              # from the root of the repository
   python3 chip_smoke.py --profile    # only: profiles of a training step
-                                     # and of a decode step
+                                     # (unfused and fused loss) and of a
+                                     # decode step
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
@@ -19,14 +20,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      hd 128, bf16, causal, cap 50, sm_scale 1) and on small cases (GQA 8/2
      through flash_attention, window 16 + cap, packed segment ids, ragged T
      77 and 200 in f32, documents of length 1); timed as in 2;
-  4. training slice: step 1 of lm-flops1e19 with use_flash_attention (K1/K2)
-     against the same step on the dense attention path (loss, global grad
-     norm, per-leaf cosine); then cli/main_lm trains it for 30 steps at b8
-     T2048 (Lion, cosine schedule, grad clip, weight decay, full remat): the
-     loss must be finite and fall, the run must launch K1 exactly
-     2 * n_layers * 30 times and K2 n_layers * 30 times, and a rerun to
-     31 steps must resume from the checkpoint at step 30;
-  5. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
+  4. K3a / K3b / K3c (fused softmax xent forward, dx, dW) against their
+     plain versions at the fused-loss slice's shapes (M 16,384 = b8 x T2048
+     tokens, D 1,024, V 100,864, bf16 operands, cap 30, about 20% zero loss
+     weights; K3b and K3c called twice must be bit-equal) and on small
+     cases (ragged M and V, f32 operands, no cap, untied w through
+     fused_softmax_xent's autograd against the CPU); timed as in 2;
+  5. training slices: step 1 of lm-flops1e19 with use_flash_attention (K1/K2)
+     against the same step on the dense attention path, with the fused loss
+     "pallas" (K3) against the unfused loss at unembed_matmul_dtype
+     "bfloat16_vjp" (the same operand precision), and with the chunked loss
+     "scan" against the unfused f32 loss (loss, global grad norm, per-leaf
+     cosine); then cli/main_lm trains it for 30 steps at b8 T2048 (Lion,
+     cosine schedule, grad clip, weight decay, full remat), once unfused and
+     once with fused_softmax_loss=pallas: the loss must be finite and fall,
+     each run must launch K1 exactly 2 * n_layers * 30 times and K2
+     n_layers * 30 times, the fused run K3a, K3b and K3c 30 times each, and
+     a rerun of the unfused run to 31 steps must resume from the checkpoint
+     at step 30;
+  6. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
      through the converter, cast for serving) generates 512 tokens greedily
      after a 512-token prompt at batch 8, through generate_lm.load_model and
      greedy_generate. The run must launch K4 exactly n_layers * 512 times;
@@ -34,8 +46,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 The library yardstick (library_ms) of each attention kernel is
 torch.compile'd torch.nn.attention.flex_attention with the same tanh cap as
-score_mod and the same mask as a block mask; the port never calls it. If it
-cannot be compiled or run, the reason is printed and library_ms is null.
+score_mod and the same mask as a block mask; that of K3a is the PyTorch
+chain bf16 torch.matmul -> cap -> F.cross_entropy (no single PyTorch call
+computes the fused loss), and K3b and K3c share that chain's autograd
+backward, which computes both. The port never calls them. If one cannot be
+compiled or run, the reason is printed and library_ms is null.
 
 Prints a {"kernels": [...]} JSON line, then the card line, and last
 {"ok": true, "device": {...}}. Imports no jax.
@@ -84,8 +99,8 @@ def _bound(flops: float, nbytes: float):
   return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _library_ms(label, make_fn, iters, flush):
-  """Time of the flex_attention yardstick, or None with the reason printed."""
+def _library_ms(label, make_fn, iters, flush, what="flex_attention"):
+  """Time of a library yardstick, or None with the reason printed."""
   try:
     fn = make_fn()
     ms = _time_ms(fn, iters, flush)
@@ -93,7 +108,7 @@ def _library_ms(label, make_fn, iters, flush):
     print(f"  {label}: no library time ({type(e).__name__}: "
           f"{str(e).splitlines()[0][:300] if str(e) else ''})")
     return None
-  print(f"  {label}: flex_attention {ms:.4f} ms")
+  print(f"  {label}: {what} {ms:.4f} ms")
   return ms
 
 
@@ -363,88 +378,264 @@ def flash_phase(dev, flush):
   return res
 
 
-def _step_flops(cfg, b, t) -> float:
-  """Executed FLOPs of one training step with full remat: the blocks'
-  matmuls 8 * params * tokens (forward, backward 2x, remat forward), the
-  attention kernels (K1 twice, K2 once per layer, causal pairs), and the
-  unembed 6 * d * V * tokens."""
+# K3b / K3c outputs (dx, dW, f32) against their plain versions: both round
+# dz to bf16, from logits summed in another order; where a value lies near
+# a rounding step the two land a bf16 step apart (2^-8 of that term).
+# Measured on the H100 at the slice's shapes: 2.2e-4 (dx) and 3.2e-5 (dW)
+# of the largest entry; the limit is 4.5x the larger.
+XENT_GRAD_SHARE = 1e-3
+
+
+def _compare_scaled(name, got, want, share):
+  """_compare with atol = share * max|want| and rtol = share."""
+  scale = float(want.detach().abs().max())
+  return _compare(name, got, want, atol=share * scale, rtol=share)
+
+
+def _xent_inputs(dev, gen, m, v, d, dtype, zero_share=0.2):
+  """x [m, d], w [v, d] at dtype (logits of std ~1.6 at d 1024), targets
+  int32 [m], weights [m] with about zero_share zeros."""
+  import torch
+  x = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+  w = (torch.randn((v, d), generator=gen, device=dev) * 0.05).to(dtype)
+  targets = torch.randint(0, v, (m,), generator=gen, device=dev,
+                          dtype=torch.int32)
+  weights = (torch.rand((m,), generator=gen, device=dev) >= zero_share
+             ).float()
+  return x, w, targets, weights
+
+
+def _xent_chain(x, w, targets, weights, cap):
+  """The library yardstick of K3: bf16 torch.matmul, the cap, cross_entropy."""
+  import torch
+  z = torch.matmul(x, w.t()).float()
+  z = cap * torch.tanh(z / cap)
+  nll = torch.nn.functional.cross_entropy(z, targets.long(), reduction="none")
+  return (nll * weights).sum() / weights.sum().clamp_min(1.0)
+
+
+def xent_phase(dev, flush):
+  """K3a / K3b / K3c vs their plain versions; returns {"fwd", "dx", "dw"}
+  each with err, ms, plain_ms, library_ms, bound_ms, bound_by at the
+  slice's shapes."""
+  import torch
+  from automl_tpu_torch.ops import xent
+  gen = torch.Generator(device=dev).manual_seed(2)
+
+  m, d, v, cap = 8 * 2048, 1024, 100_864, 30.0
+  print(f"K3 case 1: slice shapes M {m} (b8 x T2048), D {d}, V {v}, bf16 "
+        "operands, cap 30, about 20% zero loss weights")
+  x, w, targets, weights = _xent_inputs(dev, gen, m, v, d, torch.bfloat16)
+  coef = (weights / weights.sum().clamp_min(1.0)).contiguous()
+  lse, tz = xent.xent_fwd_kernel(x, w, targets, logit_cap=cap)
+  torch.cuda.synchronize()
+  lse_r, tz_r = xent.xent_fwd_reference(x, w, targets, logit_cap=cap)
+  errs = {"fwd": max(_compare("K3a lse", lse, lse_r, **F32_TOL),
+                     _compare("K3a tz", tz, tz_r, **F32_TOL))}
+  kw = dict(logit_cap=cap, out_dtype=torch.float32)
+  fns = {"dx": (xent.xent_dx_kernel, xent.xent_dx_reference, "K3b"),
+         "dw": (xent.xent_dw_kernel, xent.xent_dw_reference, "K3c")}
+  for key, (kern, ref, kid) in fns.items():
+    got = kern(x, w, targets, lse_r, coef, **kw)
+    torch.cuda.synchronize()
+    errs[key] = _compare_scaled(f"{kid} {key}", got, ref(
+        x, w, targets, lse_r, coef, **kw), XENT_GRAD_SHARE)
+    # No atomics: each block owns its output rows, so a second call is
+    # bit-equal.
+    same = bool(torch.equal(got, kern(x, w, targets, lse_r, coef, **kw)))
+    print(f"  {kid} called twice on the same inputs: bit-equal {same}")
+    if not same:
+      raise AssertionError(f"{kid} gave two results on the same inputs")
+    if key == "dx":
+      zero_rows = float(got[weights == 0].abs().max())
+      print(f"  K3b rows of the {int((weights == 0).sum())} zero-weight "
+            f"tokens: max|dx| {zero_rows}")
+      if zero_rows != 0.0:
+        raise AssertionError("a zero-weight token got a nonzero dx")
+    del got
+  torch.cuda.empty_cache()
+
+  in_bytes = 2 * (m + v) * d + 4 * m            # x, w, targets
+  bounds = {
+      # the logits: 2 flops per (token, vocab, dim); lse and tz written
+      "fwd": _bound(2.0 * m * v * d, in_bytes + 8 * m),
+      # the logit recompute plus dz . w (dz^T . x); lse, coef read, dx (dW)
+      # written in f32
+      "dx": _bound(4.0 * m * v * d, in_bytes + 8 * m + 4 * m * d),
+      "dw": _bound(4.0 * m * v * d, in_bytes + 8 * m + 4 * v * d),
+  }
+
+  def chain_fwd():
+    return lambda: _xent_chain(x, w, targets, weights, cap)
+
+  def chain_bwd():
+    xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+    loss = _xent_chain(xs, ws, targets, weights, cap)
+    return lambda: torch.autograd.grad(loss, (xs, ws), retain_graph=True)
+
+  chain = "chain bf16 matmul -> cap -> cross_entropy"
+  t_lib = {"fwd": _library_ms("K3a", chain_fwd, 5, flush, chain)}
+  torch.cuda.empty_cache()
+  t_lib["dx"] = t_lib["dw"] = _library_ms(
+      "K3b + K3c", chain_bwd, 3, flush, f"{chain}, autograd backward")
+  torch.cuda.empty_cache()
+  calls = {"fwd": (lambda: xent.xent_fwd_kernel(x, w, targets, logit_cap=cap),
+                   lambda: xent.xent_fwd_reference(x, w, targets,
+                                                   logit_cap=cap))}
+  for key, (kern, ref, _) in fns.items():
+    calls[key] = (lambda kern=kern: kern(x, w, targets, lse, coef, **kw),
+                  lambda ref=ref: ref(x, w, targets, lse, coef, **kw))
+  res = {}
+  for key, (kern_fn, ref_fn) in calls.items():
+    t_kern = _time_ms(kern_fn, 5 if key == "fwd" else 3, flush)
+    t_ref = _time_ms(ref_fn, 2, flush)
+    bound_ms, bound_by = bounds[key]
+    res[key] = dict(err=errs[key], ms=t_kern, plain_ms=t_ref,
+                    library_ms=t_lib[key], bound_ms=bound_ms,
+                    bound_by=bound_by)
+    print(f"  {key}: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / t_kern:.2f}% "
+          "of it (L2 flushed before each call)")
+  del x, w, targets, weights, coef, lse, tz, lse_r, tz_r
+  torch.cuda.empty_cache()
+
+  def small(name, m, v, d, dtype, cap):
+    x, w, targets, weights = _xent_inputs(dev, gen, m, v, d, dtype)
+    coef = (weights / weights.sum().clamp_min(1.0)).contiguous()
+    lse, tz = xent.xent_fwd(x, w, targets, logit_cap=cap)
+    lse_r, tz_r = xent.xent_fwd_reference(x, w, targets, logit_cap=cap)
+    _compare(f"{name} lse", lse, lse_r, **F32_TOL)
+    _compare(f"{name} tz", tz, tz_r, **F32_TOL)
+    kw = dict(logit_cap=cap, out_dtype=torch.float32)
+    for key, (_, ref, _) in fns.items():
+      got = (xent.xent_dx if key == "dx" else xent.xent_dw)(
+          x, w, targets, lse_r, coef, **kw)
+      _compare_scaled(f"{name} {key}", got,
+                      ref(x, w, targets, lse_r, coef, **kw), 1e-3)
+
+  print("K3 case 2: ragged M 100, V 1000, D 128, f32 operands, cap 30")
+  small("f32", 100, 1000, 128, torch.float32, 30.0)
+  print("K3 case 3: ragged M 257, V 333, D 72, bf16 operands, no cap")
+  small("D=72", 257, 333, 72, torch.bfloat16, 0.0)
+  print("K3 case 4: untied w [D, V] through fused_softmax_xent (autograd), "
+        "bf16 operands, M 150, V 700, D 64, against the same call on the "
+        "CPU's plain versions")
+  x, w, targets, weights = _xent_inputs(dev, gen, 150, 700, 64, torch.float32)
+  w = w.t().contiguous()
+  outs = []
+  for device in (dev, torch.device("cpu")):
+    xs = [t.detach().to(device).requires_grad_() for t in (x, w)]
+    loss = xent.fused_softmax_xent(*xs, targets.to(device), weights.to(device),
+                                   tied=False, logit_cap=30.0)
+    loss.backward()
+    outs.append([loss.detach()] + [t.grad for t in xs])
+  _compare("untied loss", outs[0][0], outs[1][0].to(dev), atol=0, rtol=1e-5)
+  for name, a, b in zip(("dx", "dW"), outs[0][1:], outs[1][1:]):
+    _compare_scaled(f"untied {name}", a, b.to(dev), 1e-3)
+  torch.cuda.synchronize()
+  return res
+
+
+def _step_flops(cfg, b, t, fused=False):
+  """(executed, model) FLOPs of one training step with full remat.
+
+  Executed: the blocks' matmuls 8 * params * tokens (forward, backward 2x,
+  remat forward), the attention kernels (K1 twice, K2 once per layer,
+  causal pairs), and the unembed 6 * d * V * tokens, or 10 with the fused
+  loss (K3a 2, K3b 4 and K3c 4: both backward kernels recompute the
+  logits). Model: what the step must compute, without any recompute:
+  6 * params * tokens, attention forward and backward 12 * hd per causal
+  pair and layer, the unembed 6 * d * V * tokens; the same for both
+  losses."""
   d, hd, n, f = cfg.model_dim, cfg.head_dim, cfg.n_heads, \
       cfg.expand_factor * cfg.model_dim
   block_params = cfg.n_layers * (d * hd * (2 * n + 2 * cfg.n_kv_heads)
                                  + (3 if cfg.use_gated_ffn else 2) * d * f)
   tokens = b * t
   live = b * n * t * (t + 1) / 2
+  unembed = d * cfg.vocab_size * tokens
   attention = cfg.n_layers * (2 * 4.0 * hd * live + 10.0 * hd * live)
-  return 8.0 * block_params * tokens + attention + 6.0 * d * \
-      cfg.vocab_size * tokens
+  executed = (8.0 * block_params * tokens + attention
+              + (10.0 if fused else 6.0) * unembed)
+  model = (6.0 * block_params * tokens + cfg.n_layers * 12.0 * hd * live
+           + 6.0 * unembed)
+  return executed, model
 
 
-def training_phase(dev, workdir):
-  """lm-flops1e19 training through main_lm; returns the K1 and K2 launches
-  of the 30-step run."""
-  import numpy as np
+def _step1(dev, tree, first, configs):
+  """{label: (loss, grads)} of step 1 of lm-flops1e19 (lm_loss_and_grads)
+  for each label's override string, from one parameter tree and batch."""
   import torch
   from automl_tpu_torch import convert
-  from automl_tpu_torch.cli import main_lm
   from automl_tpu_torch.models import lm as lm_lib
-  from automl_tpu_torch.ops import attention as fa
   from automl_tpu_torch.train import lm_trainer
-
-  batch, steps = 8, 30
-  flags = ["--config_name=lm-flops1e19",
-           "--experiment_config=use_flash_attention=true",
-           f"--batch_size={batch}", "--warmup_steps=3", "--log_every=1",
-           "--device=cuda", f"--model_dir={workdir}"]
-
-  # Step 1 on the flash path (K1/K2) and on the dense path, from the
-  # weights and first batch that the run below starts from.
-  cfg = lm_lib.get_lm_config("lm-flops1e19")
-  cfg.override("use_flash_attention=true")
-  tree = convert.numpy_init(cfg, 0)
-  first = next(iter(lm_trainer.SyntheticLMData(batch, cfg.seq_len,
-                                               cfg.vocab_size)))
-  first = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
-  results = {}
-  for flash in (True, False):
+  out = {}
+  for label, overrides in configs.items():
     c = lm_lib.get_lm_config("lm-flops1e19")
-    c.use_flash_attention = flash
+    c.override(overrides)
     model = convert.load_jax_params(lm_lib.TransformerLM(c, device=dev), tree)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss, grads = lm_trainer.lm_loss_and_grads(model, first)
     torch.cuda.synchronize()
-    print(f"step 1 on the {'flash' if flash else 'dense'} path: loss "
-          f"{float(loss):.6f} ({time.perf_counter() - t0:.2f} s)")
-    results[flash] = (float(loss), grads)
+    print(f"step 1, {label} ({overrides}): loss {float(loss):.6f} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    out[label] = (float(loss), grads)
     del model
-  (loss_f, g_f), (loss_d, g_d) = results[True], results[False]
-  norm_f = float(lm_trainer.global_norm(g_f))
-  norm_d = float(lm_trainer.global_norm(g_d))
-  cos = {k: float(torch.nn.functional.cosine_similarity(
-      g_f[k].flatten().double(), g_d[k].flatten().double(), dim=0))
-         for k in g_f}
-  worst = min(cos, key=cos.get)
-  d_loss, d_norm = abs(loss_f - loss_d), abs(norm_f / norm_d - 1)
-  # The dense path rounds the probabilities to bf16 before p.v (as the JAX
-  # dots path does); the kernels keep them in f32, and sum in another
-  # order. Measured on the H100: |dloss| 5e-5, norms 7e-6 apart, cosine
-  # 0.999996; the limits are 20x, 140x and 40x those.
-  print(f"step 1, flash vs dense: |dloss| {d_loss:.3e} (limit 1e-3), grad "
-        f"norm {norm_f:.5f} vs {norm_d:.5f} (rel. diff {d_norm:.3e}, limit "
-        f"1e-3), lowest per-leaf cosine {cos[worst]:.6f} at {worst} "
-        f"(limit 0.9999)")
-  if not (d_loss <= 1e-3 and d_norm <= 1e-3 and cos[worst] >= 0.9999):
-    raise AssertionError("step 1 on the flash path disagrees with the dense "
-                         "path")
-  del results, g_f, g_d, tree
-  torch.cuda.empty_cache()
+  return out
 
-  fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
+
+def _step1_check(results, a, b, limits, why):
+  """|dloss|, the relative difference of the global grad norms and the
+  lowest per-leaf cosine of step 1 on paths a and b, within limits."""
+  import torch
+  from automl_tpu_torch.train import lm_trainer
+  (loss_a, g_a), (loss_b, g_b) = results[a], results[b]
+  norm_a = float(lm_trainer.global_norm(g_a))
+  norm_b = float(lm_trainer.global_norm(g_b))
+  cos = {k: float(torch.nn.functional.cosine_similarity(
+      g_a[k].flatten().double(), g_b[k].flatten().double(), dim=0))
+         for k in g_a}
+  worst = min(cos, key=cos.get)
+  d_loss, d_norm = abs(loss_a - loss_b), abs(norm_a / norm_b - 1)
+  lim_loss, lim_norm, lim_cos = limits
+  print(f"step 1, {a} vs {b}: |dloss| {d_loss:.3e} (limit {lim_loss:g}), "
+        f"grad norm {norm_a:.5f} vs {norm_b:.5f} (rel. diff {d_norm:.3e}, "
+        f"limit {lim_norm:g}), lowest per-leaf cosine {cos[worst]:.7f} at "
+        f"{worst} (limit {lim_cos}). {why}")
+  if not (d_loss <= lim_loss and d_norm <= lim_norm and cos[worst] >= lim_cos):
+    raise AssertionError(f"step 1 on the {a} path disagrees with the {b} "
+                         "path")
+
+
+def _train_run(workdir, flags, steps, fused):
+  """cli/main_lm for `steps` steps with every launch count set to 0 just
+  before and read just after; checks that the loss is finite and falls.
+  Returns (K1, K2, K3a, K3b, K3c) launches."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch.cli import main_lm
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.ops import attention as fa
+  from automl_tpu_torch.ops import xent
+
+  def counts():
+    return (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd,
+            xent.fused_softmax_xent.launches_fwd,
+            xent.fused_softmax_xent.launches_dx,
+            xent.fused_softmax_xent.launches_dw)
+
+  cfg = lm_lib.get_lm_config("lm-flops1e19")
+  batch = 8
   torch.cuda.reset_peak_memory_stats()
+  fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
+  xent.fused_softmax_xent.launches_fwd = 0
+  xent.fused_softmax_xent.launches_dx = 0
+  xent.fused_softmax_xent.launches_dw = 0
   t0 = time.perf_counter()
   main_lm.main(flags + [f"--train_steps={steps}"])
   wall = time.perf_counter() - t0
-  launches = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd)
+  launches = counts()
   peak = torch.cuda.max_memory_allocated()
   recs = [json.loads(line) for line in
           open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
@@ -458,24 +649,90 @@ def training_phase(dev, workdir):
     raise AssertionError(f"loss did not fall: step 1 {losses[0]:.4f}, mean "
                          f"of the last 5 {np.mean(losses[-5:]):.4f}")
   n_layers = cfg.n_layers
-  expected = (2 * n_layers * steps, n_layers * steps)
-  print(f"K1 / K2 launches in the run: {launches[0]} / {launches[1]} "
-        f"(expected 2 x {n_layers} x {steps} = {expected[0]} with the remat "
-        f"forward, {n_layers} x {steps} = {expected[1]})")
+  expected = (2 * n_layers * steps, n_layers * steps) + (
+      (steps,) * 3 if fused else (0,) * 3)
+  print(f"launches in the run: K1 {launches[0]}, K2 {launches[1]}, K3a "
+        f"{launches[2]}, K3b {launches[3]}, K3c {launches[4]} (expected "
+        f"{expected}: K1 2 x {n_layers} x {steps} with the remat forward, "
+        f"K2 {n_layers} x {steps}, K3a-c {steps if fused else 0} each)")
   if launches != expected:
     raise AssertionError("the run did not go through the kernels as "
                          "expected")
   step_s = float(np.median(secs[4:]))
-  flops = _step_flops(cfg, batch, cfg.seq_len)
-  print(f"train b{batch} T{cfg.seq_len}: {steps} steps in {wall:.1f} s (model "
-        f"build included); step {step_s * 1e3:.1f} ms (median of steps 5-"
-        f"{steps}), {batch * cfg.seq_len / step_s:.0f} tokens/s, peak memory "
-        f"{peak / 2**30:.2f} GiB; {flops / 1e12:.2f} TFLOP per step executed, "
-        f"{flops / step_s / 1e12:.1f} TFLOP/s = "
-        f"{100 * flops / step_s / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s; "
-        f"loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} (mean of the "
-        "last 5)")
+  flops, model_flops = _step_flops(cfg, batch, cfg.seq_len, fused)
+  print(f"train b{batch} T{cfg.seq_len} ({'fused' if fused else 'unfused'} "
+        f"loss): {steps} steps in {wall:.1f} s (model build included); step "
+        f"{step_s * 1e3:.1f} ms (median of steps 5-{steps}), "
+        f"{batch * cfg.seq_len / step_s:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; {flops / 1e12:.2f} TFLOP per step executed "
+        f"= {100 * flops / step_s / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s, "
+        f"{model_flops / 1e12:.2f} TFLOP model = "
+        f"{100 * model_flops / step_s / PEAK_BF16_FLOPS:.2f}%; loss "
+        f"{losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} (mean of the last 5)")
+  return launches
 
+
+def training_phase(dev, workdir):
+  """lm-flops1e19 training through main_lm, unfused and with the fused
+  loss; returns the launches (K1, K2, K3a, K3b, K3c) of each 30-step run."""
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.train import lm_trainer
+
+  batch, steps = 8, 30
+  # Step 1 on each path, from the weights and first batch that the runs
+  # below start from.
+  cfg = lm_lib.get_lm_config("lm-flops1e19")
+  tree = convert.numpy_init(cfg, 0)
+  first = next(iter(lm_trainer.SyntheticLMData(batch, cfg.seq_len,
+                                               cfg.vocab_size)))
+  first = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+  flash = "use_flash_attention=true"
+  results = _step1(dev, tree, first, {
+      "flash": flash,
+      "dense": "use_flash_attention=false",
+      "fused pallas": f"{flash},fused_softmax_loss=pallas",
+      "unfused bfloat16_vjp": f"{flash},unembed_matmul_dtype=bfloat16_vjp",
+      "fused scan": f"{flash},fused_softmax_loss=scan",
+  })
+  # The dense path rounds the probabilities to bf16 before p.v (as the JAX
+  # dots path does); the kernels keep them in f32, and sum in another
+  # order. Measured on the H100: |dloss| 5e-5, norms 7e-6 apart, cosine
+  # 0.999996; the limits are 20x, 140x and 40x those.
+  _step1_check(results, "flash", "dense", (1e-3, 1e-3, 0.9999),
+               "The limits: 20x, 140x, 40x (1 - cosine) of the measured.")
+  # Both multiply bf16 operands with f32 sums; K3 rounds dz to bf16 where
+  # the unfused backward rounds the cotangent of the logits, and both sum
+  # in other orders. Measured on the H100: |dloss| 3.8e-6, norms 8.8e-5
+  # apart, cosine 0.9999982.
+  _step1_check(results, "fused pallas", "unfused bfloat16_vjp",
+               (1e-4, 1e-3, 0.99995),
+               "The limits: 26x, 11x, 28x (1 - cosine) of the measured.")
+  # The same f32 math taken 256 tokens at a time, in other matmul calls.
+  # Measured on the H100: |dloss| 0, norms 2.0e-6 apart, cosine 0.9999982.
+  _step1_check(results, "fused scan", "flash", (1e-5, 5e-5, 0.99995),
+               "The limits: 1e-5, 25x, 28x (1 - cosine) of the measured.")
+  del results, tree, first
+  torch.cuda.empty_cache()
+
+  common = ["--config_name=lm-flops1e19", f"--batch_size={batch}",
+            "--warmup_steps=3", "--log_every=1", "--device=cuda"]
+  flags = common + [f"--model_dir={workdir}", f"--experiment_config={flash}"]
+  unfused = _train_run(workdir, flags, steps, fused=False)
+  _resume_check(flags, workdir, steps)
+  fused_dir = workdir + "_fused"
+  fused = _train_run(fused_dir, common + [
+      f"--model_dir={fused_dir}",
+      f"--experiment_config={flash},fused_softmax_loss=pallas"], steps,
+                     fused=True)
+  torch.cuda.empty_cache()
+  return unfused, fused
+
+
+def _resume_check(flags, workdir, steps):
+  """A rerun to steps + 1 must resume from the checkpoint at `steps`."""
+  from automl_tpu_torch.cli import main_lm
   main_lm.main(flags + [f"--train_steps={steps + 1}"])
   recs = [json.loads(line) for line in
           open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
@@ -483,8 +740,6 @@ def training_phase(dev, workdir):
     raise AssertionError("the rerun did not resume from the checkpoint")
   print(f"checkpoint at step {steps} restored: the rerun trained only step "
         f"{steps + 1} (loss {recs[-1]['loss']:.4f})")
-  torch.cuda.empty_cache()
-  return launches
 
 
 def _profiled(fn):
@@ -508,9 +763,10 @@ def _profiled(fn):
 
 def profile_phase(dev):
   """Under torch.profiler (run with --profile): two steps of the training
-  slice, device time by kernel and the device-busy share of the steps'
-  wall time; then the serving slice's decode step, from greedy_generate
-  with 1 and with 65 new tokens (the difference over 64 steps)."""
+  slice, unfused and with the fused loss "pallas", device time by kernel
+  and the device-busy share of the steps' wall time; then the serving
+  slice's decode step, from greedy_generate with 1 and with 65 new tokens
+  (the difference over 64 steps)."""
   import numpy as np
   import torch
   from automl_tpu_torch import convert
@@ -518,42 +774,44 @@ def profile_phase(dev):
   from automl_tpu_torch.models import lm as lm_lib
   from automl_tpu_torch.train import lm_trainer, optimizers, schedules
 
-  cfg = lm_lib.get_lm_config("lm-flops1e19")
-  cfg.override("use_flash_attention=true")
-  model = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev),
-                                  convert.numpy_init(cfg, 0))
-  lr_fn = schedules.lm_lr("cosine_decay", cfg.learning_rate,
-                          num_train_steps=30, warmup_steps=3)
-  tx = optimizers.build_optimizer("lion", lr_fn)
-  step_fn = lm_trainer.make_lm_train_step(
-      model, tx, weight_decay=cfg.weight_decay, lr_fn=lr_fn)
-  state = lm_trainer.init_train_state(model, tx)
-  data = iter(lm_trainer.SyntheticLMData(8, cfg.seq_len, cfg.vocab_size))
+  for loss in ("false", "pallas"):
+    cfg = lm_lib.get_lm_config("lm-flops1e19")
+    cfg.override(f"use_flash_attention=true,fused_softmax_loss={loss}")
+    model = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev),
+                                    convert.numpy_init(cfg, 0))
+    lr_fn = schedules.lm_lr("cosine_decay", cfg.learning_rate,
+                            num_train_steps=30, warmup_steps=3)
+    tx = optimizers.build_optimizer("lion", lr_fn)
+    step_fn = lm_trainer.make_lm_train_step(
+        model, tx, weight_decay=cfg.weight_decay, lr_fn=lr_fn)
+    state = lm_trainer.init_train_state(model, tx)
+    data = iter(lm_trainer.SyntheticLMData(8, cfg.seq_len, cfg.vocab_size))
 
-  def step(state):
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
-    state, logs = step_fn(state, batch)
-    float(logs["loss"])
-    return state
+    def step(state):
+      batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+      state, logs = step_fn(state, batch)
+      float(logs["loss"])
+      return state
 
-  state = step(state)
-  n = 2
+    state = step(state)
+    n = 2
 
-  def steps():
-    nonlocal state
-    for _ in range(n):
-      state = step(state)
+    def steps():
+      nonlocal state
+      for _ in range(n):
+        state = step(state)
 
-  wall_us, rows = _profiled(steps)
-  busy = sum(r[0] for r in rows)
-  print(f"profile, {n} training steps: wall {wall_us / n / 1e3:.1f} ms/step, "
-        f"device busy {busy / n / 1e3:.1f} ms/step "
-        f"({100 * busy / wall_us:.1f}% of the wall time)")
-  for dt, count, key in rows[:20]:
-    print(f"  {dt / n / 1e3:9.2f} ms/step {100 * dt / busy:5.1f}%  "
-          f"{count // n:5d} calls/step  {key[:90]}")
-  del model, state, step_fn, tx
-  torch.cuda.empty_cache()
+    wall_us, rows = _profiled(steps)
+    busy = sum(r[0] for r in rows)
+    print(f"profile, {n} training steps, fused_softmax_loss={loss}: wall "
+          f"{wall_us / n / 1e3:.1f} ms/step, device busy "
+          f"{busy / n / 1e3:.1f} ms/step ({100 * busy / wall_us:.1f}% of "
+          "the wall time)")
+    for dt, count, key in rows[:20]:
+      print(f"  {dt / n / 1e3:9.2f} ms/step {100 * dt / busy:5.1f}%  "
+            f"{count // n:5d} calls/step  {key[:90]}")
+    del model, state, step_fn, tx
+    torch.cuda.empty_cache()
 
   # The serving slice's shapes: b8, a 512-token prompt, cache 1024.
   _, model = generate_lm.load_model(config_name="lm-flops1e19", seed=0,
@@ -729,7 +987,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
   t = time.perf_counter()
-  sources = ("decode_attention", "flash_attention")
+  sources = ("decode_attention", "flash_attention", "xent")
   with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
     libs = list(pool.map(cuda_build.build, sources))
   print(f"build: {', '.join(l.name for l in libs)} in "
@@ -746,13 +1004,15 @@ def main() -> int:
   flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
   k4 = k4_phase(dev, flush_buf.zero_)
   flash = flash_phase(dev, flush_buf.zero_)
+  k3 = xent_phase(dev, flush_buf.zero_)
   del flush_buf
   torch.cuda.empty_cache()
-  # The training run's model_dir, inside the checkout (build/ is ignored).
+  # The training runs' model_dirs, inside the checkout (build/ is ignored).
   workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "chip_smoke_lm")
-  shutil.rmtree(workdir, ignore_errors=True)
-  k1_launches, k2_launches = training_phase(dev, workdir)
+  for d in (workdir, workdir + "_fused"):
+    shutil.rmtree(d, ignore_errors=True)
+  (k1_launches, k2_launches, *_), k3_launches = training_phase(dev, workdir)
   k4_launches = serving_phase(dev)
   print(f"prefill K4 at the slice's shapes: {json.dumps(k4['prefill T=512'])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -764,6 +1024,12 @@ def main() -> int:
              "automl_tpu/ops/attention.py:82", k1_launches, flash["fwd"]),
       _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention.cu",
              "automl_tpu/ops/attention.py:320", k2_launches, flash["bwd"]),
+      _entry("xent_fwd", "automl_tpu_torch/csrc/xent.cu",
+             "automl_tpu/ops/xent.py:66", k3_launches[2], k3["fwd"]),
+      _entry("xent_dx", "automl_tpu_torch/csrc/xent.cu",
+             "automl_tpu/ops/xent.py:113", k3_launches[3], k3["dx"]),
+      _entry("xent_dw", "automl_tpu_torch/csrc/xent.cu",
+             "automl_tpu/ops/xent.py:138", k3_launches[4], k3["dw"]),
   ]}))
   print(card)
   print(json.dumps({"ok": True, "device": {

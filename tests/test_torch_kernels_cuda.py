@@ -16,6 +16,7 @@ import torch
 
 from automl_tpu_torch.ops import attention as fa
 from automl_tpu_torch.ops import decode_attention as da
+from automl_tpu_torch.ops import xent
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=1.6e-2, rtol=8e-3)
@@ -216,3 +217,125 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
     fa.flash_bwd(q, k, v, g, out, lse[:, :8])
   assert (fa.flash_attention.launches_fwd,
           fa.flash_attention.launches_bwd) == before
+
+
+def _xent_inputs(dev, m, v, d, dtype, seed, zero_share=0.2):
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  x = (0.5 * torch.randn((m, d), generator=gen, device=dev)).to(dtype)
+  w = (torch.randn((v, d), generator=gen, device=dev) * d ** -0.5).to(dtype)
+  targets = torch.randint(0, v, (m,), generator=gen, device=dev,
+                          dtype=torch.int32)
+  weights = (torch.rand((m,), generator=gen, device=dev) >= zero_share).float()
+  return x, w, targets, weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(m=100, v=1000, d=128, cap=30.0),       # ragged M and V
+    dict(m=100, v=1000, d=128, cap=0.0),
+    dict(m=257, v=333, d=72, cap=30.0),         # D not a multiple of 64
+    dict(m=64, v=128, d=1024, cap=30.0),        # the slice's D, whole tiles
+    dict(m=3, v=5000, d=32, cap=0.0),           # few tokens, small D
+], ids=["ragged_cap", "ragged_nocap", "odd_d", "slice_d", "few_tokens"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_xent_kernels_match_plain(dev, case, dtype):
+  """K3a (lse, tz; f32 atol 1e-4) and K3b / K3c (dx, dW in f32 against the
+  plain versions fed the same lse and coef, 20% zero weights) on the same
+  inputs; each launch counted once. dx / dW tolerance atol 1e-6, rtol
+  1e-3: f32 sums in another order, and with bf16 operands dz rounded to
+  bf16 from logits summed in another order (a term that lands on the other
+  side of a rounding step moves by 2^-8 of itself)."""
+  x, w, targets, weights = _xent_inputs(dev, case["m"], case["v"], case["d"],
+                                        dtype, seed=0)
+  cap = case["cap"]
+  counts = lambda: (xent.fused_softmax_xent.launches_fwd,
+                    xent.fused_softmax_xent.launches_dx,
+                    xent.fused_softmax_xent.launches_dw)
+  before = counts()
+  lse, tz = xent.xent_fwd(x, w, targets, logit_cap=cap)
+  torch.cuda.synchronize()
+  lse_r, tz_r = xent.xent_fwd_reference(x, w, targets, logit_cap=cap)
+  torch.testing.assert_close(lse, lse_r, **F32_TOL)
+  torch.testing.assert_close(tz, tz_r, **F32_TOL)
+  coef = (weights / weights.sum().clamp_min(1.0)).contiguous()
+  kw = dict(logit_cap=cap, out_dtype=torch.float32)
+  for fn, ref in ((xent.xent_dx, xent.xent_dx_reference),
+                  (xent.xent_dw, xent.xent_dw_reference)):
+    got = fn(x, w, targets, lse_r, coef, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref(x, w, targets, lse_r, coef, **kw),
+                               atol=1e-6, rtol=1e-3)
+  assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.cuda
+def test_xent_bwd_kernels_are_deterministic_and_zero_weight_rows(dev):
+  """K3b and K3c own their output rows and sum in a fixed order: two calls
+  are bit-equal. A token with weight 0 gets dx = 0 in its row."""
+  x, w, targets, weights = _xent_inputs(dev, 300, 2000, 256, torch.bfloat16,
+                                        seed=1)
+  weights[7] = 0.0
+  lse, _ = xent.xent_fwd(x, w, targets, logit_cap=30.0)
+  coef = (weights / weights.sum()).contiguous()
+  for fn in (xent.xent_dx, xent.xent_dw):
+    first = fn(x, w, targets, lse, coef, logit_cap=30.0)
+    second = fn(x, w, targets, lse, coef, logit_cap=30.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+  dx = xent.xent_dx(x, w, targets, lse, coef, logit_cap=30.0)
+  assert float(dx[7].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+def test_fused_softmax_xent_autograd_on_card_matches_cpu(dev, tied):
+  """fused_softmax_xent through autograd with bf16 operands on the card
+  (K3a-c) and on the CPU (plain versions), from the same f32 x / w:
+  loss rtol 1e-5, dx / dW atol 1e-6, rtol 1e-3 (see above)."""
+  x, w, targets, weights = _xent_inputs(dev, 150, 700, 64, torch.float32,
+                                        seed=2)
+  if not tied:
+    w = w.t().contiguous()
+  results = []
+  for device in (dev, torch.device("cpu")):
+    xs = [t.detach().to(device).requires_grad_() for t in (x, w)]
+    loss = xent.fused_softmax_xent(*xs, targets.to(device),
+                                   weights.to(device), tied=tied,
+                                   logit_cap=30.0)
+    loss.backward()
+    results.append([loss.detach().cpu()] + [t.grad.cpu() for t in xs])
+  (loss, dx, dw), (loss_r, dx_r, dw_r) = results
+  torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=0)
+  torch.testing.assert_close(dx, dx_r, atol=1e-6, rtol=1e-3)
+  torch.testing.assert_close(dw, dw_r, atol=1e-6, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_xent_kernels_refuse_what_they_do_not_take(dev):
+  x, w, targets, weights = _xent_inputs(dev, 16, 40, 64, torch.float32,
+                                        seed=3)
+  before = (xent.fused_softmax_xent.launches_fwd,
+            xent.fused_softmax_xent.launches_dx,
+            xent.fused_softmax_xent.launches_dw)
+  with pytest.raises(TypeError):
+    xent.xent_fwd(x.half(), w.half(), targets)
+  with pytest.raises(ValueError, match="one dtype"):
+    xent.xent_fwd(x, w.bfloat16(), targets)
+  with pytest.raises(ValueError, match="contiguous"):
+    xent.xent_fwd(x.t().contiguous().t(), w, targets)
+  with pytest.raises(ValueError, match="multiple of 8"):
+    xent.xent_fwd(x[:, :60].contiguous(), w[:, :60].contiguous(), targets)
+  big = xent.max_dim(torch.bfloat16) + 8
+  with pytest.raises(ValueError, match="multiple of 8"):
+    xent.xent_fwd(torch.zeros((4, big), device=dev, dtype=torch.bfloat16),
+                  torch.zeros((8, big), device=dev, dtype=torch.bfloat16),
+                  targets[:4])
+  with pytest.raises(ValueError, match="targets"):
+    xent.xent_fwd(x, w, targets.long())
+  lse, _ = xent.xent_fwd_reference(x, w, targets)
+  with pytest.raises(ValueError, match="coef"):
+    xent.xent_dx(x, w, targets, lse, weights[:8].contiguous())
+  assert (xent.fused_softmax_xent.launches_fwd,
+          xent.fused_softmax_xent.launches_dx,
+          xent.fused_softmax_xent.launches_dw) == before

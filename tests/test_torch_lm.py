@@ -257,6 +257,39 @@ def test_unembed_bf16_modes_match(mode):
   np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+@pytest.mark.parametrize("mode", ["bfloat16", "bfloat16_vjp"])
+def test_unembed_bf16_modes_grads_match_jax(mode, tied):
+  """dx and dW of sum(unembed_logits(x) * r), capped at 30, against jax.grad
+  of the JAX unembed_logits. "bfloat16_vjp" casts the cotangent to bf16
+  and returns dx and dW unrounded in f32, as JAX's custom vjp does: rtol
+  1e-5, atol 1e-6. Plain autograd of the bf16 forward (the "bfloat16"
+  mode) rounds both grads to bf16 in both packages, after f32 sums taken in
+  another order, so an entry may end one bf16 step apart: rtol 2^-7."""
+  jcfg, tcfg = _cfgs(unembed_matmul_dtype=mode, tie_embeddings=tied, **SMALL)
+  rng = np.random.default_rng(17)
+  x = rng.standard_normal((2, 16, 32)).astype(np.float32)
+  w = (rng.standard_normal((384, 32) if tied else (32, 384)) * 0.3).astype(
+      np.float32)
+  r = rng.standard_normal((2, 16, 384)).astype(np.float32)
+  name = "embed" if tied else "unembed"
+
+  def jloss(x, w):
+    return jnp.sum(jlm.unembed_logits({name: w}, x, jcfg) * jnp.asarray(r))
+
+  want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+  model = tlm.TransformerLM(tcfg, device="meta")
+  tw = torch.nn.Parameter(torch.from_numpy(w))
+  setattr(model, name, tw)
+  tx = torch.from_numpy(x).requires_grad_()
+  (tlm.unembed_logits(model, tx) * torch.from_numpy(r)).sum().backward()
+  tol = (dict(rtol=1e-5, atol=1e-6) if mode == "bfloat16_vjp"
+         else dict(rtol=2 ** -7, atol=1e-6))
+  for got, wnt in zip((tx.grad, tw.grad), want):
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(wnt), **tol)
+
+
 @pytest.mark.parametrize("heads", [SMALL, GQA], ids=["mha", "gqa"])
 def test_greedy_generate_token_exact(heads):
   """Token-exact against JAX greedy_generate with its Pallas decode kernel
