@@ -11,12 +11,12 @@ Subpackages:
                states <-> torch
   nn        -- precision policy; vision layers (conv, depthwise, BatchNorm
                with JAX state semantics, SE, drop_connect, pools)
-  models    -- decoder-only LM: training (flash attention, remat, plain /
-               chunked / fused loss) and KV-cached serving (greedy /
-               sampled); EfficientNet and EfficientDet
-  ops       -- flash attention (forward, fused backward), decode attention,
-               the fused softmax cross-entropy and the depthwise filter
-               gradient: CUDA kernels + plain PyTorch versions; anchors,
+  models    -- decoder-only LM: training (flash attention, remat policies,
+               plain / chunked / fused loss) and KV-cached serving (greedy
+               / sampled); EfficientNet and EfficientDet
+  ops       -- flash attention (forward, fused and split backward), decode
+               attention, the fused softmax cross-entropy and the depthwise
+               filter gradient: CUDA kernels + plain PyTorch versions; anchors,
                IoU and detection losses
   train     -- LM trainer, detection train step and runner, optimizers,
                schedules, metrics, checkpoints

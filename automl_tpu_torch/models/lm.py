@@ -2,12 +2,13 @@
 
 The counterpart of automl_tpu/models/lm.py: configs, RoPE, masks, RMSNorm,
 gated FFN, attention with GQA, per-dim query scale and logit caps, the
-rank-3 KV cache, greedy / sampled generation, full-block rematerialisation
-and the LM losses (plain, chunked, fused). The KV-cached attention runs
-through ops/decode_attention.py (the port of the TPU decode kernel), the
-full-sequence attention with use_flash_attention through ops/attention.py
-(the ports of the TPU flash forward and fused backward kernels), the fused
-loss through ops/xent.py (the ports of the TPU xent kernels).
+rank-3 KV cache, greedy / sampled generation, block rematerialisation under
+the JAX model's remat policies and the LM losses (plain, chunked, fused).
+The KV-cached attention runs through ops/decode_attention.py (the port of
+the TPU decode kernel), the full-sequence attention with use_flash_attention
+through ops/attention.py (the ports of the TPU flash forward and the fused
+and split backward kernels), the fused loss through ops/xent.py (the ports
+of the TPU xent kernels).
 
 Parameters keep the JAX package's layouts, so one parameter tree drives
 both packages (convert.py): wq/wk/wv/wo [d, n, h], per_dim_scale [h],
@@ -22,6 +23,7 @@ NotImplementedError naming their ROADMAP item.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Optional
 
@@ -29,6 +31,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy
 
 from automl_tpu_torch.config import Config
 from automl_tpu_torch.ops import attention as attention_lib
@@ -173,15 +176,6 @@ def _check_ported(cfg: Config):
     if cfg.get(key):
       raise NotImplementedError(
           f"{key} is not ported to automl_tpu_torch yet: ROADMAP {item}")
-  if cfg.get("use_flash_attention") and not cfg.get("flash_bwd_fused", True):
-    raise NotImplementedError(
-        "flash_bwd_fused=False (the split flash backward) is not ported to "
-        "automl_tpu_torch yet: ROADMAP K5")
-  policy = cfg.get("remat_policy") or "full"
-  if cfg.get("use_remat") and policy != "full":
-    raise NotImplementedError(
-        f"remat_policy={policy!r} is not ported to automl_tpu_torch yet "
-        "(only 'full'): ROADMAP M6")
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +279,12 @@ class Attention(nn.Module):
             q, k, v, causal=True, window=cfg.window_size,
             logit_cap=cfg.attn_logit_cap or 0.0, sm_scale=1.0,
             segment_ids=segment_ids,
-            bwd_fused=bool(cfg.get("flash_bwd_fused", True)))
+            bwd_fused=bool(cfg.get("flash_bwd_fused", False)))
+        if cfg.get("use_remat") and cfg.get("remat_policy") == "dots_attn":
+          # JAX names the output checkpoint_name(out, "attn_out") for this
+          # policy; here the name costs a copy, so it is made only where the
+          # policy saves it.
+          out = checkpoint_name(out, "attn_out")
         return torch.einsum("bqnh,dnh->bqd", out.to(adt), wo), None
       return self._dense(q, k, v, mask, wo, adt), None
 
@@ -417,6 +416,74 @@ class TransformerBlock(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# Remat policies.
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("automl_tpu_torch::checkpoint_name",
+                         mutates_args=(), schema="(Tensor x, str name) -> Tensor")
+def checkpoint_name(x, name):
+  """JAX's checkpoint_name: x (a copy: an op's output may not alias its
+  input) under a name that a remat policy can save."""
+  return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+  return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+_aten = torch.ops.aten
+# The matrix products the blocks lower to: x @ w to mm, torch.einsum to bmm.
+_DOTS = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default)
+
+
+def _is_dot(op, args, no_batch: bool) -> bool:
+  """A matrix product; with no_batch, only one without batch dims, as JAX
+  classifies dot_general. torch.einsum lowers the projections
+  ("btd,dnh->btnh") to a bmm with a batch of 1, which has none; the dense
+  attention's "bnqk" products are bmms with a batch of B * N."""
+  if op not in _DOTS:
+    return False
+  return not (no_batch and op is _aten.bmm.default and args[0].shape[0] > 1)
+
+
+def _remat_policy(cfg):
+  """cfg.remat_policy -> a torch.utils.checkpoint selective policy (None =
+  "full": recompute all), as JAX's _remat_policy.
+
+  "dots" saves every matrix product's output in the block (the projections,
+  the FFN, the dense attention's products); the flash forward is not a
+  product and runs again in the backward. "dots_no_batch" saves only the
+  products without batch dims. "dots_flash" saves, besides, the flash
+  forward's (out, lse) (the custom op automl_tpu_torch::flash_fwd), so the
+  backward goes straight to the backward kernels. "dots_attn" saves the
+  products and the attention output named "attn_out" (Attention); the
+  backward still needs lse, so the flash forward runs again, as in JAX."""
+  name = cfg.get("remat_policy") or "full"
+  if name == "full":
+    return None
+  if name not in ("dots", "dots_no_batch", "dots_flash", "dots_attn"):
+    raise ValueError(
+        f"unknown remat_policy {name!r} "
+        "(expected full | dots | dots_no_batch | dots_flash | dots_attn)")
+  flash_op = torch.ops.automl_tpu_torch.flash_fwd.default
+  name_op = torch.ops.automl_tpu_torch.checkpoint_name.default
+
+  def policy(ctx, op, *args, **kwargs):
+    del ctx, kwargs
+    save = (_is_dot(op, args, name == "dots_no_batch")
+            or (name == "dots_flash" and op is flash_op)
+            or (name == "dots_attn" and op is name_op
+                and args[1] == "attn_out"))
+    return (CheckpointPolicy.MUST_SAVE if save
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+  return policy
+
+
+# ---------------------------------------------------------------------------
 # LM.
 # ---------------------------------------------------------------------------
 
@@ -468,17 +535,21 @@ class TransformerLM(nn.Module):
     mask = None if uses_fused_mask else causal_mask(
         positions, kv_positions, cfg.window_size, segment_ids, segment_ids,
         prefix_q=causal_attention, prefix_k=causal_attention)
-    # remat_policy "full" (the only one ported): each block's forward runs
-    # again in the backward, as jax.checkpoint with no policy does. The JAX
-    # model remats only its scanned layers, hence use_scan.
+    # Each block's forward runs again in the backward, but for what the
+    # remat policy saves ("full": nothing, as jax.checkpoint with no policy).
+    # The JAX model remats only its scanned layers, hence use_scan.
     remat = (cache is None and cfg.use_remat and cfg.get("use_scan", True)
              and torch.is_grad_enabled())
+    remat_kw = {}
+    if remat and (policy := _remat_policy(cfg)) is not None:
+      remat_kw["context_fn"] = functools.partial(
+          torch.utils.checkpoint.create_selective_checkpoint_contexts, policy)
     new_caches = []
     for i, block in enumerate(self.blocks):
       if remat:
         x, nc = torch.utils.checkpoint.checkpoint(
             block, x, positions, mask, None, None, segment_ids,
-            use_reentrant=False)
+            use_reentrant=False, **remat_kw)
       else:
         x, nc = block(x, positions, mask,
                       None if cache is None else cache[i], cache_index,

@@ -1,10 +1,13 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
-The counterpart of automl_tpu/ops/attention.py. Two kernels, in
+The counterpart of automl_tpu/ops/attention.py. Four kernels, in
 csrc/flash_attention.cu:
   * K1, the forward (replaces _fwd_kernel): out and the row logsumexp lse;
   * K2, the fused backward (replaces _bwd_fused_kernel): dq, dk, dv from one
-    recompute of s/p/ds per tile.
+    recompute of s/p/ds per tile;
+  * K5a and K5b, the split backward (replace _bwd_dq_kernel and
+    _bwd_dkv_kernel): dq from one kernel, dk and dv from another, each
+    recomputing s/p/ds.
 
 The kernels' interface: q, k, v, g, out, dq, dk, dv [B, T, N, H] (q/k/v/g
 through their strides, unit H stride), lse and delta [B*N, T] f32 with row
@@ -19,9 +22,18 @@ key gets -1e30 and an explicit p = 0.
 
 `flash_attention` dispatches on the device of q: CUDA tensors go to the
 kernels, which raise if they cannot be built or launched; CPU tensors go to
-flash_fwd_reference / flash_bwd_reference. There is no fallback from the one
-to the other. `flash_attention.launches_fwd` / `.launches_bwd` count kernel
-launches.
+the plain versions (flash_fwd_reference, flash_bwd_reference,
+flash_bwd_dq_reference, flash_bwd_dkv_reference). There is no fallback from
+the one to the other. `flash_attention.launches_fwd` / `.launches_bwd` /
+`.launches_dq` / `.launches_dkv` count kernel launches.
+
+The structure of JAX's _flash_res: the forward is the custom op
+automl_tpu_torch::flash_fwd, called on detached q, k, v, and its (out, lse)
+enter an identity autograd Function whose backward runs K2 or K5a + K5b.
+torch.utils.checkpoint's selective policies see the custom op (a ctypes
+launch inside an autograd Function they cannot see), so a policy that saves
+its outputs (remat_policy "dots_flash", models/lm.py) keeps the backward
+from running the forward again.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Any, NamedTuple
 
 import torch
 
@@ -99,27 +112,63 @@ def _delta(g, out):
   return _lse_rows(d.transpose(1, 2))
 
 
-def flash_bwd_reference(q, k, v, g, out, lse, segs=None, *, causal=True,
-                        window=None, logit_cap=0.0, sm_scale=1.0):
-  """Plain-PyTorch K2: -> (dq, dk, dv), each [B, T, N, H] in its input's dtype.
+def _bwd_terms(q, k, v, g, out, lse, segs, causal, window, logit_cap,
+               sm_scale):
+  """(p, ds) [B, N, T, T] f32: the math of the TPU kernels' _bwd_compute.
 
-  The math of the TPU kernel's _bwd_compute: p = exp(s_eff - lse) on live
-  keys, 0 elsewhere; dp = g . v; ds = p * (dp - delta) * dcap with
-  delta = rowsum(g * out); dq = sm_scale * ds . k, dk = sm_scale * ds^T . q,
-  dv = p^T . g, all in f32."""
+  p = exp(s_eff - lse) on live keys, 0 elsewhere; dp = g . v;
+  ds = p * (dp - delta) * dcap with delta = rowsum(g * out)."""
   b, t, n, h = q.shape
   s, dcap = _scores(q, k, logit_cap, sm_scale)
   mask = _mask(t, causal, window, segs, q.device)
   lse4 = lse.reshape(b, n, t, 1)
   delta4 = _delta(g, out).reshape(b, n, t, 1)
   p = torch.where(mask, torch.exp(torch.where(mask, s, NEG_INF) - lse4), 0.0)
-  gf = g.float()
-  dp = torch.einsum("bqnh,bknh->bnqk", gf, v.float())
+  dp = torch.einsum("bqnh,bknh->bnqk", g.float(), v.float())
   ds = torch.where(mask, p * (dp - delta4) * dcap, 0.0)
-  dq = sm_scale * torch.einsum("bnqk,bknh->bqnh", ds, k.float())
+  return p, ds
+
+
+def _dq_from(ds, q, k, sm_scale):
+  """dq = sm_scale * ds . k in f32, in q's dtype."""
+  return (sm_scale * torch.einsum("bnqk,bknh->bqnh", ds, k.float())).to(
+      q.dtype)
+
+
+def _dkv_from(p, ds, q, k, v, g, sm_scale):
+  """dk = sm_scale * ds^T . q and dv = p^T . g in f32, in k's / v's dtype."""
   dk = sm_scale * torch.einsum("bnqk,bqnh->bknh", ds, q.float())
-  dv = torch.einsum("bnqk,bqnh->bknh", p, gf)
-  return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+  dv = torch.einsum("bnqk,bqnh->bknh", p, g.float())
+  return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(q, k, v, g, out, lse, segs=None, *, causal=True,
+                        window=None, logit_cap=0.0, sm_scale=1.0):
+  """Plain-PyTorch K2: -> (dq, dk, dv), each [B, T, N, H] in its input's dtype.
+
+  The two halves of the split backward (flash_bwd_dq_reference and
+  flash_bwd_dkv_reference) from one recompute of p and ds."""
+  p, ds = _bwd_terms(q, k, v, g, out, lse, segs, causal, window, logit_cap,
+                     sm_scale)
+  return (_dq_from(ds, q, k, sm_scale),
+          *_dkv_from(p, ds, q, k, v, g, sm_scale))
+
+
+def flash_bwd_dq_reference(q, k, v, g, out, lse, segs=None, *, causal=True,
+                           window=None, logit_cap=0.0, sm_scale=1.0):
+  """Plain-PyTorch K5a: -> dq [B, T, N, H] in q's dtype (the interface of
+  flash_bwd_reference)."""
+  _, ds = _bwd_terms(q, k, v, g, out, lse, segs, causal, window, logit_cap,
+                     sm_scale)
+  return _dq_from(ds, q, k, sm_scale)
+
+
+def flash_bwd_dkv_reference(q, k, v, g, out, lse, segs=None, *, causal=True,
+                            window=None, logit_cap=0.0, sm_scale=1.0):
+  """Plain-PyTorch K5b: -> (dk, dv) [B, T, N, H] in k's / v's dtype."""
+  p, ds = _bwd_terms(q, k, v, g, out, lse, segs, causal, window, logit_cap,
+                     sm_scale)
+  return _dkv_from(p, ds, q, k, v, g, sm_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -127,25 +176,37 @@ def flash_bwd_reference(q, k, v, g, out, lse, segs=None, *, causal=True,
 # ---------------------------------------------------------------------------
 
 
+class _KernelFns(NamedTuple):
+  fwd: Any
+  bwd: Any
+  bwd_dq: Any
+  bwd_dkv: Any
+
+
 @functools.cache
-def _kernel_fns():
-  """The kernels' C entry points (fwd, bwd), built and bound at first use."""
+def _kernel_fns() -> _KernelFns:
+  """The kernels' C entry points, built and bound at first use."""
   from automl_tpu_torch.ops import cuda_build
   lib = cuda_build.load("flash_attention")
   ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
   strides = [i64] * 3
   common = [i32] * 6 + [f32, f32]   # B T N H causal window, cap, scale
-  fwd = lib.automl_flash_fwd
-  # q k v seg out lse | dtype | q k v strides | common | stream
-  fwd.argtypes = [ptr] * 6 + [i32] + strides * 3 + common + [ptr]
-  fwd.restype = i32
-  bwd = lib.automl_flash_bwd
-  # q k v g seg lse delta dq32 dq_turn dk dv | dtype | q k v g strides |
-  # common
-  bwd.argtypes = [ptr] * 11 + [i32] + strides * 4 + common + [ptr]
-  bwd.restype = i32
-  return fwd, bwd
+
+  def bind(fn, n_ptrs, n_strided):
+    # n_ptrs tensors | dtype | n_strided tensors' strides | common | stream
+    fn.argtypes = [ptr] * n_ptrs + [i32] + strides * n_strided + common + [ptr]
+    fn.restype = i32
+    return fn
+  return _KernelFns(
+      # q k v seg out lse
+      fwd=bind(lib.automl_flash_fwd, 6, 3),
+      # q k v g seg lse delta dq32 dq_turn dk dv
+      bwd=bind(lib.automl_flash_bwd, 11, 4),
+      # q k v g seg lse delta dq
+      bwd_dq=bind(lib.automl_flash_bwd_dq, 8, 4),
+      # q k v g seg lse delta dk dv
+      bwd_dkv=bind(lib.automl_flash_bwd_dkv, 9, 4))
 
 
 def _check_kernel_inputs(tensors, segs):
@@ -179,6 +240,15 @@ def _common(q, causal, window, logit_cap, sm_scale):
           float(logit_cap or 0.0), float(sm_scale))
 
 
+def _check_bwd_inputs(q, k, v, g, out, lse, segs):
+  _check_kernel_inputs((q, k, v, g, out), segs)
+  b, t, n, _ = q.shape
+  if tuple(lse.shape) != (b * n, t) or lse.dtype != torch.float32 or \
+      not lse.is_contiguous() or lse.device != q.device:
+    raise ValueError(f"lse must be contiguous f32 [{b * n}, {t}] on q's "
+                     "device")
+
+
 def _raise_on(err, which):
   if err != 0:
     raise RuntimeError(f"flash attention {which} kernel launch failed: CUDA "
@@ -190,7 +260,7 @@ def flash_fwd_kernel(q, k, v, segs=None, *, causal=True, window=None,
   """K1 on the card: the interface of flash_fwd_reference."""
   _check_kernel_inputs((q, k, v), segs)
   b, t, n, h = q.shape
-  fwd, _ = _kernel_fns()
+  fwd = _kernel_fns().fwd
   out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)
   lse = torch.empty((b * n, t), dtype=torch.float32, device=q.device)
   with torch.cuda.device(q.device):
@@ -205,35 +275,66 @@ def flash_fwd_kernel(q, k, v, segs=None, *, causal=True, window=None,
   return out, lse
 
 
+def _launch_bwd(fn, which, outputs, q, k, v, g, out, lse, segs, causal,
+                window, logit_cap, sm_scale):
+  """Launches a backward kernel, `fn`, on checked inputs: q k v g seg lse
+  delta, then its `outputs`, the dtype, the strides of q k v g and the
+  common arguments. delta = rowsum(g * out) is made here."""
+  delta = _delta(g, out).contiguous()
+  with torch.cuda.device(q.device):
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             None if segs is None else segs.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), *(x.data_ptr() for x in outputs),
+             _DTYPE_CODES[q.dtype],
+             *_strides(q), *_strides(k), *_strides(v), *_strides(g),
+             *_common(q, causal, window, logit_cap, sm_scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+  _raise_on(err, which)
+
+
 def flash_bwd_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
                      window=None, logit_cap=0.0, sm_scale=1.0):
   """K2 on the card: the interface of flash_bwd_reference. dq is summed
   over key tiles with f32 atomics into one [B, T, N, H] f32 buffer, in an
   order that one counter per (row, q tile) fixes, then cast to q's dtype:
   the result is the same from run to run."""
-  _check_kernel_inputs((q, k, v, g, out), segs)
+  _check_bwd_inputs(q, k, v, g, out, lse, segs)
   b, t, n, h = q.shape
-  if tuple(lse.shape) != (b * n, t) or lse.dtype != torch.float32 or \
-      not lse.is_contiguous():
-    raise ValueError(f"lse must be contiguous f32 [{b * n}, {t}]")
-  _, bwd = _kernel_fns()
-  delta = _delta(g, out).contiguous()
   dq32 = torch.zeros((b, t, n, h), dtype=torch.float32, device=q.device)
   dq_turn = torch.zeros((b * n, t), dtype=torch.int32, device=q.device)
   dk = torch.empty((b, t, n, h), dtype=k.dtype, device=q.device)
   dv = torch.empty((b, t, n, h), dtype=v.dtype, device=q.device)
-  with torch.cuda.device(q.device):
-    err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-              None if segs is None else segs.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), dq32.data_ptr(),
-              dq_turn.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-              _DTYPE_CODES[q.dtype],
-              *_strides(q), *_strides(k), *_strides(v), *_strides(g),
-              *_common(q, causal, window, logit_cap, sm_scale),
-              torch.cuda.current_stream(q.device).cuda_stream)
-  _raise_on(err, "backward")
+  _launch_bwd(_kernel_fns().bwd, "backward", (dq32, dq_turn, dk, dv),
+              q, k, v, g, out, lse, segs, causal, window, logit_cap,
+              sm_scale)
   flash_attention.launches_bwd += 1
   return dq32.to(q.dtype), dk, dv
+
+
+def flash_bwd_dq_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
+                        window=None, logit_cap=0.0, sm_scale=1.0):
+  """K5a on the card: the interface of flash_bwd_dq_reference. One block
+  per (row, q tile) keeps its dq in f32 over the key tiles and writes it
+  once: no atomics, the same result from run to run."""
+  _check_bwd_inputs(q, k, v, g, out, lse, segs)
+  dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+  _launch_bwd(_kernel_fns().bwd_dq, "dq backward", (dq,), q, k, v, g, out,
+              lse, segs, causal, window, logit_cap, sm_scale)
+  flash_attention.launches_dq += 1
+  return dq
+
+
+def flash_bwd_dkv_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
+                         window=None, logit_cap=0.0, sm_scale=1.0):
+  """K5b on the card: the interface of flash_bwd_dkv_reference. One block
+  per (row, key tile) keeps dk and dv in f32 over the q tiles."""
+  _check_bwd_inputs(q, k, v, g, out, lse, segs)
+  dk = torch.empty(q.shape, dtype=k.dtype, device=q.device)
+  dv = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+  _launch_bwd(_kernel_fns().bwd_dkv, "dk/dv backward", (dk, dv), q, k, v, g,
+              out, lse, segs, causal, window, logit_cap, sm_scale)
+  flash_attention.launches_dkv += 1
+  return dk, dv
 
 
 def _on(x, cpu_fn, cuda_fn):
@@ -255,16 +356,46 @@ def flash_bwd(q, k, v, g, out, lse, segs=None, **kw):
       q, k, v, g, out, lse, segs, **kw)
 
 
-class _FlashAttention(torch.autograd.Function):
-  """out = attention(q, k, v); the backward is K2 (or its plain version)."""
+def flash_bwd_dq(q, k, v, g, out, lse, segs=None, **kw):
+  """K5a for CUDA tensors, its plain version for CPU tensors."""
+  return _on(q, flash_bwd_dq_reference, flash_bwd_dq_kernel)(
+      q, k, v, g, out, lse, segs, **kw)
+
+
+def flash_bwd_dkv(q, k, v, g, out, lse, segs=None, **kw):
+  """K5b for CUDA tensors, its plain version for CPU tensors."""
+  return _on(q, flash_bwd_dkv_reference, flash_bwd_dkv_kernel)(
+      q, k, v, g, out, lse, segs, **kw)
+
+
+# The forward as a custom op: what torch.utils.checkpoint's selective
+# policies see and can save (JAX: the checkpoint_name'd "flash_out" and
+# "flash_lse" of _flash). window < 0: no window.
+@torch.library.custom_op(
+    "automl_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? segs, bool causal, "
+           "int window, float logit_cap, float sm_scale) -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, segs, causal, window, logit_cap, sm_scale):
+  return flash_fwd(q, k, v, segs, causal=causal,
+                   window=None if window < 0 else window,
+                   logit_cap=logit_cap, sm_scale=sm_scale)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, segs, causal, window, logit_cap, sm_scale):
+  b, t, n, _ = q.shape
+  return torch.empty_like(q), q.new_empty((b * n, t), dtype=torch.float32)
+
+
+class _FlashRes(torch.autograd.Function):
+  """out = the forward's out, passed through (JAX's _flash_res): q, k, v,
+  out and lse are its residuals, and its backward is K2 (bwd_fused) or K5a
+  + K5b (or their plain versions)."""
 
   @staticmethod
-  def forward(ctx, q, k, v, segs, causal, window, logit_cap, sm_scale):
-    kw = dict(causal=causal, window=window, logit_cap=logit_cap,
-              sm_scale=sm_scale)
-    out, lse = flash_fwd(q, k, v, segs, **kw)
+  def forward(ctx, q, k, v, segs, out, lse, kw, bwd_fused):
     ctx.save_for_backward(q, k, v, out, lse, segs)
-    ctx.kw = kw
+    ctx.kw, ctx.bwd_fused = kw, bwd_fused
     return out
 
   @staticmethod
@@ -272,7 +403,12 @@ class _FlashAttention(torch.autograd.Function):
     q, k, v, out, lse, segs = ctx.saved_tensors
     if g.stride(-1) != 1:
       g = g.contiguous()
-    dq, dk, dv = flash_bwd(q, k, v, g, out, lse, segs, **ctx.kw)
+    args = (q, k, v, g, out, lse, segs)
+    if ctx.bwd_fused:
+      dq, dk, dv = flash_bwd(*args, **ctx.kw)
+    else:
+      dq = flash_bwd_dq(*args, **ctx.kw)
+      dk, dv = flash_bwd_dkv(*args, **ctx.kw)
     return dq, dk, dv, None, None, None, None, None
 
 
@@ -280,7 +416,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     logit_cap: float = 0.0, sm_scale: float | None = None,
                     segment_ids=None, block_q: int = 512, block_k: int = 512,
                     block_q_bwd: int | None = None,
-                    block_k_bwd: int | None = None, bwd_fused: bool = True):
+                    block_k_bwd: int | None = None, bwd_fused: bool = False):
   """Multi-head flash attention with gradients.
 
   q: [B, T, N, H]; k, v: [B, T, Nkv, H] (Nkv divides N: GQA, k and v are
@@ -292,14 +428,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
   block_q / block_k / block_q_bwd / block_k_bwd are the TPU kernels' tile
   sizes. They are accepted for the JAX signature and steer nothing: the CUDA
-  kernels' tiles are their own constants. bwd_fused=True (the default here;
-  the JAX function's default is False, its LM's is True) is the fused
-  backward K2; the split backward (False) is not ported: ROADMAP K5."""
+  kernels' tiles are their own constants. bwd_fused=False (the default, as
+  in JAX) is the split backward, K5a for dq and K5b for dk/dv; True is the
+  fused backward K2."""
   del block_q, block_k, block_q_bwd, block_k_bwd
-  if not bwd_fused:
-    raise NotImplementedError(
-        "the split flash backward (bwd_fused=False) is not ported to "
-        "automl_tpu_torch yet: ROADMAP K5")
+  _on(q, None, None)  # raises on a device with no implementation
   b, t, n, h = q.shape
   nkv = k.shape[2]
   if nkv != n:
@@ -316,12 +449,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
       raise ValueError(f"segment_ids must be [B={b}, T={t}], "
                        f"got {tuple(segment_ids.shape)}")
     segs = segment_ids.to(torch.int32).contiguous()
-  return _FlashAttention.apply(q, k, v, segs, causal, window, logit_cap,
-                               sm_scale)
+  out, lse = _flash_fwd_op(q.detach(), k.detach(), v.detach(), segs,
+                           bool(causal), -1 if window is None else int(window),
+                           float(logit_cap or 0.0), float(sm_scale))
+  kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+            sm_scale=sm_scale)
+  return _FlashRes.apply(q, k, v, segs, out, lse, kw, bool(bwd_fused))
 
 
 flash_attention.launches_fwd = 0
 flash_attention.launches_bwd = 0
+flash_attention.launches_dq = 0
+flash_attention.launches_dkv = 0
 
 
 def dense_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,

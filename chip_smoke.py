@@ -2,9 +2,11 @@
 
   python3 chip_smoke.py              # from the root of the repository
   python3 chip_smoke.py --profile    # only: profiles of a training step
-                                     # (unfused and fused loss), of a
-                                     # decode step and of an EfficientDet-D0
-                                     # training step (K6 knob on and off)
+                                     # (unfused and fused loss; dots_flash
+                                     # with the split and the fused
+                                     # backward), of a decode step and of
+                                     # an EfficientDet-D0 training step (K6
+                                     # knob on and off)
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
@@ -16,11 +18,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      ragged S in f32, head-major rows with (m, l) stats, a fully-masked
      row); kernel, plain version and the library yardstick timed with CUDA
      events at the slice's shapes;
-  3. K1 / K2 (flash-attention forward and fused backward) against their
-     plain versions at the training slice's shapes (b8, T 2048, 8 heads,
-     hd 128, bf16, causal, cap 50, sm_scale 1) and on small cases (GQA 8/2
-     through flash_attention, window 16 + cap, packed segment ids, ragged T
-     77 and 200 in f32, documents of length 1); timed as in 2;
+  3. K1 / K2 / K5a / K5b (flash-attention forward, fused backward and the
+     split backward's dq and dk/dv kernels) against their plain versions at
+     the training slice's shapes (b8, T 2048, 8 heads, hd 128, bf16,
+     causal, cap 50, sm_scale 1; K2, K5a and K5b called twice must be
+     bit-equal) and on small cases (GQA 8/2 through flash_attention with
+     either backward, window 16 + cap, packed segment ids, ragged T 77 and
+     200 in f32, documents of length 1); timed as in 2;
   4. K3a / K3b / K3c (fused softmax xent forward, dx, dW) against their
      plain versions at the fused-loss slice's shapes (M 16,384 = b8 x T2048
      tokens, D 1,024, V 100,864, bf16 operands, cap 30, about 20% zero loss
@@ -30,15 +34,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   5. training slices: step 1 of lm-flops1e19 with use_flash_attention (K1/K2)
      against the same step on the dense attention path, with the fused loss
      "pallas" (K3) against the unfused loss at unembed_matmul_dtype
-     "bfloat16_vjp" (the same operand precision), and with the chunked loss
-     "scan" against the unfused f32 loss (loss, global grad norm, per-leaf
-     cosine); then cli/main_lm trains it for 30 steps at b8 T2048 (Lion,
-     cosine schedule, grad clip, weight decay, full remat), once unfused and
-     once with fused_softmax_loss=pallas: the loss must be finite and fall,
-     each run must launch K1 exactly 2 * n_layers * 30 times and K2
-     n_layers * 30 times, the fused run K3a, K3b and K3c 30 times each, and
-     a rerun of the unfused run to 31 steps must resume from the checkpoint
-     at step 30;
+     "bfloat16_vjp" (the same operand precision), with the chunked loss
+     "scan" against the unfused f32 loss, with the split backward (K5a/K5b)
+     against the fused one, and with the split backward under the remat
+     policies dots and dots_flash against full remat (loss, global grad
+     norm, per-leaf cosine, bit-equal leaves); then cli/main_lm trains it
+     for 30 steps at b8 T2048 (Lion, cosine schedule, grad clip, weight
+     decay) three times: unfused and with fused_softmax_loss=pallas, both
+     under full remat with K2, and with flash_bwd_fused=false,
+     remat_policy=dots_flash (the JAX flagship's policy). The loss must be
+     finite and fall; the full-remat runs must launch K1 exactly 2 *
+     n_layers * 30 times and K2 n_layers * 30 times, the fused run K3a, K3b
+     and K3c 30 times each, the dots_flash run K1, K5a and K5b n_layers *
+     30 times each and K2 never; a rerun of the unfused run to 31 steps must
+     resume from the checkpoint at step 30;
   6. K6 (the depthwise filter gradient) against its plain version at the
      detection slice's shapes, bf16, b16: EfficientNet-B0's first stride-1
      depthwise conv [16, 32, 256, 256] k3, a k5 block [16, 240, 64, 64]
@@ -63,7 +72,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 The library yardstick (library_ms) of each attention kernel is
 torch.compile'd torch.nn.attention.flex_attention with the same tanh cap as
-score_mod and the same mask as a block mask; that of K3a is the PyTorch
+score_mod and the same mask as a block mask (K2, K5a and K5b share its
+backward, which computes dq, dk and dv together); that of K3a is the PyTorch
 chain bf16 torch.matmul -> cap -> F.cross_entropy (no single PyTorch call
 computes the fused loss), and K3b and K3c share that chain's autograd
 backward, which computes both; that of K6 is cuDNN's weight gradient of
@@ -268,15 +278,15 @@ def _flash_inputs(dev, gen, b, t, n, h, dtype, scale=1.0):
 
 
 def flash_phase(dev, flush):
-  """K1 / K2 vs their plain versions; returns {"fwd": {...}, "bwd": {...}}
-  with err, ms, plain_ms, library_ms, bound_ms, bound_by at the slice's
-  shapes."""
+  """K1 / K2 / K5a / K5b vs their plain versions; returns {"fwd", "bwd",
+  "dq", "dkv"}, each with err, ms, plain_ms, library_ms, bound_ms, bound_by
+  at the slice's shapes."""
   import torch
   from automl_tpu_torch.ops import attention as fa
   gen = torch.Generator(device=dev).manual_seed(1)
 
   b, t, n, h = 8, 2048, 8, 128
-  print(f"K1/K2 case 1: slice shapes b{b} T{t} N{n}/{n} hd{h} bf16 causal "
+  print(f"K1/K2/K5 case 1: slice shapes b{b} T{t} N{n}/{n} hd{h} bf16 causal "
         "cap50 sm_scale 1")
   # q as the model feeds it: already scaled (by ~1/sqrt(hd)).
   q, k, v, g = _flash_inputs(dev, gen, b, t, n, h, torch.bfloat16)
@@ -299,6 +309,27 @@ def flash_phase(dev, flush):
   if not all(same):
     raise AssertionError("K2 gave two results on the same inputs")
   del grads, grads_r, again
+  # K5a / K5b: no atomics; each block owns its output rows, so a second
+  # call is bit-equal.
+  args = (q, k, v, g, out_r, lse_r, None)
+  dq = fa.flash_bwd_dq_kernel(*args, **kw)
+  torch.cuda.synchronize()
+  err_dq = _compare("K5a dq", dq, fa.flash_bwd_dq_reference(*args, **kw),
+                    **BF16_TOL)
+  dk, dv = fa.flash_bwd_dkv_kernel(*args, **kw)
+  torch.cuda.synchronize()
+  dk_r, dv_r = fa.flash_bwd_dkv_reference(*args, **kw)
+  err_dkv = max(_compare("K5b dk", dk, dk_r, **BF16_TOL),
+                _compare("K5b dv", dv, dv_r, **BF16_TOL))
+  del dk_r, dv_r
+  same = [bool(torch.equal(dq, fa.flash_bwd_dq_kernel(*args, **kw)))] + [
+      bool(torch.equal(x, y)) for x, y in zip(
+          (dk, dv), fa.flash_bwd_dkv_kernel(*args, **kw))]
+  print(f"  K5a, K5b called twice on the same inputs: dq, dk, dv bit-equal "
+        f"{same}")
+  if not all(same):
+    raise AssertionError("K5a or K5b gave two results on the same inputs")
+  del dq, dk, dv
 
   live = b * n * t * (t + 1) / 2          # causal (query, key) pairs
   elems = b * t * n * h
@@ -308,6 +339,10 @@ def flash_phase(dev, flush):
       "fwd": _bound(4.0 * h * live, 2 * 4 * elems + 4 * b * n * t),
       # 5 products; q, k, v, g, out and lse read, dq, dk, dv written
       "bwd": _bound(10.0 * h * live, 2 * 8 * elems + 4 * b * n * t),
+      # K5a: 3 products (s, dp, ds k); the same inputs, dq written
+      "dq": _bound(6.0 * h * live, 2 * 6 * elems + 4 * b * n * t),
+      # K5b: 4 products (s, dp, ds^T q, p^T g); dk, dv written
+      "dkv": _bound(8.0 * h * live, 2 * 7 * elems + 4 * b * n * t),
   }
   flex, block_mask = _flex()
   bm = block_mask(lambda bb, hh, qi, ki: qi >= ki, B=None, H=None, Q_LEN=t,
@@ -332,63 +367,77 @@ def flash_phase(dev, flush):
     return lambda: torch.autograd.grad(o, xs, gf, retain_graph=True)
 
   res = {}
-  for key, kern_fn, ref_fn, lib, err in (
-      ("fwd", lambda: fa.flash_fwd_kernel(q, k, v, None, **kw),
+  bwd_args = (q, k, v, g, out, lse, None)
+  # The library yardstick of K2, K5a and K5b is one: flex_attention's
+  # backward, which computes dq, dk and dv together.
+  for key, kid, kern_fn, ref_fn, lib, err in (
+      ("fwd", "K1", lambda: fa.flash_fwd_kernel(q, k, v, None, **kw),
        lambda: fa.flash_fwd_reference(q, k, v, None, **kw), lib_fwd, err_fwd),
-      ("bwd", lambda: fa.flash_bwd_kernel(q, k, v, g, out, lse, None, **kw),
-       lambda: fa.flash_bwd_reference(q, k, v, g, out, lse, None, **kw),
-       lib_bwd, err_bwd)):
+      ("bwd", "K2", lambda: fa.flash_bwd_kernel(*bwd_args, **kw),
+       lambda: fa.flash_bwd_reference(*bwd_args, **kw), lib_bwd, err_bwd),
+      ("dq", "K5a", lambda: fa.flash_bwd_dq_kernel(*bwd_args, **kw),
+       lambda: fa.flash_bwd_dq_reference(*bwd_args, **kw), None, err_dq),
+      ("dkv", "K5b", lambda: fa.flash_bwd_dkv_kernel(*bwd_args, **kw),
+       lambda: fa.flash_bwd_dkv_reference(*bwd_args, **kw), None, err_dkv)):
     t_kern = _time_ms(kern_fn, 10, flush)
     t_ref = _time_ms(ref_fn, 5, flush)
-    t_lib = _library_ms(f"K{1 if key == 'fwd' else 2}", lib, 10, flush)
+    t_lib = (_library_ms(kid, lib, 10, flush) if lib is not None
+             else res["bwd"]["library_ms"])
     bound_ms, bound_by = bounds[key]
     res[key] = dict(err=err, ms=t_kern, plain_ms=t_ref, library_ms=t_lib,
                     bound_ms=bound_ms, bound_by=bound_by)
-    print(f"  {key}: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}) (L2 flushed before each call)")
+    print(f"  {kid}: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / t_kern:.2f}% of "
+          "it (L2 flushed before each call)")
+  print(f"  K5a + K5b: {res['dq']['ms'] + res['dkv']['ms']:.4f} ms against "
+        f"K2's {res['bwd']['ms']:.4f} ms")
   _library_ms("forward + backward", lib_fwd_bwd, 10, flush)
   del q, k, v, g, out, lse, out_r, lse_r, qf, kf, vf, gf
   torch.cuda.empty_cache()
 
   def both(name, q, k, v, g, segs=None, tol=F32_TOL, **kw):
-    """K1 and K2 against the plain versions on one input."""
+    """K1, K2, K5a and K5b against the plain versions on one input."""
     o, l = fa.flash_fwd(q, k, v, segs, **kw)
     o_r, l_r = fa.flash_fwd_reference(q, k, v, segs, **kw)
     _compare(f"{name} out", o, o_r, **tol)
     _compare(f"{name} lse", l, l_r, **F32_TOL)
-    for gname, x, y in zip(("dq", "dk", "dv"),
-                           fa.flash_bwd(q, k, v, g, o_r, l_r, segs, **kw),
-                           fa.flash_bwd_reference(q, k, v, g, o_r, l_r, segs,
-                                                  **kw)):
+    args = (q, k, v, g, o_r, l_r, segs)
+    ref = fa.flash_bwd_reference(*args, **kw)
+    for gname, x, y in zip(("dq", "dk", "dv"), fa.flash_bwd(*args, **kw), ref):
+      _compare(f"{name} {gname}", x, y, **tol)
+    split = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+    for gname, x, y in zip(("K5a dq", "K5b dk", "K5b dv"), split, ref):
       _compare(f"{name} {gname}", x, y, **tol)
 
-  print("K1/K2 case 2: GQA N8/n_kv2 through flash_attention (autograd), "
-        "bf16, T 256, cap 50, against the same call on the CPU's plain "
-        "versions in f32")
-  qg, _, _, gg = _flash_inputs(dev, gen, 2, 256, 8, 64, torch.bfloat16)
-  kg, vg, _, _ = _flash_inputs(dev, gen, 2, 256, 2, 64, torch.bfloat16)
-  outs = []
-  for device, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
-    xs = [x.detach().to(device, dtype).requires_grad_() for x in (qg, kg, vg)]
-    o = fa.flash_attention(*xs, logit_cap=50.0)
-    o.backward(gg.to(device, dtype))
-    outs.append([o] + [x.grad for x in xs])
-  for name, x, y in zip(("out", "dq", "dk", "dv"), *outs):
-    _compare(f"GQA {name}", x, y.to(dev), **BF16_TOL)
+  for fused in (False, True):
+    print(f"K1/{'K2' if fused else 'K5'} case 2: GQA N8/n_kv2 through "
+          f"flash_attention (autograd, bwd_fused={fused}), bf16, T 256, cap "
+          "50, against the same call on the CPU's plain versions in f32")
+    qg, _, _, gg = _flash_inputs(dev, gen, 2, 256, 8, 64, torch.bfloat16)
+    kg, vg, _, _ = _flash_inputs(dev, gen, 2, 256, 2, 64, torch.bfloat16)
+    outs = []
+    for device, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+      xs = [x.detach().to(device, dtype).requires_grad_()
+            for x in (qg, kg, vg)]
+      o = fa.flash_attention(*xs, logit_cap=50.0, bwd_fused=fused)
+      o.backward(gg.to(device, dtype))
+      outs.append([o] + [x.grad for x in xs])
+    for name, x, y in zip(("out", "dq", "dk", "dv"), *outs):
+      _compare(f"GQA {name}", x, y.to(dev), **BF16_TOL)
 
-  print("K1/K2 case 3: window 16 + cap 5, f32, T 300")
+  print("K1/K2/K5 case 3: window 16 + cap 5, f32, T 300")
   both("window", *_flash_inputs(dev, gen, 2, 300, 2, 64, torch.float32),
        window=16, logit_cap=5.0, sm_scale=0.125)
-  print("K1/K2 case 4: packed segment ids, f32, T 256, hd 128")
+  print("K1/K2/K5 case 4: packed segment ids, f32, T 256, hd 128")
   segs = torch.cumsum((torch.rand((2, 256), generator=gen, device=dev)
                        < 0.03).int(), dim=1).int().contiguous()
   both("segments", *_flash_inputs(dev, gen, 2, 256, 2, 128, torch.float32),
        segs=segs, sm_scale=0.09)
   for tt in (77, 200):
-    print(f"K1/K2 case 5: ragged T {tt}, f32")
+    print(f"K1/K2/K5 case 5: ragged T {tt}, f32")
     both(f"T={tt}", *_flash_inputs(dev, gen, 2, tt, 3, 32, torch.float32),
          sm_scale=0.2, logit_cap=50.0)
-  print("K1/K2 case 6: documents of length 1 (each query sees only itself; "
+  print("K1/K2/K5 case 6: documents of length 1 (each query sees only itself; "
         "a query with no live key cannot occur under causal masking)")
   qd, kd, vd, gd = _flash_inputs(dev, gen, 1, 70, 2, 16, torch.float32)
   segs1 = torch.arange(70, device=dev, dtype=torch.int32)[None].contiguous()
@@ -557,17 +606,19 @@ def xent_phase(dev, flush):
   return res
 
 
-def _step_flops(cfg, b, t, fused=False):
-  """(executed, model) FLOPs of one training step with full remat.
+def _step_flops(cfg, b, t, fused=False, policy="full", split=False):
+  """(executed, model) FLOPs of one training step.
 
-  Executed: the blocks' matmuls 8 * params * tokens (forward, backward 2x,
-  remat forward), the attention kernels (K1 twice, K2 once per layer,
-  causal pairs), and the unembed 6 * d * V * tokens, or 10 with the fused
-  loss (K3a 2, K3b 4 and K3c 4: both backward kernels recompute the
+  Executed: the blocks' matmuls 8 * params * tokens under full remat
+  (forward, backward 2x, remat forward), 6 under the dots policies, which
+  save them; the attention kernels per layer and causal pair: K1 4 * hd,
+  twice (once under dots_flash, which saves its outputs), and K2 10 * hd or
+  K5a + K5b 14 * hd (split); the unembed 6 * d * V * tokens, or 10 with the
+  fused loss (K3a 2, K3b 4 and K3c 4: both backward kernels recompute the
   logits). Model: what the step must compute, without any recompute:
   6 * params * tokens, attention forward and backward 12 * hd per causal
-  pair and layer, the unembed 6 * d * V * tokens; the same for both
-  losses."""
+  pair and layer, the unembed 6 * d * V * tokens; the same for all
+  paths."""
   d, hd, n, f = cfg.model_dim, cfg.head_dim, cfg.n_heads, \
       cfg.expand_factor * cfg.model_dim
   block_params = cfg.n_layers * (d * hd * (2 * n + 2 * cfg.n_kv_heads)
@@ -575,9 +626,11 @@ def _step_flops(cfg, b, t, fused=False):
   tokens = b * t
   live = b * n * t * (t + 1) / 2
   unembed = d * cfg.vocab_size * tokens
-  attention = cfg.n_layers * (2 * 4.0 * hd * live + 10.0 * hd * live)
-  executed = (8.0 * block_params * tokens + attention
-              + (10.0 if fused else 6.0) * unembed)
+  k1_runs = 1 if policy == "dots_flash" else 2
+  attention = cfg.n_layers * hd * live * (
+      k1_runs * 4.0 + (14.0 if split else 10.0))
+  executed = ((8.0 if policy == "full" else 6.0) * block_params * tokens
+              + attention + (10.0 if fused else 6.0) * unembed)
   model = (6.0 * block_params * tokens + cfg.n_layers * 12.0 * hd * live
            + 6.0 * unembed)
   return executed, model
@@ -606,9 +659,10 @@ def _step1(dev, tree, first, configs):
   return out
 
 
-def _step1_check(results, a, b, limits, why):
+def _step1_check(results, a, b, limits, why, bit_equal=False):
   """|dloss|, the relative difference of the global grad norms and the
-  lowest per-leaf cosine of step 1 on paths a and b, within limits."""
+  lowest per-leaf cosine of step 1 on paths a and b, within limits; and
+  how many grad leaves are bit-equal (with bit_equal, all must be)."""
   import torch
   from automl_tpu_torch.train import lm_trainer
   (loss_a, g_a), (loss_b, g_b) = results[a], results[b]
@@ -618,21 +672,25 @@ def _step1_check(results, a, b, limits, why):
       g_a[k].flatten().double(), g_b[k].flatten().double(), dim=0))
          for k in g_a}
   worst = min(cos, key=cos.get)
+  equal = sum(bool(torch.equal(g_a[k], g_b[k])) for k in g_a)
   d_loss, d_norm = abs(loss_a - loss_b), abs(norm_a / norm_b - 1)
   lim_loss, lim_norm, lim_cos = limits
   print(f"step 1, {a} vs {b}: |dloss| {d_loss:.3e} (limit {lim_loss:g}), "
         f"grad norm {norm_a:.5f} vs {norm_b:.5f} (rel. diff {d_norm:.3e}, "
         f"limit {lim_norm:g}), lowest per-leaf cosine {cos[worst]:.7f} at "
-        f"{worst} (limit {lim_cos}). {why}")
-  if not (d_loss <= lim_loss and d_norm <= lim_norm and cos[worst] >= lim_cos):
+        f"{worst} (limit {lim_cos}), {equal} of {len(g_a)} grad leaves "
+        f"bit-equal. {why}")
+  if not (d_loss <= lim_loss and d_norm <= lim_norm and cos[worst] >= lim_cos
+          and (equal == len(g_a) or not bit_equal)):
     raise AssertionError(f"step 1 on the {a} path disagrees with the {b} "
                          "path")
 
 
-def _train_run(workdir, flags, steps, fused):
+def _train_run(workdir, flags, steps, label, expected, flops):
   """cli/main_lm for `steps` steps with every launch count set to 0 just
-  before and read just after; checks that the loss is finite and falls.
-  Returns (K1, K2, K3a, K3b, K3c) launches."""
+  before and read just after; checks that the loss is finite and falls and
+  that the launches are `expected` ({kernel: launches}). `flops`: (executed,
+  model) FLOPs of a step. Returns {kernel: launches}."""
   import numpy as np
   import torch
   from automl_tpu_torch.cli import main_lm
@@ -640,23 +698,22 @@ def _train_run(workdir, flags, steps, fused):
   from automl_tpu_torch.ops import attention as fa
   from automl_tpu_torch.ops import xent
 
-  def counts():
-    return (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd,
-            xent.fused_softmax_xent.launches_fwd,
-            xent.fused_softmax_xent.launches_dx,
-            xent.fused_softmax_xent.launches_dw)
-
+  counters = {"K1": (fa.flash_attention, "launches_fwd"),
+              "K2": (fa.flash_attention, "launches_bwd"),
+              "K5a": (fa.flash_attention, "launches_dq"),
+              "K5b": (fa.flash_attention, "launches_dkv"),
+              "K3a": (xent.fused_softmax_xent, "launches_fwd"),
+              "K3b": (xent.fused_softmax_xent, "launches_dx"),
+              "K3c": (xent.fused_softmax_xent, "launches_dw")}
   cfg = lm_lib.get_lm_config("lm-flops1e19")
   batch = 8
   torch.cuda.reset_peak_memory_stats()
-  fa.flash_attention.launches_fwd = fa.flash_attention.launches_bwd = 0
-  xent.fused_softmax_xent.launches_fwd = 0
-  xent.fused_softmax_xent.launches_dx = 0
-  xent.fused_softmax_xent.launches_dw = 0
+  for fn, attr in counters.values():
+    setattr(fn, attr, 0)
   t0 = time.perf_counter()
   main_lm.main(flags + [f"--train_steps={steps}"])
   wall = time.perf_counter() - t0
-  launches = counts()
+  launches = {kid: getattr(fn, attr) for kid, (fn, attr) in counters.items()}
   peak = torch.cuda.max_memory_allocated()
   recs = [json.loads(line) for line in
           open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
@@ -669,20 +726,14 @@ def _train_run(workdir, flags, steps, fused):
   if not np.mean(losses[-5:]) < losses[0]:
     raise AssertionError(f"loss did not fall: step 1 {losses[0]:.4f}, mean "
                          f"of the last 5 {np.mean(losses[-5:]):.4f}")
-  n_layers = cfg.n_layers
-  expected = (2 * n_layers * steps, n_layers * steps) + (
-      (steps,) * 3 if fused else (0,) * 3)
-  print(f"launches in the run: K1 {launches[0]}, K2 {launches[1]}, K3a "
-        f"{launches[2]}, K3b {launches[3]}, K3c {launches[4]} (expected "
-        f"{expected}: K1 2 x {n_layers} x {steps} with the remat forward, "
-        f"K2 {n_layers} x {steps}, K3a-c {steps if fused else 0} each)")
+  print(f"launches in the run: {launches} (expected {expected})")
   if launches != expected:
     raise AssertionError("the run did not go through the kernels as "
                          "expected")
   step_s = float(np.median(secs[4:]))
-  flops, model_flops = _step_flops(cfg, batch, cfg.seq_len, fused)
-  print(f"train b{batch} T{cfg.seq_len} ({'fused' if fused else 'unfused'} "
-        f"loss): {steps} steps in {wall:.1f} s (model build included); step "
+  flops, model_flops = flops
+  print(f"train b{batch} T{cfg.seq_len} ({label}): {steps} steps in "
+        f"{wall:.1f} s (model build included); step "
         f"{step_s * 1e3:.1f} ms (median of steps 5-{steps}), "
         f"{batch * cfg.seq_len / step_s:.0f} tokens/s, peak memory "
         f"{peak / 2**30:.2f} GiB; {flops / 1e12:.2f} TFLOP per step executed "
@@ -694,8 +745,9 @@ def _train_run(workdir, flags, steps, fused):
 
 
 def training_phase(dev, workdir):
-  """lm-flops1e19 training through main_lm, unfused and with the fused
-  loss; returns the launches (K1, K2, K3a, K3b, K3c) of each 30-step run."""
+  """lm-flops1e19 training through main_lm: unfused, with the fused loss,
+  and with the split backward under remat_policy dots_flash; returns
+  {run: {kernel: launches}} of the three 30-step runs."""
   import torch
   from automl_tpu_torch import convert
   from automl_tpu_torch.models import lm as lm_lib
@@ -710,12 +762,16 @@ def training_phase(dev, workdir):
                                                cfg.vocab_size)))
   first = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
   flash = "use_flash_attention=true"
+  split = f"{flash},flash_bwd_fused=false"
   results = _step1(dev, tree, first, {
       "flash": flash,
       "dense": "use_flash_attention=false",
       "fused pallas": f"{flash},fused_softmax_loss=pallas",
       "unfused bfloat16_vjp": f"{flash},unembed_matmul_dtype=bfloat16_vjp",
       "fused scan": f"{flash},fused_softmax_loss=scan",
+      "split": split,
+      "split dots": f"{split},remat_policy=dots",
+      "split dots_flash": f"{split},remat_policy=dots_flash",
   })
   # The dense path rounds the probabilities to bf16 before p.v (as the JAX
   # dots path does); the kernels keep them in f32, and sum in another
@@ -734,21 +790,54 @@ def training_phase(dev, workdir):
   # Measured on the H100: |dloss| 0, norms 2.0e-6 apart, cosine 0.9999982.
   _step1_check(results, "fused scan", "flash", (1e-5, 5e-5, 0.99995),
                "The limits: 1e-5, 25x, 28x (1 - cosine) of the measured.")
+  # A remat policy changes what the backward recomputes, never a value: the
+  # kernels and matmuls that run again give the same bits. Measured on the
+  # H100: the loss and all 82 grad leaves bit-equal, under dots and
+  # dots_flash alike; so they must be.
+  for policy in ("split dots", "split dots_flash"):
+    _step1_check(results, policy, "split", (0.0, 0.0, 0.999999),
+                 "Must be bit-equal.", bit_equal=True)
+  # The forward is the same; K5a sums dq over key tiles in registers where
+  # K2 adds them in a fixed order in L2, so dq (and all that it feeds) may
+  # differ in its last bits. Measured on the H100: the loss equal, norms
+  # 2.0e-6 apart, cosine 0.9999984, 8 of 82 leaves bit-equal.
+  _step1_check(results, "split", "flash", (1e-6, 5e-5, 0.99995),
+               "The limits: 1e-6, 25x, 31x (1 - cosine) of the measured.")
   del results, tree, first
   torch.cuda.empty_cache()
 
   common = ["--config_name=lm-flops1e19", f"--batch_size={batch}",
             "--warmup_steps=3", "--log_every=1", "--device=cuda"]
   flags = common + [f"--model_dir={workdir}", f"--experiment_config={flash}"]
-  unfused = _train_run(workdir, flags, steps, fused=False)
+  n = cfg.n_layers * steps
+  none = dict.fromkeys(("K1", "K2", "K5a", "K5b", "K3a", "K3b", "K3c"), 0)
+  t = cfg.seq_len
+  runs = {}
+  # Full remat re-runs K1 in the backward: 2 x n_layers a step.
+  runs["unfused"] = _train_run(
+      workdir, flags, steps, "unfused loss, full remat, K2",
+      dict(none, K1=2 * n, K2=n), _step_flops(cfg, batch, t))
   _resume_check(flags, workdir, steps)
   fused_dir = workdir + "_fused"
-  fused = _train_run(fused_dir, common + [
-      f"--model_dir={fused_dir}",
-      f"--experiment_config={flash},fused_softmax_loss=pallas"], steps,
-                     fused=True)
+  runs["fused"] = _train_run(
+      fused_dir, common + [
+          f"--model_dir={fused_dir}",
+          f"--experiment_config={flash},fused_softmax_loss=pallas"], steps,
+      "fused loss, full remat, K2",
+      dict(none, K1=2 * n, K2=n, K3a=steps, K3b=steps, K3c=steps),
+      _step_flops(cfg, batch, t, fused=True))
+  split_dir = workdir + "_split"
+  # dots_flash saves K1's (out, lse): K1 once per layer and step.
+  runs["split"] = _train_run(
+      split_dir, common + [
+          f"--model_dir={split_dir}",
+          f"--experiment_config={split},remat_policy=dots_flash"], steps,
+      "unfused loss, remat_policy dots_flash, K5a + K5b",
+      dict(none, K1=n, K5a=n, K5b=n),
+      _step_flops(cfg, batch, t, policy="dots_flash", split=True))
   torch.cuda.empty_cache()
-  return unfused, fused
+  return runs
+
 
 
 def _resume_check(flags, workdir, steps, cli="automl_tpu_torch.cli.main_lm"):
@@ -1047,8 +1136,10 @@ def _profiled(fn):
 
 def profile_phase(dev):
   """Under torch.profiler (run with --profile): two steps of the training
-  slice, unfused and with the fused loss "pallas", device time by kernel
-  and the device-busy share of the steps' wall time; then the serving
+  slice, unfused and with the fused loss "pallas" (full remat, K2), then
+  under remat_policy dots_flash with the split (K5a/K5b) and the fused (K2)
+  backward, device time by kernel and the device-busy share of the steps'
+  wall time; then the serving
   slice's decode step, from greedy_generate with 1 and with 65 new tokens
   (the difference over 64 steps)."""
   import numpy as np
@@ -1058,9 +1149,13 @@ def profile_phase(dev):
   from automl_tpu_torch.models import lm as lm_lib
   from automl_tpu_torch.train import lm_trainer, optimizers, schedules
 
-  for loss in ("false", "pallas"):
+  flash = "use_flash_attention=true"
+  for overrides in (f"{flash},fused_softmax_loss=false",
+                    f"{flash},fused_softmax_loss=pallas",
+                    f"{flash},remat_policy=dots_flash,flash_bwd_fused=false",
+                    f"{flash},remat_policy=dots_flash,flash_bwd_fused=true"):
     cfg = lm_lib.get_lm_config("lm-flops1e19")
-    cfg.override(f"use_flash_attention=true,fused_softmax_loss={loss}")
+    cfg.override(overrides)
     model = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev),
                                     convert.numpy_init(cfg, 0))
     lr_fn = schedules.lm_lr("cosine_decay", cfg.learning_rate,
@@ -1079,6 +1174,7 @@ def profile_phase(dev):
 
     state = step(state)
     n = 2
+    torch.cuda.reset_peak_memory_stats()
 
     def steps():
       nonlocal state
@@ -1087,10 +1183,11 @@ def profile_phase(dev):
 
     wall_us, rows, _ = _profiled(steps)
     busy = sum(r[0] for r in rows)
-    print(f"profile, {n} training steps, fused_softmax_loss={loss}: wall "
+    print(f"profile, {n} training steps, {overrides}: wall "
           f"{wall_us / n / 1e3:.1f} ms/step, device busy "
           f"{busy / n / 1e3:.1f} ms/step ({100 * busy / wall_us:.1f}% of "
-          "the wall time)")
+          f"the wall time), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for dt, count, key in rows[:20]:
       print(f"  {dt / n / 1e3:9.2f} ms/step {100 * dt / busy:5.1f}%  "
             f"{count // n:5d} calls/step  {key[:90]}")
@@ -1377,9 +1474,10 @@ def main() -> int:
   build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
   workdir = os.path.join(build, "chip_smoke_lm")
   det_dir = os.path.join(build, "chip_smoke_det")
-  for d in (workdir, workdir + "_fused", det_dir, det_dir + "_off"):
+  for d in (workdir, workdir + "_fused", workdir + "_split", det_dir,
+            det_dir + "_off"):
     shutil.rmtree(d, ignore_errors=True)
-  (k1_launches, k2_launches, *_), k3_launches = training_phase(dev, workdir)
+  runs = training_phase(dev, workdir)
   k6_launches = detection_phase(dev, det_dir)
   k4_launches = serving_phase(dev)
   print(f"prefill K4 at the slice's shapes: {json.dumps(k4['prefill T=512'])}")
@@ -1389,15 +1487,23 @@ def main() -> int:
              "automl_tpu/ops/decode_attention.py:51", k4_launches,
              k4["decode T=1"]),
       _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention.cu",
-             "automl_tpu/ops/attention.py:82", k1_launches, flash["fwd"]),
+             "automl_tpu/ops/attention.py:82", runs["unfused"]["K1"],
+             flash["fwd"]),
       _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention.cu",
-             "automl_tpu/ops/attention.py:320", k2_launches, flash["bwd"]),
+             "automl_tpu/ops/attention.py:320", runs["unfused"]["K2"],
+             flash["bwd"]),
+      _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention.cu",
+             "automl_tpu/ops/attention.py:240", runs["split"]["K5a"],
+             flash["dq"]),
+      _entry("flash_bwd_dkv", "automl_tpu_torch/csrc/flash_attention.cu",
+             "automl_tpu/ops/attention.py:277", runs["split"]["K5b"],
+             flash["dkv"]),
       _entry("xent_fwd", "automl_tpu_torch/csrc/xent.cu",
-             "automl_tpu/ops/xent.py:66", k3_launches[2], k3["fwd"]),
+             "automl_tpu/ops/xent.py:66", runs["fused"]["K3a"], k3["fwd"]),
       _entry("xent_dx", "automl_tpu_torch/csrc/xent.cu",
-             "automl_tpu/ops/xent.py:113", k3_launches[3], k3["dx"]),
+             "automl_tpu/ops/xent.py:113", runs["fused"]["K3b"], k3["dx"]),
       _entry("xent_dw", "automl_tpu_torch/csrc/xent.cu",
-             "automl_tpu/ops/xent.py:138", k3_launches[4], k3["dw"]),
+             "automl_tpu/ops/xent.py:138", runs["fused"]["K3c"], k3["dw"]),
       _entry("depthwise_filter_grad", "automl_tpu_torch/csrc/depthwise.cu",
              "automl_tpu/ops/depthwise.py:37", k6_launches,
              k6["B0 stride-1 [16,32,256,256] k3"]),

@@ -1,12 +1,15 @@
 """automl_tpu_torch flash attention vs automl_tpu's Pallas kernels on the CPU.
 
-The JAX side runs its Pallas kernels in interpret mode (the forward K1 and
-the fused backward K2, bwd_fused=True); the port's CPU path is the plain
-versions of its CUDA kernels. Inputs are made with numpy from a seed, in
+The JAX side runs its Pallas kernels in interpret mode (the forward K1, the
+fused backward K2, bwd_fused=True, and the split backward K5a/K5b,
+bwd_fused=False); the port's CPU path is the plain versions of its CUDA
+kernels. Inputs are made with numpy from a seed, in
 f32; JAX matmuls run at "highest" precision (tests/conftest.py).
 Tolerances are those of tests/test_attention.py: forward atol 2e-5,
 gradients atol 3e-4 / rtol 1e-3 (another summation order over T and H).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -53,8 +56,16 @@ CASES = {
 }
 
 
+def _launches():
+  f = ta.flash_attention
+  return (f.launches_fwd, f.launches_bwd, f.launches_dq, f.launches_dkv)
+
+
+@pytest.mark.parametrize("bwd_fused", [True, False], ids=["fused", "split"])
 @pytest.mark.parametrize("name", list(CASES))
-def test_flash_attention_forward_and_grads_match_jax(name):
+def test_flash_attention_forward_and_grads_match_jax(name, bwd_fused):
+  """flash_attention with the fused (K2) or the split (K5a/K5b) backward,
+  the same in both packages."""
   case = dict(dict(b=2, t=64, n=2, nkv=None, h=16, block=16), **CASES[name])
   b, t, n, h, block = (case.pop(k) for k in ("b", "t", "n", "h", "block"))
   nkv = case.pop("nkv") or n
@@ -64,7 +75,7 @@ def test_flash_attention_forward_and_grads_match_jax(name):
 
   def jfn(q, k, v):
     return ja.flash_attention(
-        q, k, v, block_q=block, block_k=block, bwd_fused=True,
+        q, k, v, block_q=block, block_k=block, bwd_fused=bwd_fused,
         interpret=True,
         segment_ids=None if seg is None else jnp.asarray(seg), **kw)
 
@@ -72,17 +83,16 @@ def test_flash_attention_forward_and_grads_match_jax(name):
   want_grads = vjp(jnp.asarray(g))
 
   tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-  before = (ta.flash_attention.launches_fwd, ta.flash_attention.launches_bwd)
+  before = _launches()
   got = ta.flash_attention(
-      tq, tk, tv, block_q=block, block_k=block,
+      tq, tk, tv, block_q=block, block_k=block, bwd_fused=bwd_fused,
       segment_ids=None if seg is None else torch.from_numpy(seg), **kw)
   got.backward(torch.from_numpy(g))
   np.testing.assert_allclose(_np(got), _np(want), **FWD_TOL)
   for x, w in zip((tq, tk, tv), want_grads):
     np.testing.assert_allclose(_np(x.grad), _np(w), **GRAD_TOL)
   # CPU tensors take the plain versions: no kernel was launched.
-  assert (ta.flash_attention.launches_fwd,
-          ta.flash_attention.launches_bwd) == before
+  assert _launches() == before
 
 
 def _bnth(x):
@@ -127,6 +137,88 @@ def test_plain_kernels_match_pallas_kernels(kw):
   grads = ta.flash_bwd_reference(tq, tk, tv, tg, out, lse, tsegs, **kw)
   for got, want in zip(grads, (jdq, jdk, jdv)):
     np.testing.assert_allclose(_bnth(_np(got)), want, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(t=40),
+    dict(window=8, logit_cap=50.0),
+    dict(segments=True, logit_cap=5.0),
+    dict(t=20, length_one_docs=True, logit_cap=50.0),
+    dict(t=48, bwd_blocks=(32, 8), window=16),
+    dict(causal=False, window=12, logit_cap=5.0),
+], ids=["ragged", "window_cap", "segments_cap", "length_one_docs",
+        "bwd_blocks_differ", "non_causal_window"])
+def test_plain_split_backward_matches_pallas_kernels(kw):
+  """flash_bwd_dq_reference (K5a) and flash_bwd_dkv_reference (K5b) vs
+  _flash_bwd_pallas in interpret mode, at the kernels' own interfaces, on
+  the forward's (out, lse) from _flash_fwd_pallas with 16 x 16 blocks; the
+  backward's blocks 16 x 16 or as given (the TPU tiling only: the results
+  must not depend on it). Gradients atol 3e-4 / rtol 1e-3 (K2's
+  tolerance). The plain K2 is the two halves: bit-equal to them."""
+  kw = dict(kw)
+  t = kw.pop("t", 32)
+  bq, bk = kw.pop("bwd_blocks", (16, 16))
+  b, n, h = 2, 2, 8
+  q, k, v, g, seg = _arrays(b, t, n, n, h, seed=t + 1,
+                            segments=kw.pop("segments", False))
+  if kw.pop("length_one_docs", False):
+    seg = np.tile(np.arange(t, dtype=np.int32), (b, 1))
+  kw = dict(dict(causal=True, window=None, logit_cap=0.0, sm_scale=0.3), **kw)
+  jsegs = None if seg is None else ja._seg_operands(jnp.asarray(seg), n)
+  tsegs = None if seg is None else torch.from_numpy(seg)
+  jout, jlse = ja._flash_fwd_pallas(
+      _bnth(q), _bnth(k), _bnth(v), jsegs, n_heads=n, block_q=16,
+      block_k=16, interpret=True, **kw)
+  jlse = jlse[:, 0, :]
+  delta = jnp.sum(_bnth(g) * jout, axis=-1)
+  want = ja._flash_bwd_pallas(
+      _bnth(q), _bnth(k), _bnth(v), _bnth(g), jlse, delta, jsegs,
+      n_heads=n, block_q=bq, block_k=bk, interpret=True, **kw)
+  tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+  out = torch.from_numpy(np.array(jout)).reshape(b, n, t, h).transpose(1, 2)
+  lse = torch.from_numpy(np.array(jlse))
+  args = (tq, tk, tv, tg, out, lse, tsegs)
+  dq = ta.flash_bwd_dq_reference(*args, **kw)
+  dk, dv = ta.flash_bwd_dkv_reference(*args, **kw)
+  for got, w in zip((dq, dk, dv), want):
+    assert np.isfinite(_np(got)).all()
+    np.testing.assert_allclose(_bnth(_np(got)), w, **GRAD_TOL)
+  for x, y in zip(ta.flash_bwd_reference(*args, **kw), (dq, dk, dv)):
+    assert torch.equal(x, y)
+
+
+def test_default_backward_is_the_split_backward(monkeypatch):
+  """flash_attention's default backward is the split one in both packages
+  (JAX: bwd_fused=False): the port's default call runs the plain K5a and
+  K5b once each and not the plain K2, as JAX's default grad reaches
+  _flash_bwd_pallas (two pallas_calls) and not _flash_bwd_fused_pallas;
+  and the two give the same grads (atol 3e-4 / rtol 1e-3)."""
+  q, k, v, g, _ = _arrays(1, 32, 2, 2, 8, seed=9)
+  calls = []
+  for name in ("flash_bwd_reference", "flash_bwd_dq_reference",
+               "flash_bwd_dkv_reference"):
+    fn = getattr(ta, name)
+    monkeypatch.setattr(ta, name, lambda *a, _fn=fn, _n=name, **kw: (
+        calls.append(_n), _fn(*a, **kw))[1])
+  tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+  ta.flash_attention(tq, tk, tv, logit_cap=50.0).backward(torch.from_numpy(g))
+  assert sorted(calls) == ["flash_bwd_dkv_reference", "flash_bwd_dq_reference"]
+
+  def jloss(q, k, v, **kw):
+    out = ja.flash_attention(q, k, v, logit_cap=50.0, block_q=16,
+                             block_k=16, interpret=True, **kw)
+    return jnp.sum(out * jnp.asarray(g))
+
+  def pallas_calls(**kw):
+    grad = jax.grad(functools.partial(jloss, **kw), argnums=(0, 1, 2))
+    return str(jax.make_jaxpr(grad)(*jargs)).count("pallas_call")
+
+  jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+  # The forward and two backward kernels; the fused backward is one.
+  assert (pallas_calls(), pallas_calls(bwd_fused=True)) == (3, 2)
+  want = jax.grad(jloss, argnums=(0, 1, 2))(*jargs)
+  for x, w in zip((tq, tk, tv), want):
+    np.testing.assert_allclose(_np(x.grad), _np(w), **GRAD_TOL)
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(window=8, logit_cap=50.0),
@@ -177,8 +269,6 @@ def test_bf16_inputs_keep_dtype_and_f32_math():
 def test_unported_and_wrong_inputs_raise():
   q, k, v, _, _ = _arrays(1, 8, 4, 3, 8, seed=6)
   tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
-  with pytest.raises(NotImplementedError, match="K5"):
-    ta.flash_attention(tq, tq, tq, bwd_fused=False)
   with pytest.raises(ValueError, match="GQA"):
     ta.flash_attention(tq, tk, tv)
   with pytest.raises(ValueError, match="segment_ids"):

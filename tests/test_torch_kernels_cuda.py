@@ -122,8 +122,7 @@ def _flash_inputs(dev, b, t, n, h, dtype, seed, segments=False):
   return q, k, v, g, segs
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [
+FLASH_CASES = pytest.mark.parametrize("case", [
     dict(b=2, t=512, n=4, h=128, dtype=torch.bfloat16, logit_cap=50.0,
          sm_scale=128 ** -0.5),                                  # mid size
     dict(b=2, t=77, n=3, h=16, dtype=torch.float32),             # ragged T
@@ -134,6 +133,15 @@ def _flash_inputs(dev, b, t, n, h, dtype, seed, segments=False):
     dict(b=1, t=64, n=1, h=8, dtype=torch.float32, causal=False),
 ], ids=["bf16_mid", "f32_ragged", "f32_window_cap", "f32_segments_hd100",
         "f32_non_causal"])
+
+
+def _flash_launches():
+  f = fa.flash_attention
+  return (f.launches_fwd, f.launches_bwd, f.launches_dq, f.launches_dkv)
+
+
+@pytest.mark.cuda
+@FLASH_CASES
 def test_flash_kernels_match_plain(dev, case):
   """K1 (out, lse) and K2 (dq, dk, dv) against their plain versions on the
   same inputs; each launch counted once."""
@@ -181,27 +189,103 @@ def test_flash_bwd_kernel_is_deterministic(dev, kw):
 
 
 @pytest.mark.cuda
-def test_flash_attention_autograd_gqa_on_card_matches_cpu(dev):
+@FLASH_CASES
+def test_split_bwd_kernels_match_plain(dev, case):
+  """K5a (dq) and K5b (dk, dv) against their plain versions on the same
+  inputs and the plain forward's (out, lse); each launch counted once."""
+  case = dict(case)
+  dtype = case.pop("dtype")
+  q, k, v, g, segs = _flash_inputs(dev, case.pop("b"), case.pop("t"),
+                                   case.pop("n"), case.pop("h"), dtype,
+                                   seed=5, segments=case.pop("segments",
+                                                             False))
+  kw = dict(dict(causal=True, sm_scale=0.25), **case)
+  out, lse = fa.flash_fwd_reference(q, k, v, segs, **kw)
+  args = (q, k, v, g, out, lse, segs)
+  before = _flash_launches()
+  dq = fa.flash_bwd_dq(*args, **kw)
+  dk, dv = fa.flash_bwd_dkv(*args, **kw)
+  torch.cuda.synchronize()
+  _close(dq, fa.flash_bwd_dq_reference(*args, **kw), dtype)
+  for got, want in zip((dk, dv), fa.flash_bwd_dkv_reference(*args, **kw)):
+    _close(got, want, dtype)
+  assert _flash_launches() == (before[0], before[1], before[2] + 1,
+                               before[3] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(t=512, causal=True, logit_cap=50.0),
+    dict(t=300, causal=True, window=70),
+    dict(t=260, causal=False, window=40),
+], ids=["causal", "causal_window", "non_causal_window"])
+def test_split_bwd_kernels_are_deterministic(dev, kw):
+  """K5a keeps dq in registers over the key tiles and K5b dk/dv over the q
+  tiles, with no atomics: two calls give bit-equal dq, dk, dv."""
+  kw = dict(kw)
+  q, k, v, g, _ = _flash_inputs(dev, 2, kw.pop("t"), 3, 128, torch.bfloat16,
+                                seed=6)
+  out, lse = fa.flash_fwd(q, k, v, **kw)
+  args = (q, k, v, g, out, lse)
+  first = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+  second = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+  torch.cuda.synchronize()
+  for x, y in zip(first, second):
+    assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd_fused", [False, True], ids=["split", "fused"])
+def test_flash_attention_autograd_gqa_on_card_matches_cpu(dev, bwd_fused):
   """flash_attention with GQA 4/2, window, cap, segments and T = 90 through
-  autograd on the card (K1, K2) and on the CPU (plain versions)."""
+  autograd on the card (K1, and K5a + K5b or K2) and on the CPU (plain
+  versions)."""
   q, _, _, g, segs = _flash_inputs(dev, 2, 90, 4, 32, torch.float32, seed=1,
                                    segments=True)
   _, k, v, _, _ = _flash_inputs(dev, 2, 90, 2, 32, torch.float32, seed=2)
-  kw = dict(window=24, logit_cap=50.0)
+  kw = dict(window=24, logit_cap=50.0, bwd_fused=bwd_fused)
   results = []
   for device in (dev, torch.device("cpu")):
     xs = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
     out = fa.flash_attention(*xs, segment_ids=segs.to(device), **kw)
     out.backward(g.to(device))
     results.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
-  for got, want in zip(*results):
-    torch.testing.assert_close(got, want, **F32_TOL)
+  for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
+    torch.testing.assert_close(got, want, **F32_TOL,
+                               msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,k1_per_layer", [("full", 2), ("dots", 2),
+                                                 ("dots_flash", 1)])
+def test_remat_policy_launches_on_card(dev, policy, k1_per_layer):
+  """The loss and grads of one lm-test batch on the card with the split
+  backward: K1 runs once per layer under dots_flash, which saves its
+  (out, lse), and twice under the other policies; K5a and K5b once per
+  layer each, K2 never."""
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm
+  from automl_tpu_torch.train import lm_trainer
+  cfg = lm.get_lm_config("lm-test")
+  cfg.override(dict(use_flash_attention=True, flash_bwd_fused=False,
+                    remat_policy=policy))
+  model = convert.load_jax_params(lm.TransformerLM(cfg, device=dev),
+                                  convert.numpy_init(cfg, 0))
+  batch = next(iter(lm_trainer.SyntheticLMData(2, cfg.seq_len,
+                                               cfg.vocab_size)))
+  batch = {k: torch.from_numpy(x).to(dev) for k, x in batch.items()}
+  before = _flash_launches()
+  loss, _ = lm_trainer.lm_loss_and_grads(model, batch)
+  assert torch.isfinite(loss)
+  n = cfg.n_layers
+  assert tuple(a - b for a, b in zip(_flash_launches(), before)) == (
+      k1_per_layer * n, 0, n, n)
 
 
 @pytest.mark.cuda
 def test_flash_kernels_refuse_what_they_do_not_take(dev):
   q, k, v, g, _ = _flash_inputs(dev, 1, 16, 2, 16, torch.float32, seed=3)
-  before = (fa.flash_attention.launches_fwd, fa.flash_attention.launches_bwd)
+  before = _flash_launches()
   with pytest.raises(TypeError):
     fa.flash_fwd(q.half(), k.half(), v.half())
   with pytest.raises(ValueError, match="dtype"):
@@ -214,10 +298,14 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
   with pytest.raises(ValueError, match="int32"):
     fa.flash_fwd(q, k, v, torch.zeros((1, 16), dtype=torch.int64, device=dev))
   out, lse = fa.flash_fwd_reference(q, k, v)
-  with pytest.raises(ValueError, match="lse"):
-    fa.flash_bwd(q, k, v, g, out, lse[:, :8])
-  assert (fa.flash_attention.launches_fwd,
-          fa.flash_attention.launches_bwd) == before
+  for bwd in (fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+    with pytest.raises(ValueError, match="lse"):
+      bwd(q, k, v, g, out, lse[:, :8])
+    with pytest.raises(ValueError, match="lse"):
+      bwd(q, k, v, g, out, lse.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+      bwd(q, k, v, g.bfloat16(), out, lse)
+  assert _flash_launches() == before
 
 
 def _xent_inputs(dev, m, v, d, dtype, seed, zero_share=0.2):

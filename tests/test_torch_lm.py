@@ -392,9 +392,7 @@ def test_generate_cli_smoke(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("option", [
-    pytest.param("use_flash_attention=True,flash_bwd_fused=False",
-                 id="flash_bwd_fused=False"),
-    "remat_policy=dots", "serve_tp=True", "serve_sp=True",
+    "serve_tp=True", "serve_sp=True",
     "use_window_chunk=True", "use_ring_attention=True",
     "use_combined_qkv=True", "moe_num_experts=4"])
 def test_unported_options_raise(option):

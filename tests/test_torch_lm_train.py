@@ -151,6 +151,88 @@ def test_flash_path_matches_dense_path():
   np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
 
 
+REMAT_CASES = {
+    # The flash path with the split backward (K5a/K5b), and dots_flash with
+    # the fused one (K2); the dense path (materialised mask, batch dots).
+    **{f"flash_split_{p}": dict(remat_policy=p, flash_bwd_fused=False)
+       for p in ("full", "dots", "dots_no_batch", "dots_flash", "dots_attn")},
+    "flash_fused_dots_flash": dict(remat_policy="dots_flash",
+                                   flash_bwd_fused=True),
+    **{f"dense_{p}": dict(remat_policy=p, use_flash_attention=False)
+       for p in ("full", "dots", "dots_no_batch", "dots_flash", "dots_attn")},
+}
+
+
+@pytest.mark.parametrize("name", list(REMAT_CASES))
+def test_remat_policies_match_jax(name):
+  """Every remat policy of JAX's _remat_policy, with the same policy in
+  both packages, on a packed batch: loss rtol 1e-6, every gradient leaf
+  atol 1e-5, rtol 1e-4 (tests/test_lm.py's remat-policy tolerances). A
+  policy changes what the backward recomputes, never a value."""
+  jmodel, jparams, tmodel = _models(seed=30, use_remat=True,
+                                    **REMAT_CASES[name])
+  batch = _batch(seed=31)
+  want_loss, want_grads = _jax_loss_and_grads(jmodel, jparams, batch)
+  loss, grads = ttrain.lm_loss_and_grads(tmodel, _tbatch(batch))
+  np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
+  got = _flat(convert.torch_to_jax_tree(grads))
+  want = _flat(want_grads)
+  assert set(got) == set(want)
+  for path in want:
+    np.testing.assert_allclose(got[path], want[path], atol=1e-5, rtol=1e-4,
+                               err_msg=path)
+
+
+def test_unknown_remat_policy_raises_as_in_jax():
+  """remat_policy="bogus" raises ValueError in both packages once the
+  remat is applied (the forward of a training step)."""
+  jmodel, jparams, tmodel = _models(seed=32, use_remat=True,
+                                    remat_policy="bogus")
+  batch = _batch(seed=33)
+  with pytest.raises(ValueError, match="remat_policy"):
+    _jax_loss_and_grads(jmodel, jparams, batch)
+  with pytest.raises(ValueError, match="remat_policy"):
+    ttrain.lm_loss_and_grads(tmodel, _tbatch(batch))
+
+
+def _count_calls(monkeypatch, module, names):
+  calls = dict.fromkeys(names, 0)
+  for name in names:
+    fn = getattr(module, name)
+
+    def counted(*a, _fn=fn, _n=name, **k):
+      calls[_n] += 1
+      return _fn(*a, **k)
+    monkeypatch.setattr(module, name, counted)
+  return calls
+
+
+FLASH_PLAIN = ("flash_fwd_reference", "flash_bwd_reference",
+               "flash_bwd_dq_reference", "flash_bwd_dkv_reference")
+
+
+@pytest.mark.parametrize("policy,fwd_per_layer", [
+    ("full", 2), ("dots", 2), ("dots_no_batch", 2), ("dots_attn", 2),
+    ("dots_flash", 1)])
+def test_dots_flash_policy_skips_the_flash_forward_in_the_backward(
+    monkeypatch, policy, fwd_per_layer):
+  """The analog of tests/test_lm.py::
+  test_dots_flash_policy_skips_fwd_kernel_in_bwd: one training step's
+  forward and backward on lm-test (2 layers, split backward) run the flash
+  forward once per layer under dots_flash, which saves its (out, lse), and
+  twice (the forward again in the backward) under every other policy; the
+  split backward's two halves once per layer each, and never K2. Counted
+  on the plain versions, which the CPU runs in the kernels' place."""
+  _, _, tmodel = _models(seed=34, use_remat=True, remat_policy=policy,
+                         flash_bwd_fused=False)
+  calls = _count_calls(monkeypatch, tattn, FLASH_PLAIN)
+  ttrain.lm_loss_and_grads(tmodel, _tbatch(_batch(seed=35)))
+  n = tmodel.cfg.n_layers
+  assert calls == {"flash_fwd_reference": fwd_per_layer * n,
+                   "flash_bwd_reference": 0, "flash_bwd_dq_reference": n,
+                   "flash_bwd_dkv_reference": n}
+
+
 def _jax_state(jmodel, jparams, tx):
   return jtrain.LMTrainState(jnp.zeros((), jnp.int32), jparams,
                              tx.init(jparams))
@@ -415,6 +497,38 @@ def test_main_lm_cpu_trains_logs_and_resumes(tmp_path, capsys):
           .splitlines()]
   assert [r["step"] for r in recs][12:] == [13, 14]
   assert "step 13 loss" in capsys.readouterr().out
+
+
+def test_main_lm_cpu_trains_with_the_split_backward_and_dots_flash(
+    tmp_path, monkeypatch):
+  """main_lm --device=cpu with --experiment_config=use_flash_attention=true,
+  flash_bwd_fused=false,remat_policy=dots_flash (the JAX flagship's
+  policy): the override reaches the model (per step and layer, the plain
+  K1 once, K5a and K5b once each, K2 never), 8 steps log finite, falling
+  losses, and a rerun to 10 steps resumes from step 8."""
+  calls = _count_calls(monkeypatch, tattn, FLASH_PLAIN)
+  args = [f"--model_dir={tmp_path}", "--config_name=lm-test",
+          "--experiment_config=use_flash_attention=true,"
+          "flash_bwd_fused=false,remat_policy=dots_flash",
+          "--device=cpu", "--log_every=1", "--learning_rate=0.01",
+          "--lr_schedule=constant", "--warmup_steps=1"]
+  tcli.main(args + ["--train_steps=8"])
+  n = tlm.get_lm_config("lm-test").n_layers * 8
+  assert calls == {"flash_fwd_reference": n, "flash_bwd_reference": 0,
+                   "flash_bwd_dq_reference": n, "flash_bwd_dkv_reference": n}
+  saved = (tmp_path / "experiment_config.yaml").read_text()
+  assert "remat_policy: dots_flash" in saved
+  assert "flash_bwd_fused: false" in saved
+  recs = [json.loads(l) for l in (tmp_path / "metrics.jsonl").read_text()
+          .splitlines()]
+  losses = [r["loss"] for r in recs]
+  assert [r["step"] for r in recs] == list(range(1, 9))
+  assert np.all(np.isfinite(losses))
+  assert np.mean(losses[-2:]) < np.mean(losses[:2])
+  tcli.main(args + ["--train_steps=10"])
+  recs = [json.loads(l) for l in (tmp_path / "metrics.jsonl").read_text()
+          .splitlines()]
+  assert [r["step"] for r in recs][8:] == [9, 10]
 
 
 def test_checkpoint_manager_keeps_newest_and_restores(tmp_path):
