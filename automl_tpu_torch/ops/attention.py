@@ -1,13 +1,18 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
-The counterpart of automl_tpu/ops/attention.py. Four kernels, in
-csrc/flash_attention.cu:
+The counterpart of automl_tpu/ops/attention.py. Four kernels:
   * K1, the forward (replaces _fwd_kernel): out and the row logsumexp lse;
   * K2, the fused backward (replaces _bwd_fused_kernel): dq, dk, dv from one
     recompute of s/p/ds per tile;
   * K5a and K5b, the split backward (replace _bwd_dq_kernel and
     _bwd_dkv_kernel): dq from one kernel, dk and dv from another, each
     recomputing s/p/ds.
+K1 and K2 have two CUDA implementations: for bf16 inputs (head_dim a
+multiple of 8, strides TMA takes) the Hopper kernels of
+csrc/flash_attention_sm90.cu (bf16 wgmma fed by TMA; p and ds split into two
+bf16 halves for the products that take them); for float32 inputs the
+scalar-FMA kernels of csrc/flash_attention.cu, which also hold K5a and K5b
+for both dtypes.
 
 The kernels' interface: q, k, v, g, out, dq, dk, dv [B, T, N, H] (q/k/v/g
 through their strides, unit H stride), lse and delta [B*N, T] f32 with row
@@ -25,7 +30,9 @@ kernels, which raise if they cannot be built or launched; CPU tensors go to
 the plain versions (flash_fwd_reference, flash_bwd_reference,
 flash_bwd_dq_reference, flash_bwd_dkv_reference). There is no fallback from
 the one to the other. `flash_attention.launches_fwd` / `.launches_bwd` /
-`.launches_dq` / `.launches_dkv` count kernel launches.
+`.launches_dq` / `.launches_dkv` count kernel launches, and
+`.launches_fwd_sm90` / `.launches_bwd_sm90` those of K1 / K2 that went to
+the Hopper kernels.
 
 The structure of JAX's _flash_res: the forward is the custom op
 automl_tpu_torch::flash_fwd, called on detached q, k, v, and its (out, lse)
@@ -183,30 +190,44 @@ class _KernelFns(NamedTuple):
   bwd_dkv: Any
 
 
-@functools.cache
-def _kernel_fns() -> _KernelFns:
-  """The kernels' C entry points, built and bound at first use."""
-  from automl_tpu_torch.ops import cuda_build
-  lib = cuda_build.load("flash_attention")
+def _bind(fn, n_ptrs, n_strided, dtype_arg=True):
+  """ctypes signature: n_ptrs tensors | dtype | n_strided tensors' strides |
+  B T N H causal window | cap scale | stream."""
   ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
-  strides = [i64] * 3
-  common = [i32] * 6 + [f32, f32]   # B T N H causal window, cap, scale
+  fn.argtypes = ([ptr] * n_ptrs + [i32] * dtype_arg + [i64] * 3 * n_strided
+                 + [i32] * 6 + [f32, f32] + [ptr])
+  fn.restype = i32
+  return fn
 
-  def bind(fn, n_ptrs, n_strided):
-    # n_ptrs tensors | dtype | n_strided tensors' strides | common | stream
-    fn.argtypes = [ptr] * n_ptrs + [i32] + strides * n_strided + common + [ptr]
-    fn.restype = i32
-    return fn
+
+@functools.cache
+def _kernel_fns() -> _KernelFns:
+  """The scalar-FMA kernels' C entry points, built and bound at first use."""
+  from automl_tpu_torch.ops import cuda_build
+  lib = cuda_build.load("flash_attention")
   return _KernelFns(
       # q k v seg out lse
-      fwd=bind(lib.automl_flash_fwd, 6, 3),
+      fwd=_bind(lib.automl_flash_fwd, 6, 3),
       # q k v g seg lse delta dq32 dq_turn dk dv
-      bwd=bind(lib.automl_flash_bwd, 11, 4),
+      bwd=_bind(lib.automl_flash_bwd, 11, 4),
       # q k v g seg lse delta dq
-      bwd_dq=bind(lib.automl_flash_bwd_dq, 8, 4),
+      bwd_dq=_bind(lib.automl_flash_bwd_dq, 8, 4),
       # q k v g seg lse delta dk dv
-      bwd_dkv=bind(lib.automl_flash_bwd_dkv, 9, 4))
+      bwd_dkv=_bind(lib.automl_flash_bwd_dkv, 9, 4))
+
+
+@functools.cache
+def _sm90_fns() -> _KernelFns:
+  """The Hopper K1 / K2 entry points (bf16 only: no dtype argument)."""
+  from automl_tpu_torch.ops import cuda_build
+  lib = cuda_build.load("flash_attention_sm90")
+  return _KernelFns(
+      # q k v seg out lse
+      fwd=_bind(lib.automl_flash_fwd_sm90, 6, 3, dtype_arg=False),
+      # q k v g seg lse_p delta_p dq32 dq_turn dk dv
+      bwd=_bind(lib.automl_flash_bwd_sm90, 11, 4, dtype_arg=False),
+      bwd_dq=None, bwd_dkv=None)
 
 
 def _check_kernel_inputs(tensors, segs):
@@ -234,6 +255,35 @@ def _strides(x):
   return x.stride(0), x.stride(1), x.stride(2)
 
 
+# The Hopper kernels' tiles: lse and delta are read 64 queries at a time.
+_SM90_Q_TILE = 64
+
+
+def _takes_sm90(x, simt):
+  """Whether K1 / K2 on these checked inputs go to the Hopper kernels: bf16
+  and not asked for the scalar-FMA ones (`_simt`, a private argument that
+  only comparisons of the two implementations pass)."""
+  return x.dtype == torch.bfloat16 and not simt
+
+
+def _tma_ready(x):
+  """Strides a TMA tensor map takes: multiples of 8 elements (16 bytes of
+  bf16), and 16-byte aligned data."""
+  return all(s % 8 == 0 for s in _strides(x)) and x.data_ptr() % 16 == 0
+
+
+def _check_tma(tensors):
+  h = tensors[0].shape[-1]
+  if h % 8:
+    raise ValueError(f"bf16 flash attention kernels take head_dim a multiple "
+                     f"of 8, got {h}")
+  for x in tensors:
+    if not _tma_ready(x):
+      raise ValueError("bf16 flash attention kernels need strides that are "
+                       "multiples of 8 elements and 16-byte aligned data, got "
+                       f"strides {tuple(x.stride())}")
+
+
 def _common(q, causal, window, logit_cap, sm_scale):
   b, t, n, h = q.shape
   return (b, t, n, h, int(bool(causal)), -1 if window is None else int(window),
@@ -250,42 +300,58 @@ def _check_bwd_inputs(q, k, v, g, out, lse, segs):
 
 
 def _raise_on(err, which):
+  if err == -1:
+    raise RuntimeError(f"flash attention {which} kernel: a TMA tensor map "
+                       "could not be encoded")
   if err != 0:
     raise RuntimeError(f"flash attention {which} kernel launch failed: CUDA "
                        f"error {err}")
 
 
 def flash_fwd_kernel(q, k, v, segs=None, *, causal=True, window=None,
-                     logit_cap=0.0, sm_scale=1.0):
-  """K1 on the card: the interface of flash_fwd_reference."""
+                     logit_cap=0.0, sm_scale=1.0, _simt=False):
+  """K1 on the card: the interface of flash_fwd_reference. bf16 goes to the
+  Hopper kernel, float32 (or `_simt`) to the scalar-FMA one."""
   _check_kernel_inputs((q, k, v), segs)
+  sm90 = _takes_sm90(q, _simt)
+  if sm90:
+    _check_tma((q, k, v))
   b, t, n, h = q.shape
-  fwd = _kernel_fns().fwd
   out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)
   lse = torch.empty((b * n, t), dtype=torch.float32, device=q.device)
+  dtype = () if sm90 else (_DTYPE_CODES[q.dtype],)
+  fwd = _sm90_fns().fwd if sm90 else _kernel_fns().fwd
   with torch.cuda.device(q.device):
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
               None if segs is None else segs.data_ptr(),
-              out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
+              out.data_ptr(), lse.data_ptr(), *dtype,
               *_strides(q), *_strides(k), *_strides(v),
               *_common(q, causal, window, logit_cap, sm_scale),
               torch.cuda.current_stream(q.device).cuda_stream)
   _raise_on(err, "forward")
   flash_attention.launches_fwd += 1
+  flash_attention.launches_fwd_sm90 += sm90
   return out, lse
 
 
 def _launch_bwd(fn, which, outputs, q, k, v, g, out, lse, segs, causal,
-                window, logit_cap, sm_scale):
+                window, logit_cap, sm_scale, pad_to=None):
   """Launches a backward kernel, `fn`, on checked inputs: q k v g seg lse
-  delta, then its `outputs`, the dtype, the strides of q k v g and the
-  common arguments. delta = rowsum(g * out) is made here."""
-  delta = _delta(g, out).contiguous()
+  delta, then its `outputs`, the dtype (not for the Hopper kernel, which
+  `pad_to` marks), the strides of q k v g and the common arguments.
+  delta = rowsum(g * out) is made here; with `pad_to`, lse and delta are
+  zero-padded to [B*N, T rounded up to pad_to]."""
+  delta = _delta(g, out)
+  if pad_to is not None:
+    t = lse.shape[1]
+    pad = (0, -t % pad_to)
+    lse, delta = (torch.nn.functional.pad(x, pad) for x in (lse, delta))
+  delta = delta.contiguous()
+  dtype = () if pad_to is not None else (_DTYPE_CODES[q.dtype],)
   with torch.cuda.device(q.device):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              None if segs is None else segs.data_ptr(), lse.data_ptr(),
-             delta.data_ptr(), *(x.data_ptr() for x in outputs),
-             _DTYPE_CODES[q.dtype],
+             delta.data_ptr(), *(x.data_ptr() for x in outputs), *dtype,
              *_strides(q), *_strides(k), *_strides(v), *_strides(g),
              *_common(q, causal, window, logit_cap, sm_scale),
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -293,22 +359,48 @@ def _launch_bwd(fn, which, outputs, q, k, v, g, out, lse, segs, causal,
 
 
 def flash_bwd_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
-                     window=None, logit_cap=0.0, sm_scale=1.0):
-  """K2 on the card: the interface of flash_bwd_reference. dq is summed
-  over key tiles with f32 atomics into one [B, T, N, H] f32 buffer, in an
-  order that one counter per (row, q tile) fixes, then cast to q's dtype:
-  the result is the same from run to run."""
+                     window=None, logit_cap=0.0, sm_scale=1.0, _simt=False):
+  """K2 on the card: the interface of flash_bwd_reference. bf16 goes to the
+  Hopper kernel, float32 (or `_simt`) to the scalar-FMA one. dq is summed
+  over key tiles in f32, in an order that one counter per (row, q tile)
+  fixes (scalar FMA: atomics into a [B, T, N, H] buffer; Hopper: one bulk
+  add per [64, 64] block of a block buffer), then cast to q's dtype: the
+  result is the same from run to run."""
   _check_bwd_inputs(q, k, v, g, out, lse, segs)
+  sm90 = _takes_sm90(q, _simt)
+  if sm90:
+    _check_tma((q, k, v, g))
   b, t, n, h = q.shape
-  dq32 = torch.zeros((b, t, n, h), dtype=torch.float32, device=q.device)
-  dq_turn = torch.zeros((b * n, t), dtype=torch.int32, device=q.device)
+  if sm90:
+    # dq32: one [64 queries, 64 head dims] f32 block per (row b*N + n, q
+    # tile, 64 head dims), the unit of the kernel's bulk adds.
+    n_qt, n_ch = -(-t // _SM90_Q_TILE), -(-h // 64)
+    dq32 = torch.zeros((b * n, n_qt, n_ch, 64, 64), dtype=torch.float32,
+                       device=q.device)
+    dq_turn = torch.zeros((b * n, n_qt), dtype=torch.int32, device=q.device)
+  else:
+    dq32 = torch.zeros((b, t, n, h), dtype=torch.float32, device=q.device)
+    dq_turn = torch.zeros((b * n, t), dtype=torch.int32, device=q.device)
   dk = torch.empty((b, t, n, h), dtype=k.dtype, device=q.device)
   dv = torch.empty((b, t, n, h), dtype=v.dtype, device=q.device)
-  _launch_bwd(_kernel_fns().bwd, "backward", (dq32, dq_turn, dk, dv),
-              q, k, v, g, out, lse, segs, causal, window, logit_cap,
-              sm_scale)
+  _launch_bwd(_sm90_fns().bwd if sm90 else _kernel_fns().bwd, "backward",
+              (dq32, dq_turn, dk, dv), q, k, v, g, out, lse, segs, causal,
+              window, logit_cap, sm_scale,
+              pad_to=_SM90_Q_TILE if sm90 else None)
   flash_attention.launches_bwd += 1
+  flash_attention.launches_bwd_sm90 += sm90
+  if sm90:
+    dq32 = _dq_from_blocks(dq32, b, t, n, h)
   return dq32.to(q.dtype), dk, dv
+
+
+def _dq_from_blocks(blocks, b, t, n, h):
+  """The Hopper K2's dq, [B*N, ceil(T/64), ceil(H/64), 64, 64] blocks (block
+  (b*N + n, i, c) holds queries 64 i.. and head dims 64 c..), as a
+  [B, T, N, H] view."""
+  n_qt, n_ch = blocks.shape[1], blocks.shape[2]
+  x = blocks.view(b, n, n_qt, n_ch, 64, 64).permute(0, 2, 4, 1, 3, 5)
+  return x.reshape(b, n_qt * 64, n, n_ch * 64)[:, :t, :, :h]
 
 
 def flash_bwd_dq_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
@@ -401,7 +493,7 @@ class _FlashRes(torch.autograd.Function):
   @staticmethod
   def backward(ctx, g):
     q, k, v, out, lse, segs = ctx.saved_tensors
-    if g.stride(-1) != 1:
+    if g.stride(-1) != 1 or not _tma_ready(g):
       g = g.contiguous()
     args = (q, k, v, g, out, lse, segs)
     if ctx.bwd_fused:
@@ -461,6 +553,8 @@ flash_attention.launches_fwd = 0
 flash_attention.launches_bwd = 0
 flash_attention.launches_dq = 0
 flash_attention.launches_dkv = 0
+flash_attention.launches_fwd_sm90 = 0
+flash_attention.launches_bwd_sm90 = 0
 
 
 def dense_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,

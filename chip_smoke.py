@@ -11,7 +11,7 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
   1. build: compiles the CUDA kernels from automl_tpu_torch/csrc/ with nvcc
-     for sm_90a, one nvcc per source, all at once;
+     for sm_90a, one nvcc per source (five), all at once;
   2. K4 (decode attention) against its plain PyTorch version on the card, at
      the serving slice's shapes (decode T=1 and prefill T=512, b8, 8 heads,
      hd 128, S 1024, bf16, cap 50) and on three small cases (GQA with a
@@ -24,7 +24,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      causal, cap 50, sm_scale 1; K2, K5a and K5b called twice must be
      bit-equal) and on small cases (GQA 8/2 through flash_attention with
      either backward, window 16 + cap, packed segment ids, ragged T 77 and
-     200 in f32, documents of length 1); timed as in 2;
+     200 in f32, documents of length 1; bf16 hd 32 / 64 / 128 with ragged
+     T, window, segments, no cap, non-causal, documents of length 1); bf16
+     K1 / K2 are the Hopper kernels (flash_attention_sm90.cu), f32 ones and
+     K5a / K5b the scalar-FMA kernels (flash_attention.cu), whose bf16 K1 /
+     K2 are also checked and timed at the slice's shapes, in the same call;
+     timed as in 2;
   4. K3a / K3b / K3c (fused softmax xent forward, dx, dW) against their
      plain versions at the fused-loss slice's shapes (M 16,384 = b8 x T2048
      tokens, D 1,024, V 100,864, bf16 operands, cap 30, about 20% zero loss
@@ -44,9 +49,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      under full remat with K2, and with flash_bwd_fused=false,
      remat_policy=dots_flash (the JAX flagship's policy). The loss must be
      finite and fall; the full-remat runs must launch K1 exactly 2 *
-     n_layers * 30 times and K2 n_layers * 30 times, the fused run K3a, K3b
-     and K3c 30 times each, the dots_flash run K1, K5a and K5b n_layers *
-     30 times each and K2 never; a rerun of the unfused run to 31 steps must
+     n_layers * 30 times and K2 n_layers * 30 times, every launch the Hopper
+     kernel's (a counter per implementation), the fused run K3a, K3b and
+     K3c 30 times each, the dots_flash run K1, K5a and K5b n_layers * 30
+     times each and K2 never; a rerun of the unfused run to 31 steps must
      resume from the checkpoint at step 30;
   6. K6 (the depthwise filter gradient) against its plain version at the
      detection slice's shapes, bf16, b16: EfficientNet-B0's first stride-1
@@ -287,7 +293,9 @@ def flash_phase(dev, flush):
 
   b, t, n, h = 8, 2048, 8, 128
   print(f"K1/K2/K5 case 1: slice shapes b{b} T{t} N{n}/{n} hd{h} bf16 causal "
-        "cap50 sm_scale 1")
+        "cap50 sm_scale 1 (K1/K2: the Hopper kernels of "
+        "flash_attention_sm90.cu; beside them the scalar-FMA kernels of "
+        "flash_attention.cu, reached with _simt)")
   # q as the model feeds it: already scaled (by ~1/sqrt(hd)).
   q, k, v, g = _flash_inputs(dev, gen, b, t, n, h, torch.bfloat16)
   q = (q.float() * h ** -0.5).bfloat16()
@@ -297,6 +305,10 @@ def flash_phase(dev, flush):
   out_r, lse_r = fa.flash_fwd_reference(q, k, v, None, **kw)
   err_fwd = _compare("K1 out", out, out_r, **BF16_TOL)
   _compare("K1 lse", lse, lse_r, **F32_TOL)
+  out_s, lse_s = fa.flash_fwd_kernel(q, k, v, None, _simt=True, **kw)
+  err_fwd_simt = _compare("K1 (scalar FMA) out", out_s, out_r, **BF16_TOL)
+  _compare("K1 (scalar FMA) lse", lse_s, lse_r, **F32_TOL)
+  del out_s, lse_s
   grads = fa.flash_bwd_kernel(q, k, v, g, out_r, lse_r, None, **kw)
   torch.cuda.synchronize()
   grads_r = fa.flash_bwd_reference(q, k, v, g, out_r, lse_r, None, **kw)
@@ -308,7 +320,13 @@ def flash_phase(dev, flush):
   print(f"  K2 called twice on the same inputs: dq, dk, dv bit-equal {same}")
   if not all(same):
     raise AssertionError("K2 gave two results on the same inputs")
-  del grads, grads_r, again
+  del again
+  grads_s = fa.flash_bwd_kernel(q, k, v, g, out_r, lse_r, None, _simt=True,
+                                **kw)
+  err_bwd_simt = max(_compare(f"K2 (scalar FMA) {name}", x, y, **BF16_TOL)
+                     for name, x, y in zip(("dq", "dk", "dv"), grads_s,
+                                           grads_r))
+  del grads, grads_r, grads_s
   # K5a / K5b: no atomics; each block owns its output rows, so a second
   # call is bit-equal.
   args = (q, k, v, g, out_r, lse_r, None)
@@ -368,27 +386,46 @@ def flash_phase(dev, flush):
 
   res = {}
   bwd_args = (q, k, v, g, out, lse, None)
+  simt = dict(kw, _simt=True)
   # The library yardstick of K2, K5a and K5b is one: flex_attention's
   # backward, which computes dq, dk and dv together.
-  for key, kid, kern_fn, ref_fn, lib, err in (
+  for key, kid, kern_fn, ref_fn, lib, err, bound in (
       ("fwd", "K1", lambda: fa.flash_fwd_kernel(q, k, v, None, **kw),
-       lambda: fa.flash_fwd_reference(q, k, v, None, **kw), lib_fwd, err_fwd),
+       lambda: fa.flash_fwd_reference(q, k, v, None, **kw), lib_fwd, err_fwd,
+       "fwd"),
+      ("fwd_simt", "K1 (scalar FMA)",
+       lambda: fa.flash_fwd_kernel(q, k, v, None, **simt), "fwd", "fwd",
+       err_fwd_simt, "fwd"),
       ("bwd", "K2", lambda: fa.flash_bwd_kernel(*bwd_args, **kw),
-       lambda: fa.flash_bwd_reference(*bwd_args, **kw), lib_bwd, err_bwd),
+       lambda: fa.flash_bwd_reference(*bwd_args, **kw), lib_bwd, err_bwd,
+       "bwd"),
+      ("bwd_simt", "K2 (scalar FMA)",
+       lambda: fa.flash_bwd_kernel(*bwd_args, **simt), "bwd", "bwd",
+       err_bwd_simt, "bwd"),
       ("dq", "K5a", lambda: fa.flash_bwd_dq_kernel(*bwd_args, **kw),
-       lambda: fa.flash_bwd_dq_reference(*bwd_args, **kw), None, err_dq),
+       lambda: fa.flash_bwd_dq_reference(*bwd_args, **kw), "bwd", err_dq,
+       "dq"),
       ("dkv", "K5b", lambda: fa.flash_bwd_dkv_kernel(*bwd_args, **kw),
-       lambda: fa.flash_bwd_dkv_reference(*bwd_args, **kw), None, err_dkv)):
+       lambda: fa.flash_bwd_dkv_reference(*bwd_args, **kw), "bwd", err_dkv,
+       "dkv")):
     t_kern = _time_ms(kern_fn, 10, flush)
-    t_ref = _time_ms(ref_fn, 5, flush)
-    t_lib = (_library_ms(kid, lib, 10, flush) if lib is not None
-             else res["bwd"]["library_ms"])
-    bound_ms, bound_by = bounds[key]
+    # The plain version and the yardstick are the same call for both
+    # implementations of K1 / K2: timed once, with the Hopper kernel.
+    t_ref = (_time_ms(ref_fn, 5, flush) if callable(ref_fn)
+             else res[ref_fn]["plain_ms"])
+    t_lib = (_library_ms(kid, lib, 10, flush) if callable(lib)
+             else res[lib]["library_ms"])
+    bound_ms, bound_by = bounds[bound]
     res[key] = dict(err=err, ms=t_kern, plain_ms=t_ref, library_ms=t_lib,
                     bound_ms=bound_ms, bound_by=bound_by)
+    vs_lib = (f", {t_kern / t_lib:.2f}x the library's time" if t_lib
+              else "")
     print(f"  {kid}: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / t_kern:.2f}% of "
-          "it (L2 flushed before each call)")
+          f"it{vs_lib} (L2 flushed before each call)")
+  print(f"  K1: {res['fwd_simt']['ms'] / res['fwd']['ms']:.2f}x faster than "
+        f"the scalar-FMA kernel; K2: "
+        f"{res['bwd_simt']['ms'] / res['bwd']['ms']:.2f}x (one call)")
   print(f"  K5a + K5b: {res['dq']['ms'] + res['dkv']['ms']:.4f} ms against "
         f"K2's {res['bwd']['ms']:.4f} ms")
   _library_ms("forward + backward", lib_fwd_bwd, 10, flush)
@@ -444,6 +481,25 @@ def flash_phase(dev, flush):
   both("length-1 docs", qd, kd, vd, gd, segs=segs1, sm_scale=0.3)
   o, _ = fa.flash_fwd(qd, kd, vd, segs1, sm_scale=0.3)
   _compare("length-1 docs out == v", o, vd, atol=1e-6, rtol=0)
+  # bf16: K1 and K2 are the Hopper kernels (K5a / K5b the scalar-FMA ones).
+  segs_b = torch.cumsum((torch.rand((2, 200), generator=gen, device=dev)
+                         < 0.03).int(), dim=1).int().contiguous()
+  for name, (bb, tt, nn, hh), extra in (
+      ("bf16 hd32 T77 cap50", (2, 77, 3, 32), dict(logit_cap=50.0)),
+      ("bf16 hd64 T200 window 16 cap5 segments", (2, 200, 2, 64),
+       dict(window=16, logit_cap=5.0, segs=segs_b)),
+      ("bf16 hd128 T200 no cap", (2, 200, 2, 128), dict()),
+      ("bf16 hd128 T200 non-causal window 40", (2, 200, 2, 128),
+       dict(causal=False, window=40))):
+    print(f"K1/K2/K5 case 7: {name}")
+    both(name, *_flash_inputs(dev, gen, bb, tt, nn, hh, torch.bfloat16),
+         tol=BF16_TOL, sm_scale=hh ** -0.5, **extra)
+  print("K1/K2/K5 case 8: bf16 documents of length 1, hd 64")
+  qd, kd, vd, gd = _flash_inputs(dev, gen, 1, 70, 2, 64, torch.bfloat16)
+  both("bf16 length-1 docs", qd, kd, vd, gd, segs=segs1, tol=BF16_TOL,
+       sm_scale=0.125)
+  o, _ = fa.flash_fwd(qd, kd, vd, segs1, sm_scale=0.125)
+  _compare("bf16 length-1 docs out == v", o, vd, atol=0, rtol=0)
   torch.cuda.synchronize()
   return res
 
@@ -699,7 +755,9 @@ def _train_run(workdir, flags, steps, label, expected, flops):
   from automl_tpu_torch.ops import xent
 
   counters = {"K1": (fa.flash_attention, "launches_fwd"),
+              "K1 sm90": (fa.flash_attention, "launches_fwd_sm90"),
               "K2": (fa.flash_attention, "launches_bwd"),
+              "K2 sm90": (fa.flash_attention, "launches_bwd_sm90"),
               "K5a": (fa.flash_attention, "launches_dq"),
               "K5b": (fa.flash_attention, "launches_dkv"),
               "K3a": (xent.fused_softmax_xent, "launches_fwd"),
@@ -810,13 +868,16 @@ def training_phase(dev, workdir):
             "--warmup_steps=3", "--log_every=1", "--device=cuda"]
   flags = common + [f"--model_dir={workdir}", f"--experiment_config={flash}"]
   n = cfg.n_layers * steps
-  none = dict.fromkeys(("K1", "K2", "K5a", "K5b", "K3a", "K3b", "K3c"), 0)
+  none = dict.fromkeys(("K1", "K1 sm90", "K2", "K2 sm90", "K5a", "K5b",
+                        "K3a", "K3b", "K3c"), 0)
   t = cfg.seq_len
   runs = {}
-  # Full remat re-runs K1 in the backward: 2 x n_layers a step.
+  # Full remat re-runs K1 in the backward: 2 x n_layers a step. bf16
+  # activations: every K1 and K2 launch is the Hopper kernel's ("sm90").
+  sm90 = lambda k1, k2: {"K1": k1, "K1 sm90": k1, "K2": k2, "K2 sm90": k2}
   runs["unfused"] = _train_run(
       workdir, flags, steps, "unfused loss, full remat, K2",
-      dict(none, K1=2 * n, K2=n), _step_flops(cfg, batch, t))
+      dict(none, **sm90(2 * n, n)), _step_flops(cfg, batch, t))
   _resume_check(flags, workdir, steps)
   fused_dir = workdir + "_fused"
   runs["fused"] = _train_run(
@@ -824,7 +885,7 @@ def training_phase(dev, workdir):
           f"--model_dir={fused_dir}",
           f"--experiment_config={flash},fused_softmax_loss=pallas"], steps,
       "fused loss, full remat, K2",
-      dict(none, K1=2 * n, K2=n, K3a=steps, K3b=steps, K3c=steps),
+      dict(none, **sm90(2 * n, n), K3a=steps, K3b=steps, K3c=steps),
       _step_flops(cfg, batch, t, fused=True))
   split_dir = workdir + "_split"
   # dots_flash saves K1's (out, lse): K1 once per layer and step.
@@ -833,7 +894,7 @@ def training_phase(dev, workdir):
           f"--model_dir={split_dir}",
           f"--experiment_config={split},remat_policy=dots_flash"], steps,
       "unfused loss, remat_policy dots_flash, K5a + K5b",
-      dict(none, K1=n, K5a=n, K5b=n),
+      dict(none, **sm90(n, 0), K5a=n, K5b=n),
       _step_flops(cfg, batch, t, policy="dots_flash", split=True))
   torch.cuda.empty_cache()
   return runs
@@ -1428,6 +1489,30 @@ def _entry(name, source, replaces, launches, r):
           "library_ms": r["library_ms"]}
 
 
+def _sass_report(lib):
+  """Per kernel of a built library: its wgmma (HGMMA) instructions and its
+  local-memory loads and stores (LDL / STL: spills) in the SASS, by
+  cuobjdump, where the toolkit has it."""
+  import re
+  from torch.utils.cpp_extension import CUDA_HOME
+  tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                   "cuobjdump")
+  if not os.path.exists(tool):
+    print(f"  sass: no cuobjdump ({tool})")
+    return
+  sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                        text=True, timeout=120, check=False).stdout
+  for body in re.split(r"\n\s*Function : ", sass)[1:]:
+    name = re.sub(r".*?(flash_(?:fwd|bwd)\w*?_kernel)ILi(\d+)E.*", r"\1<\2>",
+                  body.splitlines()[0])
+    ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body)
+    count = lambda *names: sum(op in names for op in ops)
+    first = re.search(r"HGMMA\.\S+", body)
+    print(f"  sass {lib.name.split('-')[0]}: {name}: {count('HGMMA')} "
+          f"HGMMA ({first.group(0) if first else '-'}, ...), "
+          f"{count('LDL', 'STL')} LDL/STL")
+
+
 def main() -> int:
   import torch
   from automl_tpu_torch.ops import cuda_build
@@ -1449,7 +1534,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
   t = time.perf_counter()
-  sources = ("decode_attention", "flash_attention", "xent", "depthwise")
+  sources = ("decode_attention", "flash_attention", "flash_attention_sm90",
+             "xent", "depthwise")
   with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
     libs = list(pool.map(cuda_build.build, sources))
   print(f"build: {', '.join(l.name for l in libs)} in "
@@ -1459,6 +1545,7 @@ def main() -> int:
     for line in log.read_text().splitlines() if log.exists() else ():
       if "registers" in line or "spill" in line:
         print(f"  ptxas: {line.strip()}")
+  _sass_report(libs[sources.index("flash_attention_sm90")])
 
   if "--profile" in sys.argv[1:]:
     profile_phase(dev)
@@ -1486,11 +1573,11 @@ def main() -> int:
       _entry("decode_attention", "automl_tpu_torch/csrc/decode_attention.cu",
              "automl_tpu/ops/decode_attention.py:51", k4_launches,
              k4["decode T=1"]),
-      _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention.cu",
-             "automl_tpu/ops/attention.py:82", runs["unfused"]["K1"],
+      _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
+             "automl_tpu/ops/attention.py:82", runs["unfused"]["K1 sm90"],
              flash["fwd"]),
-      _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention.cu",
-             "automl_tpu/ops/attention.py:320", runs["unfused"]["K2"],
+      _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
+             "automl_tpu/ops/attention.py:320", runs["unfused"]["K2 sm90"],
              flash["bwd"]),
       _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention.cu",
              "automl_tpu/ops/attention.py:240", runs["split"]["K5a"],

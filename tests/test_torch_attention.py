@@ -275,3 +275,44 @@ def test_unported_and_wrong_inputs_raise():
     ta.flash_attention(tq, tq, tq, segment_ids=torch.zeros(1, 7))
   with pytest.raises(ValueError, match="no implementation"):
     ta.flash_attention(tq.to("meta"), tq.to("meta"), tq.to("meta"))
+
+
+@pytest.mark.parametrize("b,t,n,h", [(2, 77, 3, 32), (1, 200, 2, 128),
+                                     (1, 64, 4, 8)])
+def test_sm90_dq_blocks_reorder_to_btnh(b, t, n, h):
+  """The Hopper K2 writes dq as f32 blocks [B*N, ceil(T/64), ceil(H/64), 64,
+  64], block (b*N + n, i, c) holding queries 64 i.. and head dims 64 c..;
+  _dq_from_blocks gives back [B, T, N, H]. Blocks built element by element
+  from a known dq (padding left at zero) come back exact."""
+  dq = torch.from_numpy(np.random.default_rng(0).standard_normal(
+      (b, t, n, h)).astype(np.float32))
+  n_qt, n_ch = -(-t // 64), -(-h // 64)
+  blocks = torch.zeros((b * n, n_qt, n_ch, 64, 64))
+  for bb in range(b):
+    for nn in range(n):
+      for i in range(n_qt):
+        for c in range(n_ch):
+          rows = dq[bb, 64 * i:64 * i + 64, nn, 64 * c:64 * c + 64]
+          blocks[bb * n + nn, i, c, :rows.shape[0], :rows.shape[1]] = rows
+  got = ta._dq_from_blocks(blocks, b, t, n, h)
+  assert got.shape == (b, t, n, h)
+  assert torch.equal(got, dq)
+
+
+def test_sm90_routing_and_tma_checks():
+  """bf16 takes the Hopper K1 / K2 unless `_simt` asks for the scalar-FMA
+  ones, float32 never does; the TMA checks refuse a head_dim that is not a
+  multiple of 8 and strides that are not multiples of 8 elements, and take
+  the LM's contiguous [B, T, N, H] (and a head slice of a wider tensor whose
+  strides stay multiples of 8)."""
+  x = torch.zeros((2, 16, 4, 32), dtype=torch.bfloat16)
+  assert ta._takes_sm90(x, simt=False)
+  assert not ta._takes_sm90(x, simt=True)
+  assert not ta._takes_sm90(x.float(), simt=False)
+  ta._check_tma((x, x))
+  wide = torch.zeros((2, 16, 4, 64), dtype=torch.bfloat16)
+  ta._check_tma((wide[..., :32], x))
+  with pytest.raises(ValueError, match="stride"):
+    ta._check_tma((x, torch.zeros((2, 16, 4, 36))[..., :32]))
+  with pytest.raises(ValueError, match="head_dim"):
+    ta._check_tma((x[..., :12],))

@@ -8,7 +8,9 @@ so it runs where jax is not installed:
 (--noconftest: tests/conftest.py sets up jax for the JAX package's tests.)
 Tolerances: f32 atol = rtol = 1e-4 (another summation order, the card's
 expf/tanhf); bf16 outputs atol 1.6e-2, rtol 8e-3 (one bf16 rounding
-step).
+step). bf16 flash attention K1 / K2 run the Hopper kernels
+(csrc/flash_attention_sm90.cu), f32 ones and K5a / K5b the scalar-FMA
+kernels (csrc/flash_attention.cu).
 """
 
 import pytest
@@ -244,15 +246,55 @@ def test_flash_attention_autograd_gqa_on_card_matches_cpu(dev, bwd_fused):
                                    segments=True)
   _, k, v, _, _ = _flash_inputs(dev, 2, 90, 2, 32, torch.float32, seed=2)
   kw = dict(window=24, logit_cap=50.0, bwd_fused=bwd_fused)
-  results = []
-  for device in (dev, torch.device("cpu")):
+
+  def run(device):
     xs = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
     out = fa.flash_attention(*xs, segment_ids=segs.to(device), **kw)
     out.backward(g.to(device))
-    results.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
-  for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
-    torch.testing.assert_close(got, want, **F32_TOL,
-                               msg=lambda m, name=name: f"{name}: {m}")
+    return [out.detach().cpu()] + [x.grad.cpu() for x in xs]
+
+  # Each side runs twice, so that a failure also says which side does not
+  # repeat itself (this case failed once on the card, ROADMAP Queue 3).
+  card, card_again = run(dev), run(dev)
+  cpu, cpu_again = run(torch.device("cpu")), run(torch.device("cpu"))
+  for i, name in enumerate(("out", "dq", "dk", "dv")):
+    note = (f"card rerun bit-equal {torch.equal(card[i], card_again[i])}, "
+            f"CPU rerun bit-equal {torch.equal(cpu[i], cpu_again[i])}, card "
+            f"rerun vs CPU max|diff| "
+            f"{float((card_again[i] - cpu[i]).abs().max()):.3e}")
+    torch.testing.assert_close(card[i], cpu[i], **F32_TOL,
+                               msg=lambda m, name=name, note=note:
+                               f"{name}: {m}; {note}")
+
+
+@pytest.mark.cuda
+def test_flash_kernels_rerun_bit_equal_on_the_gqa_autograd_case(dev):
+  """The inputs of test_flash_attention_autograd_gqa_on_card_matches_cpu
+  (GQA 4/2 repeated, T 90, hd 32, window 24, cap 50, segment ids, f32),
+  through K1, K5a, K5b and K2 directly, 100 times with a flush of the
+  allocator's cache between runs: every run bit-equal to the first. A race
+  or an uninitialised read would show as a run that differs."""
+  q, _, _, g, segs = _flash_inputs(dev, 2, 90, 4, 32, torch.float32, seed=1,
+                                   segments=True)
+  _, k, v, _, _ = _flash_inputs(dev, 2, 90, 2, 32, torch.float32, seed=2)
+  k, v = (x.repeat_interleave(2, dim=2) for x in (k, v))
+  kw = dict(causal=True, window=24, logit_cap=50.0, sm_scale=32 ** -0.5)
+
+  def run():
+    out, lse = fa.flash_fwd_kernel(q, k, v, segs, **kw)
+    args = (q, k, v, g, out, lse, segs)
+    return (out, lse, fa.flash_bwd_dq_kernel(*args, **kw),
+            *fa.flash_bwd_dkv_kernel(*args, **kw),
+            *fa.flash_bwd_kernel(*args, **kw))
+
+  first = [x.clone() for x in run()]
+  for i in range(100):
+    junk = torch.full((1 << 22,), float("nan"), device=dev)  # dirty memory
+    del junk
+    again = run()
+    for name, x, y in zip(("out", "lse", "K5a dq", "K5b dk", "K5b dv",
+                           "K2 dq", "K2 dk", "K2 dv"), first, again):
+      assert torch.equal(x, y), f"run {i}: {name} differs"
 
 
 @pytest.mark.cuda
@@ -306,6 +348,124 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="dtype"):
       bwd(q, k, v, g.bfloat16(), out, lse)
   assert _flash_launches() == before
+
+
+def _sm90_launches():
+  f = fa.flash_attention
+  return f.launches_fwd_sm90, f.launches_bwd_sm90
+
+
+SM90_CASES = pytest.mark.parametrize("case", [
+    dict(b=2, t=77, n=3, h=32, logit_cap=50.0),                  # ragged T
+    dict(b=2, t=200, n=2, h=64, window=16, logit_cap=5.0,
+         segments=True),                                         # window
+    dict(b=1, t=2048, n=2, h=128, logit_cap=50.0),               # slice T, hd
+    dict(b=2, t=200, n=2, h=128),                                # no cap
+    dict(b=1, t=70, n=2, h=64, length_one_docs=True),            # docs of 1
+    dict(b=1, t=300, n=2, h=128, causal=False, window=40),
+    dict(b=2, t=64, n=4, h=8),                                   # lm-test hd
+], ids=["hd32_T77_cap50", "hd64_T200_window_segments", "hd128_T2048_cap50",
+        "hd128_T200_nocap", "hd64_length1_docs", "hd128_non_causal_window",
+        "hd8"])
+
+
+@pytest.mark.cuda
+@SM90_CASES
+def test_sm90_flash_kernels_match_plain(dev, case):
+  """The Hopper K1 (out bf16 tolerance, lse f32) and K2 (dq, dk, dv bf16
+  tolerance) on bf16 inputs against their plain versions; each launch is
+  counted once as a Hopper launch; K2 called twice is bit-equal."""
+  case = dict(case)
+  docs = case.pop("length_one_docs", False)
+  b, t = case.pop("b"), case.pop("t")
+  q, k, v, g, segs = _flash_inputs(dev, b, t, case.pop("n"), case["h"],
+                                   torch.bfloat16, seed=7,
+                                   segments=case.pop("segments", False))
+  if docs:
+    segs = torch.arange(t, device=dev, dtype=torch.int32)[None].repeat(b, 1)
+  kw = dict(dict(causal=True, sm_scale=case.pop("h") ** -0.5), **case)
+  before = _sm90_launches()
+  out, lse = fa.flash_fwd(q, k, v, segs, **kw)
+  torch.cuda.synchronize()
+  out_r, lse_r = fa.flash_fwd_reference(q, k, v, segs, **kw)
+  _close(out, out_r, torch.bfloat16)
+  torch.testing.assert_close(lse, lse_r, **F32_TOL)
+  if docs:   # each query sees only itself
+    assert torch.equal(out, v)
+  grads = fa.flash_bwd(q, k, v, g, out_r, lse_r, segs, **kw)
+  torch.cuda.synchronize()
+  for got, want in zip(grads, fa.flash_bwd_reference(q, k, v, g, out_r,
+                                                     lse_r, segs, **kw)):
+    _close(got, want, torch.bfloat16)
+  again = fa.flash_bwd(q, k, v, g, out_r, lse_r, segs, **kw)
+  assert all(torch.equal(x, y) for x, y in zip(grads, again))
+  assert _sm90_launches() == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_sm90_bwd_split_operand_products_match_f32(dev):
+  """K2's p^T g, ds^T q and ds k take p and ds as two bf16 halves (hi +
+  lo, about 16 mantissa bits) through bf16 wgmma. Against the plain f32
+  backward of the same bf16 values, with no rounding of p or ds: each
+  term's factor is off by at most 2^-17 of itself, so a sum is off by at
+  most 2^-17 of the sum of its terms' magnitudes (<= 2^-17 * n_terms *
+  max term; bounded here by 2^-12 of the largest output); the output's
+  final bf16 rounding adds 2^-9 of itself. Tolerance: atol 2^-12 * max|x|,
+  rtol 2^-8. Rounding p or ds to bf16 once would leave 2^-9 of each term."""
+  q, k, v, g, _ = _flash_inputs(dev, 2, 256, 2, 128, torch.bfloat16, seed=8)
+  kw = dict(causal=True, logit_cap=50.0, sm_scale=128 ** -0.5)
+  out, lse = fa.flash_fwd_reference(q.float(), k.float(), v.float(), None,
+                                    **kw)
+  grads = fa.flash_bwd(q, k, v, g, out.bfloat16(), lse, None, **kw)
+  want = fa.flash_bwd_reference(q.float(), k.float(), v.float(), g.float(),
+                                out.bfloat16().float(), lse, None, **kw)
+  for got, ref in zip(grads, want):
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got.float(), ref, atol=2 ** -12 * scale,
+                               rtol=2 ** -8)
+
+
+@pytest.mark.cuda
+def test_flash_attention_gqa_bf16_fused_takes_sm90_kernels(dev):
+  """flash_attention with GQA 4/2, cap, bwd_fused=True on bf16 CUDA
+  tensors (the Hopper K1 and K2) against the same call on the CPU's plain
+  versions in f32, bf16 tolerance."""
+  q, _, _, g, _ = _flash_inputs(dev, 2, 130, 4, 64, torch.bfloat16, seed=9)
+  _, k, v, _, _ = _flash_inputs(dev, 2, 130, 2, 64, torch.bfloat16, seed=10)
+  before = _sm90_launches()
+  results = []
+  for device, dtype in ((dev, torch.bfloat16),
+                        (torch.device("cpu"), torch.float32)):
+    xs = [x.detach().to(device, dtype).requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*xs, logit_cap=50.0, bwd_fused=True)
+    out.backward(g.to(device, dtype))
+    results.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
+  assert _sm90_launches() == (before[0] + 1, before[1] + 1)
+  for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
+    torch.testing.assert_close(got.float(), want, **BF16_TOL,
+                               msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_sm90_flash_kernels_refuse_what_tma_does_not_take(dev):
+  """bf16 goes to the Hopper kernels, whose TMA descriptors need head_dim
+  a multiple of 8 and strides of multiples of 8 elements: others raise,
+  as does head_dim > 128; nothing is launched."""
+  q, k, v, g, _ = _flash_inputs(dev, 1, 16, 2, 16, torch.bfloat16, seed=11)
+  before = (_flash_launches(), _sm90_launches())
+  odd = torch.cat([q, q[..., :4]], dim=-1)[..., :16]   # n stride 20
+  assert odd.stride(-1) == 1 and odd.stride(2) == 20
+  with pytest.raises(ValueError, match="stride"):
+    fa.flash_fwd(odd, k, v)
+  with pytest.raises(ValueError, match="stride"):
+    fa.flash_bwd(q, k, v, odd, q, torch.zeros((2, 16), device=dev))
+  h12 = torch.zeros((1, 16, 2, 12), device=dev, dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="head_dim"):
+    fa.flash_fwd(h12, h12, h12)
+  big = torch.zeros((1, 4, 1, 256), device=dev, dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="head_dim"):
+    fa.flash_fwd(big, big, big)
+  assert (_flash_launches(), _sm90_launches()) == before
 
 
 def _xent_inputs(dev, m, v, d, dtype, seed, zero_share=0.2):
