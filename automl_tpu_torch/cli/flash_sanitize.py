@@ -5,6 +5,8 @@
                                                   # sanitizer (what it runs)
   python -m automl_tpu_torch.cli.flash_sanitize --loop=20  # no sanitizer:
       # chip_smoke.py --profile, then the GQA autograd card test 20 times
+  python -m automl_tpu_torch.cli.flash_sanitize --case=cpu_repeat
+      # the CPU side of that test's split case, repeated and diffed
 
 Without --case it builds the kernels, then runs itself once per (tool,
 case) under `compute-sanitizer --tool <tool> --error-exitcode 7`, tools
@@ -19,12 +21,22 @@ exit code. Cases:
     segment ids, and hd 128, T 130, causal.
 Exits non-zero if compute-sanitizer is missing or any run fails.
 
+--case=cpu_repeat (no sanitizer) runs the CPU side of
+test_flash_attention_autograd_gqa_on_card_matches_cpu[split] (the plain
+versions of K1, K5a and K5b on the same seeded inputs) REPEATS times with
+torch's default threads and REPEATS times with one thread, keeps every
+intermediate (the scores, out, lse, p, ds, and out / dq / dk / dv through
+autograd) and prints, per intermediate, how many runs differ from the
+first and by how much; with the machine's load and its other python
+processes. Exits non-zero if a one-thread run differs.
+
 --loop=N reproduces the conditions of the failures of
 test_flash_attention_autograd_gqa_on_card_matches_cpu seen on the card
-(right after chip_smoke.py --profile, or after its full run: --after='')
-and runs that test (both backwards) N times, each in a fresh process;
-prints each run's last line (and the failure's message), how many runs
-passed, and exits non-zero if one failed.
+(right after chip_smoke.py --profile, or after its full run: --after=''),
+runs --case=cpu_repeat once in a fresh process, and then that test (both
+backwards) N times, each in a fresh process; prints each run's last line
+(and the failure's message), how many runs passed, and exits non-zero if
+one failed.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import sys
 
 TOOLS = ("racecheck", "synccheck", "initcheck")
 CASES = ("simt", "sm90")
+REPEATS = 40
 
 
 def _inputs(b, t, n, h, dtype, seed, segments):
@@ -76,6 +89,54 @@ def run_case(case: str) -> None:
   print(f"case {case}: ran")
 
 
+def cpu_repeat() -> int:
+  """The CPU side of the GQA autograd card test, repeated and diffed."""
+  import torch
+  from automl_tpu_torch.ops import attention as fa
+  q, _, _, g, segs = _inputs(2, 90, 4, 32, torch.float32, 1, True)
+  _, k, v, _, _ = _inputs(2, 90, 2, 32, torch.float32, 2, False)
+  q, k, v, g, segs = (x.cpu() for x in (q, k, v, g, segs))
+  kr, vr = (x.repeat_interleave(2, dim=2) for x in (k, v))
+  kw = dict(causal=True, window=24, logit_cap=50.0, sm_scale=32 ** -0.5)
+
+  def run():
+    s, _ = fa._scores(q, kr, 50.0, 32 ** -0.5)
+    out, lse = fa.flash_fwd_reference(q, kr, vr, segs, **kw)
+    p, ds = fa._bwd_terms(q, kr, vr, g, out, lse, segs, kw["causal"],
+                          kw["window"], 50.0, kw["sm_scale"])
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    out_ag = fa.flash_attention(*xs, segment_ids=segs, window=24,
+                                logit_cap=50.0, bwd_fused=False)
+    out_ag.backward(g)
+    return dict(scores=s, out=out, lse=lse, p=p, ds=ds, autograd_out=out_ag,
+                dq=xs[0].grad, dk=xs[1].grad, dv=xs[2].grad)
+
+  others = subprocess.run(["ps", "-eo", "pid,pcpu,etime,comm,args"],
+                          capture_output=True, text=True).stdout.splitlines()
+  others = [l for l in others[1:]
+            if "python" in l and str(os.getpid()) not in l]
+  print(f"cpu_repeat: load average {os.getloadavg()}, {os.cpu_count()} CPUs, "
+        f"{len(others)} other python processes")
+  for line in others[:10]:
+    print(f"  {line[:160]}")
+  threads = torch.get_num_threads()
+  one_thread_differs = False
+  for n_threads in (threads, 1):
+    torch.set_num_threads(n_threads)
+    first = run()
+    differs = {name: [] for name in first}
+    for _ in range(REPEATS - 1):
+      for name, x in run().items():
+        if not torch.equal(x, first[name]):
+          differs[name].append(float((x - first[name]).abs().max()))
+    torch.set_num_threads(threads)
+    print(f"cpu_repeat, {n_threads} threads, {REPEATS} runs: " + ", ".join(
+        f"{name} {len(d)} differ" + (f" (max {max(d):.2e})" if d else "")
+        for name, d in differs.items()))
+    one_thread_differs |= n_threads == 1 and any(differs.values())
+  return 1 if one_thread_differs else 0
+
+
 def loop(n: int, after: list[str]) -> int:
   root = os.path.dirname(os.path.dirname(os.path.dirname(
       os.path.abspath(__file__))))
@@ -83,6 +144,11 @@ def loop(n: int, after: list[str]) -> int:
                         cwd=root, capture_output=True, text=True, check=False)
   print(proc.stdout + proc.stderr)
   print(f"chip_smoke.py {' '.join(after)}: exit {proc.returncode}")
+  diag = subprocess.run([sys.executable, "-m",
+                         "automl_tpu_torch.cli.flash_sanitize",
+                         "--case=cpu_repeat"], cwd=root, capture_output=True,
+                        text=True, check=False)
+  print(diag.stdout + diag.stderr[-2000:])
   test = ("tests/test_torch_kernels_cuda.py::"
           "test_flash_attention_autograd_gqa_on_card_matches_cpu")
   passed = 0
@@ -101,12 +167,14 @@ def loop(n: int, after: list[str]) -> int:
 
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  parser.add_argument("--case", choices=CASES)
+  parser.add_argument("--case", choices=(*CASES, "cpu_repeat"))
   parser.add_argument("--loop", type=int, default=0)
   parser.add_argument("--after", default="--profile",
                       help="chip_smoke.py's arguments for the run before "
                       "--loop's ('' for its full run)")
   args = parser.parse_args(argv)
+  if args.case == "cpu_repeat":
+    return cpu_repeat()
   if args.case:
     run_case(args.case)
     return 0

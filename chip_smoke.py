@@ -11,13 +11,18 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
   1. build: compiles the CUDA kernels from automl_tpu_torch/csrc/ with nvcc
-     for sm_90a, one nvcc per source (five), all at once;
+     for sm_90a, one nvcc per source (six), all at once;
   2. K4 (decode attention) against its plain PyTorch version on the card, at
      the serving slice's shapes (decode T=1 and prefill T=512, b8, 8 heads,
-     hd 128, S 1024, bf16, cap 50) and on three small cases (GQA with a
-     ragged S in f32, head-major rows with (m, l) stats, a fully-masked
-     row); kernel, plain version and the library yardstick timed with CUDA
-     events at the slice's shapes;
+     hd 128, S 1024, bf16, cap 50: the Hopper kernels of
+     decode_attention_sm90.cu, split-S and wgmma; two calls must be
+     bit-equal) and on small cases (GQA 8/2 with T 1-8 across both
+     designs, prefix-LM and window masks that leave dead, mixed and
+     all-live tiles, head-major rows with (m, l) stats and a fully-masked
+     row in both designs, whole splits masked at decode; the SIMT kernel of
+     decode_attention.cu on f32, hd 256 and a fully-masked row); the Hopper
+     and the SIMT kernel timed in turns with CUDA events at the slice's
+     shapes, beside the plain version and the library yardstick;
   3. K1 / K2 / K5a / K5b (flash-attention forward, fused backward and the
      split backward's dq and dk/dv kernels) against their plain versions at
      the training slice's shapes (b8, T 2048, 8 heads, hd 128, bf16,
@@ -73,10 +78,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   8. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
      through the converter, cast for serving) generates 512 tokens greedily
      after a 512-token prompt at batch 8, through generate_lm.load_model and
-     greedy_generate. The run must launch K4 exactly n_layers * 512 times;
-     its prefill logits are held against the plain-attention path.
+     greedy_generate. The run must launch K4 exactly n_layers * 512 times,
+     every launch the Hopper kernels' (a counter per implementation); its
+     prefill logits are held against the plain-attention path.
 
-The library yardstick (library_ms) of each attention kernel is
+Every kernel time is the mean over calls of CUDA events around one call,
+after an L2 flush and a sleep kernel that keeps the card busy while the
+host enqueues the call (_time_ms). The library yardstick (library_ms) of
+each attention kernel is
 torch.compile'd torch.nn.attention.flex_attention with the same tanh cap as
 score_mod and the same mask as a block mask (K2, K5a and K5b share its
 backward, which computes dq, dk and dv together); that of K3a is the PyTorch
@@ -110,9 +119,16 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 
+# Cycles of the sleep kernel before each timed call (about 0.5 ms).
+SLEEP_CYCLES = 1_000_000
+
+
 def _time_ms(fn, iters: int, flush=None) -> float:
   """Mean device time of fn() in ms, CUDA events around each call; `flush`
-  runs untimed before each call (to evict the cache from L2)."""
+  runs untimed before each call (to evict the cache from L2). A sleep
+  kernel after it keeps the card busy while the host enqueues fn, so that
+  the events bracket fn's device work and not the host's time to launch
+  it (which is longer than the flush for K4 and flex_attention)."""
   import torch
   fn()
   torch.cuda.synchronize()
@@ -120,6 +136,7 @@ def _time_ms(fn, iters: int, flush=None) -> float:
   for _ in range(iters):
     if flush is not None:
       flush()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -198,15 +215,40 @@ BF16_TOL = dict(atol=1.6e-2, rtol=8e-3)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+def _k4_bound(q, mask, n_kv):
+  """K4's least time: q, out, the mask and the K/V of every key live for
+  one query of its batch row (mask.any over T) once each; 4 flops per live
+  (query, key, head, dim)."""
+  b, t, n, h = q.shape
+  live_keys = float(mask.any(dim=1).sum())
+  nbytes = (2 * 2 * b * t * n * h + b * t * mask.shape[-1]
+            + 2 * 2 * live_keys * n_kv * h)
+  return _bound(4.0 * h * n * float(mask.sum()), nbytes)
+
+
 def k4_phase(dev, flush):
   """K4 vs plain version; returns {shape label: dict(err, ms, plain_ms,
-  library_ms, bound_ms, bound_by)}."""
+  library_ms, bound_ms, bound_by)} for the Hopper kernels (bf16 routes to
+  csrc/decode_attention_sm90.cu), with the SIMT kernel's time beside."""
   import torch
   from automl_tpu_torch.ops import decode_attention as da
   gen = torch.Generator(device=dev).manual_seed(0)
   kern, ref = da.decode_attention, da.decode_attention_reference
 
-  print("K4 case 1: slice shapes b8 N8/8 hd128 S1024 bf16 cap50")
+  def check(label, q, kc, vc, mask, tol, sm90=True, **kw):
+    before = da.decode_attention.launches_sm90
+    got, want = kern(q, kc, vc, mask, **kw), ref(q, kc, vc, mask, **kw)
+    torch.cuda.synchronize()
+    if (da.decode_attention.launches_sm90 - before == 1) != sm90:
+      raise AssertionError(f"{label}: routed to the wrong kernel")
+    if not kw.get("return_stats"):
+      return _compare(label, got, want, **tol), got
+    _compare(f"{label} m", got[1], want[1], **F32_TOL)
+    _compare(f"{label} l", got[2], want[2], **F32_TOL)
+    return _compare(f"{label} out", got[0], want[0], **tol), got
+
+  print("K4 case 1: slice shapes b8 N8/8 hd128 S1024 bf16 cap50 (Hopper "
+        "kernels; the SIMT kernel of decode_attention.cu beside)")
   b, n, h, s = 8, 8, 128, 1024
   q, kc, vc, _ = _kernel_inputs(dev, gen, b, 512, n, n, h, s, torch.bfloat16)
   prefill_mask = (torch.arange(s, device=dev)[None, :]
@@ -220,17 +262,21 @@ def k4_phase(dev, flush):
   out = {}
   for label, (qq, mm) in shapes.items():
     kw = dict(n_kv_heads=n, logit_cap=50.0)
-    got = kern(qq, kc, vc, mm, **kw)
-    torch.cuda.synchronize()
-    err = _compare(label, got, ref(qq, kc, vc, mm, **kw), **BF16_TOL)
+    err, got = check(label, qq, kc, vc, mm, BF16_TOL, **kw)
+    again = kern(qq, kc, vc, mm, **kw)
+    if not torch.equal(got, again):
+      raise AssertionError(f"{label}: two calls of the Hopper kernel differ")
+    print(f"  {label}: a second call bit-equal")
+    _compare(f"{label} SIMT kernel", kern(qq, kc, vc, mm, _simt=True, **kw),
+             ref(qq, kc, vc, mm, **kw), **BF16_TOL)
     iters = 100 if qq.shape[1] == 1 else 20
-    t_kern = _time_ms(lambda: kern(qq, kc, vc, mm, **kw), iters, flush)
+    sm90 = lambda: kern(qq, kc, vc, mm, **kw)
+    simt = lambda: kern(qq, kc, vc, mm, _simt=True, **kw)
+    turns = [_time_ms(fn, iters, flush) for fn in (sm90, simt, simt, sm90)]
+    t_kern, t_simt = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     t_ref = _time_ms(lambda: ref(qq, kc, vc, mm, **kw), iters, flush)
+    bound_ms, bound_by = _k4_bound(qq, mm, n)
     t = qq.shape[1]
-    # q, both caches, the mask and out once each; 4 flops per live
-    # (query, key, head, dim)
-    nbytes = 2 * (2 * b * t * n * h + 2 * b * n * h * s) + b * t * s
-    bound_ms, bound_by = _bound(4.0 * h * n * float(mm.sum()), nbytes)
 
     def make_lib(qq=qq, mm=mm, t=t):
       qf = qq.transpose(1, 2).contiguous()                  # [B, N, T, H]
@@ -242,35 +288,86 @@ def k4_phase(dev, flush):
                           block_mask=bm, scale=1.0)
 
     t_lib = _library_ms(label, make_lib, iters, flush)
+    if t == 1:
+      # What one PyTorch reduction takes to read as many bytes as the live
+      # K/V: a floor for a bytes-bound kernel at this size, beside bound_ms.
+      live = torch.empty(int(2 * 2 * float(mm.any(dim=1).sum()) * n * h) // 2,
+                         dtype=torch.bfloat16, device=dev)
+      t_read = _time_ms(lambda: live.amax(), iters, flush)
+      print(f"  {label}: torch.amax over {live.numel() * 2 / 1e6:.1f} MB (the "
+            f"live K/V's bytes) {t_read:.4f} ms")
+      del live
     out[label] = dict(err=err, ms=t_kern, plain_ms=t_ref, library_ms=t_lib,
-                      bound_ms=bound_ms, bound_by=bound_by)
-    print(f"  {label}: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}) (L2 flushed before each call)")
+                      bound_ms=bound_ms, bound_by=bound_by, simt_ms=t_simt)
+    print(f"  {label}: Hopper kernel {t_kern:.4f} ms ({turns[0]:.4f}, "
+          f"{turns[3]:.4f}), SIMT kernel {t_simt:.4f} ms ({turns[1]:.4f}, "
+          f"{turns[2]:.4f}), plain {t_ref:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; live keys' K/V) (in turns, L2 flushed before each "
+          f"call)")
 
-  print("K4 case 2: GQA N8/n_kv2, ragged S, f32, no cap")
-  for s2 in (77, 200):
-    q, kc2, vc2, mask = _kernel_inputs(dev, gen, 3, 5, 8, 2, 64, s2,
-                                       torch.float32)
-    got = kern(q, kc2, vc2, mask, n_kv_heads=2)
-    _compare(f"S={s2}", got, ref(q, kc2, vc2, mask, n_kv_heads=2), **F32_TOL)
+  print("K4 case 2: GQA N8/n_kv2, T 1-8 (split-S up to T 4, wgmma above), "
+        "S 200, bf16, cap 50")
+  for t in range(1, 9):
+    q2, kc2, vc2, mask = _kernel_inputs(dev, gen, 2, t, 8, 2, 128, 200,
+                                        torch.bfloat16)
+    check(f"T={t}", q2, kc2, vc2, mask, BF16_TOL, n_kv_heads=2,
+          logit_cap=50.0)
 
-  print("K4 case 3: head-major rows, return_stats, GQA, bf16, cap 50")
-  q, kc2, vc2, mask = _kernel_inputs(dev, gen, 2, 4, 4, 2, 128, 300,
-                                     torch.bfloat16)
-  kw = dict(n_kv_heads=2, logit_cap=50.0, layout="head_major",
-            return_stats=True)
-  (o, m, l), (o_r, m_r, l_r) = kern(q, kc2, vc2, mask, **kw), ref(
-      q, kc2, vc2, mask, **kw)
-  _compare("out", o, o_r, **BF16_TOL)
-  _compare("m", m, m_r, **F32_TOL)
-  _compare("l", l, l_r, **F32_TOL)
+  print("K4 case 3: prefix-LM and window masks (dead, mixed and all-live "
+        "tiles), T 400 over S 512, N4/n_kv2, hd 64 and hd 72")
+  t, s3 = 400, 512
+  qi = torch.arange(t, device=dev)[:, None]
+  ki = torch.arange(s3, device=dev)[None, :]
+  masks = {"prefix-LM 100": (ki < 100) | (ki <= qi),
+           "window 200": (ki <= qi) & (qi - ki < 200)}
+  for name, m2 in masks.items():
+    m2 = m2.expand(2, t, s3).contiguous()
+    classes = da.mask_tile_classes_reference(m2)
+    counts = [int((classes == c).sum()) for c in (da.DEAD, da.MIXED, da.LIVE)]
+    if min(counts) == 0:
+      raise AssertionError(f"{name}: tiles dead / mixed / live {counts}")
+    for hd in (64, 72):
+      q3, kc3, vc3, _ = _kernel_inputs(dev, gen, 2, t, 4, 2, hd, s3,
+                                       torch.bfloat16)
+      check(f"{name} hd {hd} (tiles dead/mixed/live {counts})", q3, kc3, vc3,
+            m2, BF16_TOL, n_kv_heads=2, logit_cap=50.0)
 
-  print("K4 case 4: one fully-masked row, f32")
-  q, kc2, vc2, mask = _kernel_inputs(dev, gen, 2, 3, 4, 4, 32, 50,
-                                     torch.float32)
+  print("K4 case 4: head-major rows, return_stats, GQA 4/2, bf16, cap 50 "
+        "(decode T 2 and prefill T 100), one fully-masked row each")
+  for t in (2, 100):
+    q4, kc4, vc4, mask = _kernel_inputs(dev, gen, 2, t, 4, 2, 128, 304,
+                                        torch.bfloat16)
+    mask[1, t - 1] = False
+    _, (o4, _, l4) = check(f"T={t}", q4, kc4, vc4, mask, BF16_TOL,
+                           n_kv_heads=2, logit_cap=50.0, layout="head_major",
+                           return_stats=True)
+    if (float(o4[1, t - 1].abs().max()) != 0.0
+        or float(l4[1, t - 1].max()) != 0.0):
+      raise AssertionError("fully-masked row: out or l is not 0")
+
+  print("K4 case 5: decode, keys 64-511 masked for every query (whole "
+        "splits dead), b2 N8/8 hd128 S1024 bf16")
+  q5, kc5, vc5, _ = _kernel_inputs(dev, gen, 2, 1, 8, 8, 128, 1024,
+                                   torch.bfloat16)
+  k5 = torch.arange(1024, device=dev)
+  mask = ((k5 < 64) | ((k5 >= 512) & (k5 < 700))).expand(2, 1, 1024)
+  check("dead splits", q5, kc5, vc5, mask.contiguous(), BF16_TOL,
+        n_kv_heads=8, logit_cap=50.0)
+
+  print("K4 case 6: the SIMT kernel: GQA N8/n_kv2, ragged S, f32, no cap; "
+        "hd 256 bf16; one fully-masked row, f32")
+  for s6 in (77, 200):
+    q6, kc6, vc6, mask = _kernel_inputs(dev, gen, 3, 5, 8, 2, 64, s6,
+                                        torch.float32)
+    check(f"S={s6}", q6, kc6, vc6, mask, F32_TOL, sm90=False, n_kv_heads=2)
+  q6, kc6, vc6, mask = _kernel_inputs(dev, gen, 2, 3, 4, 1, 256, 96,
+                                      torch.bfloat16)
+  check("hd 256", q6, kc6, vc6, mask, BF16_TOL, sm90=False, n_kv_heads=1)
+  q6, kc6, vc6, mask = _kernel_inputs(dev, gen, 2, 3, 4, 4, 32, 50,
+                                      torch.float32)
   mask[1, 2] = False
-  got = kern(q, kc2, vc2, mask, n_kv_heads=4)
-  _compare("out", got, ref(q, kc2, vc2, mask, n_kv_heads=4), **F32_TOL)
+  _, got = check("fully-masked row", q6, kc6, vc6, mask, F32_TOL, sm90=False,
+                 n_kv_heads=4)
   if float(got[1, 2].abs().max()) != 0.0:
     raise AssertionError("fully-masked row is not 0")
   torch.cuda.synchronize()
@@ -1291,7 +1388,8 @@ def profile_phase(dev):
     for dt, _, key in rows:
       per_step[key] = per_step.get(key, 0.0) + sign * dt / (new - 1)
   busy = sum(per_step.values())
-  k4 = sum(v for k, v in per_step.items() if "decode_attention_kernel" in k)
+  k4 = sum(v for k, v in per_step.items()
+           if "decode_attention_kernel" in k or "k4_" in k)
   wall_us = (walls[1] - walls[0]) / (new - 1) * 1e6
   print(f"profile, decode step (b{b}, {t0} + {new} tokens, cache "
         f"{t0 + new}; generate minus prefill over {new - 1} steps): wall "
@@ -1446,17 +1544,20 @@ def serving_phase(dev):
   lm_lib.greedy_generate(model, prompt, 4)      # warm the decode shapes
   torch.cuda.synchronize()
   da.decode_attention.launches = 0
+  da.decode_attention.launches_sm90 = 0
   start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
   start.record()
   tokens = generate()
   end.record()
   end.synchronize()
   launches = da.decode_attention.launches
+  sm90 = da.decode_attention.launches_sm90
   gen_ms = start.elapsed_time(end)
   expected = cfg.n_layers * new
-  print(f"decode_attention launches in the run: {launches} "
-        f"(expected {cfg.n_layers} x (1 + {new - 1}) = {expected})")
-  if launches != expected:
+  print(f"decode_attention launches in the run: {launches}, {sm90} of them "
+        f"the Hopper kernels' (expected {cfg.n_layers} x (1 + {new - 1}) = "
+        f"{expected}, all Hopper)")
+  if launches != expected or sm90 != expected:
     raise AssertionError("the run did not go through the kernel as expected")
   if tokens.shape != (batch, total) or not bool(
       (tokens[:, :t0] == prompt).all()) or not bool(
@@ -1503,8 +1604,9 @@ def _sass_report(lib):
   sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                         text=True, timeout=120, check=False).stdout
   for body in re.split(r"\n\s*Function : ", sass)[1:]:
-    name = re.sub(r".*?(flash_(?:fwd|bwd)\w*?_kernel)ILi(\d+)E.*", r"\1<\2>",
-                  body.splitlines()[0])
+    name = re.sub(r".*?\d((?:flash|k4)_\w*?_kernel)(?:ILi(\d+)E)?.*",
+                  lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""),
+                  body.splitlines()[0].strip())
     ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body)
     count = lambda *names: sum(op in names for op in ops)
     first = re.search(r"HGMMA\.\S+", body)
@@ -1534,8 +1636,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
   t = time.perf_counter()
-  sources = ("decode_attention", "flash_attention", "flash_attention_sm90",
-             "xent", "depthwise")
+  sources = ("decode_attention", "decode_attention_sm90", "flash_attention",
+             "flash_attention_sm90", "xent", "depthwise")
   with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
     libs = list(pool.map(cuda_build.build, sources))
   print(f"build: {', '.join(l.name for l in libs)} in "
@@ -1545,7 +1647,8 @@ def main() -> int:
     for line in log.read_text().splitlines() if log.exists() else ():
       if "registers" in line or "spill" in line:
         print(f"  ptxas: {line.strip()}")
-  _sass_report(libs[sources.index("flash_attention_sm90")])
+  for name in ("decode_attention_sm90", "flash_attention_sm90"):
+    _sass_report(libs[sources.index(name)])
 
   if "--profile" in sys.argv[1:]:
     profile_phase(dev)
@@ -1570,7 +1673,8 @@ def main() -> int:
   print(f"prefill K4 at the slice's shapes: {json.dumps(k4['prefill T=512'])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
   print(json.dumps({"kernels": [
-      _entry("decode_attention", "automl_tpu_torch/csrc/decode_attention.cu",
+      _entry("decode_attention",
+             "automl_tpu_torch/csrc/decode_attention_sm90.cu",
              "automl_tpu/ops/decode_attention.py:51", k4_launches,
              k4["decode T=1"]),
       _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",

@@ -42,6 +42,11 @@ def _inputs(dev, b, t, n, n_kv, h, s, dtype, seed):
   return q.to(dtype), kc.to(dtype), vc.to(dtype), mask
 
 
+def _k4_launches():
+  f = da.decode_attention
+  return (f.launches, f.launches_sm90, f.launches_simt)
+
+
 def _close(got, want, dtype):
   tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
   torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -61,28 +66,37 @@ def test_decode_attention_kernel_matches_plain(dev, case, dtype):
   case = dict(case)
   cap = case.pop("cap", 0.0)
   q, kc, vc, mask = _inputs(dev, dtype=dtype, seed=0, **case)
-  before = da.decode_attention.launches
+  before = _k4_launches()
   got = da.decode_attention(q, kc, vc, mask, n_kv_heads=case["n_kv"],
                             logit_cap=cap)
   torch.cuda.synchronize()
-  assert da.decode_attention.launches == before + 1
+  sm90 = da.takes_sm90(q.dtype, kc.dtype, case["h"], case["s"])
+  assert _k4_launches() == tuple(
+      x + d for x, d in zip(before, (1, int(sm90), int(not sm90))))
   want = da.decode_attention_reference(q, kc, vc, mask,
                                        n_kv_heads=case["n_kv"], logit_cap=cap)
   _close(got, want, dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,s", [(4, 300), (2, 304), (100, 304)],
+                         ids=["simt", "split_s", "wgmma"])
 @pytest.mark.parametrize("layout", ["batch_major", "head_major"])
-def test_decode_attention_kernel_stats_and_masked_row(dev, layout):
-  q, kc, vc, mask = _inputs(dev, 2, 4, 4, 2, 128, 300, torch.bfloat16, seed=1)
-  mask[1, 2] = False
+def test_decode_attention_kernel_stats_and_masked_row(dev, layout, t, s):
+  """S 300 takes the scalar kernel, S 304 the Hopper kernels (T 2: split-S,
+  T 100: wgmma)."""
+  q, kc, vc, mask = _inputs(dev, 2, t, 4, 2, 128, s, torch.bfloat16, seed=1)
+  mask[1, t - 1] = False
   kw = dict(n_kv_heads=2, logit_cap=50.0, layout=layout, return_stats=True)
+  before = _k4_launches()
   out, m, l = da.decode_attention(q, kc, vc, mask, **kw)
+  assert _k4_launches()[1] == before[1] + int(s % 8 == 0)
   out_r, m_r, l_r = da.decode_attention_reference(q, kc, vc, mask, **kw)
   _close(out, out_r, torch.bfloat16)
   torch.testing.assert_close(m, m_r, **F32_TOL)
   torch.testing.assert_close(l, l_r, **F32_TOL)
-  assert float(out[1, 2].abs().max()) == 0.0 and float(l[1, 2].max()) == 0.0
+  assert float(out[1, t - 1].abs().max()) == 0.0
+  assert float(l[1, t - 1].max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -111,6 +125,62 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take(dev):
   with pytest.raises(ValueError, match="head_dim"):
     da.decode_attention(q_big, kc_big, vc_big, mask_big, n_kv_heads=1)
   assert da.decode_attention.launches == before
+
+
+def _k4_mask(dev, kind, b, t, s):
+  qi = torch.arange(t, device=dev)[:, None] + (s - t)  # queries at the end
+  ki = torch.arange(s, device=dev)[None, :]
+  mask = {"causal": ki <= qi,
+          "prefix_lm": (ki < 100) | (ki <= qi),
+          "window": (ki <= qi) & (qi - ki < 200),
+          "dead_splits": (ki < 64) | ((ki >= 512) & (ki < 700)) | (ki == qi),
+          }[kind]
+  return mask.expand(b, t, s).contiguous()
+
+
+# The Hopper kernels (csrc/decode_attention_sm90.cu) in both designs:
+# split-S for T * rep <= 16 query rows per kv row, wgmma above.
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(b=2, t=1, n=8, n_kv=2, h=128, s=200, mask="random"),    # split-S
+    dict(b=2, t=4, n=8, n_kv=2, h=128, s=200, mask="random"),    # 16 rows
+    dict(b=2, t=5, n=8, n_kv=2, h=128, s=200, mask="random"),    # wgmma
+    dict(b=2, t=8, n=8, n_kv=2, h=64, s=1000, mask="causal"),
+    dict(b=2, t=1, n=8, n_kv=8, h=128, s=1024, mask="dead_splits"),
+    dict(b=2, t=300, n=4, n_kv=2, h=72, s=512, mask="prefix_lm"),
+    dict(b=2, t=300, n=4, n_kv=4, h=8, s=512, mask="window"),
+    dict(b=1, t=130, n=2, n_kv=1, h=128, s=136, mask="causal"),
+], ids=["t1_gqa", "t4_gqa", "t5_gqa", "t8_hd64", "dead_splits", "prefix_lm",
+        "window_hd8", "t130_ragged"])
+def test_decode_attention_sm90_matches_plain(dev, case):
+  case = dict(case)
+  kind = case.pop("mask")
+  q, kc, vc, mask = _inputs(dev, dtype=torch.bfloat16, seed=5, **case)
+  if kind != "random":
+    mask = _k4_mask(dev, kind, case["b"], case["t"], case["s"])
+  kw = dict(n_kv_heads=case["n_kv"], logit_cap=50.0)
+  before = _k4_launches()
+  got = da.decode_attention(q, kc, vc, mask, **kw)
+  torch.cuda.synchronize()
+  assert _k4_launches() == tuple(x + d for x, d in zip(before, (1, 1, 0)))
+  _close(got, da.decode_attention_reference(q, kc, vc, mask, **kw),
+         torch.bfloat16)
+  again = da.decode_attention(q, kc, vc, mask, **kw)
+  assert torch.equal(got, again), "two calls differ"
+
+
+@pytest.mark.cuda
+def test_decode_attention_sm90_refuses_what_it_does_not_take(dev):
+  q, kc, vc, mask = _inputs(dev, 2, 1, 4, 2, 128, 64, torch.bfloat16, seed=8)
+  before = _k4_launches()
+  with pytest.raises(TypeError, match="bool"):
+    da.decode_attention(q, kc, vc, mask.to(torch.uint8), n_kv_heads=2)
+  with pytest.raises(ValueError, match="contiguous"):
+    da.decode_attention(q, kc, vc.transpose(1, 2).contiguous().transpose(1, 2),
+                        mask, n_kv_heads=2)
+  with pytest.raises(ValueError, match="divisible"):
+    da.decode_attention(q[:, :, :3], kc, vc, mask, n_kv_heads=2)
+  assert _k4_launches() == before
 
 
 def _flash_inputs(dev, b, t, n, h, dtype, seed, segments=False):
@@ -254,9 +324,15 @@ def test_flash_attention_autograd_gqa_on_card_matches_cpu(dev, bwd_fused):
     return [out.detach().cpu()] + [x.grad.cpu() for x in xs]
 
   # Each side runs twice, so that a failure also says which side does not
-  # repeat itself (this case failed once on the card, ROADMAP Queue 3).
+  # repeat itself. The CPU side runs on one thread: with several, its sums
+  # were seen to change from run to run in one process (ROADMAP Queue 3).
   card, card_again = run(dev), run(dev)
-  cpu, cpu_again = run(torch.device("cpu")), run(torch.device("cpu"))
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  try:
+    cpu, cpu_again = run(torch.device("cpu")), run(torch.device("cpu"))
+  finally:
+    torch.set_num_threads(threads)
   for i, name in enumerate(("out", "dq", "dk", "dv")):
     note = (f"card rerun bit-equal {torch.equal(card[i], card_again[i])}, "
             f"CPU rerun bit-equal {torch.equal(cpu[i], cpu_again[i])}, card "
