@@ -1,15 +1,16 @@
-"""Times the flash-attention forward (K1) and fused backward (K2) on the card.
+"""Times the flash-attention kernels (K1, K2, K5a, K5b) on the card.
 
   python -m automl_tpu_torch.cli.flash_bench            # the LM slice's shapes
   python -m automl_tpu_torch.cli.flash_bench --t=4096 --iters=20
 
 For bf16 q, k, v, g [B, T, N, H] (causal, sm_scale 1, q scaled by
 1/sqrt(H) as the model feeds it), with the tanh cap at --cap and at 0:
-K1 and K2 of the Hopper kernels (csrc/flash_attention_sm90.cu) and of the
-scalar-FMA kernels (csrc/flash_attention.cu, reached with `_simt`), in
-turns (Hopper, scalar, scalar, Hopper), CUDA events around each call, L2
-flushed before each. Prints one line per kernel and a JSON line of the
-means. Needs a CUDA device.
+the forward K1, the fused backward K2 and the split backward's K5a (dq)
+and K5b (dk, dv), each of the Hopper kernels (csrc/flash_attention_sm90.cu)
+and of the scalar-FMA kernels (csrc/flash_attention.cu, reached with
+`_simt`), in turns (Hopper, scalar, scalar, Hopper), CUDA events around
+each call, L2 flushed before each. Prints one line per kernel and a JSON
+line of the means. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -67,10 +68,15 @@ def main(argv=None) -> int:
   for cap in (args.cap, 0.0):
     kw = dict(causal=True, logit_cap=cap, sm_scale=1.0)
     out, lse = fa.flash_fwd_kernel(q, k, v, None, **kw)
-    runs = {"K1": lambda simt: fa.flash_fwd_kernel(q, k, v, None,
-                                                   _simt=simt, **kw),
-            "K2": lambda simt: fa.flash_bwd_kernel(q, k, v, g, out, lse,
-                                                   None, _simt=simt, **kw)}
+    bwd_args = (q, k, v, g, out, lse, None)
+    runs = {
+        "K1": lambda simt: fa.flash_fwd_kernel(q, k, v, None, _simt=simt,
+                                               **kw),
+        "K2": lambda simt: fa.flash_bwd_kernel(*bwd_args, _simt=simt, **kw),
+        "K5a": lambda simt: fa.flash_bwd_dq_kernel(*bwd_args, _simt=simt,
+                                                   **kw),
+        "K5b": lambda simt: fa.flash_bwd_dkv_kernel(*bwd_args, _simt=simt,
+                                                    **kw)}
     for kid, run in runs.items():
       got = {}
       for simt in (False, True, True, False):

@@ -1,5 +1,6 @@
-// Flash attention for bf16 on Hopper (sm_90a): the forward (K1) and the
-// fused backward (K2) on bf16 tensor cores (wgmma), fed by TMA.
+// Flash attention for bf16 on Hopper (sm_90a): the forward (K1), the fused
+// backward (K2) and the split backward (K5a, K5b) on bf16 tensor cores
+// (wgmma), fed by TMA.
 //
 // Replaces the Pallas kernels of automl_tpu/ops/attention.py for bf16
 // inputs with head dims up to 128 (a multiple of 8):
@@ -8,34 +9,41 @@
 //     lse = the row logsumexp, online over key tiles;
 //   * automl_flash_bwd_sm90 replaces _bwd_fused_kernel (launched by
 //     _flash_bwd_fused_pallas): one recompute of s, p, dp and ds per
-//     (q tile, k tile) gives dq, dk and dv.
-// float32 inputs (and the split backward, K5a / K5b) keep the scalar-FMA
-// kernels of flash_attention.cu. The interface is theirs: q, k, v, g
-// [B, T, N, H] through their strides (unit H stride, the others multiples
-// of 8 elements, 16-byte aligned bases: what a TMA descriptor takes); out,
-// dk, dv contiguous [B, T, N, H]; lse f32 [B*N, T] (row b*N + n); segment
-// ids int32 [B, T]; K2's dq in f32 [B*N, Tp / 64, HP / 64, 64, 64] blocks
-// (the caller zeroes and reorders it). The backward reads lse and delta =
-// rowsum(g * out) from f32 [B*N, Tp] buffers, Tp = T rounded up to 64 and
-// zero-padded, so that each q tile's 64 values are one 256-byte bulk copy. Masks: causal,
-// sliding window (q - k < window), the sequence end and equal segment ids;
-// a masked key scores -1e30 and gets an explicit p = 0.
+//     (q tile, k tile) gives dq, dk and dv;
+//   * automl_flash_bwd_dq_sm90 replaces _bwd_dq_kernel and
+//     automl_flash_bwd_dkv_sm90 _bwd_dkv_kernel (both launched by
+//     _flash_bwd_pallas): dq = sm_scale * sum_k ds k, and dk = sm_scale *
+//     sum_q ds^T q, dv = sum_q p^T g, each kernel recomputing s, p, dp, ds.
+// float32 inputs keep the scalar-FMA kernels of flash_attention.cu. The
+// interface is theirs: q, k, v, g [B, T, N, H] through their strides (unit
+// H stride, the others multiples of 8 elements, 16-byte aligned bases: what
+// a TMA descriptor takes); out, dq (K5a), dk, dv contiguous [B, T, N, H];
+// lse f32 [B*N, T] (row b*N + n); segment ids int32 [B, T]; K2's dq in f32
+// [B*N, Tp / 64, HP / 64, 64, 64] blocks (the caller zeroes and reorders
+// it). The backward kernels read lse and delta = rowsum(g * out) from f32
+// [B*N, Tp] buffers, zero-padded to Tp = T rounded up to a q tile (64 for
+// K2; 128, K5a's q tile, for K5a and K5b, which share one pair of buffers),
+// so that each q tile's values are one bulk copy. Masks: causal, sliding
+// window (q - k < window), the sequence end and equal segment ids; a masked
+// key scores -1e30 and gets an explicit p = 0.
 //
 // Precision contract (that of the TPU kernels and of flash_attention.cu):
 // s = q k^T and dp = g v^T are exact products of the bf16 operands summed in
 // f32 (bf16 wgmma with f32 accumulators); sm_scale multiplies the f32
-// result. The f32 products p v (K1) and p^T g, ds^T q, ds k (K2) have one
-// f32 operand, p or ds: it is split as x = hi + lo, hi = bf16(x), lo =
+// result. The f32 products p v (K1), p^T g, ds^T q, ds k (K2, K5a, K5b) have
+// one f32 operand, p or ds: it is split as x = hi + lo, hi = bf16(x), lo =
 // bf16(x - hi), and both halves go through wgmma into one f32 accumulator,
 // so the operand keeps about 16 bits of mantissa (relative error near
 // 2^-17) where rounding p to bf16 once would keep 8.
 //
 // Bound on this card, at the LM slice's shapes (B 8, T 2048, N 8, H 128,
 // causal): the forward's 2 products are 68.7 GFLOP, the backward's 5 are
-// 172 GFLOP, 0.070 / 0.174 ms at the bf16 tensor-core peak of 989 TFLOP/s
-// (bound by operations: the bytes take at most 0.08 ms at 3.35 TB/s). The
-// split costs the forward 3 product-units of tensor-core work instead of 2
-// and the backward 8 instead of 5; the bound stays that of the work asked.
+// 172 GFLOP, K5a's 3 103 GFLOP and K5b's 4 138 GFLOP, 0.070 / 0.174 / 0.104
+// / 0.139 ms at the bf16 tensor-core peak of 989 TFLOP/s (bound by
+// operations: the bytes take at most 0.08 ms at 3.35 TB/s). The split costs
+// the forward 3 product-units of tensor-core work instead of 2, the
+// backward 8 instead of 5, K5a 4 instead of 3 and K5b 6 instead of 4; the
+// bound stays that of the work asked.
 //
 // Design. One block is three warpgroups: two consumer warpgroups that run
 // wgmma (240 registers a thread, setmaxnreg) and a producer warpgroup (24
@@ -50,6 +58,13 @@
 //   and lo halves from registers (the accumulator layout is the A-operand
 //   layout) and V read MN-major (wgmma transposes it). A consumer skips a
 //   tile that causality or the window leave dead for all its rows.
+//   K5a: K1's grid, tile order and dead-tile skipping. The block's Q and G
+//   tiles and its 128 lse and delta values are loaded once; K and V tiles
+//   stream through the ring. Per live tile a consumer computes S = Q K^T
+//   and dP = G V^T (SS, K-major), p and ds in registers, and dq += ds K
+//   with ds's hi and lo halves from registers and K read MN-major (as K1
+//   reads V). dq stays in f32 registers over the key tiles and is written
+//   once: no atomics, the same result from run to run.
 //   K2: a block owns 128 keys of one (b, n), 64 per consumer, and loops
 //   over the live 64-query tiles with dk and dv in f32 registers (FA3's
 //   structure). S^T = K Q^T and dP^T = V G^T put p^T and ds^T in registers;
@@ -62,6 +77,10 @@
 //   buffer of [64 queries, 64 head dims] blocks by one bulk f32 add (TMA,
 //   performed in L2) per block and q tile, in a fixed order
 //   (wait_for_turn), so two calls are bit-equal.
+//   K5b: K2 without its dq half (kDq = false): no dq product, no f32 dq
+//   buffer, no turns; each consumer reads only its own 64 rows of p^T and
+//   ds^T, so the two consumers never wait on each other, and no block waits
+//   on another. dk and dv are written once.
 // Dead tiles are not visited; blocks with the most tiles are issued first;
 // a tile whose pairs are all live skips the masks.
 //
@@ -92,11 +111,12 @@ struct Params {
   const int* seg;         // [B, T] or null
   void* out;              // K1: [B, T, N, H]
   float* lse;             // K1: [B*N, T]
-  const float* lse_p;     // K2: [B*N, Tp]
-  const float* delta_p;   // K2: [B*N, Tp]
+  const float* lse_p;     // K2, K5a, K5b: [B*N, Tp]
+  const float* delta_p;   // K2, K5a, K5b: [B*N, Tp]
   float* dq32;            // K2: [B*N, Tp / 64, HP / 64, 64, 64] f32, zeroed
   int* dq_turn;           // K2: [B*N, Tp / 64], zeroed by the caller
-  void *dk, *dv;          // K2: [B, T, N, H]
+  void* dq;               // K5a: [B, T, N, H]
+  void *dk, *dv;          // K2, K5b: [B, T, N, H]
   int B, T, N, H, Tp;
   int causal;
   int window;             // < 0: no window
@@ -311,7 +331,169 @@ const uint32_t bv = desc_base(sv);
 }
 
 // ---------------------------------------------------------------------------
-// K2: the fused backward.
+// K5a: the split backward's dq.
+// ---------------------------------------------------------------------------
+
+template <int HP>
+struct DqSmem {
+  static constexpr int kQG = kFwdBQ * HP * 2;     // Q or G: chunks [BQ][64]
+  static constexpr int kStats = kFwdBQ * 4;       // lse or delta
+  static constexpr int kKV = kFwdBK * HP * 2;     // K or V: chunks [BK][64]
+  static constexpr int kStage = 2 * kKV;          // K then V
+  static constexpr int kOnce = 2 * kQG + 2 * kStats;  // Q, G, lse, delta
+  static constexpr int kRing = kOnce;             // a multiple of 1024
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr int kBytes = kBars + 64 + 1024;
+};
+
+template <int HP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tg,
+                             const Params p) {
+  using L = DqSmem<HP>;
+  constexpr int BQ = kFwdBQ, BK = kFwdBK, CH = HP / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* once_bar = empty + kStages;
+  init_ring(full, empty, once_bar);
+  const float* lse_s = reinterpret_cast<const float*>(smem + 2 * L::kQG);
+  const float* delta_s = lse_s + BQ;
+
+  const int bn = blockIdx.y, b = bn / p.N, n = bn % p.N;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest rows first
+  // Key tiles that hold a live key for some query of this block.
+  const int k_end = p.causal ? min(p.T, q0 + BQ) : p.T;
+  const int k_begin = p.window >= 0 ? max(0, q0 - p.window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    // Producer: Q, G, lse and delta once, then K and V tiles through the
+    // ring.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(once_bar, L::kOnce);
+      for (int c = 0; c < CH; ++c) {
+        tma_load(smem + c * BQ * kRow, &tq, once_bar, c * 64, n, q0, b);
+        tma_load(smem + L::kQG + c * BQ * kRow, &tg, once_bar, c * 64, n, q0,
+                 b);
+      }
+      const long long at = (long long)bn * p.Tp + q0;
+      bulk_load(smem + 2 * L::kQG, p.lse_p + at, L::kStats, once_bar);
+      bulk_load(smem + 2 * L::kQG + L::kStats, p.delta_p + at, L::kStats,
+                once_bar);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        uint8_t* sk = smem + L::kRing + s * L::kStage;
+        mbar_expect_tx(&full[s], L::kStage);
+        const int k0 = k_begin + j * BK;
+        for (int c = 0; c < CH; ++c) {
+          tma_load(sk + c * BK * kRow, &tk, &full[s], c * 64, n, k0, b);
+          tma_load(sk + L::kKV + c * BK * kRow, &tv, &full[s], c * 64, n, k0,
+                   b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int wq0 = q0 + wg * 64;                      // this warpgroup's rows
+    const int row = wg * 64 + warp * 16 + lane / 4;    // in the block
+    const int qr[2] = {q0 + row, q0 + row + 8};
+    const int* seg = p.seg != nullptr ? p.seg + (long long)b * p.T : nullptr;
+    const uint32_t aq = desc_base(smem + wg * 64 * kRow);
+    const uint32_t ag = desc_base(smem + L::kQG + wg * 64 * kRow);
+
+    float dq[HP / 2];
+    zero(dq);
+    mbar_wait(once_bar, 0);
+    const float lse[2] = {lse_s[row], lse_s[row + 8]};
+    const float delta[2] = {delta_s[row], delta_s[row + 8]};
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int k0 = k_begin + j * BK;
+      const uint8_t* sk = smem + L::kRing + s * L::kStage;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const bool dead = wq0 >= p.T || (p.causal && k0 > wq0 + 63) ||
+                        (p.window >= 0 && wq0 - (k0 + BK - 1) >= p.window);
+      // Every (query, key) pair of this warpgroup's tile is live: no masks.
+      const bool all_live =
+          seg == nullptr && wq0 + 63 < p.T && k0 + BK - 1 < p.T &&
+          (!p.causal || k0 + BK - 1 <= wq0) &&
+          (p.window < 0 || wq0 + 63 - k0 < p.window);
+      if (!dead) {
+        // S = Q K^T and dP = G V^T over HP / 16 k16 steps.
+        float sc[32], dp[32];
+        zero(sc);
+        zero(dp);
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+        const uint32_t bk = desc_base(sk), bv = desc_base(sk + L::kKV);
+        static_for<0, HP / 16>([&](auto kk) {
+          // K-major: chunk kk / 4 of 64 head dims, 32 bytes per k16 step.
+          constexpr int ka = desc_off((kk / 4) * BQ * kRow + (kk % 4) * 32, 16);
+          constexpr int kb = desc_off((kk / 4) * BK * kRow + (kk % 4) * 32, 16);
+          wgmma_ss_n64<0, 0, ka, kb>(sc, aq, bk, kk > 0);
+          wgmma_ss_n64<0, 0, ka, kb>(dp, ag, bv, kk > 0);
+        });
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // p = exp(s - lse) and ds = p (dp - delta) dcap on live pairs, 0
+        // elsewhere; ds in sc.
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          const int h = (r >> 1) & 1;
+          float dcap;
+          const float x = capped(p.scale * sc[r], p.cap, &dcap);
+          const bool ok =
+              all_live || live(qr[h], k0 + acc_col(r, lane), p, seg);
+          const float pv = ok ? expf(x - lse[h]) : 0.f;
+          sc[r] = pv * (dp[r] - delta[h]) * dcap;
+        }
+        uint32_t ds_hi[4][4], ds_lo[4][4];
+        split_operand(sc, ds_hi, ds_lo);
+
+        // dq += ds_hi K + ds_lo K, K read MN-major (sm_scale at the end).
+        fence_regs(dq);
+        wgmma_fence();
+        static_for<0, BK / 16>([&](auto kk) {
+          constexpr int kb = desc_off(kk * 16 * kRow, BK * kRow);  // MN-major
+          wgmma_rs<HP, kb>(dq, ds_hi[kk], bk);
+          wgmma_rs<HP, kb>(dq, ds_lo[kk], bk);
+        });
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dq);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // dq = sm_scale * dq, in q's dtype, written once.
+    __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(p.dq);
+#pragma unroll
+    for (int r = 0; r < HP / 2; r += 2) {
+      const int h = (r >> 1) & 1, col = acc_col(r, lane);
+      if (qr[h] >= p.T || col >= p.H) continue;
+      const long long at = (((long long)b * p.T + qr[h]) * p.N + n) * p.H + col;
+      *reinterpret_cast<__nv_bfloat162*>(dq_out + at) =
+          __floats2bfloat162_rn(p.scale * dq[r], p.scale * dq[r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: the fused backward, and K5b: the split backward's dk and dv.
 // ---------------------------------------------------------------------------
 
 // The order of dq's sum: dq of one q tile is summed over the key tiles that
@@ -356,7 +538,8 @@ struct BwdSmem {
   static constexpr int kBytes = kBars + 64 + 1024;
 };
 
-template <int HP>
+// kDq: K2 (dq, dk, dv); without it K5b (dk, dv).
+template <int HP, bool kDq>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -375,8 +558,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* sv = smem + L::kKV;
 
   const int bn = blockIdx.y, b = bn / p.N, n = bn % p.N;
-  // The last key tile gets the lowest block index: see wait_for_turn.
-  const int n_kt = gridDim.x, kt = n_kt - 1 - blockIdx.x;
+  // K2: the last key tile gets the lowest block index (see wait_for_turn).
+  // K5b: the first key tile, which has the most q tiles under causality,
+  // does.
+  const int n_kt = gridDim.x, kt = kDq ? n_kt - 1 - blockIdx.x : blockIdx.x;
   const int k0 = kt * BK;
   // Query tiles that hold a live query for some key of this block.
   const int q_begin = p.causal ? k0 : 0;  // BK is a multiple of BQ
@@ -465,8 +650,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // p^T = exp(s - lse) and ds^T = p^T (dp^T - delta) dcap on live
       // pairs; their hi and lo halves into shared memory (swizzled
-      // [key][query]) once both warpgroups are done with the previous tile's.
-      consumers_sync();
+      // [key][query]) once the warpgroups that read them (K2: both, for
+      // dq; K5b: this one) are done with the previous tile's.
+      if constexpr (kDq)
+        consumers_sync();
+      else
+        warpgroup_sync(wg);
 #pragma unroll
       for (int r = 0; r < 32; r += 2) {
         float pv[2], dsv[2];
@@ -494,9 +683,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // dv += p^T G, dk += ds^T Q (sm_scale at the end): A K-major (the
       // warpgroup's key rows), B = g, q MN-major.
-      float dq[32];
-      zero(dq);
-      fence_regs(dq);
       fence_regs(dv);
       fence_regs(dk);
       wgmma_fence();
@@ -509,9 +695,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_ss_kmn<HP, ka, kb>(dk, ((ps + 3 * L::kPs) >> 4) + rows, bq);
       });
       wgmma_commit();
+      if constexpr (!kDq) {
+        wgmma_wait_all();
+        fence_regs(dv);
+        fence_regs(dk);
+        mbar_arrive(&empty[s]);  // Q, G, lse and delta of this stage are read
+        continue;
+      }
 
       // dq = ds K over the block's 128 keys (A = ds^T read MN-major, B = k
       // MN-major); warpgroup wg takes head dims [64 wg, 64 wg + 64).
+      float dq[32];
+      zero(dq);
+      fence_regs(dq);
       consumers_sync();  // both halves of ds^T are in shared memory
       if (wg < CH) {
         wgmma_fence();
@@ -628,17 +824,47 @@ int launch_fwd(const CUtensorMap* maps, const Params& p, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <int HP>
+template <int HP, bool kDq>
 int launch_bwd(const CUtensorMap* maps, const Params& p, cudaStream_t stream) {
   constexpr int smem = BwdSmem<HP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_sm90_kernel<HP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_sm90_kernel<HP, kDq>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((p.T + kBwdBK - 1) / kBwdBK, p.B * p.N);
-  flash_bwd_sm90_kernel<HP><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_sm90_kernel<HP, kDq><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], p);
   return int(cudaGetLastError());
+}
+
+template <int HP>
+int launch_bwd_dq(const CUtensorMap* maps, const Params& p,
+                  cudaStream_t stream) {
+  constexpr int smem = DqSmem<HP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_sm90_kernel<HP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((p.T + kFwdBQ - 1) / kFwdBQ, p.B * p.N);
+  flash_bwd_dq_sm90_kernel<HP><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return int(cudaGetLastError());
+}
+
+// The split backward's params and q, k, v, g tensor maps (q and g in boxes
+// of q_rows, k and v of k_rows); lse_p and delta_p padded to T rounded up
+// to K5a's q tile.
+bool split_setup(Params* p, CUtensorMap* maps, const void* q, const void* k,
+                 const void* v, const void* g, const long long* st,
+                 const void* lse_p, const void* delta_p, int q_rows,
+                 int k_rows) {
+  p->Tp = (p->T + kFwdBQ - 1) / kFwdBQ * kFwdBQ;
+  p->lse_p = static_cast<const float*>(lse_p);
+  p->delta_p = static_cast<const float*>(delta_p);
+  return encode(&maps[0], q, st, *p, q_rows) &&
+         encode(&maps[1], k, st + 3, *p, k_rows) &&
+         encode(&maps[2], v, st + 6, *p, k_rows) &&
+         encode(&maps[3], g, st + 9, *p, q_rows);
 }
 
 }  // namespace
@@ -694,5 +920,51 @@ extern "C" int automl_flash_bwd_sm90(
       !encode(&maps[3], g, st + 9, p, kBwdBQ))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return H <= 64 ? launch_bwd<64>(maps, p, s) : launch_bwd<128>(maps, p, s);
+  return H <= 64 ? launch_bwd<64, true>(maps, p, s)
+                 : launch_bwd<128, true>(maps, p, s);
+}
+
+// K5a and K5b: lse_p and delta_p are [B*N, T rounded up to 128], zero-padded.
+extern "C" int automl_flash_bwd_dq_sm90(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* seg, const void* lse_p, const void* delta_p, void* dq,
+    long long q_sb, long long q_st, long long q_sn, long long k_sb,
+    long long k_st, long long k_sn, long long v_sb, long long v_st,
+    long long v_sn, long long g_sb, long long g_st, long long g_sn, int B,
+    int T, int N, int H, int causal, int window, float cap, float scale,
+    void* stream) {
+  cudaGetLastError();
+  Params p = make_params(B, T, N, H, causal, window, cap, scale, seg);
+  if (!valid(p)) return int(cudaErrorInvalidValue);
+  p.dq = dq;
+  const long long st[12] = {q_sb, q_st, q_sn, k_sb, k_st, k_sn,
+                            v_sb, v_st, v_sn, g_sb, g_st, g_sn};
+  CUtensorMap maps[4];
+  if (!split_setup(&p, maps, q, k, v, g, st, lse_p, delta_p, kFwdBQ, kFwdBK))
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return H <= 64 ? launch_bwd_dq<64>(maps, p, s) : launch_bwd_dq<128>(maps, p, s);
+}
+
+extern "C" int automl_flash_bwd_dkv_sm90(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* seg, const void* lse_p, const void* delta_p, void* dk,
+    void* dv, long long q_sb, long long q_st, long long q_sn, long long k_sb,
+    long long k_st, long long k_sn, long long v_sb, long long v_st,
+    long long v_sn, long long g_sb, long long g_st, long long g_sn, int B,
+    int T, int N, int H, int causal, int window, float cap, float scale,
+    void* stream) {
+  cudaGetLastError();
+  Params p = make_params(B, T, N, H, causal, window, cap, scale, seg);
+  if (!valid(p)) return int(cudaErrorInvalidValue);
+  p.dk = dk;
+  p.dv = dv;
+  const long long st[12] = {q_sb, q_st, q_sn, k_sb, k_st, k_sn,
+                            v_sb, v_st, v_sn, g_sb, g_st, g_sn};
+  CUtensorMap maps[4];
+  if (!split_setup(&p, maps, q, k, v, g, st, lse_p, delta_p, kBwdBQ, kBwdBK))
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return H <= 64 ? launch_bwd<64, false>(maps, p, s)
+                 : launch_bwd<128, false>(maps, p, s);
 }

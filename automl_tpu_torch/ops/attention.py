@@ -7,12 +7,12 @@ The counterpart of automl_tpu/ops/attention.py. Four kernels:
   * K5a and K5b, the split backward (replace _bwd_dq_kernel and
     _bwd_dkv_kernel): dq from one kernel, dk and dv from another, each
     recomputing s/p/ds.
-K1 and K2 have two CUDA implementations: for bf16 inputs (head_dim a
-multiple of 8, strides TMA takes) the Hopper kernels of
-csrc/flash_attention_sm90.cu (bf16 wgmma fed by TMA; p and ds split into two
-bf16 halves for the products that take them); for float32 inputs the
-scalar-FMA kernels of csrc/flash_attention.cu, which also hold K5a and K5b
-for both dtypes.
+Each has two CUDA implementations: for bf16 inputs (head_dim a multiple of
+8, strides TMA takes) the Hopper kernels of csrc/flash_attention_sm90.cu
+(bf16 wgmma fed by TMA; p and ds split into two bf16 halves for the
+products that take them); for float32 inputs the scalar-FMA kernels of
+csrc/flash_attention.cu. The private `_simt=True` sends bf16 to the
+scalar-FMA kernels too (comparisons of the two only).
 
 The kernels' interface: q, k, v, g, out, dq, dk, dv [B, T, N, H] (q/k/v/g
 through their strides, unit H stride), lse and delta [B*N, T] f32 with row
@@ -31,12 +31,15 @@ the plain versions (flash_fwd_reference, flash_bwd_reference,
 flash_bwd_dq_reference, flash_bwd_dkv_reference). There is no fallback from
 the one to the other. `flash_attention.launches_fwd` / `.launches_bwd` /
 `.launches_dq` / `.launches_dkv` count kernel launches, and
-`.launches_fwd_sm90` / `.launches_bwd_sm90` those of K1 / K2 that went to
-the Hopper kernels.
+`.launches_fwd_sm90` / `.launches_bwd_sm90` / `.launches_dq_sm90` /
+`.launches_dkv_sm90` those of K1 / K2 / K5a / K5b that went to the Hopper
+kernels.
 
 The structure of JAX's _flash_res: the forward is the custom op
 automl_tpu_torch::flash_fwd, called on detached q, k, v, and its (out, lse)
-enter an identity autograd Function whose backward runs K2 or K5a + K5b.
+enter an identity autograd Function whose backward runs K2 or K5a + K5b
+(flash_bwd_split: delta = rowsum(g * out) and the padded lse made once for
+both, as JAX's _flash_bwd_pallas does).
 torch.utils.checkpoint's selective policies see the custom op (a ctypes
 launch inside an autograd Function they cannot see), so a policy that saves
 its outputs (remat_policy "dots_flash", models/lm.py) keeps the backward
@@ -219,7 +222,7 @@ def _kernel_fns() -> _KernelFns:
 
 @functools.cache
 def _sm90_fns() -> _KernelFns:
-  """The Hopper K1 / K2 entry points (bf16 only: no dtype argument)."""
+  """The Hopper entry points (bf16 only: no dtype argument)."""
   from automl_tpu_torch.ops import cuda_build
   lib = cuda_build.load("flash_attention_sm90")
   return _KernelFns(
@@ -227,7 +230,10 @@ def _sm90_fns() -> _KernelFns:
       fwd=_bind(lib.automl_flash_fwd_sm90, 6, 3, dtype_arg=False),
       # q k v g seg lse_p delta_p dq32 dq_turn dk dv
       bwd=_bind(lib.automl_flash_bwd_sm90, 11, 4, dtype_arg=False),
-      bwd_dq=None, bwd_dkv=None)
+      # q k v g seg lse_p delta_p dq
+      bwd_dq=_bind(lib.automl_flash_bwd_dq_sm90, 8, 4, dtype_arg=False),
+      # q k v g seg lse_p delta_p dk dv
+      bwd_dkv=_bind(lib.automl_flash_bwd_dkv_sm90, 9, 4, dtype_arg=False))
 
 
 def _check_kernel_inputs(tensors, segs):
@@ -255,14 +261,17 @@ def _strides(x):
   return x.stride(0), x.stride(1), x.stride(2)
 
 
-# The Hopper kernels' tiles: lse and delta are read 64 queries at a time.
+# The Hopper kernels' q tiles: K2 reads lse and delta 64 queries at a time,
+# K5a 128 (and K5b, which shares K5a's buffers, 64 from them).
 _SM90_Q_TILE = 64
+_SM90_SPLIT_Q_TILE = 128
 
 
 def _takes_sm90(x, simt):
-  """Whether K1 / K2 on these checked inputs go to the Hopper kernels: bf16
-  and not asked for the scalar-FMA ones (`_simt`, a private argument that
-  only comparisons of the two implementations pass)."""
+  """Whether a kernel on these checked inputs goes to the Hopper
+  implementation: bf16 and not asked for the scalar-FMA one (`_simt`, a
+  private argument that only comparisons of the two implementations
+  pass)."""
   return x.dtype == torch.bfloat16 and not simt
 
 
@@ -334,24 +343,29 @@ def flash_fwd_kernel(q, k, v, segs=None, *, causal=True, window=None,
   return out, lse
 
 
-def _launch_bwd(fn, which, outputs, q, k, v, g, out, lse, segs, causal,
-                window, logit_cap, sm_scale, pad_to=None):
-  """Launches a backward kernel, `fn`, on checked inputs: q k v g seg lse
-  delta, then its `outputs`, the dtype (not for the Hopper kernel, which
-  `pad_to` marks), the strides of q k v g and the common arguments.
-  delta = rowsum(g * out) is made here; with `pad_to`, lse and delta are
+def _bwd_stats(g, out, lse, pad_to=None):
+  """(lse, delta) as a backward kernel reads them: delta = rowsum(g * out),
+  both contiguous f32 [B*N, T], or with `pad_to` (the Hopper kernels)
   zero-padded to [B*N, T rounded up to pad_to]."""
   delta = _delta(g, out)
   if pad_to is not None:
-    t = lse.shape[1]
-    pad = (0, -t % pad_to)
+    pad = (0, -lse.shape[1] % pad_to)
     lse, delta = (torch.nn.functional.pad(x, pad) for x in (lse, delta))
-  delta = delta.contiguous()
-  dtype = () if pad_to is not None else (_DTYPE_CODES[q.dtype],)
+  return lse.contiguous(), delta.contiguous()
+
+
+def _launch_bwd(fn, which, outputs, q, k, v, g, stats, segs, causal,
+                window, logit_cap, sm_scale, sm90):
+  """Launches a backward kernel, `fn`, on checked inputs: q k v g seg, then
+  `stats` (lse and delta from _bwd_stats), its `outputs`, the dtype (not
+  for a Hopper kernel, `sm90`), the strides of q k v g and the common
+  arguments."""
+  dtype = () if sm90 else (_DTYPE_CODES[q.dtype],)
   with torch.cuda.device(q.device):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-             None if segs is None else segs.data_ptr(), lse.data_ptr(),
-             delta.data_ptr(), *(x.data_ptr() for x in outputs), *dtype,
+             None if segs is None else segs.data_ptr(),
+             *(x.data_ptr() for x in stats),
+             *(x.data_ptr() for x in outputs), *dtype,
              *_strides(q), *_strides(k), *_strides(v), *_strides(g),
              *_common(q, causal, window, logit_cap, sm_scale),
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -384,9 +398,9 @@ def flash_bwd_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
   dk = torch.empty((b, t, n, h), dtype=k.dtype, device=q.device)
   dv = torch.empty((b, t, n, h), dtype=v.dtype, device=q.device)
   _launch_bwd(_sm90_fns().bwd if sm90 else _kernel_fns().bwd, "backward",
-              (dq32, dq_turn, dk, dv), q, k, v, g, out, lse, segs, causal,
-              window, logit_cap, sm_scale,
-              pad_to=_SM90_Q_TILE if sm90 else None)
+              (dq32, dq_turn, dk, dv), q, k, v, g,
+              _bwd_stats(g, out, lse, _SM90_Q_TILE if sm90 else None), segs,
+              causal, window, logit_cap, sm_scale, sm90)
   flash_attention.launches_bwd += 1
   flash_attention.launches_bwd_sm90 += sm90
   if sm90:
@@ -403,30 +417,64 @@ def _dq_from_blocks(blocks, b, t, n, h):
   return x.reshape(b, n_qt * 64, n, n_ch * 64)[:, :t, :, :h]
 
 
-def flash_bwd_dq_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
-                        window=None, logit_cap=0.0, sm_scale=1.0):
-  """K5a on the card: the interface of flash_bwd_dq_reference. One block
-  per (row, q tile) keeps its dq in f32 over the key tiles and writes it
-  once: no atomics, the same result from run to run."""
+def _split_route(q, k, v, g, out, lse, segs, simt, stats):
+  """Checks the split backward's inputs; returns (sm90, stats): whether the
+  Hopper kernel takes them, and lse / delta padded for it (`stats`, when
+  flash_bwd_split made them for both kernels, or made here)."""
   _check_bwd_inputs(q, k, v, g, out, lse, segs)
+  sm90 = _takes_sm90(q, simt)
+  if sm90:
+    _check_tma((q, k, v, g))
+  if stats is None:
+    stats = _bwd_stats(g, out, lse, _SM90_SPLIT_Q_TILE if sm90 else None)
+  return sm90, stats
+
+
+def flash_bwd_dq_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
+                        window=None, logit_cap=0.0, sm_scale=1.0,
+                        _simt=False, _stats=None):
+  """K5a on the card: the interface of flash_bwd_dq_reference. bf16 goes to
+  the Hopper kernel, float32 (or `_simt`) to the scalar-FMA one. Both keep
+  one block's dq in f32 over the key tiles and write it once: no atomics,
+  the same result from run to run."""
+  sm90, stats = _split_route(q, k, v, g, out, lse, segs, _simt, _stats)
   dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-  _launch_bwd(_kernel_fns().bwd_dq, "dq backward", (dq,), q, k, v, g, out,
-              lse, segs, causal, window, logit_cap, sm_scale)
+  _launch_bwd(_sm90_fns().bwd_dq if sm90 else _kernel_fns().bwd_dq,
+              "dq backward", (dq,), q, k, v, g, stats, segs, causal, window,
+              logit_cap, sm_scale, sm90)
   flash_attention.launches_dq += 1
+  flash_attention.launches_dq_sm90 += sm90
   return dq
 
 
 def flash_bwd_dkv_kernel(q, k, v, g, out, lse, segs=None, *, causal=True,
-                         window=None, logit_cap=0.0, sm_scale=1.0):
-  """K5b on the card: the interface of flash_bwd_dkv_reference. One block
-  per (row, key tile) keeps dk and dv in f32 over the q tiles."""
-  _check_bwd_inputs(q, k, v, g, out, lse, segs)
+                         window=None, logit_cap=0.0, sm_scale=1.0,
+                         _simt=False, _stats=None):
+  """K5b on the card: the interface of flash_bwd_dkv_reference. bf16 goes to
+  the Hopper kernel, float32 (or `_simt`) to the scalar-FMA one. Both keep
+  one block's dk and dv in f32 over the q tiles and write them once."""
+  sm90, stats = _split_route(q, k, v, g, out, lse, segs, _simt, _stats)
   dk = torch.empty(q.shape, dtype=k.dtype, device=q.device)
   dv = torch.empty(q.shape, dtype=v.dtype, device=q.device)
-  _launch_bwd(_kernel_fns().bwd_dkv, "dk/dv backward", (dk, dv), q, k, v, g,
-              out, lse, segs, causal, window, logit_cap, sm_scale)
+  _launch_bwd(_sm90_fns().bwd_dkv if sm90 else _kernel_fns().bwd_dkv,
+              "dk/dv backward", (dk, dv), q, k, v, g, stats, segs, causal,
+              window, logit_cap, sm_scale, sm90)
   flash_attention.launches_dkv += 1
+  flash_attention.launches_dkv_sm90 += sm90
   return dk, dv
+
+
+def flash_bwd_split(q, k, v, g, out, lse, segs=None, **kw):
+  """K5a + K5b -> (dq, dk, dv): for CUDA tensors the kernels, fed one
+  (lse, delta) pair made once for both; for CPU tensors their plain
+  versions."""
+  if _on(q, True, False):
+    return (flash_bwd_dq_reference(q, k, v, g, out, lse, segs, **kw),
+            *flash_bwd_dkv_reference(q, k, v, g, out, lse, segs, **kw))
+  _, stats = _split_route(q, k, v, g, out, lse, segs, False, None)
+  return (flash_bwd_dq_kernel(q, k, v, g, out, lse, segs, _stats=stats, **kw),
+          *flash_bwd_dkv_kernel(q, k, v, g, out, lse, segs, _stats=stats,
+                                **kw))
 
 
 def _on(x, cpu_fn, cuda_fn):
@@ -496,11 +544,8 @@ class _FlashRes(torch.autograd.Function):
     if g.stride(-1) != 1 or not _tma_ready(g):
       g = g.contiguous()
     args = (q, k, v, g, out, lse, segs)
-    if ctx.bwd_fused:
-      dq, dk, dv = flash_bwd(*args, **ctx.kw)
-    else:
-      dq = flash_bwd_dq(*args, **ctx.kw)
-      dk, dv = flash_bwd_dkv(*args, **ctx.kw)
+    bwd = flash_bwd if ctx.bwd_fused else flash_bwd_split
+    dq, dk, dv = bwd(*args, **ctx.kw)
     return dq, dk, dv, None, None, None, None, None
 
 
@@ -555,6 +600,8 @@ flash_attention.launches_dq = 0
 flash_attention.launches_dkv = 0
 flash_attention.launches_fwd_sm90 = 0
 flash_attention.launches_bwd_sm90 = 0
+flash_attention.launches_dq_sm90 = 0
+flash_attention.launches_dkv_sm90 = 0
 
 
 def dense_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,

@@ -31,10 +31,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      either backward, window 16 + cap, packed segment ids, ragged T 77 and
      200 in f32, documents of length 1; bf16 hd 32 / 64 / 128 with ragged
      T, window, segments, no cap, non-causal, documents of length 1); bf16
-     K1 / K2 are the Hopper kernels (flash_attention_sm90.cu), f32 ones and
-     K5a / K5b the scalar-FMA kernels (flash_attention.cu), whose bf16 K1 /
-     K2 are also checked and timed at the slice's shapes, in the same call;
-     timed as in 2;
+     K1 / K2 / K5a / K5b are the Hopper kernels (flash_attention_sm90.cu),
+     f32 ones the scalar-FMA kernels (flash_attention.cu), whose bf16
+     instances are also checked and timed at the slice's shapes, in the
+     same call; timed as in 2;
   4. K3a / K3b / K3c (fused softmax xent forward, dx, dW) against their
      plain versions at the fused-loss slice's shapes (M 16,384 = b8 x T2048
      tokens, D 1,024, V 100,864, bf16 operands, cap 30, about 20% zero loss
@@ -57,8 +57,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      n_layers * 30 times and K2 n_layers * 30 times, every launch the Hopper
      kernel's (a counter per implementation), the fused run K3a, K3b and
      K3c 30 times each, the dots_flash run K1, K5a and K5b n_layers * 30
-     times each and K2 never; a rerun of the unfused run to 31 steps must
-     resume from the checkpoint at step 30;
+     times each (every launch the Hopper kernel's) and K2 never; a rerun of
+     the unfused run to 31 steps must resume from the checkpoint at step
+     30;
   6. K6 (the depthwise filter gradient) against its plain version at the
      detection slice's shapes, bf16, b16: EfficientNet-B0's first stride-1
      depthwise conv [16, 32, 256, 256] k3, a k5 block [16, 240, 64, 64]
@@ -390,7 +391,7 @@ def flash_phase(dev, flush):
 
   b, t, n, h = 8, 2048, 8, 128
   print(f"K1/K2/K5 case 1: slice shapes b{b} T{t} N{n}/{n} hd{h} bf16 causal "
-        "cap50 sm_scale 1 (K1/K2: the Hopper kernels of "
+        "cap50 sm_scale 1 (K1/K2/K5a/K5b: the Hopper kernels of "
         "flash_attention_sm90.cu; beside them the scalar-FMA kernels of "
         "flash_attention.cu, reached with _simt)")
   # q as the model feeds it: already scaled (by ~1/sqrt(hd)).
@@ -427,16 +428,19 @@ def flash_phase(dev, flush):
   # K5a / K5b: no atomics; each block owns its output rows, so a second
   # call is bit-equal.
   args = (q, k, v, g, out_r, lse_r, None)
+  dq_r = fa.flash_bwd_dq_reference(*args, **kw)
+  dk_r, dv_r = fa.flash_bwd_dkv_reference(*args, **kw)
+  before = (fa.flash_attention.launches_dq_sm90,
+            fa.flash_attention.launches_dkv_sm90)
   dq = fa.flash_bwd_dq_kernel(*args, **kw)
-  torch.cuda.synchronize()
-  err_dq = _compare("K5a dq", dq, fa.flash_bwd_dq_reference(*args, **kw),
-                    **BF16_TOL)
   dk, dv = fa.flash_bwd_dkv_kernel(*args, **kw)
   torch.cuda.synchronize()
-  dk_r, dv_r = fa.flash_bwd_dkv_reference(*args, **kw)
+  if (fa.flash_attention.launches_dq_sm90 - before[0],
+      fa.flash_attention.launches_dkv_sm90 - before[1]) != (1, 1):
+    raise AssertionError("bf16 K5a / K5b did not go to the Hopper kernels")
+  err_dq = _compare("K5a dq", dq, dq_r, **BF16_TOL)
   err_dkv = max(_compare("K5b dk", dk, dk_r, **BF16_TOL),
                 _compare("K5b dv", dv, dv_r, **BF16_TOL))
-  del dk_r, dv_r
   same = [bool(torch.equal(dq, fa.flash_bwd_dq_kernel(*args, **kw)))] + [
       bool(torch.equal(x, y)) for x, y in zip(
           (dk, dv), fa.flash_bwd_dkv_kernel(*args, **kw))]
@@ -445,6 +449,12 @@ def flash_phase(dev, flush):
   if not all(same):
     raise AssertionError("K5a or K5b gave two results on the same inputs")
   del dq, dk, dv
+  dq = fa.flash_bwd_dq_kernel(*args, _simt=True, **kw)
+  err_dq_simt = _compare("K5a (scalar FMA) dq", dq, dq_r, **BF16_TOL)
+  dk, dv = fa.flash_bwd_dkv_kernel(*args, _simt=True, **kw)
+  err_dkv_simt = max(_compare("K5b (scalar FMA) dk", dk, dk_r, **BF16_TOL),
+                     _compare("K5b (scalar FMA) dv", dv, dv_r, **BF16_TOL))
+  del dq, dk, dv, dq_r, dk_r, dv_r
 
   live = b * n * t * (t + 1) / 2          # causal (query, key) pairs
   elems = b * t * n * h
@@ -485,7 +495,8 @@ def flash_phase(dev, flush):
   bwd_args = (q, k, v, g, out, lse, None)
   simt = dict(kw, _simt=True)
   # The library yardstick of K2, K5a and K5b is one: flex_attention's
-  # backward, which computes dq, dk and dv together.
+  # backward, which computes dq, dk and dv together. The scalar-FMA kernels
+  # are timed right after the Hopper ones, in the same call.
   for key, kid, kern_fn, ref_fn, lib, err, bound in (
       ("fwd", "K1", lambda: fa.flash_fwd_kernel(q, k, v, None, **kw),
        lambda: fa.flash_fwd_reference(q, k, v, None, **kw), lib_fwd, err_fwd,
@@ -502,12 +513,18 @@ def flash_phase(dev, flush):
       ("dq", "K5a", lambda: fa.flash_bwd_dq_kernel(*bwd_args, **kw),
        lambda: fa.flash_bwd_dq_reference(*bwd_args, **kw), "bwd", err_dq,
        "dq"),
+      ("dq_simt", "K5a (scalar FMA)",
+       lambda: fa.flash_bwd_dq_kernel(*bwd_args, **simt), "dq", "bwd",
+       err_dq_simt, "dq"),
       ("dkv", "K5b", lambda: fa.flash_bwd_dkv_kernel(*bwd_args, **kw),
        lambda: fa.flash_bwd_dkv_reference(*bwd_args, **kw), "bwd", err_dkv,
-       "dkv")):
+       "dkv"),
+      ("dkv_simt", "K5b (scalar FMA)",
+       lambda: fa.flash_bwd_dkv_kernel(*bwd_args, **simt), "dkv", "bwd",
+       err_dkv_simt, "dkv")):
     t_kern = _time_ms(kern_fn, 10, flush)
     # The plain version and the yardstick are the same call for both
-    # implementations of K1 / K2: timed once, with the Hopper kernel.
+    # implementations of a kernel: timed once, with the Hopper kernel.
     t_ref = (_time_ms(ref_fn, 5, flush) if callable(ref_fn)
              else res[ref_fn]["plain_ms"])
     t_lib = (_library_ms(kid, lib, 10, flush) if callable(lib)
@@ -520,11 +537,14 @@ def flash_phase(dev, flush):
     print(f"  {kid}: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / t_kern:.2f}% of "
           f"it{vs_lib} (L2 flushed before each call)")
-  print(f"  K1: {res['fwd_simt']['ms'] / res['fwd']['ms']:.2f}x faster than "
-        f"the scalar-FMA kernel; K2: "
-        f"{res['bwd_simt']['ms'] / res['bwd']['ms']:.2f}x (one call)")
-  print(f"  K5a + K5b: {res['dq']['ms'] + res['dkv']['ms']:.4f} ms against "
-        f"K2's {res['bwd']['ms']:.4f} ms")
+  print("  faster than the scalar-FMA kernel (one call): " + ", ".join(
+      f"{kid} {res[key + '_simt']['ms'] / res[key]['ms']:.2f}x"
+      for kid, key in (("K1", "fwd"), ("K2", "bwd"), ("K5a", "dq"),
+                       ("K5b", "dkv"))))
+  split_ms = res["dq"]["ms"] + res["dkv"]["ms"]
+  print(f"  K5a + K5b: {split_ms:.4f} ms against K2's {res['bwd']['ms']:.4f} "
+        f"ms ({split_ms / res['bwd']['ms']:.2f}x); the scalar-FMA K5a + K5b "
+        f"{res['dq_simt']['ms'] + res['dkv_simt']['ms']:.4f} ms")
   _library_ms("forward + backward", lib_fwd_bwd, 10, flush)
   del q, k, v, g, out, lse, out_r, lse_r, qf, kf, vf, gf
   torch.cuda.empty_cache()
@@ -578,7 +598,7 @@ def flash_phase(dev, flush):
   both("length-1 docs", qd, kd, vd, gd, segs=segs1, sm_scale=0.3)
   o, _ = fa.flash_fwd(qd, kd, vd, segs1, sm_scale=0.3)
   _compare("length-1 docs out == v", o, vd, atol=1e-6, rtol=0)
-  # bf16: K1 and K2 are the Hopper kernels (K5a / K5b the scalar-FMA ones).
+  # bf16: K1, K2, K5a and K5b are the Hopper kernels.
   segs_b = torch.cumsum((torch.rand((2, 200), generator=gen, device=dev)
                          < 0.03).int(), dim=1).int().contiguous()
   for name, (bb, tt, nn, hh), extra in (
@@ -856,7 +876,9 @@ def _train_run(workdir, flags, steps, label, expected, flops):
               "K2": (fa.flash_attention, "launches_bwd"),
               "K2 sm90": (fa.flash_attention, "launches_bwd_sm90"),
               "K5a": (fa.flash_attention, "launches_dq"),
+              "K5a sm90": (fa.flash_attention, "launches_dq_sm90"),
               "K5b": (fa.flash_attention, "launches_dkv"),
+              "K5b sm90": (fa.flash_attention, "launches_dkv_sm90"),
               "K3a": (xent.fused_softmax_xent, "launches_fwd"),
               "K3b": (xent.fused_softmax_xent, "launches_dx"),
               "K3c": (xent.fused_softmax_xent, "launches_dw")}
@@ -952,12 +974,13 @@ def training_phase(dev, workdir):
   for policy in ("split dots", "split dots_flash"):
     _step1_check(results, policy, "split", (0.0, 0.0, 0.999999),
                  "Must be bit-equal.", bit_equal=True)
-  # The forward is the same; K5a sums dq over key tiles in registers where
-  # K2 adds them in a fixed order in L2, so dq (and all that it feeds) may
-  # differ in its last bits. Measured on the H100: the loss equal, norms
-  # 2.0e-6 apart, cosine 0.9999984, 8 of 82 leaves bit-equal.
+  # The forward is the same, and K5b runs K2's dk / dv code; K5a sums dq
+  # over key tiles in registers where K2 adds them in a fixed order in L2,
+  # so dq (and all that it feeds) may differ in its last bits. Measured
+  # on the H100 with the Hopper K5a / K5b: the loss equal, norms 8.6e-6
+  # apart, cosine 0.9999984, 8 of 82 leaves bit-equal.
   _step1_check(results, "split", "flash", (1e-6, 5e-5, 0.99995),
-               "The limits: 1e-6, 25x, 31x (1 - cosine) of the measured.")
+               "The limits: 1e-6, 5.8x, 31x (1 - cosine) of the measured.")
   del results, tree, first
   torch.cuda.empty_cache()
 
@@ -965,8 +988,8 @@ def training_phase(dev, workdir):
             "--warmup_steps=3", "--log_every=1", "--device=cuda"]
   flags = common + [f"--model_dir={workdir}", f"--experiment_config={flash}"]
   n = cfg.n_layers * steps
-  none = dict.fromkeys(("K1", "K1 sm90", "K2", "K2 sm90", "K5a", "K5b",
-                        "K3a", "K3b", "K3c"), 0)
+  none = dict.fromkeys(("K1", "K1 sm90", "K2", "K2 sm90", "K5a", "K5a sm90",
+                        "K5b", "K5b sm90", "K3a", "K3b", "K3c"), 0)
   t = cfg.seq_len
   runs = {}
   # Full remat re-runs K1 in the backward: 2 x n_layers a step. bf16
@@ -985,13 +1008,15 @@ def training_phase(dev, workdir):
       dict(none, **sm90(2 * n, n), K3a=steps, K3b=steps, K3c=steps),
       _step_flops(cfg, batch, t, fused=True))
   split_dir = workdir + "_split"
-  # dots_flash saves K1's (out, lse): K1 once per layer and step.
+  # dots_flash saves K1's (out, lse): K1 once per layer and step. Every K5a
+  # and K5b launch is the Hopper kernel's.
   runs["split"] = _train_run(
       split_dir, common + [
           f"--model_dir={split_dir}",
           f"--experiment_config={split},remat_policy=dots_flash"], steps,
       "unfused loss, remat_policy dots_flash, K5a + K5b",
-      dict(none, **sm90(n, 0), K5a=n, K5b=n),
+      dict(none, **sm90(n, 0), **{"K5a": n, "K5a sm90": n, "K5b": n,
+                                  "K5b sm90": n}),
       _step_flops(cfg, batch, t, policy="dots_flash", split=True))
   torch.cuda.empty_cache()
   return runs
@@ -1604,9 +1629,13 @@ def _sass_report(lib):
   sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                         text=True, timeout=120, check=False).stdout
   for body in re.split(r"\n\s*Function : ", sass)[1:]:
-    name = re.sub(r".*?\d((?:flash|k4)_\w*?_kernel)(?:ILi(\d+)E)?.*",
-                  lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""),
-                  body.splitlines()[0].strip())
+    # Template arguments: an int (ILi128E) and, for the backward, a bool
+    # (Lb1E: K2 with its dq half; Lb0E: K5b without).
+    name = re.sub(
+        r".*?\d((?:flash|k4)_\w*?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?.*",
+        lambda m: m[1] + (
+            f"<{m[2]}{', kDq=' + m[3] if m[3] else ''}>" if m[2] else ""),
+        body.splitlines()[0].strip())
     ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body)
     count = lambda *names: sum(op in names for op in ops)
     first = re.search(r"HGMMA\.\S+", body)
@@ -1683,11 +1712,11 @@ def main() -> int:
       _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:320", runs["unfused"]["K2 sm90"],
              flash["bwd"]),
-      _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention.cu",
-             "automl_tpu/ops/attention.py:240", runs["split"]["K5a"],
+      _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
+             "automl_tpu/ops/attention.py:240", runs["split"]["K5a sm90"],
              flash["dq"]),
-      _entry("flash_bwd_dkv", "automl_tpu_torch/csrc/flash_attention.cu",
-             "automl_tpu/ops/attention.py:277", runs["split"]["K5b"],
+      _entry("flash_bwd_dkv", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
+             "automl_tpu/ops/attention.py:277", runs["split"]["K5b sm90"],
              flash["dkv"]),
       _entry("xent_fwd", "automl_tpu_torch/csrc/xent.cu",
              "automl_tpu/ops/xent.py:66", runs["fused"]["K3a"], k3["fwd"]),

@@ -9,7 +9,9 @@ Tolerances are those of tests/test_attention.py: forward atol 2e-5,
 gradients atol 3e-4 / rtol 1e-3 (another summation order over T and H).
 """
 
+import contextlib
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,10 @@ torch.set_num_threads(1)
 
 FWD_TOL = dict(atol=2e-5, rtol=0)
 GRAD_TOL = dict(atol=3e-4, rtol=1e-3)
+# bf16 outputs: both packages multiply the bf16 operands exactly, sum in f32
+# (in other orders) and round once to bf16; a value near a rounding step
+# lands a step apart: 2^-8 relative, <= 2^-6 absolute at |x| < 4.
+BF16_TOL = dict(atol=1.6e-2, rtol=8e-3)
 
 
 def _arrays(b, t, n, nkv, h, seed, segments=False):
@@ -187,6 +193,46 @@ def test_plain_split_backward_matches_pallas_kernels(kw):
     assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(logit_cap=50.0),
+    dict(window=16, logit_cap=5.0, segments=True),
+    dict(t=40, n=4, nkv=2, logit_cap=50.0),
+], ids=["causal_cap", "window_cap_segments", "gqa_ragged"])
+def test_split_backward_bf16_matches_jax(kw):
+  """bf16 q, k, v, g (the LM's dtype) through flash_attention with the
+  split backward (bwd_fused=False) in both packages: JAX's vjp reaches
+  _flash_bwd_pallas (interpret mode, 16 x 16 blocks), the port's CPU path
+  the plain K5a and K5b. out, dq, dk and dv keep bf16 and agree within
+  BF16_TOL (one bf16 rounding step of f32 sums taken in other orders)."""
+  kw = dict(kw)
+  b, t, n, nkv, h = 2, kw.pop("t", 64), kw.pop("n", 2), kw.pop("nkv", 2), 16
+  q, k, v, g, seg = _arrays(b, t, n, nkv, h, seed=t + n,
+                            segments=kw.pop("segments", False))
+  jb = [jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v, g)]
+
+  def jfn(q, k, v):
+    return ja.flash_attention(
+        q, k, v, block_q=16, block_k=16, bwd_fused=False, interpret=True,
+        segment_ids=None if seg is None else jnp.asarray(seg), **kw)
+
+  want, vjp = jax.vjp(jfn, *jb[:3])
+  want_grads = vjp(jb[3])
+  tb = [torch.from_numpy(x).bfloat16() for x in (q, k, v, g)]
+  xs = [x.clone().requires_grad_() for x in tb[:3]]
+  before = _launches()
+  got = ta.flash_attention(
+      *xs, bwd_fused=False,
+      segment_ids=None if seg is None else torch.from_numpy(seg), **kw)
+  got.backward(tb[3])
+  assert _launches() == before
+  for name, x, w in zip(("out", "dq", "dk", "dv"),
+                        (got, *(x.grad for x in xs)), (want, *want_grads)):
+    assert x.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+    np.testing.assert_allclose(x.detach().float().numpy(),
+                               np.asarray(w, dtype=np.float32), **BF16_TOL,
+                               err_msg=name)
+
+
 def test_default_backward_is_the_split_backward(monkeypatch):
   """flash_attention's default backward is the split one in both packages
   (JAX: bwd_fused=False): the port's default call runs the plain K5a and
@@ -299,12 +345,18 @@ def test_sm90_dq_blocks_reorder_to_btnh(b, t, n, h):
   assert torch.equal(got, dq)
 
 
-def test_sm90_routing_and_tma_checks():
-  """bf16 takes the Hopper K1 / K2 unless `_simt` asks for the scalar-FMA
+def test_sm90_routing_and_tma_checks(monkeypatch):
+  """bf16 takes the Hopper kernels unless `_simt` asks for the scalar-FMA
   ones, float32 never does; the TMA checks refuse a head_dim that is not a
   multiple of 8 and strides that are not multiples of 8 elements, and take
   the LM's contiguous [B, T, N, H] (and a head slice of a wider tensor whose
-  strides stay multiples of 8)."""
+  strides stay multiples of 8). The split wrappers (K5a, K5b) route so too:
+  with stand-ins for the two libraries, a bf16 call reaches the Hopper
+  entry point with lse and delta padded to 128 queries, and a float32 or
+  `_simt` call the scalar-FMA one with them unpadded, each with as many
+  arguments as its binding declares; a Hopper call counts in
+  launches_dq_sm90 / launches_dkv_sm90, and a Hopper call on strides TMA
+  does not take raises before any launch."""
   x = torch.zeros((2, 16, 4, 32), dtype=torch.bfloat16)
   assert ta._takes_sm90(x, simt=False)
   assert not ta._takes_sm90(x, simt=True)
@@ -316,3 +368,50 @@ def test_sm90_routing_and_tma_checks():
     ta._check_tma((x, torch.zeros((2, 16, 4, 36))[..., :32]))
   with pytest.raises(ValueError, match="head_dim"):
     ta._check_tma((x[..., :12],))
+
+  calls, pads = [], []
+
+  def table(impl):
+    return ta._KernelFns(*(
+        lambda *a, _name=name: calls.append((impl, _name, len(a))) or 0
+        for name in ta._KernelFns._fields))
+
+  def n_args(n_ptrs, dtype_arg):
+    return len(ta._bind(types.SimpleNamespace(), n_ptrs, 4,
+                        dtype_arg=dtype_arg).argtypes)
+
+  bwd_stats = ta._bwd_stats
+  monkeypatch.setattr(ta, "_sm90_fns", lambda: table("sm90"))
+  monkeypatch.setattr(ta, "_kernel_fns", lambda: table("simt"))
+  monkeypatch.setattr(ta, "_bwd_stats", lambda g, out, lse, pad_to=None: (
+      pads.append(pad_to), bwd_stats(g, out, lse, pad_to))[1])
+  monkeypatch.setattr(torch.cuda, "device",
+                      lambda device: contextlib.nullcontext())
+  monkeypatch.setattr(torch.cuda, "current_stream",
+                      lambda device: types.SimpleNamespace(cuda_stream=0))
+  b, t, n, h = 2, 200, 2, 32
+  f = ta.flash_attention
+  for dtype, simt, impl in ((torch.bfloat16, False, "sm90"),
+                            (torch.float32, False, "simt"),
+                            (torch.bfloat16, True, "simt")):
+    xs = [torch.zeros((b, t, n, h), dtype=dtype) for _ in range(5)]
+    lse = torch.zeros((b * n, t))
+    calls.clear()
+    pads.clear()
+    before = (f.launches_dq, f.launches_dkv, f.launches_dq_sm90,
+              f.launches_dkv_sm90)
+    ta.flash_bwd_dq_kernel(*xs, lse, _simt=simt)
+    ta.flash_bwd_dkv_kernel(*xs, lse, _simt=simt)
+    sm90 = impl == "sm90"
+    assert calls == [(impl, "bwd_dq", n_args(8, not sm90)),
+                     (impl, "bwd_dkv", n_args(9, not sm90))]
+    assert pads == [128 if sm90 else None] * 2
+    assert (f.launches_dq, f.launches_dkv, f.launches_dq_sm90,
+            f.launches_dkv_sm90) == (before[0] + 1, before[1] + 1,
+                                     before[2] + sm90, before[3] + sm90)
+  calls.clear()
+  odd = torch.zeros((b, t, n, h + 4), dtype=torch.bfloat16)[..., :h]
+  for fn in (ta.flash_bwd_dq_kernel, ta.flash_bwd_dkv_kernel):
+    with pytest.raises(ValueError, match="stride"):
+      fn(*xs[:3], odd, xs[4], lse)
+  assert calls == []

@@ -8,9 +8,9 @@ so it runs where jax is not installed:
 (--noconftest: tests/conftest.py sets up jax for the JAX package's tests.)
 Tolerances: f32 atol = rtol = 1e-4 (another summation order, the card's
 expf/tanhf); bf16 outputs atol 1.6e-2, rtol 8e-3 (one bf16 rounding
-step). bf16 flash attention K1 / K2 run the Hopper kernels
-(csrc/flash_attention_sm90.cu), f32 ones and K5a / K5b the scalar-FMA
-kernels (csrc/flash_attention.cu).
+step). bf16 flash attention K1 / K2 / K5a / K5b run the Hopper kernels
+(csrc/flash_attention_sm90.cu), f32 ones the scalar-FMA kernels
+(csrc/flash_attention.cu).
 """
 
 import pytest
@@ -431,7 +431,7 @@ def _sm90_launches():
   return f.launches_fwd_sm90, f.launches_bwd_sm90
 
 
-SM90_CASES = pytest.mark.parametrize("case", [
+_SM90_CASES = [
     dict(b=2, t=77, n=3, h=32, logit_cap=50.0),                  # ragged T
     dict(b=2, t=200, n=2, h=64, window=16, logit_cap=5.0,
          segments=True),                                         # window
@@ -440,9 +440,11 @@ SM90_CASES = pytest.mark.parametrize("case", [
     dict(b=1, t=70, n=2, h=64, length_one_docs=True),            # docs of 1
     dict(b=1, t=300, n=2, h=128, causal=False, window=40),
     dict(b=2, t=64, n=4, h=8),                                   # lm-test hd
-], ids=["hd32_T77_cap50", "hd64_T200_window_segments", "hd128_T2048_cap50",
-        "hd128_T200_nocap", "hd64_length1_docs", "hd128_non_causal_window",
-        "hd8"])
+]
+_SM90_IDS = ["hd32_T77_cap50", "hd64_T200_window_segments",
+             "hd128_T2048_cap50", "hd128_T200_nocap", "hd64_length1_docs",
+             "hd128_non_causal_window", "hd8"]
+SM90_CASES = pytest.mark.parametrize("case", _SM90_CASES, ids=_SM90_IDS)
 
 
 @pytest.mark.cuda
@@ -476,6 +478,60 @@ def test_sm90_flash_kernels_match_plain(dev, case):
   again = fa.flash_bwd(q, k, v, g, out_r, lse_r, segs, **kw)
   assert all(torch.equal(x, y) for x, y in zip(grads, again))
   assert _sm90_launches() == (before[0] + 1, before[1] + 2)
+
+
+def _split_sm90_launches():
+  f = fa.flash_attention
+  return f.launches_dq, f.launches_dkv, f.launches_dq_sm90, f.launches_dkv_sm90
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SM90_CASES + [
+    dict(b=2, t=130, n=4, n_kv=2, h=64, logit_cap=50.0, window=48)],
+                         ids=_SM90_IDS + ["gqa_flash_attention"])
+def test_sm90_split_bwd_kernels_match_plain(dev, case):
+  """The Hopper K5a (dq) and K5b (dk, dv) on bf16 inputs, fed the plain
+  forward's (out, lse) through flash_bwd_split, against their plain
+  versions (bf16 tolerance); each launch counted once, as a Hopper launch;
+  a second call bit-equal. The GQA case goes through flash_attention(...,
+  bwd_fused=False) with autograd against the same call on the CPU's plain
+  versions in f32 (bf16 tolerance)."""
+  case = dict(case)
+  docs = case.pop("length_one_docs", False)
+  n_kv = case.pop("n_kv", None)
+  b, t, n, h = (case.pop(x) for x in ("b", "t", "n", "h"))
+  q, k, v, g, segs = _flash_inputs(dev, b, t, n, h, torch.bfloat16, seed=12,
+                                   segments=case.pop("segments", False))
+  if docs:
+    segs = torch.arange(t, device=dev, dtype=torch.int32)[None].repeat(b, 1)
+  before = _split_sm90_launches()
+  if n_kv:
+    _, k, v, _, _ = _flash_inputs(dev, b, t, n_kv, h, torch.bfloat16,
+                                  seed=13)
+    results = []
+    for device, dtype in ((dev, torch.bfloat16),
+                          (torch.device("cpu"), torch.float32)):
+      xs = [x.detach().to(device, dtype).requires_grad_() for x in (q, k, v)]
+      out = fa.flash_attention(*xs, bwd_fused=False, **case)
+      out.backward(g.to(device, dtype))
+      results.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
+    assert _split_sm90_launches() == tuple(x + 1 for x in before)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
+      torch.testing.assert_close(got.float(), want, **BF16_TOL,
+                                 msg=lambda m, name=name: f"{name}: {m}")
+    return
+  kw = dict(dict(causal=True, sm_scale=h ** -0.5), **case)
+  out, lse = fa.flash_fwd_reference(q, k, v, segs, **kw)
+  args = (q, k, v, g, out, lse, segs)
+  grads = fa.flash_bwd_split(*args, **kw)
+  torch.cuda.synchronize()
+  want = (fa.flash_bwd_dq_reference(*args, **kw),
+          *fa.flash_bwd_dkv_reference(*args, **kw))
+  for got, w in zip(grads, want):
+    _close(got, w, torch.bfloat16)
+  again = fa.flash_bwd_split(*args, **kw)
+  assert all(torch.equal(x, y) for x, y in zip(grads, again))
+  assert _split_sm90_launches() == tuple(x + 2 for x in before)
 
 
 @pytest.mark.cuda
@@ -526,9 +582,10 @@ def test_flash_attention_gqa_bf16_fused_takes_sm90_kernels(dev):
 def test_sm90_flash_kernels_refuse_what_tma_does_not_take(dev):
   """bf16 goes to the Hopper kernels, whose TMA descriptors need head_dim
   a multiple of 8 and strides of multiples of 8 elements: others raise,
-  as does head_dim > 128; nothing is launched."""
+  as does head_dim > 128; nothing is launched. The split backward's
+  wrappers (K5a, K5b and flash_bwd_split) refuse the same."""
   q, k, v, g, _ = _flash_inputs(dev, 1, 16, 2, 16, torch.bfloat16, seed=11)
-  before = (_flash_launches(), _sm90_launches())
+  before = (_flash_launches(), _sm90_launches(), _split_sm90_launches())
   odd = torch.cat([q, q[..., :4]], dim=-1)[..., :16]   # n stride 20
   assert odd.stride(-1) == 1 and odd.stride(2) == 20
   with pytest.raises(ValueError, match="stride"):
@@ -541,7 +598,16 @@ def test_sm90_flash_kernels_refuse_what_tma_does_not_take(dev):
   big = torch.zeros((1, 4, 1, 256), device=dev, dtype=torch.bfloat16)
   with pytest.raises(ValueError, match="head_dim"):
     fa.flash_fwd(big, big, big)
-  assert (_flash_launches(), _sm90_launches()) == before
+  lse = torch.zeros((2, 16), device=dev)
+  for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_split):
+    with pytest.raises(ValueError, match="stride"):
+      bwd(q, k, v, odd, q, lse)
+    with pytest.raises(ValueError, match="head_dim"):
+      bwd(h12, h12, h12, h12, h12, lse)
+    with pytest.raises(ValueError, match="head_dim"):
+      bwd(big, big, big, big, big, torch.zeros((1, 4), device=dev))
+  assert (_flash_launches(), _sm90_launches(),
+          _split_sm90_launches()) == before
 
 
 def _xent_inputs(dev, m, v, d, dtype, seed, zero_share=0.2):
