@@ -49,9 +49,10 @@
 // What holds them back: the tiles re-read their operands from L2, 79 GB per
 // K3a call and ~235 GB per K3b / K3c call at the slice's shapes (K3b/K3c
 // read each streamed tile twice), which at their times on the H100
-// (PERF.md) is 2.4-2.7 TB/s. Larger tiles (the accumulator's shared memory
-// stands in the way of K3b/K3c's), or a streamed tile shared across a
-// cluster, come next; TMA, wgmma and warp specialisation after that.
+// (PERF.md) is 2.4-2.7 TB/s. For bf16 operands with D a multiple of 256 up
+// to 2,048 (the LM's), K3b and K3c run the Hopper kernels of xent_sm90.cu
+// instead (a cluster splits D; wgmma fed by TMA); the backward kernels here
+// serve float32 operands and other bf16 D, and K3a every call.
 //
 // Plain C interface, loaded with ctypes (automl_tpu_torch/ops/cuda_build.py).
 // The kernels allocate nothing; the launchers return cudaGetLastError().
@@ -507,10 +508,12 @@ int max_dim() {
   return d;
 }
 
-bool valid(int dtype, int M, int V, int D) {
+// K3a's shared memory does not grow with D: it takes any multiple of 8.
+// The backward's accumulator bounds D (max_dim).
+bool valid(int dtype, int M, int V, int D, bool bwd) {
   if (dtype < 0 || dtype > 1 || M < 1 || V < 1 || D < 8 || D % 8 != 0)
     return false;
-  return D <= (dtype == 0 ? max_dim<float>() : max_dim<bf16>());
+  return !bwd || D <= (dtype == 0 ? max_dim<float>() : max_dim<bf16>());
 }
 
 template <typename T>
@@ -555,7 +558,7 @@ int launch_bwd_any(const void* x, const void* w, const void* tgt,
                    const void* lse, const void* coef, void* out, int dtype,
                    int out_bf16, int M, int V, int D, float cap, void* stream) {
   cudaGetLastError();  // clear an earlier, unrelated error
-  if (!valid(dtype, M, V, D)) return int(cudaErrorInvalidValue);
+  if (!valid(dtype, M, V, D, true)) return int(cudaErrorInvalidValue);
   Params p = make_params(x, w, tgt, M, V, D, cap);
   p.lse = static_cast<const float*>(lse);
   p.coef = static_cast<const float*>(coef);
@@ -574,7 +577,7 @@ extern "C" int automl_xent_fwd(const void* x, const void* w, const void* tgt,
                                void* lse, void* tz, int dtype, int M, int V,
                                int D, float cap, void* stream) {
   cudaGetLastError();
-  if (!valid(dtype, M, V, D)) return int(cudaErrorInvalidValue);
+  if (!valid(dtype, M, V, D, false)) return int(cudaErrorInvalidValue);
   Params p = make_params(x, w, tgt, M, V, D, cap);
   p.lse_out = static_cast<float*>(lse);
   p.tz_out = static_cast<float*>(tz);

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled with nvcc for
 sm_90a into `build/automl_tpu_torch/<name>-<hash>.so` at the root of the
-checkout, keyed by a hash of the sources and the flags, at first use, and
-loaded with ctypes. Nothing here runs when the module is imported, so the
+checkout, keyed by a hash of the sources and the flags (macros a tool
+defines get a library of their own), at first use, and loaded with
+ctypes. Nothing here runs when the module is imported, so the
 package imports where there is no nvcc.
 """
 
@@ -36,27 +37,35 @@ def _nvcc() -> str:
                      "the CUDA kernels of automl_tpu_torch cannot be built")
 
 
-def library_path(name: str) -> pathlib.Path:
-  """Where `csrc/<name>.cu` builds to: the name plus a hash of its sources."""
-  digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines=()):
+  return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def library_path(name: str, defines=()) -> pathlib.Path:
+  """Where `csrc/<name>.cu` builds to: the name (and the macros defined,
+  lower case) plus a hash of its sources and flags."""
+  digest = hashlib.sha256(" ".join(_flags(defines)).encode())
   for src in sorted(CSRC.glob("*.cu*")):  # .cu and shared .cuh headers
     digest.update(src.name.encode())
     digest.update(src.read_bytes())
-  return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+  tag = "".join(f"-{d.lower()}" for d in defines)
+  return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> pathlib.Path:
-  """Compiles `csrc/<name>.cu` unless its library exists; returns the path.
+def build(name: str, defines=()) -> pathlib.Path:
+  """Compiles `csrc/<name>.cu` (with `defines`: macros, -D) unless its
+  library exists; returns the path.
 
   The compiler's resource report (-Xptxas -v: registers, shared memory,
   spills per kernel) is kept beside the library as `<library>.log`."""
-  out = library_path(name)
+  out = library_path(name, defines)
   if out.exists():
     return out
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
     tmp_out = pathlib.Path(tmp) / out.name
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp_out),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
       raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"

@@ -5,13 +5,22 @@ The counterpart of automl_tpu/ops/xent.py. The loss of an LM's last layer,
   logits = x . w^T (tied, w [V, D]) or x . w (untied, w [D, V]),
   logits = cap * tanh(logits / cap)               (if logit_cap),
   loss = sum(weights * xent(logits, targets)) / max(sum(weights), 1),
-without the [M, V] logits in device memory. Three kernels, in
-csrc/xent.cu:
+without the [M, V] logits in device memory. Three kernels:
   * K3a, the forward (replaces _fwd_kernel): per token the logsumexp of its
-    capped logits, online over vocab tiles, and the target's logit;
+    capped logits, online over vocab tiles, and the target's logit
+    (csrc/xent.cu, any D a multiple of 8);
   * K3b, dx (replaces _dx_kernel): dx = dz . w, with dz = coef * (softmax -
     onehot) * cap' recomputed tile by tile;
   * K3c, dW (replaces _dw_kernel): dW = dz^T . x, the same recompute.
+K3b and K3c have two implementations. bf16 operands with D a multiple of
+256 up to 2,048 (the LM's widths) go to the Hopper kernels of
+csrc/xent_sm90.cu (a thread-block cluster of D / 256 blocks splits D;
+wgmma fed by TMA); float32 operands (golden tests) and other bf16 D go to
+csrc/xent.cu, whose f32 [32, D] accumulator in shared memory bounds D
+(1,216 at bf16, 1,152 at float32: `simt_bwd_max_dim`). `check_dim` holds
+each kernel's limit; `takes_sm90` says which implementation a call takes.
+`xent_dx_kernel(..., _simt=True)` / `xent_dw_kernel` force the csrc/xent.cu
+kernel (comparisons of the two only).
 
 The kernels' interface: x [M, D] and w [V, D] at the operand dtype
 (bfloat16, or float32 for golden tests), contiguous, D a multiple of 8;
@@ -26,7 +35,9 @@ products. dx comes back in x's dtype, dW in w's.
 kernels, which raise if they cannot be built or launched; CPU tensors go to
 xent_fwd_reference / xent_dx_reference / xent_dw_reference. There is no
 fallback from the one to the other. `fused_softmax_xent.launches_fwd`,
-`.launches_dx` and `.launches_dw` count kernel launches.
+`.launches_dx` and `.launches_dw` count kernel launches (either
+implementation), `.launches_dx_sm90` and `.launches_dw_sm90` those of the
+Hopper kernels.
 """
 
 from __future__ import annotations
@@ -113,10 +124,70 @@ def xent_dw_reference(xo, wo, targets, lse, coef, *, logit_cap=0.0,
 # ---------------------------------------------------------------------------
 
 
+# csrc/xent.cu's backward: 256 threads, 32 own rows a block, streamed tiles
+# of 128 rows, the contracted axis staged BK (+ PAD) columns at a time.
+_SIMT_BP, _SIMT_BQ = 32, 128
+_SIMT_CHUNK = {torch.bfloat16: (64, 8), torch.float32: (32, 4)}  # (BK, PAD)
+_MAX_SMEM = 232448                  # a block's shared memory on sm_90
+# csrc/xent_sm90.cu: a block of a cluster holds 256 columns of D; clusters
+# of at most 8 blocks own 128 rows and stream the others 64 at a time.
+SM90_SLICE, SM90_MAX_DIM = 256, 2048
+_SM90_OWN_ROWS, _SM90_STREAMED_ROWS = 128, 64
+
+
+def _simt_bwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
+  """csrc/xent.cu::bwd_smem_bytes: the accumulator [32, D] f32, the P and Q
+  stages, the logit and dz tiles and the per-token values."""
+  bk, pad = _SIMT_CHUNK[dtype]
+  size = 2 if dtype == torch.bfloat16 else 4
+  acc_ld = -(-d // bk) * bk + 4
+  return (4 * _SIMT_BP * acc_ld + size * 2 * (_SIMT_BP + _SIMT_BQ) * (bk + pad)
+          + 4 * _SIMT_BP * (_SIMT_BQ + 4) + size * _SIMT_BP * (_SIMT_BQ + pad)
+          + 4 * 3 * _SIMT_BQ)
+
+
+@functools.cache
+def simt_bwd_max_dim(dtype: torch.dtype) -> int:
+  """The largest D csrc/xent.cu's K3b / K3c take at this operand dtype
+  (csrc/xent.cu::max_dim): 1,216 at bf16, 1,152 at float32."""
+  d = 8
+  while _simt_bwd_smem_bytes(d + 8, dtype) <= _MAX_SMEM:
+    d += 8
+  return d
+
+
+def takes_sm90(dtype: torch.dtype, d: int) -> bool:
+  """Whether K3b / K3c on operands of this dtype and D go to the Hopper
+  kernels (csrc/xent_sm90.cu): bf16 with D a multiple of 256 up to 2,048."""
+  return (dtype == torch.bfloat16 and d % SM90_SLICE == 0
+          and SM90_SLICE <= d <= SM90_MAX_DIM)
+
+
+def check_dim(which: str, dtype: torch.dtype, d: int, simt: bool = False):
+  """Raises ValueError unless kernel `which` ("fwd", "dx" or "dw") takes D
+  at this operand dtype (`simt`: the csrc/xent.cu backward, forced). K3a
+  takes any D a multiple of 8; K3b and K3c at bf16 D a multiple of 256 up
+  to 2,048 (the Hopper kernels) or any multiple of 8 up to 1,216, at
+  float32 any multiple of 8 up to 1,152 (csrc/xent.cu's)."""
+  if d < 8 or d % 8:
+    raise ValueError(f"xent kernels take D a multiple of 8, got D = {d}")
+  if which == "fwd" or d <= simt_bwd_max_dim(dtype):
+    return
+  if not simt and takes_sm90(dtype, d):
+    return
+  sm90 = (f" or a multiple of {SM90_SLICE} up to {SM90_MAX_DIM} "
+          "(csrc/xent_sm90.cu)" if dtype == torch.bfloat16 and not simt
+          else "")
+  raise ValueError(
+      f"the xent {which} kernel takes D at {dtype} up to "
+      f"{simt_bwd_max_dim(dtype)} (csrc/xent.cu, whose f32 [32, D] "
+      f"accumulator lives in shared memory){sm90}, got D = {d}")
+
+
 @functools.cache
 def _kernel_fns():
-  """The kernels' C entry points (fwd, dx, dw, max_dim), built and bound at
-  first use."""
+  """csrc/xent.cu's C entry points (fwd, dx, dw, max_dim), built and bound
+  at first use."""
   from automl_tpu_torch.ops import cuda_build
   lib = cuda_build.load("xent")
   ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -136,13 +207,55 @@ def _kernel_fns():
   return fwd, bwd[0], bwd[1], max_dim
 
 
-def max_dim(dtype: torch.dtype) -> int:
-  """The largest D the backward kernels take at this operand dtype (their
-  f32 [32, D] accumulator lives in shared memory)."""
-  return int(_kernel_fns()[3](_DTYPE_CODES[dtype]))
+@functools.cache
+def _sm90_fns():
+  """csrc/xent_sm90.cu's C entry points (dx, dw, clusters), built and bound
+  at first use."""
+  from automl_tpu_torch.ops import cuda_build
+  lib = cuda_build.load("xent_sm90")
+  ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  fns = []
+  for fn in (lib.automl_xent_dx_sm90, lib.automl_xent_dw_sm90):
+    # x w tgt lse coef out | out_bf16 M V D cap | n_whole n_split part_out
+    # | stream
+    fn.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, i32, ptr, ptr]
+    fn.restype = i32
+    fns.append(fn)
+  clusters = lib.automl_xent_sm90_clusters
+  clusters.argtypes = [i32, i32]
+  clusters.restype = i32
+  return fns[0], fns[1], clusters
 
 
-def _check_kernel_inputs(xo, wo, targets, *rows):
+@functools.cache
+def _sm90_clusters(device_index: int, d: int, which: str) -> int:
+  with torch.cuda.device(device_index):
+    return int(_sm90_fns()[2](d, int(which == "dx")))
+
+
+def sm90_clusters(d: int, which: str = "dx", device=None) -> int:
+  """How many clusters of the Hopper K3b (or K3c) at this D the card runs at
+  once (cudaOccupancyMaxActiveClusters)."""
+  index = torch.device(device or "cuda").index
+  return _sm90_clusters(torch.cuda.current_device() if index is None
+                        else index, d, which)
+
+
+def split_plan(own_tiles: int, active: int, streamed_tiles: int):
+  """(n_whole, n_split) of a Hopper K3b / K3c launch: `own_tiles` clusters'
+  worth of work (128 own rows each) on a card that runs `active` at once.
+  The first n_whole tiles run whole; the rest, the last wave's, which would
+  leave most of the card idle, are split n_split ways along the streamed
+  tiles so that they fill one wave, and their parts are summed in a fixed
+  order. (own_tiles, 1): no split."""
+  if active < 1:
+    raise ValueError(f"the card runs no cluster of this kernel ({active})")
+  rest = own_tiles % active
+  n_split = min(active // rest, streamed_tiles) if rest else 1
+  return (own_tiles - rest, n_split) if n_split > 1 else (own_tiles, 1)
+
+
+def _check_kernel_inputs(xo, wo, targets, *rows, which="fwd", simt=False):
   if xo.dtype not in _DTYPE_CODES:
     raise TypeError(f"xent kernels take float32 or bfloat16 operands, got "
                     f"{xo.dtype}")
@@ -156,9 +269,11 @@ def _check_kernel_inputs(xo, wo, targets, *rows):
   if not (xo.is_contiguous() and wo.is_contiguous()):
     raise ValueError("xent kernels need contiguous x and w")
   d = xo.shape[1]
-  if d % 8 or d > max_dim(xo.dtype):
-    raise ValueError(f"xent kernels take D a multiple of 8 and at most "
-                     f"{max_dim(xo.dtype)} at {xo.dtype}, got D = {d}")
+  check_dim(which, xo.dtype, d, simt)
+  if which != "fwd" and not simt and takes_sm90(xo.dtype, d) and (
+      xo.data_ptr() % 16 or wo.data_ptr() % 16):
+    raise ValueError("the Hopper xent kernels need 16-byte aligned x and w "
+                     "(TMA)")
   m = xo.shape[0]
   for name, t, dtype in (("targets", targets, torch.int32),
                          *((n, r, torch.float32) for n, r in rows)):
@@ -193,38 +308,61 @@ def xent_fwd_kernel(xo, wo, targets, *, logit_cap=0.0):
   return lse, tz
 
 
-def _bwd_kernel(which, xo, wo, targets, lse, coef, logit_cap, out_dtype):
-  _check_kernel_inputs(xo, wo, targets, ("lse", lse), ("coef", coef))
+def _bwd_kernel(which, xo, wo, targets, lse, coef, logit_cap, out_dtype,
+                simt):
+  """K3b or K3c; returns (out, whether the Hopper kernel ran)."""
+  _check_kernel_inputs(xo, wo, targets, ("lse", lse), ("coef", coef),
+                       which=which, simt=simt)
   if out_dtype not in _DTYPE_CODES:
     raise TypeError(f"xent kernels write float32 or bfloat16, got {out_dtype}")
   (m, d), v = xo.shape, wo.shape[0]
-  fn = _kernel_fns()[1 if which == "dx" else 2]
+  sm90 = not simt and takes_sm90(xo.dtype, d)
   out = torch.empty(((m if which == "dx" else v), d), dtype=out_dtype,
                     device=xo.device)
+  args = (xo.data_ptr(), wo.data_ptr(), targets.data_ptr(), lse.data_ptr(),
+          coef.data_ptr(), out.data_ptr())
+  flags = (int(out_dtype == torch.bfloat16), m, v, d, float(logit_cap or 0.0))
   with torch.cuda.device(xo.device):
-    err = fn(xo.data_ptr(), wo.data_ptr(), targets.data_ptr(), lse.data_ptr(),
-             coef.data_ptr(), out.data_ptr(), _DTYPE_CODES[xo.dtype],
-             int(out_dtype == torch.bfloat16), m, v, d,
-             float(logit_cap or 0.0), _stream(xo))
+    if sm90:
+      own, streamed = (m, v) if which == "dx" else (v, m)
+      own_tiles = -(-own // _SM90_OWN_ROWS)
+      n_whole, n_split = split_plan(
+          own_tiles, sm90_clusters(d, which, xo.device),
+          -(-streamed // _SM90_STREAMED_ROWS))
+      parts = None
+      if n_split > 1:
+        parts = torch.empty(((own_tiles - n_whole) * n_split,
+                             _SM90_OWN_ROWS, d), dtype=torch.float32,
+                            device=xo.device)
+      err = _sm90_fns()[0 if which == "dx" else 1](
+          *args, *flags, n_whole, n_split,
+          None if parts is None else parts.data_ptr(), _stream(xo))
+    else:
+      err = _kernel_fns()[1 if which == "dx" else 2](
+          *args, _DTYPE_CODES[xo.dtype], *flags, _stream(xo))
   _raise_on(err, which)
-  return out
+  return out, sm90
 
 
 def xent_dx_kernel(xo, wo, targets, lse, coef, *, logit_cap=0.0,
-                   out_dtype=None):
-  """K3b on the card: the interface of xent_dx_reference."""
-  dx = _bwd_kernel("dx", xo, wo, targets, lse, coef, logit_cap,
-                   out_dtype or xo.dtype)
+                   out_dtype=None, _simt=False):
+  """K3b on the card: the interface of xent_dx_reference. `_simt` forces
+  csrc/xent.cu's kernel (comparisons only)."""
+  dx, sm90 = _bwd_kernel("dx", xo, wo, targets, lse, coef, logit_cap,
+                         out_dtype or xo.dtype, _simt)
   fused_softmax_xent.launches_dx += 1
+  fused_softmax_xent.launches_dx_sm90 += sm90
   return dx
 
 
 def xent_dw_kernel(xo, wo, targets, lse, coef, *, logit_cap=0.0,
-                   out_dtype=None):
-  """K3c on the card: the interface of xent_dw_reference."""
-  dw = _bwd_kernel("dw", xo, wo, targets, lse, coef, logit_cap,
-                   out_dtype or wo.dtype)
+                   out_dtype=None, _simt=False):
+  """K3c on the card: the interface of xent_dw_reference. `_simt` forces
+  csrc/xent.cu's kernel (comparisons only)."""
+  dw, sm90 = _bwd_kernel("dw", xo, wo, targets, lse, coef, logit_cap,
+                         out_dtype or wo.dtype, _simt)
   fused_softmax_xent.launches_dw += 1
+  fused_softmax_xent.launches_dw_sm90 += sm90
   return dw
 
 
@@ -312,3 +450,5 @@ def fused_softmax_xent(x, w, targets, weights=None, *, tied: bool = True,
 fused_softmax_xent.launches_fwd = 0
 fused_softmax_xent.launches_dx = 0
 fused_softmax_xent.launches_dw = 0
+fused_softmax_xent.launches_dx_sm90 = 0
+fused_softmax_xent.launches_dw_sm90 = 0

@@ -11,7 +11,9 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
   1. build: compiles the CUDA kernels from automl_tpu_torch/csrc/ with nvcc
-     for sm_90a, one nvcc per source (six), all at once;
+     for sm_90a, one nvcc per source (seven), all at once; prints each
+     kernel's registers and spills, and the HGMMA and LDL/STL counts of the
+     Hopper kernels' SASS;
   2. K4 (decode attention) against its plain PyTorch version on the card, at
      the serving slice's shapes (decode T=1 and prefill T=512, b8, 8 heads,
      hd 128, S 1024, bf16, cap 50: the Hopper kernels of
@@ -38,8 +40,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   4. K3a / K3b / K3c (fused softmax xent forward, dx, dW) against their
      plain versions at the fused-loss slice's shapes (M 16,384 = b8 x T2048
      tokens, D 1,024, V 100,864, bf16 operands, cap 30, about 20% zero loss
-     weights; K3b and K3c called twice must be bit-equal) and on small
-     cases (ragged M and V, f32 operands, no cap, untied w through
+     weights; bf16 K3b and K3c are the Hopper kernels of xent_sm90.cu,
+     called twice they must be bit-equal; the kernels of xent.cu, reached
+     with _simt, are checked and timed beside them in the same call) and on
+     small cases (the default LM's M 4,096, V 32,000, D 2,048 through all
+     three; ragged M and V at D 256 and 512; cap 0; f32 operands and bf16
+     D 72, which take xent.cu's kernels; untied w through
      fused_softmax_xent's autograd against the CPU); timed as in 2;
   5. training slices: step 1 of lm-flops1e19 with use_flash_attention (K1/K2)
      against the same step on the dense attention path, with the fused loss
@@ -57,7 +63,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      n_layers * 30 times and K2 n_layers * 30 times, every launch the Hopper
      kernel's (a counter per implementation), the fused run K3a, K3b and
      K3c 30 times each, the dots_flash run K1, K5a and K5b n_layers * 30
-     times each (every launch the Hopper kernel's) and K2 never; a rerun of
+     times each (every launch the Hopper kernel's) and K2 never (the fused
+     run's K3b and K3c launches all the Hopper kernels'); a rerun of
      the unfused run to 31 steps must resume from the checkpoint at step
      30;
   6. K6 (the depthwise filter gradient) against its plain version at the
@@ -657,17 +664,37 @@ def _xent_chain(x, w, targets, weights, cap):
   return (nll * weights).sum() / weights.sum().clamp_min(1.0)
 
 
+def _xent_bounds(m, v, d):
+  """{"fwd", "dx", "dw"}: (bound ms, bound by) of K3a / K3b / K3c."""
+  in_bytes = 2 * (m + v) * d + 4 * m            # x, w, targets
+  return {
+      # the logits: 2 flops per (token, vocab, dim); lse and tz written
+      "fwd": _bound(2.0 * m * v * d, in_bytes + 8 * m),
+      # the logit recompute plus dz . w (dz^T . x); lse, coef read, dx (dW)
+      # written in f32
+      "dx": _bound(4.0 * m * v * d, in_bytes + 8 * m + 4 * m * d),
+      "dw": _bound(4.0 * m * v * d, in_bytes + 8 * m + 4 * v * d),
+  }
+
+
 def xent_phase(dev, flush):
   """K3a / K3b / K3c vs their plain versions; returns {"fwd", "dx", "dw"}
   each with err, ms, plain_ms, library_ms, bound_ms, bound_by at the
-  slice's shapes."""
+  slice's shapes (K3b / K3c: the Hopper kernels of csrc/xent_sm90.cu, with
+  their csrc/xent.cu predecessors' times from the same call as simt_ms)."""
   import torch
   from automl_tpu_torch.ops import xent
   gen = torch.Generator(device=dev).manual_seed(2)
+  f = xent.fused_softmax_xent
+
+  def sm90_launches():
+    return f.launches_dx_sm90 + f.launches_dw_sm90
 
   m, d, v, cap = 8 * 2048, 1024, 100_864, 30.0
   print(f"K3 case 1: slice shapes M {m} (b8 x T2048), D {d}, V {v}, bf16 "
-        "operands, cap 30, about 20% zero loss weights")
+        "operands, cap 30, about 20% zero loss weights (K3b / K3c: the "
+        "Hopper kernels of xent_sm90.cu; beside them those of xent.cu, "
+        "reached with _simt)")
   x, w, targets, weights = _xent_inputs(dev, gen, m, v, d, torch.bfloat16)
   coef = (weights / weights.sum().clamp_min(1.0)).contiguous()
   lse, tz = xent.xent_fwd_kernel(x, w, targets, logit_cap=cap)
@@ -679,12 +706,16 @@ def xent_phase(dev, flush):
   fns = {"dx": (xent.xent_dx_kernel, xent.xent_dx_reference, "K3b"),
          "dw": (xent.xent_dw_kernel, xent.xent_dw_reference, "K3c")}
   for key, (kern, ref, kid) in fns.items():
+    before = sm90_launches()
     got = kern(x, w, targets, lse_r, coef, **kw)
     torch.cuda.synchronize()
-    errs[key] = _compare_scaled(f"{kid} {key}", got, ref(
-        x, w, targets, lse_r, coef, **kw), XENT_GRAD_SHARE)
-    # No atomics: each block owns its output rows, so a second call is
-    # bit-equal.
+    if sm90_launches() != before + 1:
+      raise AssertionError(f"{kid}: the bf16 slice did not go to the Hopper "
+                           "kernel")
+    want = ref(x, w, targets, lse_r, coef, **kw)
+    errs[key] = _compare_scaled(f"{kid} {key}", got, want, XENT_GRAD_SHARE)
+    # No atomics: each block writes its outputs once, and partial sums are
+    # added in a fixed order, so a second call is bit-equal.
     same = bool(torch.equal(got, kern(x, w, targets, lse_r, coef, **kw)))
     print(f"  {kid} called twice on the same inputs: bit-equal {same}")
     if not same:
@@ -696,17 +727,18 @@ def xent_phase(dev, flush):
       if zero_rows != 0.0:
         raise AssertionError("a zero-weight token got a nonzero dx")
     del got
+    got = kern(x, w, targets, lse_r, coef, _simt=True, **kw)
+    _compare_scaled(f"{kid} (xent.cu) {key}", got, want, XENT_GRAD_SHARE)
+    del got, want
+    own, streamed = (m, v) if key == "dx" else (v, m)
+    active = xent.sm90_clusters(d, key)
+    plan = xent.split_plan(-(-own // 128), active, -(-streamed // 64))
+    print(f"  {kid}: {-(-own // 128)} clusters of {d // 256} blocks, {active}"
+          f" at once on this card; split plan (whole tiles, parts of each of "
+          f"the rest) {plan}")
   torch.cuda.empty_cache()
 
-  in_bytes = 2 * (m + v) * d + 4 * m            # x, w, targets
-  bounds = {
-      # the logits: 2 flops per (token, vocab, dim); lse and tz written
-      "fwd": _bound(2.0 * m * v * d, in_bytes + 8 * m),
-      # the logit recompute plus dz . w (dz^T . x); lse, coef read, dx (dW)
-      # written in f32
-      "dx": _bound(4.0 * m * v * d, in_bytes + 8 * m + 4 * m * d),
-      "dw": _bound(4.0 * m * v * d, in_bytes + 8 * m + 4 * v * d),
-  }
+  bounds = _xent_bounds(m, v, d)
 
   def chain_fwd():
     return lambda: _xent_chain(x, w, targets, weights, cap)
@@ -722,27 +754,50 @@ def xent_phase(dev, flush):
   t_lib["dx"] = t_lib["dw"] = _library_ms(
       "K3b + K3c", chain_bwd, 3, flush, f"{chain}, autograd backward")
   torch.cuda.empty_cache()
-  calls = {"fwd": (lambda: xent.xent_fwd_kernel(x, w, targets, logit_cap=cap),
-                   lambda: xent.xent_fwd_reference(x, w, targets,
-                                                   logit_cap=cap))}
-  for key, (kern, ref, _) in fns.items():
-    calls[key] = (lambda kern=kern: kern(x, w, targets, lse, coef, **kw),
-                  lambda ref=ref: ref(x, w, targets, lse, coef, **kw))
   res = {}
-  for key, (kern_fn, ref_fn) in calls.items():
-    t_kern = _time_ms(kern_fn, 5 if key == "fwd" else 3, flush)
-    t_ref = _time_ms(ref_fn, 2, flush)
+  t_kern = _time_ms(lambda: xent.xent_fwd_kernel(x, w, targets, logit_cap=cap),
+                    5, flush)
+  t_ref = _time_ms(lambda: xent.xent_fwd_reference(x, w, targets,
+                                                   logit_cap=cap), 2, flush)
+  res["fwd"] = dict(err=errs["fwd"], ms=t_kern, plain_ms=t_ref,
+                    library_ms=t_lib["fwd"], bound_ms=bounds["fwd"][0],
+                    bound_by=bounds["fwd"][1])
+  print(f"  fwd: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
+        f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), "
+        f"{100 * bounds['fwd'][0] / t_kern:.2f}% of it (L2 flushed before "
+        "each call)")
+  # The streamed operand's L2 reads by design: each cluster of
+  # xent_sm90.cu reads it once (dx: w per 128 tokens; dW: x per 128 vocab
+  # rows).
+  l2_bytes = {"dx": -(-m // 128) * 2.0 * v * d,
+              "dw": -(-v // 128) * 2.0 * m * d}
+  for key, (kern, ref, kid) in fns.items():
+    new = lambda kern=kern: kern(x, w, targets, lse, coef, **kw)
+    old = lambda kern=kern: kern(x, w, targets, lse, coef, _simt=True, **kw)
+    turns = [_time_ms(fn, 3, flush) for fn in (new, old, old, new)]
+    t_new, t_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    t_ref = _time_ms(lambda ref=ref: ref(x, w, targets, lse, coef, **kw), 2,
+                     flush)
     bound_ms, bound_by = bounds[key]
-    res[key] = dict(err=errs[key], ms=t_kern, plain_ms=t_ref,
+    res[key] = dict(err=errs[key], ms=t_new, plain_ms=t_ref,
                     library_ms=t_lib[key], bound_ms=bound_ms,
-                    bound_by=bound_by)
-    print(f"  {key}: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / t_kern:.2f}% "
-          "of it (L2 flushed before each call)")
+                    bound_by=bound_by, simt_ms=t_old)
+    print(f"  {kid}: Hopper kernel {t_new:.4f} ms ({turns[0]:.4f}, "
+          f"{turns[3]:.4f}), xent.cu kernel {t_old:.4f} ms ({turns[1]:.4f}, "
+          f"{turns[2]:.4f}): {t_old / t_new:.2f}x; plain {t_ref:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / t_new:.2f}% of it; the streamed operand from "
+          f"L2 by design {l2_bytes[key] / 1e9:.1f} GB = "
+          f"{l2_bytes[key] / t_new / 1e9:.2f} TB/s (in turns, L2 flushed "
+          "before each call)")
+  both = res["dx"]["ms"] + res["dw"]["ms"]
+  if t_lib["dx"]:
+    print(f"  K3b + K3c: {both:.4f} ms = {both / t_lib['dx']:.2f}x the "
+          f"chain's backward ({t_lib['dx']:.4f} ms)")
   del x, w, targets, weights, coef, lse, tz, lse_r, tz_r
   torch.cuda.empty_cache()
 
-  def small(name, m, v, d, dtype, cap):
+  def small(name, m, v, d, dtype, cap, sm90, time_it=False):
     x, w, targets, weights = _xent_inputs(dev, gen, m, v, d, dtype)
     coef = (weights / weights.sum().clamp_min(1.0)).contiguous()
     lse, tz = xent.xent_fwd(x, w, targets, logit_cap=cap)
@@ -750,17 +805,39 @@ def xent_phase(dev, flush):
     _compare(f"{name} lse", lse, lse_r, **F32_TOL)
     _compare(f"{name} tz", tz, tz_r, **F32_TOL)
     kw = dict(logit_cap=cap, out_dtype=torch.float32)
-    for key, (_, ref, _) in fns.items():
+    for key, (kern, ref, _) in fns.items():
+      before = sm90_launches()
       got = (xent.xent_dx if key == "dx" else xent.xent_dw)(
           x, w, targets, lse_r, coef, **kw)
+      if sm90_launches() - before != int(sm90):
+        raise AssertionError(f"{name} {key}: routed to the wrong kernel")
       _compare_scaled(f"{name} {key}", got,
-                      ref(x, w, targets, lse_r, coef, **kw), 1e-3)
+                      ref(x, w, targets, lse_r, coef, **kw), XENT_GRAD_SHARE)
+      if time_it:
+        ms = _time_ms(lambda kern=kern: kern(x, w, targets, lse_r, coef,
+                                             **kw), 3, flush)
+        bound_ms, bound_by = _xent_bounds(m, v, d)[key]
+        print(f"  {name} {key}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}) (L2 flushed before each call)")
 
-  print("K3 case 2: ragged M 100, V 1000, D 128, f32 operands, cap 30")
-  small("f32", 100, 1000, 128, torch.float32, 30.0)
-  print("K3 case 3: ragged M 257, V 333, D 72, bf16 operands, no cap")
-  small("D=72", 257, 333, 72, torch.bfloat16, 0.0)
-  print("K3 case 4: untied w [D, V] through fused_softmax_xent (autograd), "
+  print("K3 case 2: the default LM's shapes: M 4096 (b2 x T2048), V 32000, "
+        "D 2048, bf16 operands, cap 30 (K3a; K3b / K3c on the Hopper "
+        "kernels, clusters of 8)")
+  small("D=2048", 4096, 32_000, 2048, torch.bfloat16, 30.0, True,
+        time_it=True)
+  print("K3 case 3: ragged M and V on the Hopper kernels: M 300, V 1000, "
+        "D 256 (clusters of 1) and M 257, V 333, D 512 (of 2), cap 30")
+  small("D=256", 300, 1000, 256, torch.bfloat16, 30.0, True)
+  small("D=512", 257, 333, 512, torch.bfloat16, 30.0, True)
+  print("K3 case 4: no cap, M 130, V 2000, D 1024 (the Hopper kernels)")
+  small("cap 0", 130, 2000, 1024, torch.bfloat16, 0.0, True)
+  print("K3 case 5: ragged M 100, V 1000, D 128, f32 operands, cap 30 "
+        "(xent.cu)")
+  small("f32", 100, 1000, 128, torch.float32, 30.0, False)
+  print("K3 case 6: ragged M 257, V 333, D 72, bf16 operands, no cap "
+        "(xent.cu)")
+  small("D=72", 257, 333, 72, torch.bfloat16, 0.0, False)
+  print("K3 case 7: untied w [D, V] through fused_softmax_xent (autograd), "
         "bf16 operands, M 150, V 700, D 64, against the same call on the "
         "CPU's plain versions")
   x, w, targets, weights = _xent_inputs(dev, gen, 150, 700, 64, torch.float32)
@@ -881,7 +958,9 @@ def _train_run(workdir, flags, steps, label, expected, flops):
               "K5b sm90": (fa.flash_attention, "launches_dkv_sm90"),
               "K3a": (xent.fused_softmax_xent, "launches_fwd"),
               "K3b": (xent.fused_softmax_xent, "launches_dx"),
-              "K3c": (xent.fused_softmax_xent, "launches_dw")}
+              "K3b sm90": (xent.fused_softmax_xent, "launches_dx_sm90"),
+              "K3c": (xent.fused_softmax_xent, "launches_dw"),
+              "K3c sm90": (xent.fused_softmax_xent, "launches_dw_sm90")}
   cfg = lm_lib.get_lm_config("lm-flops1e19")
   batch = 8
   torch.cuda.reset_peak_memory_stats()
@@ -989,7 +1068,8 @@ def training_phase(dev, workdir):
   flags = common + [f"--model_dir={workdir}", f"--experiment_config={flash}"]
   n = cfg.n_layers * steps
   none = dict.fromkeys(("K1", "K1 sm90", "K2", "K2 sm90", "K5a", "K5a sm90",
-                        "K5b", "K5b sm90", "K3a", "K3b", "K3c"), 0)
+                        "K5b", "K5b sm90", "K3a", "K3b", "K3b sm90", "K3c",
+                        "K3c sm90"), 0)
   t = cfg.seq_len
   runs = {}
   # Full remat re-runs K1 in the backward: 2 x n_layers a step. bf16
@@ -1005,7 +1085,10 @@ def training_phase(dev, workdir):
           f"--model_dir={fused_dir}",
           f"--experiment_config={flash},fused_softmax_loss=pallas"], steps,
       "fused loss, full remat, K2",
-      dict(none, **sm90(2 * n, n), K3a=steps, K3b=steps, K3c=steps),
+      # bf16 operands at D 1,024: every K3b and K3c launch the Hopper
+      # kernels' (csrc/xent_sm90.cu).
+      dict(none, **sm90(2 * n, n), K3a=steps, K3b=steps, K3c=steps,
+           **{"K3b sm90": steps, "K3c sm90": steps}),
       _step_flops(cfg, batch, t, fused=True))
   split_dir = workdir + "_split"
   # dots_flash saves K1's (out, lse): K1 once per layer and step. Every K5a
@@ -1629,12 +1712,15 @@ def _sass_report(lib):
   sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                         text=True, timeout=120, check=False).stdout
   for body in re.split(r"\n\s*Function : ", sass)[1:]:
-    # Template arguments: an int (ILi128E) and, for the backward, a bool
-    # (Lb1E: K2 with its dq half; Lb0E: K5b without).
+    # Template arguments: an int (ILi128E) and, for the flash backward, a
+    # bool (Lb1E: K2 with its dq half; Lb0E: K5b without); the xent
+    # kernels' bool alone (ILb1E: K3b, dx; ILb0E: K3c, dW).
     name = re.sub(
-        r".*?\d((?:flash|k4)_\w*?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?)?.*",
+        r".*?\d((?:flash|k4|xent)_\w*?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?"
+        r"|ILb([01])E)?.*",
         lambda m: m[1] + (
-            f"<{m[2]}{', kDq=' + m[3] if m[3] else ''}>" if m[2] else ""),
+            f"<{m[2]}{', kDq=' + m[3] if m[3] else ''}>" if m[2] else
+            f"<kDx={m[4]}>" if m[4] else ""),
         body.splitlines()[0].strip())
     ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", body)
     count = lambda *names: sum(op in names for op in ops)
@@ -1666,7 +1752,7 @@ def main() -> int:
 
   t = time.perf_counter()
   sources = ("decode_attention", "decode_attention_sm90", "flash_attention",
-             "flash_attention_sm90", "xent", "depthwise")
+             "flash_attention_sm90", "xent", "xent_sm90", "depthwise")
   with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
     libs = list(pool.map(cuda_build.build, sources))
   print(f"build: {', '.join(l.name for l in libs)} in "
@@ -1674,9 +1760,10 @@ def main() -> int:
   for lib in libs:
     log = lib.parent / (lib.name + ".log")
     for line in log.read_text().splitlines() if log.exists() else ():
-      if "registers" in line or "spill" in line:
+      if ("registers" in line or "spill" in line
+          or "Performance Loss" in line):
         print(f"  ptxas: {line.strip()}")
-  for name in ("decode_attention_sm90", "flash_attention_sm90"):
+  for name in ("decode_attention_sm90", "flash_attention_sm90", "xent_sm90"):
     _sass_report(libs[sources.index(name)])
 
   if "--profile" in sys.argv[1:]:
@@ -1720,10 +1807,12 @@ def main() -> int:
              flash["dkv"]),
       _entry("xent_fwd", "automl_tpu_torch/csrc/xent.cu",
              "automl_tpu/ops/xent.py:66", runs["fused"]["K3a"], k3["fwd"]),
-      _entry("xent_dx", "automl_tpu_torch/csrc/xent.cu",
-             "automl_tpu/ops/xent.py:113", runs["fused"]["K3b"], k3["dx"]),
-      _entry("xent_dw", "automl_tpu_torch/csrc/xent.cu",
-             "automl_tpu/ops/xent.py:138", runs["fused"]["K3c"], k3["dw"]),
+      _entry("xent_dx", "automl_tpu_torch/csrc/xent_sm90.cu",
+             "automl_tpu/ops/xent.py:113", runs["fused"]["K3b sm90"],
+             k3["dx"]),
+      _entry("xent_dw", "automl_tpu_torch/csrc/xent_sm90.cu",
+             "automl_tpu/ops/xent.py:138", runs["fused"]["K3c sm90"],
+             k3["dw"]),
       _entry("depthwise_filter_grad", "automl_tpu_torch/csrc/depthwise.cu",
              "automl_tpu/ops/depthwise.py:37", k6_launches,
              k6["B0 stride-1 [16,32,256,256] k3"]),

@@ -10,7 +10,9 @@ Tolerances: f32 atol = rtol = 1e-4 (another summation order, the card's
 expf/tanhf); bf16 outputs atol 1.6e-2, rtol 8e-3 (one bf16 rounding
 step). bf16 flash attention K1 / K2 / K5a / K5b run the Hopper kernels
 (csrc/flash_attention_sm90.cu), f32 ones the scalar-FMA kernels
-(csrc/flash_attention.cu).
+(csrc/flash_attention.cu). bf16 K3b / K3c with D a multiple of 256 up to
+2,048 run the Hopper kernels (csrc/xent_sm90.cu), f32 and other D those of
+csrc/xent.cu.
 """
 
 import pytest
@@ -717,11 +719,13 @@ def test_xent_kernels_refuse_what_they_do_not_take(dev):
     xent.xent_fwd(x.t().contiguous().t(), w, targets)
   with pytest.raises(ValueError, match="multiple of 8"):
     xent.xent_fwd(x[:, :60].contiguous(), w[:, :60].contiguous(), targets)
-  big = xent.max_dim(torch.bfloat16) + 8
-  with pytest.raises(ValueError, match="multiple of 8"):
-    xent.xent_fwd(torch.zeros((4, big), device=dev, dtype=torch.bfloat16),
-                  torch.zeros((8, big), device=dev, dtype=torch.bfloat16),
-                  targets[:4])
+  # The pure limit is csrc/xent.cu's own; beyond it its backward refuses.
+  assert xent._kernel_fns()[3](1) == xent.simt_bwd_max_dim(torch.bfloat16)
+  assert xent._kernel_fns()[3](0) == xent.simt_bwd_max_dim(torch.float32)
+  big = xent.simt_bwd_max_dim(torch.bfloat16) + 8
+  zb = lambda r: torch.zeros((r, big), device=dev, dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="up to"):
+    xent.xent_dx(zb(4), zb(8), targets[:4], weights[:4], weights[:4])
   with pytest.raises(ValueError, match="targets"):
     xent.xent_fwd(x, w, targets.long())
   lse, _ = xent.xent_fwd_reference(x, w, targets)
@@ -730,6 +734,154 @@ def test_xent_kernels_refuse_what_they_do_not_take(dev):
   assert (xent.fused_softmax_xent.launches_fwd,
           xent.fused_softmax_xent.launches_dx,
           xent.fused_softmax_xent.launches_dw) == before
+
+
+def _xent_counts():
+  f = xent.fused_softmax_xent
+  return (f.launches_fwd, f.launches_dx, f.launches_dw, f.launches_dx_sm90,
+          f.launches_dw_sm90)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(m=100, v=1000, d=256, cap=30.0),       # C 1, ragged M and V
+    dict(m=300, v=700, d=512, cap=0.0),         # C 2, no cap
+    dict(m=257, v=333, d=768, cap=30.0),        # C 3: rows 21 / 21 / 22
+    dict(m=130, v=2000, d=1024, cap=30.0),      # C 4, the slice's D
+    dict(m=3840, v=200, d=1024, cap=0.0),       # 30 own tiles of dx
+    dict(m=200, v=3000, d=2048, cap=30.0),      # C 8, the default LM's D
+    dict(m=64, v=64, d=2048, cap=0.0),          # one tile each way
+], ids=["d256", "d512_nocap", "d768", "d1024", "d1024_30tiles", "d2048",
+        "d2048_one_tile"])
+def test_xent_sm90_kernels_match_plain(dev, case):
+  """The Hopper K3b / K3c (bf16, D a multiple of 256) against their plain
+  versions fed the same lse and coef: dx / dW in f32 atol 1e-6, rtol 1e-3
+  (see test_xent_kernels_match_plain) and in bf16 atol 1e-5, rtol 8e-3
+  (plus one bf16 rounding); each launch counted once, as a Hopper one. The
+  small cases split their few own tiles along the streamed rows (the last
+  wave's plan) and sum the parts in a fixed order."""
+  x, w, targets, weights = _xent_inputs(dev, case["m"], case["v"], case["d"],
+                                        torch.bfloat16, seed=4)
+  cap = case["cap"]
+  lse, _ = xent.xent_fwd_reference(x, w, targets, logit_cap=cap)
+  coef = (weights / weights.sum().clamp_min(1.0)).contiguous()
+  before = _xent_counts()
+  for fn, ref in ((xent.xent_dx, xent.xent_dx_reference),
+                  (xent.xent_dw, xent.xent_dw_reference)):
+    for out_dtype, tol in ((torch.float32, dict(atol=1e-6, rtol=1e-3)),
+                           (torch.bfloat16, dict(atol=1e-5, rtol=8e-3))):
+      kw = dict(logit_cap=cap, out_dtype=out_dtype)
+      got = fn(x, w, targets, lse, coef, **kw)
+      torch.cuda.synchronize()
+      assert got.dtype == out_dtype
+      torch.testing.assert_close(got.float(), ref(x, w, targets, lse, coef,
+                                                  **kw).float(), **tol)
+  assert _xent_counts() == tuple(b + n for b, n in zip(before,
+                                                       (0, 2, 2, 2, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [512, 1024], ids=["d512", "d1024"])
+def test_xent_sm90_bwd_deterministic_and_zero_weight_rows(dev, d):
+  """The Hopper K3b / K3c sum the cluster's partial logits in rank order
+  and a split tile's parts in part order, and write each output once: two
+  calls are bit-equal. A token with weight 0 gets dx = 0 exactly."""
+  x, w, targets, weights = _xent_inputs(dev, 300, 2000, d, torch.bfloat16,
+                                        seed=5)
+  weights[7] = 0.0
+  lse, _ = xent.xent_fwd(x, w, targets, logit_cap=30.0)
+  coef = (weights / weights.sum()).contiguous()
+  before = _xent_counts()
+  for fn in (xent.xent_dx, xent.xent_dw):
+    first = fn(x, w, targets, lse, coef, logit_cap=30.0)
+    second = fn(x, w, targets, lse, coef, logit_cap=30.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+  dx = xent.xent_dx(x, w, targets, lse, coef, logit_cap=30.0)
+  assert float(dx[7].float().abs().max()) == 0.0
+  assert float(dx[8].float().abs().max()) > 0.0
+  assert _xent_counts()[3:] == (before[3] + 3, before[4] + 2)
+
+
+@pytest.mark.cuda
+def test_xent_bwd_dispatch_by_counter(dev):
+  """bf16 with D 1,024 goes to the Hopper kernels; bf16 with D 72, float32,
+  and `_simt=True` go to csrc/xent.cu's (whose result on the D 1,024 case
+  matches the Hopper kernels' within the plain-version tolerance)."""
+  cases = ((torch.bfloat16, 1024, {}, 1), (torch.bfloat16, 72, {}, 0),
+           (torch.float32, 256, {}, 0), (torch.bfloat16, 1024,
+                                         dict(_simt=True), 0))
+  outs = {}
+  for dtype, d, kw, sm90 in cases:
+    x, w, targets, weights = _xent_inputs(dev, 130, 900, d, dtype, seed=6)
+    lse, _ = xent.xent_fwd(x, w, targets, logit_cap=30.0)
+    coef = (weights / weights.sum()).contiguous()
+    before = _xent_counts()
+    outs[(d, bool(kw))] = [
+        xent.xent_dx_kernel(x, w, targets, lse, coef, logit_cap=30.0,
+                            out_dtype=torch.float32, **kw),
+        xent.xent_dw_kernel(x, w, targets, lse, coef, logit_cap=30.0,
+                            out_dtype=torch.float32, **kw)]
+    torch.cuda.synchronize()
+    assert _xent_counts() == tuple(
+        b + n for b, n in zip(before, (0, 1, 1, sm90, sm90))), (dtype, d, kw)
+  for a, b in zip(outs[(1024, False)], outs[(1024, True)]):
+    torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_xent_kernels_take_the_default_lm_dim(dev):
+  """The default LM's D 2,048 (automl_tpu/models/lm.py:47), bf16: K3a, K3b
+  and K3c run (before, all three were refused above D 1,216) and match
+  their plain versions: lse / tz f32 atol 1e-4; dx / dW atol 1e-6, rtol
+  1e-3. So does K3a with float32 operands."""
+  x, w, targets, weights = _xent_inputs(dev, 300, 1500, 2048, torch.bfloat16,
+                                        seed=7)
+  before = _xent_counts()
+  lse, tz = xent.xent_fwd(x, w, targets, logit_cap=30.0)
+  lse_r, tz_r = xent.xent_fwd_reference(x, w, targets, logit_cap=30.0)
+  torch.testing.assert_close(lse, lse_r, **F32_TOL)
+  torch.testing.assert_close(tz, tz_r, **F32_TOL)
+  coef = (weights / weights.sum()).contiguous()
+  kw = dict(logit_cap=30.0, out_dtype=torch.float32)
+  for fn, ref in ((xent.xent_dx, xent.xent_dx_reference),
+                  (xent.xent_dw, xent.xent_dw_reference)):
+    torch.testing.assert_close(fn(x, w, targets, lse_r, coef, **kw),
+                               ref(x, w, targets, lse_r, coef, **kw),
+                               atol=1e-6, rtol=1e-3)
+  assert _xent_counts() == tuple(b + n for b, n in zip(before,
+                                                       (1, 1, 1, 1, 1)))
+  xf, wf = x.float(), w.float()
+  lse, _ = xent.xent_fwd(xf, wf, targets, logit_cap=30.0)
+  torch.testing.assert_close(
+      lse, xent.xent_fwd_reference(xf, wf, targets, logit_cap=30.0)[0],
+      **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_xent_sm90_refuses_what_tma_does_not_take(dev):
+  """An x or w whose base is not 16-byte aligned (TMA), bf16 D 1,224 (a
+  multiple of neither 256 nor within csrc/xent.cu's 1,216) and float32 D
+  2,048 raise before any launch; no counter moves."""
+  x, w, targets, weights = _xent_inputs(dev, 64, 300, 1024, torch.bfloat16,
+                                        seed=8)
+  lse, _ = xent.xent_fwd_reference(x, w, targets)
+  coef = (weights / weights.sum()).contiguous()
+  odd = torch.zeros((64 * 1024 + 4,), dtype=torch.bfloat16,
+                    device=dev)[4:].view(64, 1024)
+  before = _xent_counts()
+  for fn in (xent.xent_dx, xent.xent_dw):
+    with pytest.raises(ValueError, match="16-byte aligned"):
+      fn(odd, w, targets, lse, coef)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+      fn(x, torch.zeros((300 * 1024 + 4,), dtype=torch.bfloat16,
+                        device=dev)[4:].view(300, 1024), targets, lse, coef)
+    for d, dtype in ((1224, torch.bfloat16), (2048, torch.float32)):
+      xd = torch.zeros((64, d), dtype=dtype, device=dev)
+      wd = torch.zeros((300, d), dtype=dtype, device=dev)
+      with pytest.raises(ValueError, match="up to"):
+        fn(xd, wd, targets, lse, coef)
+  assert _xent_counts() == before
 
 
 # K6 (depthwise filter gradient): f32 sums over B*H*W products in another

@@ -660,21 +660,35 @@ def test_main_lm_cpu_trains_with_the_fused_pallas_loss(tmp_path, monkeypatch):
 
 
 @pytest.mark.slow
-def test_lion_trajectory_split_backward_dots_flash_matches_jax():
+@pytest.mark.parametrize("case", [
+    dict(use_remat=True, flash_bwd_fused=False, remat_policy="dots_flash"),
+    dict(fused_softmax_loss="pallas"),
+], ids=["split_dots_flash", "fused_pallas"])
+def test_lion_trajectory_split_backward_dots_flash_matches_jax(
+    case, record_property):
   """20 Lion steps (cosine schedule, weight decay 0.1) on lm-test with
-  use_flash_attention, flash_bwd_fused=False and remat_policy=dots_flash
-  (the split backward under the JAX flagship's policy), from one converted
-  parameter tree and 20 packed batches, against jtrain.make_lm_train_step
-  with the same settings (JAX: the Pallas kernels in interpret mode; the
-  port: the plain K1, K5a and K5b). The loss at every step within rtol
-  1e-5, and >= 99.9% of the final parameters within 1e-6 of JAX's (the
-  one-step Lion test's criterion: a gradient near 0 may land on the other
-  side of 0 and move its entry by 2 lr). Measured on the CPU: losses
-  within 2.3e-7 (relative), every parameter within 3.0e-8."""
+  use_flash_attention, from one converted parameter tree and 20 packed
+  batches, against jtrain.make_lm_train_step with the same settings (JAX:
+  the Pallas kernels in interpret mode; the port: their plain versions):
+  split_dots_flash, flash_bwd_fused=False and remat_policy=dots_flash (the
+  split backward under the JAX flagship's policy: K1, K5a, K5b);
+  fused_pallas, the fused loss fused_softmax_loss="pallas" (K3a-c; set on
+  the built configs, as the JAX config turns the mode word into a bool).
+  The loss at every step within rtol 1e-5, and >= 99.9% of the final
+  parameters within 1e-6 of JAX's (the one-step Lion test's criterion: a
+  gradient near 0 may land on the other side of 0 and move its entry by
+  2 lr). The largest relative loss difference and the largest parameter
+  difference are recorded as properties (--junitxml, junit_family
+  xunit1); measured on the CPU
+  see ROADMAP Queue 3 item 2."""
   steps = 20
+  case = dict(case)
+  fused = case.pop("fused_softmax_loss", None)
   jmodel, jparams, tmodel, jtx, ttx, jstep, tstep = _lion_pair(
-      seed=40, steps=steps, use_remat=True, flash_bwd_fused=False,
-      remat_policy="dots_flash")
+      seed=40, steps=steps, **case)
+  if fused:
+    for cfg in (jmodel.cfg, tmodel.cfg):
+      cfg.fused_softmax_loss = fused
   jstate = _jax_state(jmodel, jparams, jtx)
   tstate = ttrain.init_train_state(tmodel, ttx)
   jloss, tloss = [], []
@@ -684,7 +698,12 @@ def test_lion_trajectory_split_backward_dots_flash_matches_jax():
     tstate, tlogs = tstep(tstate, _tbatch(batch))
     jloss.append(float(jlogs["loss"]))
     tloss.append(float(tlogs["loss"]))
+  record_property("max_rel_loss_diff", float(np.max(
+      np.abs(np.subtract(tloss, jloss)) / np.abs(jloss))))
   np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
   assert np.mean(tloss[-5:]) < np.mean(tloss[:5])
   got = _flat(convert.torch_to_jax_tree(tstate.params))
+  want = _flat(jstate.params)
+  record_property("max_param_diff", max(
+      float(np.max(np.abs(got[k] - want[k]))) for k in want))
   assert _share_close(got, jstate.params, 1e-6) >= 0.999

@@ -3,9 +3,15 @@
 Inputs are made with numpy from a seed and handed to both packages. JAX runs
 its Pallas K3a-c in interpret mode, the port the plain versions of its CUDA
 kernels, at the JAX tests' ragged shapes (M 100 against block_m 64, V 1000
-against block_v 256, D 128), so JAX's pad masking is exercised. Tolerances
-are stated per test.
+against block_v 256, D 128), so JAX's pad masking is exercised, and at the
+default LM's D 2,048 with small M and V. Tolerances are stated per test.
+The kernels' D limits, the routing between the two implementations of
+K3b / K3c and the Hopper kernels' split plan are pure Python, checked here
+with stand-ins for the libraries.
 """
+
+import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -55,13 +61,16 @@ def _np(x):
   return np.asarray(jnp.asarray(x, jnp.float32))
 
 
+@pytest.mark.parametrize("dims", [dict(m=M, d=D, v=V), dict(m=40, d=2048, v=300)],
+                         ids=["d128", "d2048"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cap", [0.0, 30.0])
-def test_plain_kernels_match_pallas(cap, dtype):
+def test_plain_kernels_match_pallas(cap, dtype, dims):
   """Plain K3a / K3b / K3c against _fwd_pallas / _bwd_pallas (interpret
-  mode), fed the same lse and coef. lse and tz: atol 1e-5 (f32 sums in
-  another order). dx and dW: atol 1e-6, rtol 1e-4 (GRAD_TOL)."""
-  x, w, targets, weights = _case(0)
+  mode), fed the same lse and coef, at D 128 and at the default LM's D
+  2,048 (M 40, V 300). lse and tz: atol 1e-5 (f32 sums in another order).
+  dx and dW: atol 1e-6, rtol 1e-4 (GRAD_TOL)."""
+  x, w, targets, weights = _case(0, **dims)
   jx, tx = _both(x, dtype)
   jw, tw = _both(w, dtype)
   jt, tt = jnp.asarray(targets), torch.from_numpy(targets)
@@ -236,3 +245,134 @@ def test_wrapper_dispatches_on_device_and_counts_only_kernels():
   with pytest.raises(ValueError, match="no implementation"):
     txent.xent_fwd(meta, torch.empty((40, 16), device="meta"),
                    torch.empty((8,), dtype=torch.int32, device="meta"))
+
+
+def test_kernel_dim_limits():
+  """Each kernel's D limit, without the libraries: K3a takes any D a
+  multiple of 8 (the default LM's 2,048 among them: before, it was held to
+  the backward's limit and refused); K3b / K3c at bf16 D a multiple of 256
+  up to 2,048 (the Hopper kernels) or any multiple of 8 up to 1,216
+  (csrc/xent.cu: its f32 [32, D] accumulator fills a block's shared memory,
+  csrc/xent.cu::max_dim), at float32 up to 1,152."""
+  bf16, f32 = torch.bfloat16, torch.float32
+  assert txent.simt_bwd_max_dim(bf16) == 1216
+  assert txent.simt_bwd_max_dim(f32) == 1152
+  for d in (256, 512, 768, 1024, 1280, 2048):
+    assert txent.takes_sm90(bf16, d) and not txent.takes_sm90(f32, d)
+  for d in (72, 1216, 1224, 2304, 4096):
+    assert not txent.takes_sm90(bf16, d)
+  for which in ("fwd", "dx", "dw"):
+    txent.check_dim(which, bf16, 2048)     # the default LM
+    txent.check_dim(which, bf16, 72)
+    txent.check_dim(which, f32, 1152)
+    with pytest.raises(ValueError, match="multiple of 8"):
+      txent.check_dim(which, bf16, 2052)
+  txent.check_dim("fwd", f32, 4096)
+  txent.check_dim("fwd", bf16, 1224)
+  for which in ("dx", "dw"):
+    with pytest.raises(ValueError, match="up to 1216.*multiple of 256 up to "
+                       "2048"):
+      txent.check_dim(which, bf16, 1224)
+    with pytest.raises(ValueError, match="up to 1152"):
+      txent.check_dim(which, f32, 2048)
+    with pytest.raises(ValueError, match="up to 1216"):
+      txent.check_dim(which, bf16, 2048, simt=True)
+    txent.check_dim(which, bf16, 1216, simt=True)
+
+
+def test_split_plan():
+  """The Hopper kernels' last wave: with A clusters at once, the T % A
+  tiles left over are split A // (T % A) ways (at most the streamed tiles),
+  the rest run whole; no split when A divides T or a split would be 1."""
+  assert txent.split_plan(128, 30, 1576) == (120, 3)  # K3b, slice, H100
+  assert txent.split_plan(788, 30, 256) == (780, 3)   # K3c
+  assert txent.split_plan(32, 15, 500) == (30, 7)     # default LM's K3b
+  assert txent.split_plan(250, 15, 64) == (250, 1)    # 10 left: 15 // 10
+  assert txent.split_plan(120, 30, 10) == (120, 1)
+  assert txent.split_plan(8, 30, 2) == (0, 2)         # streamed tiles bound
+  assert txent.split_plan(1, 132, 16) == (0, 16)
+  with pytest.raises(ValueError, match="no cluster"):
+    txent.split_plan(4, 0, 8)
+
+
+def test_bwd_routing_with_stand_in_libraries(monkeypatch):
+  """With stand-ins for both libraries: bf16 K3b / K3c with D a multiple
+  of 256 reach the Hopper entry points (counted in launches_dx_sm90 /
+  launches_dw_sm90) with the split plan and a scratch buffer for the split
+  tiles; float32, bf16 D 72 and `_simt` reach csrc/xent.cu's, each with
+  as many arguments as its binding declares; K3a at the default LM's D
+  2,048 reaches csrc/xent.cu's forward. What a kernel does not take (bf16
+  D 1,224, float32 D 2,048, an x TMA cannot read) raises before any launch
+  or count."""
+  calls = []
+
+  def fake(impl, name, n_args, out=0):
+    def fn(*args):
+      assert len(args) == n_args, (impl, name, len(args))
+      calls.append((impl, name, args))
+      return out
+    return fn
+
+  monkeypatch.setattr(txent, "_kernel_fns", lambda: (
+      fake("simt", "fwd", 11), fake("simt", "dx", 13), fake("simt", "dw", 13),
+      None))
+  monkeypatch.setattr(txent, "_sm90_fns", lambda: (
+      fake("sm90", "dx", 15), fake("sm90", "dw", 15), None))
+  # Clusters at once on the H100: 30 of 4 blocks (D 1,024), 15 of 8.
+  monkeypatch.setattr(txent, "sm90_clusters",
+                      lambda d, which, device: {1024: 30, 2048: 15}[d])
+  monkeypatch.setattr(torch.cuda, "device",
+                      lambda device: contextlib.nullcontext())
+  monkeypatch.setattr(torch.cuda, "current_stream",
+                      lambda device: types.SimpleNamespace(cuda_stream=0))
+  f = txent.fused_softmax_xent
+
+  def run(m, v, d, dtype, **kw):
+    x = torch.zeros((m, d), dtype=dtype)
+    w = torch.zeros((v, d), dtype=dtype)
+    t = torch.zeros((m,), dtype=torch.int32)
+    lse, coef = torch.zeros((m,)), torch.zeros((m,))
+    calls.clear()
+    before = (f.launches_dx, f.launches_dw, f.launches_dx_sm90,
+              f.launches_dw_sm90)
+    txent.xent_dx_kernel(x, w, t, lse, coef, **kw)
+    txent.xent_dw_kernel(x, w, t, lse, coef, **kw)
+    after = (f.launches_dx, f.launches_dw, f.launches_dx_sm90,
+             f.launches_dw_sm90)
+    return [(impl, name) for impl, name, _ in calls], [
+        a - b for a, b in zip(after, before)], [args for *_, args in calls]
+
+  got, counts, args = run(16384, 100_864, 1024, torch.bfloat16)
+  assert got == [("sm90", "dx"), ("sm90", "dw")] and counts == [1, 1, 1, 1]
+  # (n_whole, n_split) of 128 and 788 own tiles on 30 clusters at once
+  assert [a[11:13] for a in args] == [(120, 3), (780, 3)]
+  assert all(a[13] for a in args)           # a scratch buffer for the parts
+  got, _, args = run(4096, 32_000, 2048, torch.bfloat16)
+  assert [a[11:13] for a in args] == [(30, 7), (250, 1)]
+  assert args[1][13] is None                # no split, no scratch
+  for m, v, d, dtype, kw in ((100, 1000, 72, torch.bfloat16, {}),
+                             (100, 1000, 256, torch.float32, {}),
+                             (100, 1000, 1024, torch.bfloat16,
+                              dict(_simt=True))):
+    got, counts, _ = run(m, v, d, dtype, **kw)
+    assert got == [("simt", "dx"), ("simt", "dw")] and counts == [1, 1, 0, 0]
+  calls.clear()
+  x = torch.zeros((8, 2048), dtype=torch.bfloat16)
+  txent.xent_fwd_kernel(x, torch.zeros((40, 2048), dtype=torch.bfloat16),
+                        torch.zeros((8,), dtype=torch.int32))
+  assert [(impl, name) for impl, name, _ in calls] == [("simt", "fwd")]
+
+  before = (f.launches_dx, f.launches_dw, f.launches_dx_sm90,
+            f.launches_dw_sm90)
+  calls.clear()
+  t, lse = torch.zeros((8,), dtype=torch.int32), torch.zeros((8,))
+  for d, dtype in ((1224, torch.bfloat16), (2048, torch.float32)):
+    with pytest.raises(ValueError, match="up to"):
+      txent.xent_dx_kernel(torch.zeros((8, d), dtype=dtype),
+                           torch.zeros((40, d), dtype=dtype), t, lse, lse)
+  odd = torch.zeros((8 * 1024 + 4,), dtype=torch.bfloat16)[4:].view(8, 1024)
+  with pytest.raises(ValueError, match="16-byte aligned"):
+    txent.xent_dw_kernel(odd, torch.zeros((40, 1024), dtype=torch.bfloat16),
+                         t, lse, lse)
+  assert calls == [] and (f.launches_dx, f.launches_dw, f.launches_dx_sm90,
+                          f.launches_dw_sm90) == before
