@@ -50,9 +50,9 @@
 // K3a call and ~235 GB per K3b / K3c call at the slice's shapes (K3b/K3c
 // read each streamed tile twice), which at their times on the H100
 // (PERF.md) is 2.4-2.7 TB/s. For bf16 operands with D a multiple of 256 up
-// to 2,048 (the LM's), K3b and K3c run the Hopper kernels of xent_sm90.cu
-// instead (a cluster splits D; wgmma fed by TMA); the backward kernels here
-// serve float32 operands and other bf16 D, and K3a every call.
+// to 2,048 (the LM's), K3a, K3b and K3c run the Hopper kernels of
+// xent_sm90.cu instead (a cluster splits D; wgmma fed by TMA); the kernels
+// here serve float32 operands and other bf16 D.
 //
 // Plain C interface, loaded with ctypes (automl_tpu_torch/ops/cuda_build.py).
 // The kernels allocate nothing; the launchers return cudaGetLastError().

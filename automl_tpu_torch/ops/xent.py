@@ -7,19 +7,21 @@ The counterpart of automl_tpu/ops/xent.py. The loss of an LM's last layer,
   loss = sum(weights * xent(logits, targets)) / max(sum(weights), 1),
 without the [M, V] logits in device memory. Three kernels:
   * K3a, the forward (replaces _fwd_kernel): per token the logsumexp of its
-    capped logits, online over vocab tiles, and the target's logit
-    (csrc/xent.cu, any D a multiple of 8);
+    capped logits, online over vocab tiles, and the target's logit;
   * K3b, dx (replaces _dx_kernel): dx = dz . w, with dz = coef * (softmax -
     onehot) * cap' recomputed tile by tile;
   * K3c, dW (replaces _dw_kernel): dW = dz^T . x, the same recompute.
-K3b and K3c have two implementations. bf16 operands with D a multiple of
-256 up to 2,048 (the LM's widths) go to the Hopper kernels of
-csrc/xent_sm90.cu (a thread-block cluster of D / 256 blocks splits D;
-wgmma fed by TMA); float32 operands (golden tests) and other bf16 D go to
-csrc/xent.cu, whose f32 [32, D] accumulator in shared memory bounds D
-(1,216 at bf16, 1,152 at float32: `simt_bwd_max_dim`). `check_dim` holds
-each kernel's limit; `takes_sm90` says which implementation a call takes.
-`xent_dx_kernel(..., _simt=True)` / `xent_dw_kernel` force the csrc/xent.cu
+Each has two implementations. bf16 operands with D a multiple of 256 up to
+2,048 (the LM's widths) go to the Hopper kernels of csrc/xent_sm90.cu
+(wgmma fed by TMA; K3a up to D 1,024 with a block's rows of x resident in
+shared memory, above it and K3b / K3c always a thread-block cluster of
+D / 256 blocks that splits D);
+float32 operands (golden tests) and other bf16 D go to csrc/xent.cu, whose
+K3a takes any D a multiple of 8 and whose K3b / K3c keep an f32 [32, D]
+accumulator in shared memory that bounds D (1,216 at bf16, 1,152 at
+float32: `simt_bwd_max_dim`). `check_dim` holds each kernel's limit;
+`takes_sm90` says which implementation a call takes. `xent_fwd_kernel(...,
+_simt=True)`, `xent_dx_kernel` and `xent_dw_kernel` force the csrc/xent.cu
 kernel (comparisons of the two only).
 
 The kernels' interface: x [M, D] and w [V, D] at the operand dtype
@@ -36,8 +38,8 @@ kernels, which raise if they cannot be built or launched; CPU tensors go to
 xent_fwd_reference / xent_dx_reference / xent_dw_reference. There is no
 fallback from the one to the other. `fused_softmax_xent.launches_fwd`,
 `.launches_dx` and `.launches_dw` count kernel launches (either
-implementation), `.launches_dx_sm90` and `.launches_dw_sm90` those of the
-Hopper kernels.
+implementation), `.launches_fwd_sm90`, `.launches_dx_sm90` and
+`.launches_dw_sm90` those of the Hopper kernels.
 """
 
 from __future__ import annotations
@@ -132,6 +134,10 @@ _MAX_SMEM = 232448                  # a block's shared memory on sm_90
 # csrc/xent_sm90.cu: a block of a cluster holds 256 columns of D; clusters
 # of at most 8 blocks own 128 rows and stream the others 64 at a time.
 SM90_SLICE, SM90_MAX_DIM = 256, 2048
+# The Hopper K3a keeps a block's 64 rows of x in shared memory up to this D
+# (both warpgroups on every vocab tile, no cluster); above it a cluster of
+# D / 256 blocks splits D, as in K3b / K3c.
+SM90_RESIDENT_DIM = 1024
 _SM90_OWN_ROWS, _SM90_STREAMED_ROWS = 128, 64
 
 
@@ -157,16 +163,18 @@ def simt_bwd_max_dim(dtype: torch.dtype) -> int:
 
 
 def takes_sm90(dtype: torch.dtype, d: int) -> bool:
-  """Whether K3b / K3c on operands of this dtype and D go to the Hopper
-  kernels (csrc/xent_sm90.cu): bf16 with D a multiple of 256 up to 2,048."""
+  """Whether K3a, K3b and K3c on operands of this dtype and D go to the
+  Hopper kernels (csrc/xent_sm90.cu): bf16 with D a multiple of 256 up to
+  2,048."""
   return (dtype == torch.bfloat16 and d % SM90_SLICE == 0
           and SM90_SLICE <= d <= SM90_MAX_DIM)
 
 
 def check_dim(which: str, dtype: torch.dtype, d: int, simt: bool = False):
   """Raises ValueError unless kernel `which` ("fwd", "dx" or "dw") takes D
-  at this operand dtype (`simt`: the csrc/xent.cu backward, forced). K3a
-  takes any D a multiple of 8; K3b and K3c at bf16 D a multiple of 256 up
+  at this operand dtype (`simt`: the csrc/xent.cu kernel, forced). K3a
+  takes any D a multiple of 8 (the Hopper kernel's D, and any other through
+  csrc/xent.cu's); K3b and K3c at bf16 D a multiple of 256 up
   to 2,048 (the Hopper kernels) or any multiple of 8 up to 1,216, at
   float32 any multiple of 8 up to 1,152 (csrc/xent.cu's)."""
   if d < 8 or d % 8:
@@ -209,11 +217,15 @@ def _kernel_fns():
 
 @functools.cache
 def _sm90_fns():
-  """csrc/xent_sm90.cu's C entry points (dx, dw, clusters), built and bound
-  at first use."""
+  """csrc/xent_sm90.cu's C entry points (fwd, dx, dw, clusters), built and
+  bound at first use."""
   from automl_tpu_torch.ops import cuda_build
   lib = cuda_build.load("xent_sm90")
   ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  fwd = lib.automl_xent_fwd_sm90
+  # x w tgt lse tz | M V D cap | n_whole n_split part_out | stream
+  fwd.argtypes = [ptr] * 5 + [i32] * 3 + [f32, i32, i32, ptr, ptr]
+  fwd.restype = i32
   fns = []
   for fn in (lib.automl_xent_dx_sm90, lib.automl_xent_dw_sm90):
     # x w tgt lse coef out | out_bf16 M V D cap | n_whole n_split part_out
@@ -224,18 +236,21 @@ def _sm90_fns():
   clusters = lib.automl_xent_sm90_clusters
   clusters.argtypes = [i32, i32]
   clusters.restype = i32
-  return fns[0], fns[1], clusters
+  return fwd, fns[0], fns[1], clusters
+
+
+_CLUSTER_KINDS = {"dw": 0, "dx": 1, "fwd": 2}
 
 
 @functools.cache
 def _sm90_clusters(device_index: int, d: int, which: str) -> int:
   with torch.cuda.device(device_index):
-    return int(_sm90_fns()[2](d, int(which == "dx")))
+    return int(_sm90_fns()[3](d, _CLUSTER_KINDS[which]))
 
 
 def sm90_clusters(d: int, which: str = "dx", device=None) -> int:
-  """How many clusters of the Hopper K3b (or K3c) at this D the card runs at
-  once (cudaOccupancyMaxActiveClusters)."""
+  """How many clusters of the Hopper K3a, K3b or K3c ("fwd", "dx", "dw") at
+  this D the card runs at once (cudaOccupancyMaxActiveClusters)."""
   index = torch.device(device or "cuda").index
   return _sm90_clusters(torch.cuda.current_device() if index is None
                         else index, d, which)
@@ -255,6 +270,26 @@ def split_plan(own_tiles: int, active: int, streamed_tiles: int):
   return (own_tiles - rest, n_split) if n_split > 1 else (own_tiles, 1)
 
 
+def split_ranges(streamed_tiles: int, n_split: int):
+  """The streamed tiles [j0, j1) of each of a split tile's n_split parts
+  (the kernels' j0 = tiles * part / n_split)."""
+  return [(streamed_tiles * k // n_split, streamed_tiles * (k + 1) // n_split)
+          for k in range(n_split)]
+
+
+def merge_softmax_parts(m, l, t):
+  """K3a's merge of a split tile's parts: (m, l, t) [parts, rows] f32 (the
+  running max, sum of exp(z - m) and target logit over each part's vocab
+  tiles) -> (lse, tz) [rows], merged in part order, as
+  csrc/xent_sm90.cu::xent_fwd_merge_kernel does."""
+  mm, ll, tt = m[0], l[0], t[0]
+  for k in range(1, m.shape[0]):
+    mn = torch.maximum(mm, m[k])
+    ll = ll * torch.exp(mm - mn) + l[k] * torch.exp(m[k] - mn)
+    mm, tt = mn, tt + t[k]
+  return mm + torch.log(ll), tt
+
+
 def _check_kernel_inputs(xo, wo, targets, *rows, which="fwd", simt=False):
   if xo.dtype not in _DTYPE_CODES:
     raise TypeError(f"xent kernels take float32 or bfloat16 operands, got "
@@ -270,7 +305,7 @@ def _check_kernel_inputs(xo, wo, targets, *rows, which="fwd", simt=False):
     raise ValueError("xent kernels need contiguous x and w")
   d = xo.shape[1]
   check_dim(which, xo.dtype, d, simt)
-  if which != "fwd" and not simt and takes_sm90(xo.dtype, d) and (
+  if not simt and takes_sm90(xo.dtype, d) and (
       xo.data_ptr() % 16 or wo.data_ptr() % 16):
     raise ValueError("the Hopper xent kernels need 16-byte aligned x and w "
                      "(TMA)")
@@ -292,19 +327,46 @@ def _stream(x):
   return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def xent_fwd_kernel(xo, wo, targets, *, logit_cap=0.0):
-  """K3a on the card: the interface of xent_fwd_reference."""
-  _check_kernel_inputs(xo, wo, targets)
+def _split(own, streamed, d, which, device):
+  """(own_tiles, n_whole, n_split) of a Hopper K3a-c launch (split_plan on
+  this card)."""
+  own_tiles = -(-own // _SM90_OWN_ROWS)
+  return (own_tiles, *split_plan(own_tiles, sm90_clusters(d, which, device),
+                                 -(-streamed // _SM90_STREAMED_ROWS)))
+
+
+def xent_fwd_kernel(xo, wo, targets, *, logit_cap=0.0, _simt=False):
+  """K3a on the card: the interface of xent_fwd_reference. `_simt` forces
+  csrc/xent.cu's kernel (comparisons only)."""
+  _check_kernel_inputs(xo, wo, targets, simt=_simt)
   (m, d), v = xo.shape, wo.shape[0]
-  fwd = _kernel_fns()[0]
+  sm90 = not _simt and takes_sm90(xo.dtype, d)
   lse = torch.empty((m,), dtype=torch.float32, device=xo.device)
   tz = torch.empty((m,), dtype=torch.float32, device=xo.device)
+  cap = float(logit_cap or 0.0)
   with torch.cuda.device(xo.device):
-    err = fwd(xo.data_ptr(), wo.data_ptr(), targets.data_ptr(),
-              lse.data_ptr(), tz.data_ptr(), _DTYPE_CODES[xo.dtype], m, v, d,
-              float(logit_cap or 0.0), _stream(xo))
+    if sm90:
+      # Up to SM90_RESIDENT_DIM the forward keeps x in shared memory and
+      # has no cluster to split; above it, the cluster kernel's plan.
+      own_tiles, n_whole, n_split = (
+          (-(-m // _SM90_OWN_ROWS),) * 2 + (1,) if d <= SM90_RESIDENT_DIM
+          else _split(m, v, d, "fwd", xo.device))
+      parts = None
+      if n_split > 1:
+        parts = torch.empty(((own_tiles - n_whole) * n_split, 3,
+                             _SM90_OWN_ROWS), dtype=torch.float32,
+                            device=xo.device)
+      err = _sm90_fns()[0](
+          xo.data_ptr(), wo.data_ptr(), targets.data_ptr(), lse.data_ptr(),
+          tz.data_ptr(), m, v, d, cap, n_whole, n_split,
+          None if parts is None else parts.data_ptr(), _stream(xo))
+    else:
+      err = _kernel_fns()[0](
+          xo.data_ptr(), wo.data_ptr(), targets.data_ptr(), lse.data_ptr(),
+          tz.data_ptr(), _DTYPE_CODES[xo.dtype], m, v, d, cap, _stream(xo))
   _raise_on(err, "forward")
   fused_softmax_xent.launches_fwd += 1
+  fused_softmax_xent.launches_fwd_sm90 += sm90
   return lse, tz
 
 
@@ -325,16 +387,14 @@ def _bwd_kernel(which, xo, wo, targets, lse, coef, logit_cap, out_dtype,
   with torch.cuda.device(xo.device):
     if sm90:
       own, streamed = (m, v) if which == "dx" else (v, m)
-      own_tiles = -(-own // _SM90_OWN_ROWS)
-      n_whole, n_split = split_plan(
-          own_tiles, sm90_clusters(d, which, xo.device),
-          -(-streamed // _SM90_STREAMED_ROWS))
+      own_tiles, n_whole, n_split = _split(own, streamed, d, which,
+                                           xo.device)
       parts = None
       if n_split > 1:
         parts = torch.empty(((own_tiles - n_whole) * n_split,
                              _SM90_OWN_ROWS, d), dtype=torch.float32,
                             device=xo.device)
-      err = _sm90_fns()[0 if which == "dx" else 1](
+      err = _sm90_fns()[1 if which == "dx" else 2](
           *args, *flags, n_whole, n_split,
           None if parts is None else parts.data_ptr(), _stream(xo))
     else:
@@ -450,5 +510,6 @@ def fused_softmax_xent(x, w, targets, weights=None, *, tied: bool = True,
 fused_softmax_xent.launches_fwd = 0
 fused_softmax_xent.launches_dx = 0
 fused_softmax_xent.launches_dw = 0
+fused_softmax_xent.launches_fwd_sm90 = 0
 fused_softmax_xent.launches_dx_sm90 = 0
 fused_softmax_xent.launches_dw_sm90 = 0

@@ -11,7 +11,7 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
   1. build: compiles the CUDA kernels from automl_tpu_torch/csrc/ with nvcc
-     for sm_90a, one nvcc per source (seven), all at once; prints each
+     for sm_90a, one nvcc per source (eight), all at once; prints each
      kernel's registers and spills, and the HGMMA and LDL/STL counts of the
      Hopper kernels' SASS;
   2. K4 (decode attention) against its plain PyTorch version on the card, at
@@ -40,12 +40,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   4. K3a / K3b / K3c (fused softmax xent forward, dx, dW) against their
      plain versions at the fused-loss slice's shapes (M 16,384 = b8 x T2048
      tokens, D 1,024, V 100,864, bf16 operands, cap 30, about 20% zero loss
-     weights; bf16 K3b and K3c are the Hopper kernels of xent_sm90.cu,
-     called twice they must be bit-equal; the kernels of xent.cu, reached
-     with _simt, are checked and timed beside them in the same call) and on
-     small cases (the default LM's M 4,096, V 32,000, D 2,048 through all
-     three; ragged M and V at D 256 and 512; cap 0; f32 operands and bf16
-     D 72, which take xent.cu's kernels; untied w through
+     weights; bf16 K3a, K3b and K3c are the Hopper kernels of
+     xent_sm90.cu, called twice they must be bit-equal; the kernels of
+     xent.cu, reached with _simt, are checked and timed beside them in the
+     same call) and on small cases (the default LM's M 4,096, V 32,000, D
+     2,048 through all three, K3a timed beside xent.cu's and the chain's
+     forward; ragged M and V at D 256, 512 and 2,048; cap 0; f32 operands
+     and bf16 D 72, which take xent.cu's kernels; untied w through
      fused_softmax_xent's autograd against the CPU); timed as in 2;
   5. training slices: step 1 of lm-flops1e19 with use_flash_attention (K1/K2)
      against the same step on the dense attention path, with the fused loss
@@ -64,15 +65,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      kernel's (a counter per implementation), the fused run K3a, K3b and
      K3c 30 times each, the dots_flash run K1, K5a and K5b n_layers * 30
      times each (every launch the Hopper kernel's) and K2 never (the fused
-     run's K3b and K3c launches all the Hopper kernels'); a rerun of
+     run's K3a, K3b and K3c launches all the Hopper kernels'); a rerun of
      the unfused run to 31 steps must resume from the checkpoint at step
      30;
-  6. K6 (the depthwise filter gradient) against its plain version at the
-     detection slice's shapes, bf16, b16: EfficientNet-B0's first stride-1
-     depthwise conv [16, 32, 256, 256] k3, a k5 block [16, 240, 64, 64]
-     and a head level [16, 64, 64, 64] k3 (two calls must be bit-equal),
-     and on small cases (f32, ragged 15 x 17, k5 and k7, C not a multiple
-     of 8, batch 1, BiFPN level 7's 4 x 4); timed as in 2;
+  6. K6 (the depthwise filter gradient) against its plain version at every
+     map of a D0 step (the 13 shapes of its 76 stride-1 depthwise convs,
+     bf16, b16: the Hopper kernel of depthwise_sm90.cu, two calls
+     bit-equal; the kernel of depthwise.cu, reached with _simt, checked
+     and timed beside it), with the launch-weighted sums over a step, and
+     on small cases (f32 and C not a multiple of 8, which take
+     depthwise.cu: ragged 15 x 17, k5 and k7, batch 1, BiFPN level 7's
+     4 x 4, k1; bf16 k7 and k1, a ragged map and a ragged channel chunk on
+     the Hopper kernel); timed as in 2, in turns;
   7. detection slice: step 1 of EfficientDet-D0 (512 x 512, b16,
      mixed_precision: bf16 compute) with the K6 knob on against the same
      step with it off, from one set of seeded weights and one batch (the
@@ -80,9 +84,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      stated limits); then cli/main_det trains D0 for 20 steps with the knob
      on and 20 with it off (--use_fake_data, batch_size=16): the loss must
      be finite and fall, the knob-on run must launch K6 exactly (K6 calls
-     per step, derived from the model) x 20 times and the knob-off run 0
-     times, and a rerun of the knob-on run to 21 steps must resume from
-     the checkpoint at step 20;
+     per step, derived from the model) x 20 times, every launch the Hopper
+     kernel's, and the knob-off run 0 times, and a rerun of the knob-on run
+     to 21 steps must resume from the checkpoint at step 20;
   8. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
      through the converter, cast for serving) generates 512 tokens greedily
      after a 512-token prompt at batch 8, through generate_lm.load_model and
@@ -680,8 +684,8 @@ def _xent_bounds(m, v, d):
 def xent_phase(dev, flush):
   """K3a / K3b / K3c vs their plain versions; returns {"fwd", "dx", "dw"}
   each with err, ms, plain_ms, library_ms, bound_ms, bound_by at the
-  slice's shapes (K3b / K3c: the Hopper kernels of csrc/xent_sm90.cu, with
-  their csrc/xent.cu predecessors' times from the same call as simt_ms)."""
+  slice's shapes (the Hopper kernels of csrc/xent_sm90.cu, with their
+  csrc/xent.cu predecessors' times from the same call as simt_ms)."""
   import torch
   from automl_tpu_torch.ops import xent
   gen = torch.Generator(device=dev).manual_seed(2)
@@ -690,18 +694,42 @@ def xent_phase(dev, flush):
   def sm90_launches():
     return f.launches_dx_sm90 + f.launches_dw_sm90
 
+  def fwd_checked(name, x, w, targets, cap, sm90):
+    """K3a through the wrapper against its plain version (F32_TOL), routed
+    as `sm90` says; a Hopper call twice must be bit-equal."""
+    before = f.launches_fwd_sm90
+    lse, tz = xent.xent_fwd(x, w, targets, logit_cap=cap)
+    torch.cuda.synchronize()
+    if f.launches_fwd_sm90 - before != int(sm90):
+      raise AssertionError(f"K3a {name}: routed to the wrong kernel")
+    lse_r, tz_r = xent.xent_fwd_reference(x, w, targets, logit_cap=cap)
+    err = max(_compare(f"{name} K3a lse", lse, lse_r, **F32_TOL),
+              _compare(f"{name} K3a tz", tz, tz_r, **F32_TOL))
+    if sm90:
+      again = xent.xent_fwd(x, w, targets, logit_cap=cap)
+      same = all(torch.equal(a, b) for a, b in zip((lse, tz), again))
+      print(f"  {name} K3a called twice on the same inputs: bit-equal {same}")
+      if not same:
+        raise AssertionError(f"K3a {name} gave two results on the same "
+                             "inputs")
+    return lse, tz, lse_r, err
+
   m, d, v, cap = 8 * 2048, 1024, 100_864, 30.0
   print(f"K3 case 1: slice shapes M {m} (b8 x T2048), D {d}, V {v}, bf16 "
-        "operands, cap 30, about 20% zero loss weights (K3b / K3c: the "
-        "Hopper kernels of xent_sm90.cu; beside them those of xent.cu, "
-        "reached with _simt)")
+        "operands, cap 30, about 20% zero loss weights (K3a-c: the Hopper "
+        "kernels of xent_sm90.cu; beside them those of xent.cu, reached with "
+        "_simt)")
   x, w, targets, weights = _xent_inputs(dev, gen, m, v, d, torch.bfloat16)
   coef = (weights / weights.sum().clamp_min(1.0)).contiguous()
-  lse, tz = xent.xent_fwd_kernel(x, w, targets, logit_cap=cap)
-  torch.cuda.synchronize()
-  lse_r, tz_r = xent.xent_fwd_reference(x, w, targets, logit_cap=cap)
-  errs = {"fwd": max(_compare("K3a lse", lse, lse_r, **F32_TOL),
-                     _compare("K3a tz", tz, tz_r, **F32_TOL))}
+  lse, tz, lse_r, err = fwd_checked("slice", x, w, targets, cap, True)
+  errs = {"fwd": err}
+  lse_s, tz_s = xent.xent_fwd_kernel(x, w, targets, logit_cap=cap, _simt=True)
+  _compare("slice K3a (xent.cu) lse", lse_s, lse_r, **F32_TOL)
+  del lse_s, tz_s
+  active = xent.sm90_clusters(d, "fwd")
+  print(f"  K3a: {-(-m // 128)} clusters of {d // 256} blocks, {active} at "
+        f"once on this card; split plan (whole tiles, parts of each of the "
+        f"rest) {xent.split_plan(-(-m // 128), active, -(-v // 64))}")
   kw = dict(logit_cap=cap, out_dtype=torch.float32)
   fns = {"dx": (xent.xent_dx_kernel, xent.xent_dx_reference, "K3b"),
          "dw": (xent.xent_dw_kernel, xent.xent_dw_reference, "K3c")}
@@ -755,17 +783,27 @@ def xent_phase(dev, flush):
       "K3b + K3c", chain_bwd, 3, flush, f"{chain}, autograd backward")
   torch.cuda.empty_cache()
   res = {}
-  t_kern = _time_ms(lambda: xent.xent_fwd_kernel(x, w, targets, logit_cap=cap),
-                    5, flush)
+  new = lambda: xent.xent_fwd_kernel(x, w, targets, logit_cap=cap)
+  old = lambda: xent.xent_fwd_kernel(x, w, targets, logit_cap=cap,
+                                     _simt=True)
+  turns = [_time_ms(fn, 3, flush) for fn in (new, old, old, new)]
+  t_kern, t_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
   t_ref = _time_ms(lambda: xent.xent_fwd_reference(x, w, targets,
                                                    logit_cap=cap), 2, flush)
   res["fwd"] = dict(err=errs["fwd"], ms=t_kern, plain_ms=t_ref,
                     library_ms=t_lib["fwd"], bound_ms=bounds["fwd"][0],
-                    bound_by=bounds["fwd"][1])
-  print(f"  fwd: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
-        f"{bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), "
-        f"{100 * bounds['fwd'][0] / t_kern:.2f}% of it (L2 flushed before "
-        "each call)")
+                    bound_by=bounds["fwd"][1], simt_ms=t_old)
+  # w's L2 reads by design: once per block of 64 tokens up to D 1,024 (x
+  # resident), once per cluster of 128 above (xent.cu's K3a reads x again
+  # for each 128-wide vocab tile).
+  l2_fwd = -(-m // (64 if d <= xent.SM90_RESIDENT_DIM else 128)) * 2.0 * v * d
+  print(f"  K3a: Hopper kernel {t_kern:.4f} ms ({turns[0]:.4f}, "
+        f"{turns[3]:.4f}), xent.cu kernel {t_old:.4f} ms ({turns[1]:.4f}, "
+        f"{turns[2]:.4f}): {t_old / t_kern:.2f}x; plain {t_ref:.4f} ms, "
+        f"bound {bounds['fwd'][0]:.4f} ms ({bounds['fwd'][1]}), "
+        f"{100 * bounds['fwd'][0] / t_kern:.2f}% of it; w from L2 by design "
+        f"{l2_fwd / 1e9:.1f} GB = {l2_fwd / t_kern / 1e9:.2f} TB/s (in turns, "
+        "L2 flushed before each call)")
   # The streamed operand's L2 reads by design: each cluster of
   # xent_sm90.cu reads it once (dx: w per 128 tokens; dW: x per 128 vocab
   # rows).
@@ -794,16 +832,27 @@ def xent_phase(dev, flush):
   if t_lib["dx"]:
     print(f"  K3b + K3c: {both:.4f} ms = {both / t_lib['dx']:.2f}x the "
           f"chain's backward ({t_lib['dx']:.4f} ms)")
-  del x, w, targets, weights, coef, lse, tz, lse_r, tz_r
+  del x, w, targets, weights, coef, lse, tz, lse_r
   torch.cuda.empty_cache()
 
   def small(name, m, v, d, dtype, cap, sm90, time_it=False):
     x, w, targets, weights = _xent_inputs(dev, gen, m, v, d, dtype)
     coef = (weights / weights.sum().clamp_min(1.0)).contiguous()
-    lse, tz = xent.xent_fwd(x, w, targets, logit_cap=cap)
-    lse_r, tz_r = xent.xent_fwd_reference(x, w, targets, logit_cap=cap)
-    _compare(f"{name} lse", lse, lse_r, **F32_TOL)
-    _compare(f"{name} tz", tz, tz_r, **F32_TOL)
+    _, _, lse_r, _ = fwd_checked(name, x, w, targets, cap, sm90)
+    if time_it:
+      new = lambda: xent.xent_fwd_kernel(x, w, targets, logit_cap=cap)
+      old = lambda: xent.xent_fwd_kernel(x, w, targets, logit_cap=cap,
+                                         _simt=True)
+      turns = [_time_ms(fn, 3, flush) for fn in (new, old, old, new)]
+      chain = _library_ms(f"{name} K3a", lambda: lambda: _xent_chain(
+          x, w, targets, weights, cap), 3, flush,
+          "chain bf16 matmul -> cap -> cross_entropy")
+      bound_ms, bound_by = _xent_bounds(m, v, d)["fwd"]
+      print(f"  {name} fwd: Hopper kernel "
+            f"{(turns[0] + turns[3]) / 2:.4f} ms, xent.cu kernel "
+            f"{(turns[1] + turns[2]) / 2:.4f} ms, chain {chain} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}) (in turns, L2 flushed before "
+            "each call)")
     kw = dict(logit_cap=cap, out_dtype=torch.float32)
     for key, (kern, ref, _) in fns.items():
       before = sm90_launches()
@@ -821,14 +870,16 @@ def xent_phase(dev, flush):
               f"({bound_by}) (L2 flushed before each call)")
 
   print("K3 case 2: the default LM's shapes: M 4096 (b2 x T2048), V 32000, "
-        "D 2048, bf16 operands, cap 30 (K3a; K3b / K3c on the Hopper "
-        "kernels, clusters of 8)")
+        "D 2048, bf16 operands, cap 30 (K3a-c on the Hopper kernels, "
+        "clusters of 8)")
   small("D=2048", 4096, 32_000, 2048, torch.bfloat16, 30.0, True,
         time_it=True)
   print("K3 case 3: ragged M and V on the Hopper kernels: M 300, V 1000, "
-        "D 256 (clusters of 1) and M 257, V 333, D 512 (of 2), cap 30")
+        "D 256 (clusters of 1), M 257, V 333, D 512 (of 2) and M 1000, V "
+        "1500, D 2048 (of 8), cap 30")
   small("D=256", 300, 1000, 256, torch.bfloat16, 30.0, True)
   small("D=512", 257, 333, 512, torch.bfloat16, 30.0, True)
+  small("D=2048 ragged", 1000, 1500, 2048, torch.bfloat16, 30.0, True)
   print("K3 case 4: no cap, M 130, V 2000, D 1024 (the Hopper kernels)")
   small("cap 0", 130, 2000, 1024, torch.bfloat16, 0.0, True)
   print("K3 case 5: ragged M 100, V 1000, D 128, f32 operands, cap 30 "
@@ -957,6 +1008,7 @@ def _train_run(workdir, flags, steps, label, expected, flops):
               "K5b": (fa.flash_attention, "launches_dkv"),
               "K5b sm90": (fa.flash_attention, "launches_dkv_sm90"),
               "K3a": (xent.fused_softmax_xent, "launches_fwd"),
+              "K3a sm90": (xent.fused_softmax_xent, "launches_fwd_sm90"),
               "K3b": (xent.fused_softmax_xent, "launches_dx"),
               "K3b sm90": (xent.fused_softmax_xent, "launches_dx_sm90"),
               "K3c": (xent.fused_softmax_xent, "launches_dw"),
@@ -1068,8 +1120,8 @@ def training_phase(dev, workdir):
   flags = common + [f"--model_dir={workdir}", f"--experiment_config={flash}"]
   n = cfg.n_layers * steps
   none = dict.fromkeys(("K1", "K1 sm90", "K2", "K2 sm90", "K5a", "K5a sm90",
-                        "K5b", "K5b sm90", "K3a", "K3b", "K3b sm90", "K3c",
-                        "K3c sm90"), 0)
+                        "K5b", "K5b sm90", "K3a", "K3a sm90", "K3b",
+                        "K3b sm90", "K3c", "K3c sm90"), 0)
   t = cfg.seq_len
   runs = {}
   # Full remat re-runs K1 in the backward: 2 x n_layers a step. bf16
@@ -1085,10 +1137,10 @@ def training_phase(dev, workdir):
           f"--model_dir={fused_dir}",
           f"--experiment_config={flash},fused_softmax_loss=pallas"], steps,
       "fused loss, full remat, K2",
-      # bf16 operands at D 1,024: every K3b and K3c launch the Hopper
+      # bf16 operands at D 1,024: every K3a, K3b and K3c launch the Hopper
       # kernels' (csrc/xent_sm90.cu).
       dict(none, **sm90(2 * n, n), K3a=steps, K3b=steps, K3c=steps,
-           **{"K3b sm90": steps, "K3c sm90": steps}),
+           **{"K3a sm90": steps, "K3b sm90": steps, "K3c sm90": steps}),
       _step_flops(cfg, batch, t, fused=True))
   split_dir = workdir + "_split"
   # dots_flash saves K1's (out, lse): K1 once per layer and step. Every K5a
@@ -1121,37 +1173,55 @@ def _resume_check(flags, workdir, steps, cli="automl_tpu_torch.cli.main_lm"):
 
 # K6 against its plain version: both sum f32 products of the same inputs,
 # in other orders, over B*H*W terms per output; relative to the largest
-# entry of the result. Measured on the H100 at the slice's shapes: 2.3e-7,
-# 4.1e-7 and 2.5e-7; the limit is 24x the largest.
+# entry of the result. Measured on the H100 at the slice's shapes (the
+# kernel of depthwise.cu): 2.3e-7, 4.1e-7 and 2.5e-7; the limit is 24x the
+# largest.
 K6_SHARE = 1e-5
+
+# EfficientDet-D0's stride-1 depthwise convs at 512 x 512 (C, H, W, k) and
+# their calls in a training step (76 in all), recorded with the port.
+D0_K6_SHAPES = {(32, 256, 256, 3): 1, (144, 128, 128, 3): 1,
+                (64, 64, 64, 3): 11, (240, 64, 64, 5): 1, (64, 32, 32, 3): 14,
+                (672, 32, 32, 5): 2, (480, 32, 32, 5): 1, (480, 32, 32, 3): 2,
+                (64, 16, 16, 3): 14, (1152, 16, 16, 3): 1,
+                (1152, 16, 16, 5): 3, (64, 8, 8, 3): 14, (64, 4, 4, 3): 11}
 
 
 def k6_phase(dev, flush):
-  """K6 vs its plain version; returns {shape label: dict(err, ms, plain_ms,
-  library_ms, bound_ms, bound_by)} at the detection slice's shapes."""
+  """K6 vs its plain version at every map of a D0 step (bf16, b16: the
+  Hopper kernel of depthwise_sm90.cu, with the kernel of depthwise.cu,
+  reached with _simt, and cuDNN's weight gradient timed in turns in the
+  same call) and on small cases; returns {shape label: dict(err, ms,
+  plain_ms, library_ms, bound_ms, bound_by, simt_ms, launches)}."""
   import torch
   from automl_tpu_torch.ops import depthwise as dw
   gen = torch.Generator(device=dev).manual_seed(3)
   cl = torch.channels_last
+  f = dw.depthwise_filter_grad
 
   def inputs(b, c, h, w, dtype):
     return [torch.randn((b, c, h, w), generator=gen, device=dev).to(dtype)
             .contiguous(memory_format=cl) for _ in range(2)]
 
   kern, ref = dw.depthwise_filter_grad_kernel, dw.depthwise_filter_grad_reference
-  shapes = {"B0 stride-1 [16,32,256,256] k3": (16, 32, 256, 256, 3),
-            "k5 block [16,240,64,64] k5": (16, 240, 64, 64, 5),
-            "head level [16,64,64,64] k3": (16, 64, 64, 64, 3)}
-  print("K6 case 1: the detection slice's shapes, bf16, b16")
+  print(f"K6 case 1: every stride-1 depthwise conv map of a D0 step, bf16, "
+        f"b16 ({sum(D0_K6_SHAPES.values())} calls a step)")
   res = {}
-  for label, (b, c, h, w, k) in shapes.items():
+  b = 16
+  for (c, h, w, k), per_step in D0_K6_SHAPES.items():
+    label = f"[{b},{c},{h},{w}] k{k}"
     x, dy = inputs(b, c, h, w, torch.bfloat16)
+    before = f.launches_sm90
     got = kern(x, dy, k)
     torch.cuda.synchronize()
+    if f.launches_sm90 != before + 1:
+      raise AssertionError(f"K6 {label}: did not go to the Hopper kernel")
     err = _compare_scaled(label, got, ref(x, dy, k), K6_SHARE)
-    # No atomics: fixed partial sums, summed in a fixed order.
+    # No atomics in a sum: fixed partial sums, summed in a fixed order.
     if not torch.equal(got, kern(x, dy, k)):
       raise AssertionError(f"K6 gave two results on the same inputs: {label}")
+    _compare_scaled(f"{label} (depthwise.cu)", kern(x, dy, k, _simt=True),
+                    got, K6_SHARE)
     pad = (k - 1) // 2
     weight = torch.randn((c, 1, k, k), generator=gen, device=dev).to(
         torch.bfloat16)
@@ -1167,7 +1237,10 @@ def k6_phase(dev, flush):
             f"max|dW| {float(got.abs().max()):.3e}")
       return fn
 
-    t_kern = _time_ms(lambda: kern(x, dy, k), 20, flush)
+    new = lambda x=x, dy=dy, k=k: kern(x, dy, k)
+    old = lambda x=x, dy=dy, k=k: kern(x, dy, k, _simt=True)
+    turns = [_time_ms(fn, 20, flush) for fn in (new, old, old, new)]
+    t_new, t_old = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     t_ref = _time_ms(lambda: ref(x, dy, k), 3, flush)
     t_lib = _library_ms(label, make_lib, 20, flush,
                         "cuDNN depthwise weight gradient")
@@ -1176,23 +1249,51 @@ def k6_phase(dev, flush):
     # element of dy.
     bound_ms, bound_by = _bound(2.0 * k * k * n, 2 * 2 * n + 4 * c * k * k,
                                 PEAK_F32_FLOPS)
-    res[label] = dict(err=err, ms=t_kern, plain_ms=t_ref, library_ms=t_lib,
-                      bound_ms=bound_ms, bound_by=bound_by)
-    print(f"  {label}: kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / t_kern:.2f}% "
-          "of it (L2 flushed before each call)")
+    res[label] = dict(err=err, ms=t_new, plain_ms=t_ref, library_ms=t_lib,
+                      bound_ms=bound_ms, bound_by=bound_by, simt_ms=t_old,
+                      launches=per_step)
+    plan = dw.sm90_plan(b, c, h, w, k, dw._sms(dev.index or 0))
+    print(f"  {label} ({per_step} a step; plan {tuple(plan)}): Hopper kernel "
+          f"{t_new:.4f} ms ({turns[0]:.4f}, {turns[3]:.4f}), depthwise.cu "
+          f"{t_old:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}), cuDNN "
+          f"{t_lib if t_lib is None else round(t_lib, 4)} ms, plain "
+          f"{t_ref:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / t_new:.2f}% of it (in turns, L2 flushed before "
+          "each call)")
     del x, dy, got
   torch.cuda.empty_cache()
-  print("K6 case 2: small cases")
+  sums = {key: sum(r["launches"] * r[key] for r in res.values())
+          for key in ("ms", "simt_ms", "bound_ms")}
+  lib_sum = (None if any(r["library_ms"] is None for r in res.values())
+             else sum(r["launches"] * r["library_ms"] for r in res.values()))
+  print(f"K6 over a D0 step ({sum(D0_K6_SHAPES.values())} calls, the sums "
+        f"of calls x time): Hopper kernel {sums['ms']:.4f} ms, depthwise.cu "
+        f"{sums['simt_ms']:.4f} ms, cuDNN "
+        f"{'n/a' if lib_sum is None else f'{lib_sum:.4f}'} ms, bound "
+        f"{sums['bound_ms']:.4f} ms")
+  print("K6 case 2: small cases (C not a multiple of 8 and float32 take "
+        "depthwise.cu)")
   for name, (b, c, h, w, k, dtype) in {
       "f32 ragged 15x17 k5 C13 b1": (1, 13, 15, 17, 5, torch.float32),
       "bf16 ragged 15x17 k3 C13 b1": (1, 13, 15, 17, 3, torch.bfloat16),
       "f32 k7 C33 (two channel chunks)": (2, 33, 9, 70, 7, torch.float32),
       "f32 BiFPN level 7 4x4 k3": (16, 64, 4, 4, 3, torch.float32),
-      "f32 k1": (2, 8, 5, 6, 1, torch.float32)}.items():
+      "f32 k1": (2, 8, 5, 6, 1, torch.float32),
+      "bf16 k7 C40 (five chunks of 8)": (2, 40, 9, 70, 7, torch.bfloat16),
+      "bf16 k1 C8": (2, 8, 5, 6, 1, torch.bfloat16),
+      "bf16 ragged 15x17 k5 C24 b3": (3, 24, 15, 17, 5, torch.bfloat16),
+      "bf16 C136 33x31 k3 b7 (a ragged chunk)": (7, 136, 33, 31, 3,
+                                                 torch.bfloat16)}.items():
     x, dy = inputs(b, c, h, w, dtype)
-    _compare_scaled(name, dw.depthwise_filter_grad(x, dy, k),
+    before = f.launches_sm90
+    got = dw.depthwise_filter_grad(x, dy, k)
+    sm90 = f.launches_sm90 - before
+    if sm90 != int(dw.takes_sm90(dtype, c)):
+      raise AssertionError(f"K6 {name}: routed to the wrong kernel")
+    _compare_scaled(f"{name} ({'Hopper' if sm90 else 'depthwise.cu'})", got,
                     ref(x, dy, k), K6_SHARE)
+    if sm90 and not torch.equal(got, dw.depthwise_filter_grad(x, dy, k)):
+      raise AssertionError(f"K6 gave two results on the same inputs: {name}")
   torch.cuda.synchronize()
   return res
 
@@ -1312,6 +1413,7 @@ def _det_train_run(workdir, flags, steps, knob, per_step):
   torch.cuda.reset_peak_memory_stats()
   dw.enable_pallas_filter_grad(knob)
   dw.depthwise_filter_grad.launches = 0
+  dw.depthwise_filter_grad.launches_sm90 = 0
   t0 = time.perf_counter()
   try:
     main_det.main(flags + [f"--train_steps={steps}"])
@@ -1319,6 +1421,7 @@ def _det_train_run(workdir, flags, steps, knob, per_step):
     dw.enable_pallas_filter_grad(False)
   wall = time.perf_counter() - t0
   launches = dw.depthwise_filter_grad.launches
+  sm90 = dw.depthwise_filter_grad.launches_sm90
   peak = torch.cuda.max_memory_allocated() / 2**30
   recs = [json.loads(line) for line in
           open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
@@ -1332,9 +1435,10 @@ def _det_train_run(workdir, flags, steps, knob, per_step):
     raise AssertionError(f"loss did not fall: step 1 {losses[0]:.4f}, mean "
                          f"of the last 5 {np.mean(losses[-5:]):.4f}")
   expected = per_step * steps if knob else 0
-  print(f"K6 launches in the run: {launches} (expected {expected}: "
-        f"{per_step} per step x {steps} steps with the knob on, 0 off)")
-  if launches != expected:
+  print(f"K6 launches in the run: {launches}, {sm90} of them the Hopper "
+        f"kernel's (expected {expected}: {per_step} per step x {steps} steps "
+        "with the knob on, all Hopper; 0 off)")
+  if launches != expected or sm90 != expected:
     raise AssertionError("the run did not go through K6 as expected")
   step_s = float(np.median([r["secs_per_step"] for r in recs][4:]))
   print(f"D0 train b{D0_BATCH} 512x512 bf16, K6 knob "
@@ -1558,12 +1662,15 @@ def _det_profile(dev):
       dw.enable_pallas_filter_grad(False)
     host[knob] = {key: (dt, count) for dt, count, key in host_rows}
     busy = sum(r[0] for r in rows)
-    k6 = sum(r[0] for r in rows if "filter_grad_kernel" in r[2]
+    k6 = sum(r[0] for r in rows if "filter_grad" in r[2]
              or "reduce_parts_kernel" in r[2])
+    k6_calls = sum(r[1] for r in rows if "filter_grad" in r[2]
+                   or "reduce_parts_kernel" in r[2])
     print(f"profile, {n} D0 training steps b{D0_BATCH}, K6 knob "
           f"{'on' if knob else 'off'}: wall {wall_us / n / 1e3:.1f} ms/step, "
           f"device busy {busy / n / 1e3:.1f} ms/step ({100 * busy / wall_us:.1f}"
-          f"% of the wall time), K6 {k6 / n / 1e3:.2f} ms/step, host self "
+          f"% of the wall time), K6 {k6 / n / 1e3:.2f} ms/step in "
+          f"{k6_calls // n} launches, host self "
           f"time in ops {sum(r[0] for r in host_rows) / n / 1e3:.1f} ms/step")
     for dt, count, key in rows[:20]:
       print(f"  {dt / n / 1e3:9.2f} ms/step {100 * dt / busy:5.1f}%  "
@@ -1712,11 +1819,13 @@ def _sass_report(lib):
   sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                         text=True, timeout=120, check=False).stdout
   for body in re.split(r"\n\s*Function : ", sass)[1:]:
-    # Template arguments: an int (ILi128E) and, for the flash backward, a
-    # bool (Lb1E: K2 with its dq half; Lb0E: K5b without); the xent
-    # kernels' bool alone (ILb1E: K3b, dx; ILb0E: K3c, dW).
+    # Template arguments: an int (ILi128E; K6's k: ILi3E) and, for the
+    # flash backward, a bool (Lb1E: K2 with its dq half; Lb0E: K5b
+    # without); the xent kernels' bool alone (ILb1E: K3b, dx; ILb0E: K3c,
+    # dW).
     name = re.sub(
-        r".*?\d((?:flash|k4|xent)_\w*?_kernel)(?:ILi(\d+)E(?:Lb([01])E)?"
+        r".*?\d((?:flash|k4|xent|filter_grad)_\w*?_kernel)(?:ILi(\d+)E"
+        r"(?:Lb([01])E)?"
         r"|ILb([01])E)?.*",
         lambda m: m[1] + (
             f"<{m[2]}{', kDq=' + m[3] if m[3] else ''}>" if m[2] else
@@ -1752,7 +1861,8 @@ def main() -> int:
 
   t = time.perf_counter()
   sources = ("decode_attention", "decode_attention_sm90", "flash_attention",
-             "flash_attention_sm90", "xent", "xent_sm90", "depthwise")
+             "flash_attention_sm90", "xent", "xent_sm90", "depthwise",
+             "depthwise_sm90")
   with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
     libs = list(pool.map(cuda_build.build, sources))
   print(f"build: {', '.join(l.name for l in libs)} in "
@@ -1763,7 +1873,8 @@ def main() -> int:
       if ("registers" in line or "spill" in line
           or "Performance Loss" in line):
         print(f"  ptxas: {line.strip()}")
-  for name in ("decode_attention_sm90", "flash_attention_sm90", "xent_sm90"):
+  for name in ("decode_attention_sm90", "flash_attention_sm90", "xent_sm90",
+               "depthwise_sm90"):
     _sass_report(libs[sources.index(name)])
 
   if "--profile" in sys.argv[1:]:
@@ -1805,17 +1916,19 @@ def main() -> int:
       _entry("flash_bwd_dkv", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:277", runs["split"]["K5b sm90"],
              flash["dkv"]),
-      _entry("xent_fwd", "automl_tpu_torch/csrc/xent.cu",
-             "automl_tpu/ops/xent.py:66", runs["fused"]["K3a"], k3["fwd"]),
+      _entry("xent_fwd", "automl_tpu_torch/csrc/xent_sm90.cu",
+             "automl_tpu/ops/xent.py:66", runs["fused"]["K3a sm90"],
+             k3["fwd"]),
       _entry("xent_dx", "automl_tpu_torch/csrc/xent_sm90.cu",
              "automl_tpu/ops/xent.py:113", runs["fused"]["K3b sm90"],
              k3["dx"]),
       _entry("xent_dw", "automl_tpu_torch/csrc/xent_sm90.cu",
              "automl_tpu/ops/xent.py:138", runs["fused"]["K3c sm90"],
              k3["dw"]),
-      _entry("depthwise_filter_grad", "automl_tpu_torch/csrc/depthwise.cu",
+      _entry("depthwise_filter_grad",
+             "automl_tpu_torch/csrc/depthwise_sm90.cu",
              "automl_tpu/ops/depthwise.py:37", k6_launches,
-             k6["B0 stride-1 [16,32,256,256] k3"]),
+             k6["[16,32,256,256] k3"]),
   ]}))
   print(card)
   print(json.dumps({"ok": True, "device": {

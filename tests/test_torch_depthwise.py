@@ -6,7 +6,13 @@ tests/test_depthwise.py, at JAX's tolerance there (atol 2e-4, rtol 1e-5),
 plus a bf16-input case; depthwise_conv's dx and dW, knob on and off, at
 stride 1 and 2 and k3 and k5, against the grads of JAX's depthwise_conv /
 _dw_forward (atol 1e-5, rtol 1e-5: the same f32 sums in another order).
+The Hopper K6's routing (takes_sm90), tile plan (sm90_plan: every output
+covered once, at D0's 13 maps and ragged ones) and wrapper arguments are
+pure Python, checked here with stand-ins for the libraries.
 """
+
+import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -166,3 +172,135 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
                    ((x, x[:, :, :4], 3), ValueError)]:
     with pytest.raises(exc):
       tdw._check_kernel_inputs(*bad)
+
+
+# ---------------------------------------------------------------------------
+# The Hopper K6's routing and tile plan (pure Python; the kernel runs only on
+# the card, tests/test_torch_kernels_cuda.py).
+# ---------------------------------------------------------------------------
+
+# EfficientDet-D0's stride-1 depthwise convs at 512 x 512, batch 16 (C, H,
+# W, k): every map of a training step, 76 calls.
+D0_SHAPES = [(32, 256, 256, 3), (144, 128, 128, 3), (64, 64, 64, 3),
+             (240, 64, 64, 5), (64, 32, 32, 3), (672, 32, 32, 5),
+             (480, 32, 32, 5), (480, 32, 32, 3), (64, 16, 16, 3),
+             (1152, 16, 16, 3), (1152, 16, 16, 5), (64, 8, 8, 3),
+             (64, 4, 4, 3)]
+# Ragged maps, odd batches, C past a chunk, k 1 and 7.
+RAGGED_SHAPES = [(3, 40, 15, 17, 5), (2, 40, 9, 70, 7), (1, 8, 5, 6, 1),
+                 (5, 24, 4, 4, 3), (16, 64, 3, 5, 3), (2, 64, 300, 7, 3),
+                 (7, 136, 33, 31, 3), (1, 2048, 2, 2, 7)]
+
+
+@pytest.mark.parametrize("dtype,c,want", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 8, True),
+    (torch.bfloat16, 1152, True), (torch.bfloat16, 13, False),
+    (torch.bfloat16, 4, False), (torch.bfloat16, 60, False),
+    (torch.float32, 64, False), (torch.float32, 8, False)])
+def test_takes_sm90(dtype, c, want):
+  """bf16 with C a multiple of 8 (a pixel's channels 16-byte units, as TMA
+  needs) takes the Hopper K6; float32 and other C csrc/depthwise.cu's."""
+  assert tdw.takes_sm90(dtype, c) is want
+
+
+@pytest.mark.parametrize(
+    "b,c,h,w,k", [(16, *s) for s in D0_SHAPES] + RAGGED_SHAPES,
+    ids=[f"d0_{c}x{h}x{w}_k{k}" for c, h, w, k in D0_SHAPES]
+    + [f"ragged_{b}x{c}x{h}x{w}_k{k}" for b, c, h, w, k in RAGGED_SHAPES])
+def test_sm90_plan_covers_every_output_once(b, c, h, w, k):
+  """The plan's tiles, walked as the kernel walks them (tiles part,
+  part + parts, ... of each chunk), cover every (image, row, column) of the
+  output once, and its chunks every channel once; the boxes and the ring
+  fit TMA's limits and a block's shared memory; parts come in whole
+  clusters of at most 8."""
+  plan = tdw.sm90_plan(b, c, h, w, k)
+  assert plan.cb in (8, 16, 32, 64)
+  assert (plan.chunks - 1) * plan.cb < c <= plan.chunks * plan.cb
+  assert -(-c // plan.cb) * plan.cb <= 1.1 * c or plan.cb == 8
+  assert 1 <= plan.nb <= min(b, 256)
+  assert 1 <= plan.th <= h and plan.th + k - 1 <= 256
+  assert 1 <= plan.tw <= w and plan.tw + k - 1 <= 256
+  assert plan.nb == 1 or (plan.th, plan.tw) == (h, w)
+  assert 2 * tdw._stage_bytes(plan.cb, plan.nb, plan.th, plan.tw, k) <= (
+      2 * 48 * 1024)
+  assert 1 <= plan.cluster <= 8 and plan.parts % plan.cluster == 0
+  assert plan.parts <= plan.tiles + plan.cluster - 1
+  count = np.zeros((b, h, w), dtype=np.int64)
+  for part in range(plan.parts):
+    for n0, y0, x0 in tdw.sm90_tile_origins(plan, b, h, w, part):
+      count[n0:n0 + plan.nb, y0:y0 + plan.th, x0:x0 + plan.tw] += 1
+  assert (count == 1).all()
+
+
+def test_sm90_plan_fills_the_card():
+  """On the H100's 132 SMs a plan that meets at the ticket needs no second
+  wave (at most one block per SM); every chunk gets at least 8 parts where
+  it has the tiles (one cluster, no ticket, on the maps of 8 chunks or
+  more); BiFPN's 4 x 4 and 8 x 8 maps get whole images (no lane idles)."""
+  for c, h, w, k in D0_SHAPES:
+    plan = tdw.sm90_plan(16, c, h, w, k)
+    assert plan.parts * plan.chunks <= 132 or plan.parts == plan.cluster
+    assert plan.parts >= min(8, plan.tiles)
+    assert (plan.cluster == plan.parts) == (plan.parts <= 8)
+  for h in (4, 8):
+    plan = tdw.sm90_plan(16, 64, h, h, 3)
+    assert (plan.th, plan.tw) == (h, h) and plan.nb > 1
+
+
+def test_filter_grad_routing_with_stand_in_libraries(monkeypatch):
+  """With stand-ins for both libraries: bf16 with C a multiple of 8 reaches
+  the Hopper entry point with sm90_plan's tiles (scratch and tickets only
+  when more than one cluster serves a chunk), counted in launches_sm90;
+  float32, bf16 C 13 and `_simt` reach csrc/depthwise.cu's, each with as
+  many arguments as its binding declares. An x TMA cannot read raises
+  before any launch or count."""
+  calls = []
+
+  def fake(impl, n_args, out=0):
+    def fn(*args):
+      assert len(args) == n_args, (impl, len(args))
+      calls.append((impl, args))
+      return out
+    return fn
+
+  monkeypatch.setattr(tdw, "_kernel_fns", lambda: (fake("simt", 12),
+                                                   lambda *a: 4))
+  monkeypatch.setattr(tdw, "_sm90_fn", lambda: fake("sm90", 17))
+  monkeypatch.setattr(tdw, "_sms", lambda index: 132)
+  monkeypatch.setattr(torch.cuda, "device",
+                      lambda device: contextlib.nullcontext())
+  monkeypatch.setattr(torch.cuda, "current_stream",
+                      lambda device: types.SimpleNamespace(cuda_stream=0))
+  f = tdw.depthwise_filter_grad
+  cl = torch.channels_last
+
+  def run(b, c, h, w, k, dtype, **kw):
+    x = torch.zeros((b, c, h, w), dtype=dtype).contiguous(memory_format=cl)
+    calls.clear()
+    before = (f.launches, f.launches_sm90)
+    out = tdw.depthwise_filter_grad_kernel(x, x, k, **kw)
+    assert out.shape == (c, 1, k, k) and out.dtype == torch.float32
+    return calls[0][0], calls[0][1], (f.launches - before[0],
+                                      f.launches_sm90 - before[1])
+
+  impl, args, counts = run(16, 64, 64, 64, 3, torch.bfloat16)
+  plan = tdw.sm90_plan(16, 64, 64, 64, 3)
+  assert impl == "sm90" and counts == (1, 1)
+  assert args[5:15] == (16, 64, 64, 64, 3, plan.cb, plan.nb, plan.th,
+                        plan.tw, plan.parts)
+  assert args[15] == plan.cluster and args[2] and args[4]
+  impl, args, _ = run(16, 64, 4, 4, 3, torch.bfloat16)
+  assert impl == "sm90" and args[2] is None and args[4] is None  # 1 cluster
+  for b, c, h, w, k, dtype, kw in ((1, 13, 15, 17, 3, torch.bfloat16, {}),
+                                   (2, 64, 8, 8, 3, torch.float32, {}),
+                                   (2, 64, 8, 8, 3, torch.bfloat16,
+                                    dict(_simt=True))):
+    impl, _, counts = run(b, c, h, w, k, dtype, **kw)
+    assert impl == "simt" and counts == (1, 0)
+  odd = torch.zeros((2 * 8 * 8 * 64 + 4,), dtype=torch.bfloat16)[4:]
+  odd = odd.view(2, 8, 8, 64).permute(0, 3, 1, 2)
+  calls.clear()
+  before = (f.launches, f.launches_sm90)
+  with pytest.raises(ValueError, match="16-byte aligned"):
+    tdw.depthwise_filter_grad_kernel(odd, odd, 3)
+  assert calls == [] and (f.launches, f.launches_sm90) == before

@@ -10,9 +10,11 @@ Tolerances: f32 atol = rtol = 1e-4 (another summation order, the card's
 expf/tanhf); bf16 outputs atol 1.6e-2, rtol 8e-3 (one bf16 rounding
 step). bf16 flash attention K1 / K2 / K5a / K5b run the Hopper kernels
 (csrc/flash_attention_sm90.cu), f32 ones the scalar-FMA kernels
-(csrc/flash_attention.cu). bf16 K3b / K3c with D a multiple of 256 up to
-2,048 run the Hopper kernels (csrc/xent_sm90.cu), f32 and other D those of
-csrc/xent.cu.
+(csrc/flash_attention.cu). bf16 K3a / K3b / K3c with D a multiple of 256
+up to 2,048 run the Hopper kernels (csrc/xent_sm90.cu), f32 and other D
+those of csrc/xent.cu. bf16 K6 with C a multiple of 8 runs the Hopper
+kernel (csrc/depthwise_sm90.cu), f32 and other C that of
+csrc/depthwise.cu.
 """
 
 import pytest
@@ -884,9 +886,72 @@ def test_xent_sm90_refuses_what_tma_does_not_take(dev):
   assert _xent_counts() == before
 
 
+def _fwd_counts():
+  f = xent.fused_softmax_xent
+  return (f.launches_fwd, f.launches_fwd_sm90)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(m=300, v=1000, d=1024, cap=30.0),      # ragged M and V, C 4
+    dict(m=300, v=1000, d=1024, cap=0.0),
+    dict(m=1000, v=3333, d=2048, cap=30.0),     # C 8, ragged
+    dict(m=129, v=65, d=2048, cap=0.0),         # one own row past a tile
+    dict(m=4000, v=700, d=1024, cap=30.0),      # 32 own tiles: the split
+    dict(m=100, v=1000, d=256, cap=30.0),       # C 1
+    dict(m=257, v=333, d=768, cap=0.0),         # C 3: rows 21 / 21 / 22
+], ids=["d1024", "d1024_nocap", "d2048", "d2048_edge", "d1024_split",
+        "d256", "d768_nocap"])
+def test_xent_sm90_fwd_matches_plain(dev, case):
+  """The Hopper K3a (bf16, D a multiple of 256) against the plain K3a: lse
+  and the target logit f32 atol = rtol = 1e-4; a second call bit-equal;
+  each call one launch, counted as a Hopper one."""
+  x, w, targets, _ = _xent_inputs(dev, case["m"], case["v"], case["d"],
+                                  torch.bfloat16, seed=9)
+  cap = case["cap"]
+  before = _fwd_counts()
+  lse, tz = xent.xent_fwd(x, w, targets, logit_cap=cap)
+  again = xent.xent_fwd(x, w, targets, logit_cap=cap)
+  torch.cuda.synchronize()
+  assert _fwd_counts() == (before[0] + 2, before[1] + 2)
+  lse_r, tz_r = xent.xent_fwd_reference(x, w, targets, logit_cap=cap)
+  torch.testing.assert_close(lse, lse_r, **F32_TOL)
+  torch.testing.assert_close(tz, tz_r, **F32_TOL)
+  assert torch.equal(lse, again[0]) and torch.equal(tz, again[1])
+
+
+@pytest.mark.cuda
+def test_xent_fwd_dispatch_by_counter(dev):
+  """bf16 with D 1,024 goes to the Hopper K3a; bf16 with D 72, float32 and
+  `_simt=True` go to csrc/xent.cu's, whose result on the D 1,024 case
+  matches the Hopper kernel's within the plain-version tolerance."""
+  outs = {}
+  for dtype, d, kw, sm90 in ((torch.bfloat16, 1024, {}, 1),
+                             (torch.bfloat16, 72, {}, 0),
+                             (torch.float32, 256, {}, 0),
+                             (torch.bfloat16, 1024, dict(_simt=True), 0)):
+    x, w, targets, _ = _xent_inputs(dev, 130, 900, d, dtype, seed=10)
+    before = _fwd_counts()
+    outs[(d, dtype, bool(kw))] = xent.xent_fwd_kernel(
+        x, w, targets, logit_cap=30.0, **kw)
+    torch.cuda.synchronize()
+    assert _fwd_counts() == (before[0] + 1, before[1] + sm90), (dtype, d, kw)
+  for a, b in zip(outs[(1024, torch.bfloat16, False)],
+                  outs[(1024, torch.bfloat16, True)]):
+    torch.testing.assert_close(a, b, **F32_TOL)
+
+
 # K6 (depthwise filter gradient): f32 sums over B*H*W products in another
 # order than the plain version's; relative to the largest entry.
 K6_SHARE = 1e-4
+
+# EfficientDet-D0's stride-1 depthwise convs at 512 x 512, batch 16 (C, H,
+# W, k): every map of a training step.
+D0_K6_SHAPES = [(32, 256, 256, 3), (144, 128, 128, 3), (64, 64, 64, 3),
+                (240, 64, 64, 5), (64, 32, 32, 3), (672, 32, 32, 5),
+                (480, 32, 32, 5), (480, 32, 32, 3), (64, 16, 16, 3),
+                (1152, 16, 16, 3), (1152, 16, 16, 5), (64, 8, 8, 3),
+                (64, 4, 4, 3)]
 
 
 def _dw_inputs(dev, b, c, h, w, dtype, seed):
@@ -968,3 +1033,54 @@ def test_depthwise_filter_grad_kernel_refuses_what_it_does_not_take(dev):
   with pytest.raises(NotImplementedError):
     dwise.depthwise_filter_grad(x, dy, 3, stride=2)
   assert dwise.depthwise_filter_grad.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w,k", D0_K6_SHAPES,
+                         ids=[f"{c}x{h}x{w}_k{k}" for c, h, w, k in
+                              D0_K6_SHAPES])
+def test_depthwise_sm90_matches_plain_at_d0_maps(dev, c, h, w, k):
+  """The Hopper K6 at every map of a D0 step (bf16, b16) against the plain
+  version (K6_SHARE of the largest entry); one launch a call, counted as a
+  Hopper one; a second call bit-equal."""
+  x, dy = _dw_inputs(dev, 16, c, h, w, torch.bfloat16, seed=2)
+  f = dwise.depthwise_filter_grad
+  before = (f.launches, f.launches_sm90)
+  got = dwise.depthwise_filter_grad(x, dy, k)
+  again = dwise.depthwise_filter_grad(x, dy, k)
+  torch.cuda.synchronize()
+  assert (f.launches, f.launches_sm90) == (before[0] + 2, before[1] + 2)
+  want = dwise.depthwise_filter_grad_reference(x, dy, k)
+  scale = float(want.abs().max())
+  torch.testing.assert_close(got, want, atol=K6_SHARE * scale,
+                             rtol=K6_SHARE)
+  assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_depthwise_filter_grad_dispatch_by_counter(dev):
+  """bf16 with C a multiple of 8 goes to the Hopper K6; bf16 C 13, float32
+  and `_simt=True` go to csrc/depthwise.cu's, whose result on the bf16
+  C 64 case matches the Hopper kernel's (K6_SHARE)."""
+  f = dwise.depthwise_filter_grad
+  outs = {}
+  for c, dtype, kw, sm90 in ((64, torch.bfloat16, {}, 1),
+                             (13, torch.bfloat16, {}, 0),
+                             (64, torch.float32, {}, 0),
+                             (64, torch.bfloat16, dict(_simt=True), 0)):
+    x, dy = _dw_inputs(dev, 4, c, 20, 24, dtype, seed=3)
+    before = (f.launches, f.launches_sm90)
+    outs[(c, dtype, bool(kw))] = dwise.depthwise_filter_grad_kernel(
+        x, dy, 3, **kw)
+    torch.cuda.synchronize()
+    assert (f.launches, f.launches_sm90) == (before[0] + 1,
+                                             before[1] + sm90), (c, dtype, kw)
+  a, b = outs[(64, torch.bfloat16, False)], outs[(64, torch.bfloat16, True)]
+  torch.testing.assert_close(a, b, atol=K6_SHARE * float(b.abs().max()),
+                             rtol=K6_SHARE)
+  odd = torch.zeros((4 * 20 * 24 * 64 + 4,), dtype=torch.bfloat16,
+                    device=dev)[4:].view(4, 20, 24, 64).permute(0, 3, 1, 2)
+  before = (f.launches, f.launches_sm90)
+  with pytest.raises(ValueError, match="16-byte aligned"):
+    dwise.depthwise_filter_grad(odd, odd, 3)
+  assert (f.launches, f.launches_sm90) == before

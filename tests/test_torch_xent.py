@@ -6,8 +6,8 @@ kernels, at the JAX tests' ragged shapes (M 100 against block_m 64, V 1000
 against block_v 256, D 128), so JAX's pad masking is exercised, and at the
 default LM's D 2,048 with small M and V. Tolerances are stated per test.
 The kernels' D limits, the routing between the two implementations of
-K3b / K3c and the Hopper kernels' split plan are pure Python, checked here
-with stand-ins for the libraries.
+K3a, K3b and K3c, the Hopper kernels' split plan and K3a's merge of split
+parts are pure Python, checked here with stand-ins for the libraries.
 """
 
 import contextlib
@@ -295,15 +295,69 @@ def test_split_plan():
     txent.split_plan(4, 0, 8)
 
 
+@pytest.mark.parametrize("dtype,d,sm90", [
+    (torch.bfloat16, 256, True), (torch.bfloat16, 1024, True),
+    (torch.bfloat16, 2048, True), (torch.bfloat16, 72, False),
+    (torch.bfloat16, 1224, False), (torch.bfloat16, 4096, False),
+    (torch.float32, 1024, False), (torch.float32, 4096, False)])
+def test_k3a_check_dim_and_routing(dtype, d, sm90):
+  """K3a's check_dim("fwd") takes every D a multiple of 8, whichever kernel
+  runs it; takes_sm90 sends bf16 with D a multiple of 256 up to 2,048 to
+  the Hopper forward, the rest to csrc/xent.cu's (as K3b / K3c)."""
+  txent.check_dim("fwd", dtype, d)
+  txent.check_dim("fwd", dtype, d, simt=True)
+  assert txent.takes_sm90(dtype, d) is sm90
+  with pytest.raises(ValueError, match="multiple of 8"):
+    txent.check_dim("fwd", dtype, d + 4)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, 11])
+@pytest.mark.parametrize("cap", [0.0, 30.0], ids=["nocap", "cap30"])
+def test_k3a_split_parts_merge_to_the_plain_k3a(n_split, cap):
+  """The Hopper K3a's last wave: a split tile's parts each carry (m, l, t)
+  over their vocab tiles (split_ranges: contiguous, none empty, together
+  all 11 tiles of V 700); merged in part order (merge_softmax_parts, as
+  csrc/xent_sm90.cu::xent_fwd_merge_kernel) they give the plain K3a's lse
+  (atol 2e-6: exp and log of f32 sums in another grouping) and target
+  logit (exact: one hit per row)."""
+  x, w, targets, _ = _case(11, m=40, d=64, v=700)
+  xo, wo = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+  tg = torch.from_numpy(targets)
+  z = xo.float() @ wo.float().t()
+  if cap:
+    z = cap * torch.tanh(z / cap)
+  tiles = -(-700 // 64)
+  ranges = txent.split_ranges(tiles, n_split)
+  assert ranges[0][0] == 0 and ranges[-1][1] == tiles
+  assert all(j0 < j1 for j0, j1 in ranges)
+  assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+  ms, ls, ts = [], [], []
+  for j0, j1 in ranges:
+    cols = torch.arange(64 * j0, min(64 * j1, 700))
+    zp = z[:, cols]
+    m = zp.max(dim=1).values
+    ms.append(m)
+    ls.append(torch.exp(zp - m[:, None]).sum(dim=1))
+    ts.append(torch.where(cols[None, :] == tg[:, None].long(), zp,
+                          0.0).sum(dim=1))
+  lse, tz = txent.merge_softmax_parts(torch.stack(ms), torch.stack(ls),
+                                      torch.stack(ts))
+  lse_r, tz_r = txent.xent_fwd_reference(xo, wo, tg, logit_cap=cap)
+  torch.testing.assert_close(lse, lse_r, atol=2e-6, rtol=0)
+  torch.testing.assert_close(tz, tz_r, atol=0, rtol=0)
+
+
 def test_bwd_routing_with_stand_in_libraries(monkeypatch):
   """With stand-ins for both libraries: bf16 K3b / K3c with D a multiple
   of 256 reach the Hopper entry points (counted in launches_dx_sm90 /
   launches_dw_sm90) with the split plan and a scratch buffer for the split
   tiles; float32, bf16 D 72 and `_simt` reach csrc/xent.cu's, each with
   as many arguments as its binding declares; K3a at the default LM's D
-  2,048 reaches csrc/xent.cu's forward. What a kernel does not take (bf16
-  D 1,224, float32 D 2,048, an x TMA cannot read) raises before any launch
-  or count."""
+  2,048 and D 1,024 reaches the Hopper forward (launches_fwd_sm90), K3a at
+  float32,
+  bf16 D 72 or with `_simt` csrc/xent.cu's. What a kernel does not take
+  (bf16 D 1,224, float32 D 2,048, an x TMA cannot read) raises before any
+  launch or count."""
   calls = []
 
   def fake(impl, name, n_args, out=0):
@@ -317,7 +371,8 @@ def test_bwd_routing_with_stand_in_libraries(monkeypatch):
       fake("simt", "fwd", 11), fake("simt", "dx", 13), fake("simt", "dw", 13),
       None))
   monkeypatch.setattr(txent, "_sm90_fns", lambda: (
-      fake("sm90", "dx", 15), fake("sm90", "dw", 15), None))
+      fake("sm90", "fwd", 13), fake("sm90", "dx", 15), fake("sm90", "dw", 15),
+      None))
   # Clusters at once on the H100: 30 of 4 blocks (D 1,024), 15 of 8.
   monkeypatch.setattr(txent, "sm90_clusters",
                       lambda d, which, device: {1024: 30, 2048: 15}[d])
@@ -356,11 +411,21 @@ def test_bwd_routing_with_stand_in_libraries(monkeypatch):
                               dict(_simt=True))):
     got, counts, _ = run(m, v, d, dtype, **kw)
     assert got == [("simt", "dx"), ("simt", "dw")] and counts == [1, 1, 0, 0]
-  calls.clear()
-  x = torch.zeros((8, 2048), dtype=torch.bfloat16)
-  txent.xent_fwd_kernel(x, torch.zeros((40, 2048), dtype=torch.bfloat16),
-                        torch.zeros((8,), dtype=torch.int32))
-  assert [(impl, name) for impl, name, _ in calls] == [("simt", "fwd")]
+  for d, dtype, kw, impl in ((2048, torch.bfloat16, {}, "sm90"),
+                             (1024, torch.bfloat16, {}, "sm90"),
+                             (2048, torch.bfloat16, dict(_simt=True), "simt"),
+                             (2048, torch.float32, {}, "simt"),
+                             (72, torch.bfloat16, {}, "simt")):
+    calls.clear()
+    before = (f.launches_fwd, f.launches_fwd_sm90)
+    txent.xent_fwd_kernel(torch.zeros((8, d), dtype=dtype),
+                          torch.zeros((40, d), dtype=dtype),
+                          torch.zeros((8,), dtype=torch.int32), **kw)
+    assert [(i, name) for i, name, _ in calls] == [(impl, "fwd")]
+    if impl == "sm90":    # one own tile of 128 rows, no split, no scratch
+      assert calls[0][2][9:12] == (1, 1, None)
+    assert (f.launches_fwd - before[0],
+            f.launches_fwd_sm90 - before[1]) == (1, int(impl == "sm90"))
 
   before = (f.launches_dx, f.launches_dw, f.launches_dx_sm90,
             f.launches_dw_sm90)
