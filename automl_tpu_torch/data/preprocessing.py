@@ -1,4 +1,4 @@
-"""Detection training preprocessing on the device.
+"""Detection preprocessing on the device: training and eval.
 
 The counterpart of automl_tpu/data/preprocessing.py::det_train_preprocess
 (with _warp_to / augment.affine_warp and normalize_image), batched over
@@ -8,13 +8,16 @@ transform. Its three random draws per image (flip, jitter, crop offset)
 are inputs, drawn by det_train_draws from a torch.Generator (JAX draws
 them from a key: the same distributions, other numbers). Images come in as
 NHWC canvases (the loader's layout) and leave as float32 NCHW in the
-channels_last memory format. The classification preprocessing comes with
-ROADMAP M8.
+channels_last memory format. det_eval_preprocess is the inference
+resize of one image. The classification preprocessing comes with ROADMAP
+M8.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 MEAN_RGB = (0.485 * 255, 0.456 * 255, 0.406 * 255)
 STDDEV_RGB = (0.229 * 255, 0.224 * 255, 0.225 * 255)
@@ -124,3 +127,29 @@ def det_train_preprocess(images, boxes, classes, flip, jitter, offsets,
                           torch.zeros_like(new_boxes))
   image = normalize_image(out, mean, stddev).permute(0, 3, 1, 2)
   return image, new_boxes, classes
+
+
+def det_eval_preprocess(image, out_size: int, mean=MEAN_RGB,
+                        stddev=STDDEV_RGB):
+  """One [H, W, C] image -> ([out, out, C] f32, the scale that undoes the
+  resize), automl_tpu/data/preprocessing.py::det_eval_preprocess's recipe:
+  normalize first (so the padding is zero in normalized space), then a
+  half-pixel bilinear resize without antialias (F.interpolate's
+  align_corners=False is jax.image.resize's convention), then pad bottom
+  and right. The scale and the scaled sizes are computed in float32 and
+  truncated, as TF does: h 636 -> 256 gives 636 * (256 / 636) =
+  255.99998f -> 255, not 256."""
+  image = torch.as_tensor(image)
+  h, w, c = image.shape
+  scale32 = np.float32(min(np.float32(out_size) / np.float32(h),
+                           np.float32(out_size) / np.float32(w)))
+  sh = int(np.float32(h) * scale32)
+  sw = int(np.float32(w) * scale32)
+  normalized = normalize_image(image, mean, stddev)
+  scaled = F.interpolate(normalized.permute(2, 0, 1)[None], size=(sh, sw),
+                         mode="bilinear", align_corners=False,
+                         antialias=False)[0].permute(1, 2, 0)
+  out = torch.zeros((out_size, out_size, c), dtype=torch.float32,
+                    device=image.device)
+  out[:sh, :sw] = scaled
+  return out, 1.0 / float(scale32)

@@ -117,6 +117,17 @@ def decode_box_outputs(pred_boxes, anchor_boxes):
                       ycenter + h / 2, xcenter + w / 2], dim=-1)
 
 
+def decode_anchors_to_centersize(pred_boxes, anchor_boxes):
+  """Anchors in center-size form (ycenter, xcenter, h, w), in pred_boxes'
+  dtype (the TFLite custom-NMS contract)."""
+  anchor_boxes = anchor_boxes.to(pred_boxes.dtype)
+  ycenter_a = (anchor_boxes[..., 0] + anchor_boxes[..., 2]) / 2
+  xcenter_a = (anchor_boxes[..., 1] + anchor_boxes[..., 3]) / 2
+  ha = anchor_boxes[..., 2] - anchor_boxes[..., 0]
+  wa = anchor_boxes[..., 3] - anchor_boxes[..., 1]
+  return torch.stack([ycenter_a, xcenter_a, ha, wa], dim=-1)
+
+
 def encode_boxes(gt_boxes, anchor_boxes):
   """Faster-RCNN encode: gt vs anchors -> (ty, tx, th, tw), no scale
   factors."""

@@ -6,7 +6,7 @@ every field of a training state (a NamedTuple: step, params, opt_state and,
 for the detection trainer, ema_params and normalizer) as CPU tensors in
 <directory>/<step>/state.pt.
 Saves are synchronous, so wait_until_finished has nothing to wait for.
-Restoring the JAX package's orbax checkpoints needs jax: ROADMAP M9.
+archive_ckpt keeps the best checkpoint by an eval objective. Restoring the JAX package's orbax checkpoints needs jax: ROADMAP M9.
 """
 
 from __future__ import annotations
@@ -90,3 +90,33 @@ class CheckpointManager:
 
   def wait_until_finished(self):
     """Saves are synchronous: nothing to wait for."""
+
+
+def archive_ckpt(ckpt_dir: str, step: int, objective: float,
+                 mngr: CheckpointManager) -> bool:
+  """Keeps the best checkpoint by eval objective (JAX's archive_ckpt).
+
+  Copies mngr's <step>/ into <ckpt_dir>/archive/ when `objective` beats
+  archive/best_objective.txt; the previous archive moves to backup/.
+  Returns whether it archived."""
+  archive = os.path.join(ckpt_dir, "archive")
+  backup = os.path.join(ckpt_dir, "backup")
+  best_file = os.path.join(archive, "best_objective.txt")
+  if os.path.exists(best_file):
+    with open(best_file) as f:
+      best = float(f.read().strip().split()[-1])
+    if objective <= best:
+      return False
+  mngr.wait_until_finished()
+  src = os.path.join(mngr.directory, str(step))
+  if not os.path.isdir(src):
+    return False
+  if os.path.isdir(backup):
+    shutil.rmtree(backup)
+  if os.path.isdir(archive):
+    shutil.move(archive, backup)
+  os.makedirs(archive)
+  shutil.copytree(src, os.path.join(archive, str(step)))
+  with open(best_file, "w") as f:
+    f.write(f"step {step} objective {objective}\n")
+  return True

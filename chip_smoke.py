@@ -4,9 +4,10 @@
   python3 chip_smoke.py --profile    # only: profiles of a training step
                                      # (unfused and fused loss; dots_flash
                                      # with the split and the fused
-                                     # backward), of a decode step and of
+                                     # backward), of a decode step, of
                                      # an EfficientDet-D0 training step (K6
-                                     # knob on and off)
+                                     # knob on and off) and of D0 b32
+                                     # inference (pre_nms_topk 2048, 5000)
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
@@ -87,7 +88,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      per step, derived from the model) x 20 times, every launch the Hopper
      kernel's, and the knob-off run 0 times, and a rerun of the knob-on run
      to 21 steps must resume from the checkpoint at step 20;
-  8. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
+  8. detection inference and eval: D0 (512 x 512, b32, mixed_bfloat16,
+     seeded weights, class-predict bias 0 and kernel x300) forward on the
+     card, then postprocess_combined (hard NMS) and postprocess_global
+     (gaussian) at pre_nms_topk 5000 and 2048 on the card, under sync
+     debug mode "error" (a host sync inside raises), and on the CPU from
+     the same raw outputs: hard, the same valid_len and classes, boxes and
+     scores within INFER_BOX_TOL / INFER_SCORE_TOL in every slot;
+     gaussian, the same in the confident slots (score > INFER_CONFIDENT)
+     up to the first near tie;
+     cli/bench_det (D0 b32 forward + postprocess, CUDA events) as a
+     subprocess at pre_nms_topk 2048 and 5000, its JSON lines printed;
+     entry() on the card (zeros [1, 512, 512, 3]); evaluate_detection on
+     D0 b16 with the EMA params of the 20-step knob-off run, 2 synthetic
+     batches, in COCO mode (every metric finite or -1) and testdev_dir
+     mode (the JSON rows with their four keys); the closed loop of
+     tests/test_closed_loop.py through the port (efficientdet-test, 400
+     steps on one box-coded batch, then hard-NMS eval): AP50 > 0.5;
+  9. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
      through the converter, cast for serving) generates 512 tokens greedily
      after a 512-token prompt at batch 8, through generate_lm.load_model and
      greedy_generate. The run must launch K4 exactly n_layers * 512 times,
@@ -1481,6 +1499,343 @@ def detection_phase(dev, workdir):
   return on[0]
 
 
+D0_INFER_BATCH = 32
+# Postprocess on the card against the same code on the CPU, from the same
+# raw outputs. Hard NMS: valid_len and classes equal, boxes within
+# INFER_BOX_TOL px (of D0's 512-px canvas: about 1.6 float32 steps at 512)
+# and scores within INFER_SCORE_TOL. Gaussian NMS decays every overlap by
+# a factor that the last bit of a box moves, so two overlapping candidates
+# whose live scores are that close may be picked in either order, and the
+# slots after such a pick differ: the confident slots (score >
+# INFER_CONFIDENT) agree one by one within the same limits up to the first
+# slot where the two sides pick different boxes, whose two scores must be
+# within INFER_SCORE_TOL (a near tie); later slots are not compared.
+INFER_BOX_TOL = 1e-4
+INFER_SCORE_TOL = 1e-5
+INFER_CONFIDENT = 0.3
+
+
+def _infer_model(dev, batch):
+  """D0 (mixed_bfloat16) with seeded weights whose class-predict bias is 0
+  and kernel scaled by 300 (the init's logits lie within +-2e-3 of 0, so
+  every score would tie to 4 digits: the scaled ones spread, and the
+  confident set is not a field of ties), and a seeded batch of uniform
+  [0, 1) NHWC images on the card."""
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import efficientdet
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.ops import anchors
+  precision.set_policy("mixed_bfloat16")
+  model = efficientdet.build_detection_model("efficientdet-d0", device=dev)
+  tree = convert.det_numpy_init(model, 0)
+  predict = tree["class_net"]["class-predict"]["pointwise"]
+  predict["bias"][:] = 0.0
+  predict["kernel"] *= 300.0
+  convert.load_det_params(model, tree)
+  gen = torch.Generator(device=dev).manual_seed(11)
+  h, w = anchors.parse_image_size(model.config.image_size)
+  images = torch.rand((batch, h, w, 3), generator=gen, device=dev)
+  return model, images
+
+
+def _detections_agree(name, card, cpu, exact):
+  """card and cpu: (boxes, scores, classes, valid_len) of one batch.
+  exact: the same detections in every slot (hard NMS); else the confident
+  slots up to the first near tie (gaussian NMS, see INFER_BOX_TOL)."""
+  import torch
+  card = [t.cpu() for t in card]
+  if exact:
+    if not torch.equal(card[3], cpu[3]) or not torch.equal(card[2], cpu[2]):
+      raise AssertionError(f"{name}: valid_len or classes differ: card "
+                           f"{card[3].tolist()}, CPU {cpu[3].tolist()}")
+    boxes_d = float((card[0] - cpu[0]).abs().max())
+    scores_d = float((card[1] - cpu[1]).abs().max())
+    n, note = int(cpu[3].sum()), "every slot"
+  else:
+    boxes_d = scores_d = 0.0
+    n, ties = 0, []
+    for b in range(cpu[1].shape[0]):
+      for i in range(int(min(cpu[3][b], card[3][b]))):
+        if float(cpu[1][b, i]) <= INFER_CONFIDENT:
+          break
+        db = float((card[0][b, i] - cpu[0][b, i]).abs().max())
+        ds = abs(float(card[1][b, i] - cpu[1][b, i]))
+        if (db > INFER_BOX_TOL or int(card[2][b, i]) != int(cpu[2][b, i])):
+          if ds > INFER_SCORE_TOL:
+            raise AssertionError(
+                f"{name}: image {b} slot {i}: the card picked score "
+                f"{float(card[1][b, i]):.7f}, the CPU "
+                f"{float(cpu[1][b, i]):.7f}: not a near tie")
+          ties.append(i)
+          break
+        boxes_d, scores_d = max(boxes_d, db), max(scores_d, ds)
+        n += 1
+    note = (f"confident slots up to the first near tie ({len(ties)} of "
+            f"{cpu[1].shape[0]} images reached one, at slots {ties})")
+  print(f"  {name}: {n} detections compared ({note}), max|box diff| "
+        f"{boxes_d:.3e} px (limit {INFER_BOX_TOL:g}), max|score diff| "
+        f"{scores_d:.3e} (limit {INFER_SCORE_TOL:g})")
+  if boxes_d > INFER_BOX_TOL or scores_d > INFER_SCORE_TOL or n == 0:
+    raise AssertionError(f"{name}: card and CPU disagree")
+
+
+def _infer_check(dev):
+  """D0 b32 forward on the card, then postprocess_combined (hard) and
+  postprocess_global (gaussian) at pre_nms_topk 5000 and 2048 on the card
+  and, from the same raw outputs, on the CPU. The card's postprocess runs
+  under torch.cuda.set_sync_debug_mode("error"): a call that waits for the
+  card inside it raises."""
+  import copy
+  import torch
+  from automl_tpu_torch.ops import postprocess
+  model, images = _infer_model(dev, D0_INFER_BATCH)
+  with torch.no_grad():
+    cls_out, box_out = model(images.permute(0, 3, 1, 2), train=False)
+  cpu_out = ([c.cpu() for c in cls_out], [b.cpu() for b in box_out])
+  for topk in (5000, 2048):
+    cfg = copy.deepcopy(model.config)
+    cfg.nms_configs.pre_nms_topk = topk
+    for name, fn, exact in (
+        ("combined (hard)", postprocess.postprocess_combined, True),
+        ("global (gaussian)", postprocess.postprocess_global, False)):
+      fn(cfg, cls_out, box_out)               # anchors cached on the card
+      torch.cuda.synchronize()
+      torch.cuda.set_sync_debug_mode("error")
+      try:
+        card = fn(cfg, cls_out, box_out)
+      finally:
+        torch.cuda.set_sync_debug_mode("default")
+      cpu = fn(cfg, *cpu_out)
+      print(f"D0 b{D0_INFER_BATCH} postprocess {name}, pre_nms_topk {topk}: "
+            f"valid_len card {card[3].tolist()[:8]}...; no host sync inside "
+            "(sync debug mode 'error')")
+      _detections_agree(f"{name} top-{topk}, card vs CPU", card, cpu, exact)
+  del model, images, cls_out, box_out
+  torch.cuda.empty_cache()
+
+
+def _bench_det(topk):
+  """cli/bench_det as a subprocess; returns its JSON line."""
+  out = subprocess.run(
+      [sys.executable, "-m", "automl_tpu_torch.cli.bench_det",
+       f"--pre_nms_topk={topk}"], capture_output=True, text=True,
+      timeout=600, check=False,
+      cwd=os.path.dirname(os.path.abspath(__file__)))
+  if out.returncode != 0:
+    raise AssertionError(f"bench_det failed ({out.returncode}): "
+                         f"{out.stderr[-2000:]}")
+  line = out.stdout.strip().splitlines()[-1]
+  print(f"bench_det --pre_nms_topk={topk}: {line}")
+  return json.loads(line)
+
+
+def _entry_check(dev):
+  """entry() on the card: D0, seeded weights, zeros [1, 512, 512, 3]."""
+  import torch
+  from automl_tpu_torch.entry import entry
+  fn, (images,) = entry(dev)
+  boxes, scores, classes, valid_len = fn(images)
+  torch.cuda.synchronize()
+  print(f"entry(): valid_len {valid_len.tolist()}; first rows (ymin, xmin, "
+        f"ymax, xmax, score, class):")
+  for i in range(3):
+    print(f"  {[round(float(v), 4) for v in boxes[0, i]]} "
+          f"{float(scores[0, i]):.6f} {int(classes[0, i])}")
+  if (tuple(boxes.shape) != (1, 100, 4) or not bool(
+      torch.isfinite(boxes).all()) or not bool(torch.isfinite(scores).all())):
+    raise AssertionError("entry() detections malformed")
+
+
+def _eval_check(dev, ckpt_dir, workdir):
+  """evaluate_detection on D0 at b16 with the EMA params of the 20-step
+  knob-off run, over 2 synthetic eval batches, in COCO mode and in
+  testdev_dir mode: every metric finite or -1, the JSON rows with the four
+  keys."""
+  import torch
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.train import optimizers, runners, schedules, train_lib
+  from automl_tpu_torch.train.checkpoint import CheckpointManager
+  cfg = _det_config()
+  precision.set_policy("mixed_bfloat16")
+  model = runners.seeded_detection_model(cfg, 0, dev)
+  tx = optimizers.masked_for_params(optimizers.build_optimizer(
+      "momentum", schedules.detection_lr(cfg, 1), momentum=cfg.momentum))
+  state = CheckpointManager(ckpt_dir).restore(
+      train_lib.create_train_state(model, tx))
+  if state is None or state.ema_params is None:
+    raise AssertionError(f"no checkpoint with EMA params in {ckpt_dir}")
+
+  def batches():
+    return iter(pipeline.SyntheticDetection(
+        D0_BATCH, cfg.image_size, cfg.max_instances_per_image,
+        cfg.num_classes))
+  t = time.perf_counter()
+  m = runners.evaluate_detection(model, state.ema_params, cfg, batches(), 2)
+  print(f"evaluate_detection, D0 b{D0_BATCH}, EMA params of step "
+        f"{state.step}, 2 batches ({time.perf_counter() - t:.1f} s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+  if len(m) != 12 or not all(math.isfinite(v) and (v >= 0 or v == -1)
+                             for v in m.values()):
+    raise AssertionError(f"COCO metrics malformed: {m}")
+  td = runners.evaluate_detection(model, state.ema_params, cfg, batches(), 2,
+                                  testdev_dir=os.path.join(workdir,
+                                                           "testdev"))
+  rows = json.load(open(td["detections_json"]))
+  print(f"evaluate_detection, testdev_dir mode: AP {td['AP']}, {len(rows)} "
+        f"rows in {os.path.basename(td['detections_json'])}")
+  if td["AP"] != -1.0 or not rows or any(
+      set(r) != {"image_id", "category_id", "bbox", "score"} for r in rows):
+    raise AssertionError("test-dev detections malformed")
+  del model, state
+  torch.cuda.empty_cache()
+
+
+def _closed_loop(dev, steps=400):
+  """tests/test_closed_loop.py's recipe through the port, on the card:
+  efficientdet-test overfits one synthetic batch whose pixels encode its
+  boxes (f32, momentum), then hard-NMS detections on that batch through
+  the COCO evaluator must reach AP50 > 0.5, JAX's own criterion."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch.configs.efficientdet_configs import (
+      get_efficientdet_config)
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.eval.coco_metric import COCOEvaluator
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.ops import postprocess
+  from automl_tpu_torch.train import optimizers, runners, schedules, train_lib
+  precision.set_policy("float32")
+  try:
+    cfg = get_efficientdet_config("efficientdet-test")
+    cfg.override(dict(learning_rate=0.02, lr_warmup_init=0.002))
+    cfg.nms_configs.method = "hard"
+    cfg.nms_configs.sigma = 0.0
+    model = runners.seeded_detection_model(cfg, 0, dev)
+    tx = optimizers.masked_for_params(optimizers.build_optimizer(
+        "momentum", schedules.detection_lr(cfg, steps_per_epoch=100)))
+    state = train_lib.create_train_state(model, tx)
+    step_fn = train_lib.make_det_train_step(model, tx, cfg)
+    data = pipeline.SyntheticDetection(4, 64, max_instances=10,
+                                       num_classes=3, seed=3).batch
+    imgs = data["image"].astype(np.float32)
+    for i in range(imgs.shape[0]):
+      for g in range(10):
+        if data["gt_classes"][i, g] > 0:
+          y0, x0, y1, x1 = data["gt_boxes"][i, g].astype(int)
+          c = int(data["gt_classes"][i, g])
+          imgs[i, y0:y1, x0:x1] = [255 * (c == k) for k in (1, 2, 3)]
+    images = ((torch.from_numpy(imgs) - torch.tensor(cfg.mean_rgb))
+              / torch.tensor(cfg.stddev_rgb))
+    batch = {"image": images.permute(0, 3, 1, 2).contiguous(
+                 memory_format=torch.channels_last).to(dev),
+             "gt_boxes": torch.from_numpy(data["gt_boxes"]).to(dev),
+             "gt_classes": torch.from_numpy(data["gt_classes"]).to(dev)}
+    gen = torch.Generator(device=dev)
+    t = time.perf_counter()
+    for _ in range(steps):
+      state, m = step_fn(state, batch, gen.manual_seed(1))
+    loss = float(m["loss"])
+    with torch.no_grad():
+      c, b = model(batch["image"], train=False)
+      dets, valid = postprocess.generate_detections(
+          cfg, c, b, torch.ones(4, device=dev), torch.arange(4, device=dev))
+    ev = COCOEvaluator()
+    ev.add_batch_from_detections(dets.cpu().numpy(), valid.cpu().numpy(),
+                                 data["gt_boxes"], data["gt_classes"])
+    metrics = ev.compute()
+  finally:
+    precision.set_policy("mixed_bfloat16")
+  print(f"closed loop, efficientdet-test, {steps} steps "
+        f"({time.perf_counter() - t:.1f} s): loss {loss:.4f}, AP50 "
+        f"{metrics['AP50']:.4f} (must be > 0.5), AP {metrics['AP']:.4f}")
+  if not metrics["AP50"] > 0.5:
+    raise AssertionError("the closed loop did not reach AP50 > 0.5")
+
+
+def inference_phase(dev, ckpt_dir, workdir):
+  """EfficientDet-D0 inference and COCO eval: the card's postprocess
+  against the CPU's, bench_det at pre_nms_topk 2048 and 5000, entry(),
+  evaluate_detection on the trained EMA params, and the closed loop."""
+  _infer_check(dev)
+  bench = {topk: _bench_det(topk) for topk in (2048, 5000)}
+  for topk, r in bench.items():
+    print(f"D0 b{r['batch']} inference, pre_nms_topk {topk}: "
+          f"{r['value']:.1f} img/s, {r['ms_per_call']:.2f} ms a call "
+          f"(forward {r['forward_ms']:.2f} ms, postprocess "
+          f"{r['postprocess_ms']:.2f} ms; {r['card']})")
+  _entry_check(dev)
+  _eval_check(dev, ckpt_dir, workdir)
+  _closed_loop(dev)
+
+
+def _infer_profile(dev):
+  """D0 b32 inference under torch.profiler, at pre_nms_topk 2048 and 5000:
+  wall and device-busy time of forward + postprocess_global and of the
+  postprocess alone, the kernel launches of each, the largest device rows;
+  then CUDA events around pre_nms, the NMS loop (batched_nms) and the
+  whole postprocess, one call each, 11 times in turns: the medians, and
+  the share of the postprocess that is not pre_nms."""
+  import copy
+  import torch
+  from automl_tpu_torch.cli.bench_det import event_ms
+  from automl_tpu_torch.ops import nms as nms_lib
+  from automl_tpu_torch.ops import postprocess
+  model, images = _infer_model(dev, D0_INFER_BATCH)
+  for topk in (2048, 5000):
+    cfg = copy.deepcopy(model.config)
+    cfg.nms_configs.pre_nms_topk = topk
+
+    @torch.no_grad()
+    def forward():
+      return model(images.permute(0, 3, 1, 2), train=False)
+
+    outputs = forward()
+    for label, fn in (
+        ("forward + postprocess", lambda: postprocess.postprocess_global(
+            cfg, *forward())),
+        ("postprocess alone", lambda: postprocess.postprocess_global(
+            cfg, *outputs))):
+      fn()
+      torch.cuda.synchronize()
+      wall_us, rows, host = _profiled(lambda: (fn(), torch.cuda.synchronize()))
+      busy = sum(r[0] for r in rows)
+      launches = sum(c for _, c, k in host if k == "cudaLaunchKernel")
+      print(f"profile, D0 b{D0_INFER_BATCH} {label}, pre_nms_topk {topk}: "
+            f"wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+            f"({100 * busy / wall_us:.1f}% of the wall time), "
+            f"{launches} cudaLaunchKernel")
+      for dt, count, key in rows[:8]:
+        print(f"  {dt / 1e3:9.3f} ms {100 * dt / busy:5.1f}%  {count:5d} "
+              f"calls  {key[:90]}")
+    boxes, scores, _ = postprocess.pre_nms(cfg, *outputs)
+    p = postprocess.nms_params(cfg)
+    args = (p["max_output_size"], p["iou_thresh"], p["sigma"],
+            p["score_thresh"], p["method"])
+    times = {}
+    for _ in range(11):                       # in turns; the host is noisy
+      for label, fn in (
+          ("pre_nms", lambda: postprocess.pre_nms(cfg, *outputs)),
+          ("nms loop", lambda: nms_lib.batched_nms(boxes, scores, *args)),
+          ("postprocess", lambda: postprocess.postprocess_global(
+              cfg, *outputs))):
+        times.setdefault(label, []).append(event_ms(fn)[1])
+    ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"D0 b{D0_INFER_BATCH} postprocess, pre_nms_topk {topk} (CUDA "
+          f"events, median of 11 in turns): pre_nms {ms['pre_nms']:.3f} ms, "
+          f"NMS loop ({p['method']}, {p['max_output_size']} rounds over "
+          f"{boxes.shape[1]} candidates) {ms['nms loop']:.3f} ms, whole "
+          f"postprocess {ms['postprocess']:.3f} ms: all but pre_nms, "
+          f"{100 * (1 - ms['pre_nms'] / ms['postprocess']):.1f}%, is the "
+          "NMS loop and its gather (the loop alone and the whole call "
+          "differ by the host's noise); each: "
+          + "; ".join(f"{k} " + " ".join(f"{t:.1f}" for t in v)
+                      for k, v in times.items()))
+  del model, images
+  torch.cuda.empty_cache()
+
+
 def _profiled(fn):
   """(wall us, device rows, host rows) of one fn() under torch.profiler;
   fn must end in a synchronisation. Device rows: (device us, calls, kernel
@@ -1565,6 +1920,7 @@ def profile_phase(dev):
     torch.cuda.empty_cache()
 
   _det_profile(dev)
+  _infer_profile(dev)
 
   # The serving slice's shapes: b8, a 512-token prompt, cache 1024.
   _, model = generate_lm.load_model(config_name="lm-flops1e19", seed=0,
@@ -1892,10 +2248,12 @@ def main() -> int:
   workdir = os.path.join(build, "chip_smoke_lm")
   det_dir = os.path.join(build, "chip_smoke_det")
   for d in (workdir, workdir + "_fused", workdir + "_split", det_dir,
-            det_dir + "_off"):
+            det_dir + "_off", os.path.join(build, "chip_smoke_infer")):
     shutil.rmtree(d, ignore_errors=True)
   runs = training_phase(dev, workdir)
   k6_launches = detection_phase(dev, det_dir)
+  inference_phase(dev, os.path.join(det_dir + "_off", "ckpt"),
+                  os.path.join(build, "chip_smoke_infer"))
   k4_launches = serving_phase(dev)
   print(f"prefill K4 at the slice's shapes: {json.dumps(k4['prefill T=512'])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

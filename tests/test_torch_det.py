@@ -764,15 +764,39 @@ def test_synthetic_detection_matches_jax():
     np.testing.assert_array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("flag", [
-    "--mode=eval", "--mesh_shape=1,2,1", "--init_backbone_ckpt=x",
-    "--native_loader", "--profile", "--run_epoch_in_child_process",
-    "--hparams=qat=true", "--hparams=grid_mask=true",
-    "--hparams=autoaugment_policy=v0"])
+# Each refused flag and the ROADMAP item its message names. The eval-only
+# flags read the eval set's TFRecords (or watch checkpoints): M9.
+UNPORTED_FLAGS = {
+    "--mode=eval": "M9", "--mesh_shape=1,2,1": "M10",
+    "--init_backbone_ckpt=x": "M9", "--native_loader": "M9",
+    "--profile": "M9", "--run_epoch_in_child_process": "M9",
+    "--hparams=qat=true": "M11", "--hparams=grid_mask=true": "M8",
+    "--hparams=autoaugment_policy=v0": "M9",
+    "--val_file_pattern=x": "M9", "--testdev_dir=x": "M9",
+    "--eval_timeout=5": "M9"}
+
+
+@pytest.mark.parametrize("flag", list(UNPORTED_FLAGS))
 def test_unported_options_raise(flag, tmp_path):
-  with pytest.raises(NotImplementedError, match="ROADMAP M"):
+  with pytest.raises(NotImplementedError,
+                     match=f"ROADMAP {UNPORTED_FLAGS[flag]}"):
     tcli.main(["--model_name=efficientdet-test", "--device=cpu",
                f"--model_dir={tmp_path}", "--train_steps=1", flag])
+
+
+def test_main_det_train_and_eval_without_val_files_trains(tmp_path):
+  """--mode=train_and_eval --eval_every=1 with no val files trains and
+  evaluates nothing, as JAX's CLI does."""
+  d = str(tmp_path / "det")
+  out = tcli.main(["--model_name=efficientdet-test", f"--model_dir={d}",
+                   "--use_fake_data", "--device=cpu", "--log_every=1",
+                   "--train_steps=2", "--mode=train_and_eval",
+                   "--eval_every=1"])
+  assert np.isfinite(out["loss"]) and "AP" not in out
+  recs = [json.loads(l) for l in open(os.path.join(d, "metrics.jsonl"))]
+  assert [r["step"] for r in recs] == [1, 2]
+  assert not any(k.startswith("eval/") for r in recs for k in r)
+  assert os.path.exists(os.path.join(d, "ckpt", "2", "state.pt"))
 
 
 def test_unported_modules_raise():
