@@ -33,6 +33,10 @@ component 'conv_stack', 'cells_rep' or '<prefix>-bn-<level>':
 `class_net.conv_stack.<i>.depthwise.kernel`. BatchNorm moving statistics
 are buffers. det_state_from_jax / det_state_to_jax carry a detection
 training state (step, parameters, momentum trace, EMA, moving normalizer).
+An EfficientNet classifier's tree (the backbone plus head/*) maps the same
+way; cls_state_from_jax / cls_state_to_jax carry a classification
+training state under RMSProp (step, parameters, nu, the schedule count,
+the momentum trace, EMA).
 """
 
 from __future__ import annotations
@@ -370,3 +374,41 @@ def det_state_to_jax(state, model=None) -> dict:
                          det_torch_to_jax_tree(state.ema_params)),
           "normalizer": (None if state.normalizer is None else
                          float(state.normalizer))}
+
+
+def cls_state_from_jax(model: torch.nn.Module, step, params, nu, count,
+                       trace, ema_params=None):
+  """A JAX classification TrainState under optax.masked(optax.rmsprop(lr,
+  momentum=...)), as numpy trees, -> the port's TrainState for `model`
+  (an EfficientNet classifier), whose parameters and BN statistics are set
+  in place.
+
+  nu is opt_state.inner_state[0].nu, count opt_state.inner_state[1].count
+  (the schedule's), trace opt_state.inner_state[2].trace; their
+  masked-out leaves (the BN moving statistics) hold no array."""
+  from automl_tpu_torch.train.optimizers import is_batch_stat
+  from automl_tpu_torch.train.train_lib import TrainState
+  load_det_params(model, params)
+  state = model_state(model)
+  trainable = [k for k in state if not is_batch_stat(k)]
+  dev = next(iter(state.values())).device
+  tree = lambda t, keys: {k: v.to(dev) for k, v in
+                          det_jax_to_torch_state(t, keys).items()}
+  ema = None if ema_params is None else tree(ema_params, list(state))
+  opt_state = ({"nu": tree(nu, trainable)}, {"count": int(np.asarray(count))},
+               {"trace": tree(trace, trainable)})
+  return TrainState(int(np.asarray(step)), state, opt_state, ema)
+
+
+def cls_state_to_jax(state, model=None) -> dict:
+  """The port's classification TrainState (RMSProp) -> {step, params, nu,
+  count, trace, ema_params} with JAX-layout numpy trees (nu and the trace
+  hold the trainable leaves only)."""
+  rms, sched, trace = state.opt_state
+  return {"step": int(state.step),
+          "params": det_torch_to_jax_tree(state.params, model),
+          "nu": det_torch_to_jax_tree(rms["nu"]),
+          "count": int(sched["count"]),
+          "trace": det_torch_to_jax_tree(trace["trace"]),
+          "ema_params": (None if state.ema_params is None else
+                         det_torch_to_jax_tree(state.ema_params))}

@@ -1,8 +1,10 @@
-"""Synthetic detection data (main_det --use_fake_data).
+"""Synthetic data: classification (the data_dir='null' mode) and detection
+(main_det --use_fake_data).
 
-The counterpart of automl_tpu/data/pipeline.py::SyntheticDetection, the
-same numpy stream seed for seed: fixed-shape uint8 NHWC canvases with one
-to three boxes per image. The TFRecord readers come with ROADMAP M9.
+The counterpart of automl_tpu/data/pipeline.py::SyntheticClassification
+and SyntheticDetection, the same numpy stream seed for seed: fixed-shape
+uint8 NHWC canvases, one-hot labels or one to three boxes per image. The
+TFRecord readers come with ROADMAP M9.
 """
 
 from __future__ import annotations
@@ -10,6 +12,25 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+
+
+class SyntheticClassification:
+  """Yields the same batch forever: image uint8 [B, S, S, 3], label f32
+  [B, num_classes] one-hot."""
+
+  def __init__(self, batch_size: int, image_size: int, num_classes: int,
+               seed: int = 0):
+    rng = np.random.RandomState(seed)
+    self.batch = {
+        "image": rng.randint(0, 256, (batch_size, image_size, image_size, 3),
+                             dtype=np.uint8),
+        "label": np.eye(num_classes, dtype=np.float32)[
+            rng.randint(0, num_classes, batch_size)],
+    }
+
+  def __iter__(self) -> Iterator[dict]:
+    while True:
+      yield self.batch
 
 
 class SyntheticDetection:

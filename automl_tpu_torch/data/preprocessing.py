@@ -1,16 +1,19 @@
-"""Detection preprocessing on the device: training and eval.
+"""Preprocessing on the device: classification and detection, training
+and eval.
 
-The counterpart of automl_tpu/data/preprocessing.py::det_train_preprocess
-(with _warp_to / augment.affine_warp and normalize_image), batched over
-images: flip, scale jitter and crop as one inverse-map affine warp with
-bilinear sampling, the ground-truth boxes carried through the same
-transform. Its three random draws per image (flip, jitter, crop offset)
-are inputs, drawn by det_train_draws from a torch.Generator (JAX draws
-them from a key: the same distributions, other numbers). Images come in as
-NHWC canvases (the loader's layout) and leave as float32 NCHW in the
-channels_last memory format. det_eval_preprocess is the inference
-resize of one image. The classification preprocessing comes with ROADMAP
-M8.
+The counterpart of automl_tpu/data/preprocessing.py, batched over images.
+Detection training: flip, scale jitter and crop as one inverse-map affine
+warp with bilinear sampling, the ground-truth boxes carried through the
+same transform. Classification training: an Inception crop (one bilinear
+warp per image), a flip and RandAugment (data/augment.py), normalized by
+the augname's family; the finetune path resizes the whole image and ends
+with a cutout of random values; eval takes a centre crop and resizes it.
+The random draws are inputs, drawn by det_train_draws / cls_train_draws /
+cls_finetune_draws from a torch.Generator (JAX draws them from keys: the
+same distributions, other numbers), so a test can feed JAX's draws in.
+Images come in as NHWC canvases (the loader's layout) and leave as float32
+NCHW in the channels_last memory format. det_eval_preprocess is the
+inference resize of one image.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from automl_tpu_torch.data import augment
 
 MEAN_RGB = (0.485 * 255, 0.456 * 255, 0.406 * 255)
 STDDEV_RGB = (0.229 * 255, 0.224 * 255, 0.225 * 255)
@@ -42,30 +47,7 @@ def _bilinear_warp(images, m, out_size: int):
   """Inverse-map affine warp of [B, H, W, C] f32 by per-image 3x3 `m`
   ([B, 3, 3]) to [B, out, out, C]: bilinear, edge-clamped, 0 outside
   [-1, H] x [-1, W] (augment.affine_warp with fill 0)."""
-  b, h, w, c = images.shape
-  dev = images.device
-  yy = torch.arange(out_size, dtype=torch.float32, device=dev).view(1, -1, 1)
-  xx = torch.arange(out_size, dtype=torch.float32, device=dev).view(1, 1, -1)
-  e = lambda i, j: m[:, i, j].view(b, 1, 1)
-  sy = e(0, 0) * yy + e(0, 1) * xx + e(0, 2)
-  sx = e(1, 0) * yy + e(1, 1) * xx + e(1, 2)
-  y0, x0 = torch.floor(sy), torch.floor(sx)
-  wy, wx = (sy - y0)[..., None], (sx - x0)[..., None]
-  y0i = torch.clamp(y0.long(), 0, h - 1)
-  x0i = torch.clamp(x0.long(), 0, w - 1)
-  y1i = torch.clamp(y0i + 1, 0, h - 1)
-  x1i = torch.clamp(x0i + 1, 0, w - 1)
-  flat = images.reshape(b * h * w, c)
-  base = (torch.arange(b, device=dev) * (h * w)).view(b, 1, 1)
-
-  def at(yi, xi):
-    return flat[(base + yi * w + xi).reshape(-1)].view(b, out_size,
-                                                       out_size, c)
-
-  out = ((1 - wy) * (1 - wx) * at(y0i, x0i) + (1 - wy) * wx * at(y0i, x1i)
-         + wy * (1 - wx) * at(y1i, x0i) + wy * wx * at(y1i, x1i))
-  valid = (sy >= -1) & (sy <= h) & (sx >= -1) & (sx <= w)
-  return torch.where(valid[..., None], out, torch.zeros_like(out))
+  return augment.affine_warp(images, m, 0.0, "bilinear", (out_size, out_size))
 
 
 def det_train_preprocess(images, boxes, classes, flip, jitter, offsets,
@@ -153,3 +135,157 @@ def det_eval_preprocess(image, out_size: int, mean=MEAN_RGB,
                     device=image.device)
   out[:sh, :sw] = scaled
   return out, 1.0 / float(scale32)
+
+
+# ---------------------------------------------------------------------------
+# Classification.
+# ---------------------------------------------------------------------------
+
+
+def normalize_cls(images, norm: str = "v2"):
+  """The classification normalization families: 'v2' (x - 128) / 128; 'ft'
+  (x / 255 - 0.5) / 0.5; 'legacy' the per-channel ImageNet MEAN_RGB /
+  STDDEV_RGB (the last axis is the channel's)."""
+  x = images.float()
+  if norm == "v2":
+    return (x - 128.0) / 128.0
+  if norm == "ft":
+    return (x / 255.0 - 0.5) / 0.5
+  if norm == "legacy":
+    return normalize_image(x)
+  raise ValueError(f"Unknown cls norm {norm!r}")
+
+
+def norm_for_augname(augname: str | None) -> tuple[str, str | None]:
+  """(norm, effective augname): 'effnetv1_*' -> legacy; 'ft*' -> ft."""
+  if augname and augname.startswith("effnetv1_"):
+    return "legacy", augname[len("effnetv1_"):]
+  if augname and augname.startswith("ft"):
+    return "ft", augname
+  return "v2", augname
+
+
+def _nchw(images):
+  """[B, H, W, C] -> [B, C, H, W] in the channels_last memory format."""
+  return images.permute(0, 3, 1, 2).contiguous(
+      memory_format=torch.channels_last)
+
+
+def random_resized_crop(images, crop, out_size: int):
+  """Inception crops of [B, H, W, C] to [B, out, out, C] as one bilinear
+  warp per image. crop [B, 4]: the area share (in [0.08, 1)), the log of
+  the aspect ratio (in [log 3/4, log 4/3)) and two uniforms that place the
+  crop's top left corner."""
+  b, h, w, _ = images.shape
+  # JAX's float32 arithmetic, each op taken in float64 and rounded to
+  # float32: correctly rounded on any device (torch divides by a Python
+  # number as a reciprocal product on the card, and its float32 exp there
+  # is not correctly rounded), so the card's crops are the CPU's.
+  r = lambda t: t.float().double()
+  area, log_ratio, uy, ux = crop.float().double().unbind(1)
+  ratio = r(torch.exp(log_ratio))
+  crop_h = r(torch.sqrt(r(r(r(area * h) * w) / ratio)))
+  crop_w = r(crop_h * ratio)
+  crop_h = torch.clamp(crop_h, max=float(h))
+  crop_w = torch.clamp(crop_w, max=float(w))
+  m = torch.zeros((b, 3, 3), dtype=torch.float64, device=images.device)
+  m[:, 0, 0], m[:, 1, 1], m[:, 2, 2] = crop_h / out_size, crop_w / out_size, 1
+  m[:, 0, 2], m[:, 1, 2] = uy * r(h - crop_h), ux * r(w - crop_w)
+  return _bilinear_warp(images.float(), m.float(), out_size)
+
+
+def random_hflip(images, flip):
+  """Each image mirrored left-right where flip [B] is True."""
+  return torch.where(flip.view(-1, 1, 1, 1), images.flip(2), images)
+
+
+def cls_train_draws(batch_size: int, out_size: int, generator,
+                    num_layers: int = 2, device=None) -> dict:
+  """The classification training draws of one batch: the crop [B, 4]
+  (area share, log aspect ratio, two placement uniforms), the flip [B]
+  (Bernoulli 0.5) and RandAugment's (augment.randaugment_draws)."""
+  g = generator
+  u = torch.rand((batch_size, 5), generator=g, device=g.device)
+  lo, hi = float(np.log(3 / 4)), float(np.log(4 / 3))
+  crop = torch.stack([0.08 + u[:, 0] * (1.0 - 0.08), lo + u[:, 1] * (hi - lo),
+                      u[:, 2], u[:, 3]], 1)
+  return {"crop": crop.to(device), "flip": (u[:, 4] < 0.5).to(device),
+          "randaug": augment.randaugment_draws(batch_size, num_layers,
+                                               out_size, out_size, g, device)}
+
+
+def cls_train_preprocess(images, draws: dict, out_size: int,
+                         augname: str = "randaug", ra_magnitude: float = 15.0):
+  """[B, H, W, C] uint8 canvases -> [B, C, out, out] f32, normalized and
+  augmented, channels_last. By augname: 'effnetv1_*' the legacy
+  normalization, 'ft*' the finetune path (cls_finetune_preprocess, which
+  takes cls_finetune_draws), else (x - 128) / 128; RandAugment when the
+  augname names randaug or autoaug (draws from cls_train_draws, whose
+  num_layers is RandAugment's)."""
+  norm, aug = norm_for_augname(augname)
+  if norm == "ft":
+    return cls_finetune_preprocess(images, draws, out_size, augname=aug,
+                                   ra_magnitude=ra_magnitude, train=True)
+  imgs = random_resized_crop(images, draws["crop"], out_size)
+  imgs = random_hflip(imgs, draws["flip"])
+  if aug and ("randaug" in aug or "autoaug" in aug):
+    imgs = augment.randaugment(imgs, draws["randaug"], ra_magnitude)
+  return _nchw(normalize_cls(imgs, norm))
+
+
+def cls_finetune_draws(batch_size: int, out_size: int, generator,
+                       num_layers: int = 2, device=None) -> dict:
+  """The finetune path's draws: the flip [B], RandAugment's, the cutout
+  centre [B, 2] and its replacement values [B, out, out, 3], uniform in
+  [-1, 1)."""
+  g = generator
+  return {"flip": (torch.rand((batch_size,), generator=g, device=g.device)
+                   < 0.5).to(device),
+          "randaug": augment.randaugment_draws(batch_size, num_layers,
+                                               out_size, out_size, g, device),
+          "cutout": augment.cutout_draws(batch_size, out_size, out_size, g,
+                                         device),
+          "replace": (torch.rand((batch_size, out_size, out_size, 3),
+                                 generator=g, device=g.device) * 2.0
+                      - 1.0).to(device)}
+
+
+def cls_finetune_preprocess(images, draws, out_size: int, augname: str = "ft",
+                            ra_magnitude: float = 15.0, train: bool = True):
+  """The finetune path: the whole image resized (bilinear, antialiased when
+  it shrinks, as jax.image.resize), flipped, RandAugment where the augname
+  names it, normalized by 'ft', then a cutout (pad out // 4) of random
+  values where the augname is 'ft' or names cutout. train=False: resize
+  and normalize only (draws unused)."""
+  imgs = F.interpolate(images.float().permute(0, 3, 1, 2),
+                       size=(out_size, out_size), mode="bilinear",
+                       align_corners=False, antialias=True)
+  imgs = imgs.permute(0, 2, 3, 1)
+  if not train:
+    return _nchw(normalize_cls(imgs, "ft"))
+  imgs = random_hflip(imgs, draws["flip"])
+  if "randaug" in augname or "autoaug" in augname:
+    imgs = augment.randaugment(imgs, draws["randaug"], ra_magnitude)
+  imgs = normalize_cls(imgs, "ft")
+  if augname == "ft" or "cutout" in augname:
+    imgs = augment.cutout(imgs, draws["cutout"], out_size // 4,
+                          replace=draws["replace"])
+  return _nchw(imgs)
+
+
+def cls_eval_preprocess(images, out_size: int, crop_pad: int = 32,
+                        norm: str = "v2", precropped: bool = False):
+  """Centre crop of the fraction out / (out + crop_pad), resized (bilinear,
+  no antialias) to out, normalized: [B, H, W, C] -> [B, C, out, out] f32,
+  channels_last. precropped (or canvases already out x out): normalize
+  only."""
+  b, h, w, c = images.shape
+  if precropped or (h, w) == (out_size, out_size):
+    return _nchw(normalize_cls(images, norm))
+  frac = out_size / (out_size + crop_pad)
+  crop_h, crop_w = int(h * frac), int(w * frac)
+  y0, x0 = (h - crop_h) // 2, (w - crop_w) // 2
+  crop = images[:, y0:y0 + crop_h, x0:x0 + crop_w].float().permute(0, 3, 1, 2)
+  out = F.interpolate(crop, size=(out_size, out_size), mode="bilinear",
+                      align_corners=False, antialias=False)
+  return _nchw(normalize_cls(out.permute(0, 2, 3, 1), norm))

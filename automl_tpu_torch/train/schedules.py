@@ -1,9 +1,8 @@
 """Learning-rate schedules as step -> lr functions.
 
-The counterpart of automl_tpu/train/schedules.py::lm_lr and detection_lr.
-The arithmetic is done in float32, as the JAX functions' jnp ops do, so
-both give the same rates. The classification schedule (warmup_lr) comes
-with ROADMAP M8.
+The counterpart of automl_tpu/train/schedules.py: warmup_lr
+(classification), lm_lr and detection_lr. The arithmetic is done in
+float32, as the JAX functions' jnp ops do, so both give the same rates.
 """
 
 from __future__ import annotations
@@ -12,6 +11,46 @@ import math
 from typing import Callable
 
 import numpy as np
+
+
+def warmup_lr(name: str, base_lr: float, *, steps_per_epoch: int | None = None,
+              total_steps: int | None = None, warmup_epochs: float = 5,
+              decay_epochs: float = 2.4, decay_factor: float = 0.97,
+              minimal_lr: float = 0.0) -> Callable:
+  """Classification schedule family: exponential (staircase, every
+  decay_epochs), cosine, linear or constant, floored at minimal_lr, with a
+  linear warm-up from 0 over warmup_epochs. fn(step) -> lr as a Python
+  float (an f32 value)."""
+  if name not in ("exponential", "cosine", "linear", "constant"):
+    raise ValueError(f"Unknown lr schedule {name!r}")
+  if name == "exponential" and steps_per_epoch is None:
+    raise ValueError("the exponential schedule needs steps_per_epoch")
+  if name in ("cosine", "linear") and total_steps is None:
+    raise ValueError(f"the {name} schedule needs total_steps")
+  f32 = np.float32
+
+  def fn(step) -> float:
+    step = f32(step)
+    if name == "exponential":
+      decay_steps = f32(steps_per_epoch * decay_epochs)
+      lr = f32(base_lr) * f32(decay_factor) ** np.floor(step / decay_steps)
+    elif name == "cosine":
+      lr = f32(0.5 * base_lr) * (f32(1.0) + np.cos(
+          f32(math.pi) * step / f32(total_steps)))
+    elif name == "linear":
+      lr = f32(base_lr) * np.maximum(f32(1.0) - step / f32(total_steps),
+                                     f32(0.0))
+    else:
+      lr = f32(base_lr)
+    if minimal_lr:
+      lr = np.maximum(lr, f32(minimal_lr))
+    if warmup_epochs and steps_per_epoch:
+      warmup_steps = f32(warmup_epochs * steps_per_epoch)
+      if step < warmup_steps:
+        lr = f32(base_lr) * step / warmup_steps
+    return float(lr)
+
+  return fn
 
 
 def lm_lr(name: str, base_lr: float, *, num_train_steps: int,

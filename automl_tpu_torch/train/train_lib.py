@@ -1,8 +1,17 @@
-"""The detection train step: forward / backward, loss, clipping, optimizer,
+"""The train steps: forward / backward, loss, clipping, optimizer,
 BatchNorm statistics and EMA, all on the model's device.
 
 The counterpart of automl_tpu/train/train_lib.py (TrainState,
-create_train_state, make_det_train_step, _freeze_grads). The order of the
+create_train_state, make_cls_train_step, make_cls_eval_step,
+make_det_train_step, _freeze_grads).
+
+Classification: the preprocess (crop, flip, RandAugment, mixing) on the
+device, the cross-entropy (softmax with label smoothing, or sigmoid) plus
+the L2 term over the leaves weight_decay_exclude does not match (on the
+JAX path), a global gradient clip (gclip), the masked optimizer, the BN
+moving statistics, the EMA; top-1 against the argmax of the (soft) label.
+
+Detection: the order of the
 JAX step is kept: anchor labeling on the device, the (optionally moving)
 positives normalizer, the detection loss plus L2 on the clean batch (and
 the FGSM neighbour loss when adv_multiplier > 0), var_freeze_expr,
@@ -12,12 +21,12 @@ moving statistics of the clean forward pass, then the EMA of everything
 
 TrainState.params is the model's own {name: tensor} (parameters and BN
 buffers, convert.model_state), updated in place: one copy of the weights
-on the card. The classification and segmentation steps are not ported yet
-(ROADMAP M8 / M3).
+on the card. The segmentation step is not ported yet (ROADMAP M3).
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Any, NamedTuple, Optional
 
@@ -55,6 +64,125 @@ def freeze_grads(grads: dict, pattern) -> dict:
   """Zero the grads whose JAX path matches var_freeze_expr."""
   return {k: torch.zeros_like(g) if pattern.match(convert.det_jax_path(k)[0])
           else g for k, g in grads.items()}
+
+
+def l2_mask_fn(exclude_regex):
+  """weight_decay_exclude -> mask_fn(names) for losses.l2_leaves: False
+  where the regex matches the leaf's JAX path (a '/'-joined path of the
+  JAX tree, from the port's name)."""
+  if not exclude_regex:
+    return None
+  pat = re.compile(exclude_regex)
+  return lambda names: not pat.match(convert.det_jax_path(".".join(names))[0])
+
+
+@contextlib.contextmanager
+def params_in(model, params: dict):
+  """The model's parameters and buffers hold `params` ({name: tensor}, the
+  keys of convert.model_state) inside the block and their own values
+  after it; a no-op when `params` are the model's own tensors."""
+  own = convert.model_state(model)
+  if all(params[k] is v for k, v in own.items()):
+    yield
+    return
+  saved = {k: v.detach().clone() for k, v in own.items()}
+  with torch.no_grad():
+    for k, v in own.items():
+      v.copy_(params[k])
+  try:
+    yield
+  finally:
+    with torch.no_grad():
+      for k, v in own.items():
+        v.copy_(saved[k])
+
+
+# ---------------------------------------------------------------------------
+# Classification.
+# ---------------------------------------------------------------------------
+
+
+def make_cls_train_step(model, tx, config, preprocess_fn=None):
+  """-> train_step(state, batch, generator) -> (state, metrics).
+
+  batch: {'image' [B, 3, H, W] float, 'label' [B, num_classes] (one-hot,
+  soft or multi-hot)} on the model's device, or raw loader batches that
+  preprocess_fn(batch, generator) turns into that (the crop, flip,
+  RandAugment and mixing on the device). generator draws the
+  preprocessing's randomness, then the dropout and drop_connect masks.
+  metrics hold 0-d tensors (no host sync): loss, xent, l2, gnorm, top1."""
+  train_cfg = config.train
+  label_smoothing = train_cfg.label_smoothing
+  loss_type = train_cfg.get("loss_type")
+  weight_decay = train_cfg.weight_decay
+  l2_mask = l2_mask_fn(train_cfg.get("weight_decay_exclude"))
+  ema_decay = train_cfg.get("ema_decay", 0.0)
+  gclip = train_cfg.get("gclip", 0.0)
+
+  def train_step(state: TrainState, batch, generator=None):
+    if preprocess_fn is not None:
+      batch = preprocess_fn(batch, generator)
+    params = state.params
+    trainable = {k: p for k, p in params.items()
+                 if not opt_lib.is_batch_stat(k)}
+    for p in trainable.values():
+      p.grad = None
+    logits = model(batch["image"], train=True, generator=generator)
+    bn_updates = L.take_bn_updates(model)
+    xent = losses_lib.cross_entropy(logits, batch["label"], label_smoothing,
+                                    loss_type)
+    xent.backward()
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in trainable.items()}
+    for p in trainable.values():
+      p.grad = None
+    with torch.no_grad():
+      decayed = losses_lib.l2_leaves(trainable, l2_mask)
+      l2 = losses_lib.l2_regularization(decayed, weight_decay).to(xent.device)
+      if weight_decay and decayed:   # d(l2)/dv = weight_decay * v
+        torch._foreach_add_([grads[k] for k in decayed],
+                            list(decayed.values()), alpha=weight_decay)
+      grads = opt_lib.clip_gradients(grads, gclip, per_var=False)
+      updates, opt_state = tx.update(grads, state.opt_state, params)
+      torch._foreach_add_([params[k] for k in grads],
+                          [updates[k] for k in grads])
+      L.apply_bn_updates(bn_updates)
+      ema_params = state.ema_params
+      if ema_params is not None and ema_decay:
+        ema_params = opt_lib.ema_update(ema_params, params, ema_decay,
+                                        state.step)
+      label = batch["label"]
+      metrics = {
+          "loss": xent.detach() + l2, "xent": xent.detach(), "l2": l2,
+          "gnorm": opt_lib.global_norm(grads),
+          "top1": (logits.argmax(-1) == label.argmax(-1)).float().mean()}
+    return TrainState(state.step + 1, params, opt_state, ema_params,
+                      state.normalizer), metrics
+
+  return train_step
+
+
+def make_cls_eval_step(model):
+  """-> eval_step(params, batch{'image' preprocessed, 'label' one-hot}) ->
+  {top1_sum, top5_sum, count}: 0-d tensors of the batch, with `params`
+  ({name: tensor}) in the model for the call."""
+
+  def eval_step(params, batch):
+    with params_in(model, params), torch.no_grad():
+      logits = model(batch["image"], train=False)
+    labels = batch["label"].argmax(-1)
+    top1 = (logits.argmax(-1) == labels).float()
+    top5 = (logits.topk(min(5, logits.shape[-1]), -1).indices
+            == labels[:, None]).any(-1).float()
+    return {"top1_sum": top1.sum(), "top5_sum": top5.sum(),
+            "count": torch.tensor(float(top1.shape[0]))}
+
+  return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Detection.
+# ---------------------------------------------------------------------------
 
 
 def make_det_loss_and_grads(model, config):

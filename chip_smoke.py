@@ -6,8 +6,10 @@
                                      # with the split and the fused
                                      # backward), of a decode step, of
                                      # an EfficientDet-D0 training step (K6
-                                     # knob on and off) and of D0 b32
+                                     # knob on and off), of D0 b32
                                      # inference (pre_nms_topk 2048, 5000)
+                                     # and of a V2-S training step at 296
+                                     # (knob on; RandAugment's share)
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
@@ -105,7 +107,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      mode (the JSON rows with their four keys); the closed loop of
      tests/test_closed_loop.py through the port (efficientdet-test, 400
      steps on one box-coded batch, then hard-NMS eval): AP50 > 0.5;
-  9. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
+  9. classification: (g) K6 at every map of V2-S's stride-1 depthwise
+     convs at 168 and 296 (bf16, b8 and b V2S_BATCH) against its plain
+     version, timed in turns with depthwise.cu's and cuDNN's (in phase 6's
+     call); (a) cli/infer_cls bm on EfficientNetV2-B0 224 b8 and V2-S 384
+     b32, and the card's f32 logits against the CPU's (B0 b8, V2-S b4; atol
+     CLS_LOGIT_ATOL, top-5 equal; the bf16 top-1 agreement printed); (b)
+     cli/main_cls trains V2-S (b V2S_BATCH, bf16, RMSProp, EMA, RandAugment)
+     in a child process over its 4 progressive stages (168 / 208 / 256 /
+     296, 10 steps each) with the K6 knob on and off: the loss finite and
+     falling within each stage after the first, 28 K6 launches a step, all
+     the Hopper kernel's, with the knob and none without, per stage step
+     ms, img/s and peak memory, and the two runs' losses within
+     CLS_KNOB_RTOL of each other; (c) V2-S step 1 (b8, 168) knob on
+     against off (DET_STEP1_LIMITS), and two f32 steps on the card against
+     the CPU (the losses within CLS_LOSS_RTOL; step 1's params, BN
+     statistics and EMA within CLS_UPDATE_ATOL / CLS_STATE_SHARE of the
+     step's change); (d) 10 steps with mixup and cutmix 0.2; (e)
+     cls_train_preprocess on the card against the CPU from the same draws
+     (PRE_ATOL, PRE_WARP_SHARE); (f) evaluate_classification at 384 with
+     the EMA of the run's last checkpoint;
+  10. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
      through the converter, cast for serving) generates 512 tokens greedily
      after a 512-token prompt at batch 8, through generate_lm.load_model and
      greedy_generate. The run must launch K4 exactly n_layers * 512 times,
@@ -1366,7 +1388,7 @@ def _det_step1(dev, cfg):
   return out, k6_leaves
 
 
-def _det_step1_check(out, k6_leaves):
+def _det_step1_check(out, k6_leaves, what="D0"):
   """The knob changes only how the depthwise filter gradients are summed:
   the loss is the same, those grads agree to bf16 rounding (both are
   rounded to the bf16 compute dtype from f32 sums in other orders), the
@@ -1392,7 +1414,7 @@ def _det_step1_check(out, k6_leaves):
   worst_rel = max(k6, key=lambda k: k6[k][1])
   o_cos = min(others, key=lambda k: others[k][0])
   o_rel = max(others, key=lambda k: others[k][1])
-  print(f"D0 step 1, knob on vs off: |dloss| {d_loss:.3e} (limit "
+  print(f"{what} step 1, knob on vs off: |dloss| {d_loss:.3e} (limit "
         f"{DET_STEP1_LIMITS['loss']:g}); {len(k6)} depthwise kernel grads: "
         f"lowest cosine {k6[worst_cos][0]:.7f} at {worst_cos} (limit "
         f"{DET_STEP1_LIMITS['k6_cos']}), largest max|diff| / max|grad| "
@@ -1407,8 +1429,8 @@ def _det_step1_check(out, k6_leaves):
           and k6[worst_rel][1] <= DET_STEP1_LIMITS["k6_rel"]
           and others[o_cos][0] >= DET_STEP1_LIMITS["other_cos"]
           and others[o_rel][1] <= DET_STEP1_LIMITS["other_rel"]):
-    raise AssertionError("D0 step 1 with the K6 knob on disagrees with the "
-                         "knob off")
+    raise AssertionError(f"{what} step 1 with the K6 knob on disagrees with "
+                         "the knob off")
 
 
 # Step 1 limits, knob on vs off. Measured on the H100 (b16, bf16): the
@@ -1921,6 +1943,7 @@ def profile_phase(dev):
 
   _det_profile(dev)
   _infer_profile(dev)
+  _cls_profile(dev)
 
   # The serving slice's shapes: b8, a 512-token prompt, cache 1024.
   _, model = generate_lm.load_model(config_name="lm-flops1e19", seed=0,
@@ -1964,6 +1987,86 @@ def profile_phase(dev):
         f"{wall_us / 1e3:.3f} ms/step, device busy {busy / 1e3:.3f} ms/step "
         f"({100 * busy / wall_us:.1f}% of the wall time), K4 "
         f"{k4 / 1e3:.3f} ms/step")
+
+
+def _cls_profile(dev):
+  """V2-S training steps at its last stage (296 x 296, b V2S_BATCH, bf16,
+  RandAugment m 10, the K6 knob on): step times (host clock, 5 steps),
+  the preprocess and RandAugment alone (host clock around synchronised
+  calls), then two steps under torch.profiler: device time by kernel, the
+  device-busy share, K6's time and the launches a step."""
+  import torch
+  from automl_tpu_torch.data import augment, pipeline, preprocessing
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.ops import depthwise as dw
+  from automl_tpu_torch.train import optimizers, runners, schedules, train_lib
+  cfg = _cls_config()
+  size, b = 296, V2S_BATCH
+  precision.set_policy("mixed_bfloat16")
+  model = runners.seeded_classification_model(cfg.model, 0, dev)
+  tx = optimizers.masked_for_params(optimizers.build_optimizer(
+      "rmsprop", schedules.warmup_lr("exponential", 0.016, steps_per_epoch=1,
+                                     warmup_epochs=5)))
+  state = train_lib.create_train_state(model, tx)
+  prep = runners.make_cls_preprocess(cfg, size, 10.0, 0.0, 0.0)
+  step_fn = train_lib.make_cls_train_step(model, tx, cfg, preprocess_fn=prep)
+  raw = pipeline.SyntheticClassification(b, int(size * 1.15) // 2 * 2,
+                                         1000).batch
+  raw = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+  gen = torch.Generator(device=dev)
+
+  def steps(count):
+    nonlocal state
+    for _ in range(count):
+      state, m = step_fn(state, raw, gen.manual_seed(state.step))
+      float(m["loss"])
+
+  def timed(fn, count=5):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(count):
+      fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / count * 1e3
+
+  dw.enable_pallas_filter_grad(True)
+  try:
+    steps(3)
+    step_ms = timed(lambda: steps(1))
+    prep_ms = timed(lambda: prep(raw, gen.manual_seed(1)))
+    imgs = torch.rand((b, size, size, 3), device=dev) * 255
+    draws = augment.randaugment_draws(b, 2, size, size, gen.manual_seed(2))
+    ra_ms = timed(lambda: augment.randaugment(imgs, draws, 10.0))
+    crop = preprocessing.cls_train_draws(b, size, gen.manual_seed(3), 2)
+    crop_ms = timed(lambda: preprocessing.random_resized_crop(
+        raw["image"], crop["crop"], size))
+    print(f"V2-S b{b} {size}x{size} step (K6 knob on): {step_ms:.1f} ms "
+          f"(host clock, 5 steps); the preprocess alone {prep_ms:.1f} ms "
+          f"({100 * prep_ms / step_ms:.1f}%), of which RandAugment (2 layers "
+          f"x 16 ops on every image) {ra_ms:.1f} ms "
+          f"({100 * ra_ms / step_ms:.1f}% of the step) and the crop "
+          f"{crop_ms:.1f} ms")
+    del imgs
+    n = 2
+    wall_us, rows, host_rows = _profiled(lambda: steps(n))
+  finally:
+    dw.enable_pallas_filter_grad(False)
+  busy = sum(r[0] for r in rows)
+  k6 = sum(r[0] for r in rows if "filter_grad" in r[2]
+           or "reduce_parts_kernel" in r[2])
+  k6_calls = sum(r[1] for r in rows if "filter_grad" in r[2])
+  launches = sum(c for _, c, k in host_rows if k == "cudaLaunchKernel")
+  print(f"profile, {n} V2-S training steps b{b} {size}x{size}, K6 knob on: "
+        f"wall {wall_us / n / 1e3:.1f} ms/step, device busy "
+        f"{busy / n / 1e3:.1f} ms/step ({100 * busy / wall_us:.1f}% of the "
+        f"wall time), K6 {k6 / n / 1e3:.2f} ms/step in {k6_calls // n} "
+        f"launches, {launches // n} cudaLaunchKernel a step")
+  for dt, count, key in rows[:20]:
+    print(f"  {dt / n / 1e3:9.2f} ms/step {100 * dt / busy:5.1f}%  "
+          f"{count // n:5d} calls/step  {key[:90]}")
+  del model, state, step_fn
+  torch.cuda.empty_cache()
 
 
 def _det_profile(dev):
@@ -2153,6 +2256,578 @@ def serving_phase(dev):
   return launches
 
 
+# ---------------------------------------------------------------------------
+# Classification (EfficientNetV2): inference, training, K6 at V2-S's maps.
+# ---------------------------------------------------------------------------
+
+# The cut: V2-S trains at b256 (the config's global batch is 4,096). 256
+# is the cap of the cut (the largest power of two <= 256 that fits at the
+# last stage's 296 x 296), not a measured limit: it fits, its stage-3 step
+# peaking at 56.68 GiB (this script's stage line, H100 80GB HBM3 at 700 W),
+# and no larger batch was tried.
+V2S_BATCH = 256
+V2S_STAGE_STEPS = 10
+# The K6 knob-on and knob-off runs draw the same batches, crops, RandAugment
+# ops and masks from the same seeds; they differ only in the bf16 rounding
+# of the 28 depthwise filter gradients (f32 sums in other orders), from step
+# 1's update on. Measured on the H100 (b256): stage 0's losses at most
+# 0.15% apart, each stage's mean loss at most 0.34%. The limits: each of
+# stage 0's steps and each stage's mean within CLS_KNOB_RTOL.
+CLS_KNOB_RTOL = 1e-2
+# Card f32 logits (TF32 off) against the CPU's from the same weights: the
+# fc kernel is scaled (FC_SCALE) so that the logits are of order 1 and the
+# top 5 are apart (seeded weights give logits of order 1e-3 and 1e-1).
+CLS_LOGIT_ATOL = 1e-3
+FC_SCALE = {"efficientnetv2-b0": 2000.0, "efficientnetv2-s": 30.0}
+# cls_train_preprocess on the card against the CPU from the same draws, on
+# [0, 255]: images whose RandAugment layers draw no nearest warp within
+# PRE_ATOL everywhere; the others at most PRE_WARP_SHARE of their pixels
+# off by more (a source coordinate within an ulp of .5 rounds either way).
+PRE_ATOL = 1e-3
+PRE_WARP_SHARE = 1e-3
+CLS_LOSS_RTOL = 1e-4
+# The state after one f32 RMSProp step, card against CPU: the params
+# within CLS_STATE_SHARE of the largest update (decay 0.9 and nu from 0, so
+# an update is at most lr * sqrt(10) an element), the BN statistics within
+# CLS_STATE_SHARE of their largest change; the same for their EMA. A
+# per-leaf relative rule cannot hold: where a train-mode BN cancels a
+# gradient (a block's last BN beta, whose residual stream only 1x1 convs,
+# each before a BN, read), both devices' gradients are rounding noise that
+# RMSProp scales by up to lr / sqrt(eps); where a statistic is zero in exact
+# arithmetic (the mean of an expand conv fed by a BN's zero-mean output),
+# both devices' statistics are rounding noise.
+CLS_F32_LR = 0.016
+CLS_STATE_SHARE = 1e-3
+CLS_UPDATE_ATOL = CLS_STATE_SHARE * CLS_F32_LR * 10 ** 0.5
+
+
+def _cls_config(name="efficientnetv2-s", **overrides):
+  from automl_tpu_torch.configs.effnet_configs import get_model_config
+  cfg = get_model_config(name)
+  cfg.override(overrides)
+  return cfg
+
+
+def _stride1_depthwise_maps(model, size: int) -> dict:
+  """{(C, H, W, k): calls a step} of the K6 calls of a classifier's training
+  step at size x size: the stride-1 depthwise convs, with the map each
+  sees (the stem and every stride-2 block halve it, SAME)."""
+  from automl_tpu_torch.nn import layers as L
+  h = -(-size // 2)
+  maps = {}
+  for block in model.blocks:
+    dwc = getattr(block, "depthwise_conv2d", None)
+    if isinstance(dwc, L.DepthwiseConv2D) and dwc.strides == (1, 1):
+      key = (dwc.out_ch, h, h, dwc.kernel_size[0])
+      maps[key] = maps.get(key, 0) + 1
+    h = -(-h // block.args.strides)
+  return maps
+
+
+def _cls_infer_check(dev):
+  """(a) infer_cls's predict (bm) on V2-B0 224 b8 and V2-S 384 b32; the
+  card's f32 logits (TF32 off) against the CPU's from the same weights (B0
+  b8, V2-S b4): atol CLS_LOGIT_ATOL and the top-5 equal; under
+  mixed_bfloat16, the share of images whose top-1 is the CPU f32's."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch.cli import infer_cls
+  from automl_tpu_torch.data import preprocessing
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.train import runners
+  for name, b in (("efficientnetv2-b0", 8), ("efficientnetv2-s", 32)):
+    r = infer_cls.main([f"--model_name={name}", "--runmode=bm",
+                        f"--batch_size={b}", "--device=cuda"])
+    cfg = _cls_config(name)
+    print(f"infer_cls bm {name} {cfg.eval.isize}x{cfg.eval.isize} b{b} "
+          f"(mixed_bfloat16, predict = eval preprocess + forward, CUDA "
+          f"events): {r['fps']} img/s, {r['latency_ms']} ms a call")
+  for name, b in (("efficientnetv2-b0", 8), ("efficientnetv2-s", 4)):
+    cfg = _cls_config(name)
+    isize = int(cfg.eval.isize)
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 256, (b, isize + 32, isize + 32,
+                                                    3), dtype=np.uint8))
+    logits = {}
+    for where, policy in (("cpu", "float32"), ("cuda", "float32"),
+                          ("cuda", "mixed_bfloat16")):
+      precision.set_policy(policy)
+      model = runners.seeded_classification_model(cfg.model, 0, where)
+      with torch.no_grad():
+        model.head.fc.kernel.mul_(FC_SCALE[name])
+        x = preprocessing.cls_eval_preprocess(images.to(where), isize)
+        logits[(where, policy)] = model(x, train=False).float().cpu()
+      del model
+    precision.set_policy("mixed_bfloat16")
+    cpu, card = logits[("cpu", "float32")], logits[("cuda", "float32")]
+    err = float((card - cpu).abs().max())
+    same5 = torch.equal(cpu.topk(5).indices, card.topk(5).indices)
+    bf16 = logits[("cuda", "mixed_bfloat16")]
+    agree = float((bf16.argmax(-1) == cpu.argmax(-1)).float().mean())
+    gap = float((cpu.topk(6).values[:, :5] - cpu.topk(6).values[:, 1:])
+                .min())
+    print(f"{name} b{b} {isize}x{isize}, card f32 vs CPU f32 logits: "
+          f"max|diff| {err:.3e} (limit {CLS_LOGIT_ATOL}, logits up to "
+          f"{float(cpu.abs().max()):.3f}, smallest top-5 gap {gap:.3e}); "
+          f"top-5 equal {same5}; mixed_bfloat16 top-1 = CPU f32 top-1 in "
+          f"{100 * agree:.1f}% of the images")
+    if not (err <= CLS_LOGIT_ATOL and same5):
+      raise AssertionError(f"{name}: the card's f32 logits disagree with "
+                           "the CPU's")
+  torch.cuda.empty_cache()
+
+
+_CLS_CHILD = r"""
+import json, sys, torch
+from automl_tpu_torch.cli import main_cls
+from automl_tpu_torch.ops import depthwise as dw
+from automl_tpu_torch.train import runners
+dw.enable_pallas_filter_grad(sys.argv[1] == "on")
+f = dw.depthwise_filter_grad
+marks = []
+def mark():
+  torch.cuda.synchronize()
+  marks.append(dict(launches=f.launches, sm90=f.launches_sm90,
+                    peak=torch.cuda.max_memory_allocated()))
+  torch.cuda.reset_peak_memory_stats()
+make = runners.make_cls_preprocess
+def at_each_stage(*a, **k):
+  mark()
+  return make(*a, **k)
+runners.make_cls_preprocess = at_each_stage
+f.launches = f.launches_sm90 = 0
+main_cls.main(sys.argv[2:])
+mark()
+print("CLS_STAGES " + json.dumps(marks))
+"""
+
+
+def _cls_train_run(workdir, knob: bool, steps: int, per_step: int,
+                   stage_sizes):
+  """(b) cli/main_cls trains V2-S as a subprocess for `steps` steps over
+  its 4 progressive stages, the K6 knob set in the child, its launch count
+  and peak memory read at each stage's start (a wrapper of
+  runners.make_cls_preprocess) and at the end. Checks the loss (finite,
+  falling within each stage after the first) and the launches (per_step a
+  step, all Hopper, with the knob; none without). Returns ([(size, step
+  ms, img/s, peak GiB, launches)] per stage, the losses)."""
+  import numpy as np
+  shutil.rmtree(workdir, ignore_errors=True)
+  flags = ["--model_name=efficientnetv2-s", f"--model_dir={workdir}",
+           f"--train_steps={steps}", "--log_every=1", "--device=cuda",
+           f"--hparam_str=train.batch_size={V2S_BATCH}"]
+  root = os.path.dirname(os.path.abspath(__file__))
+  t0 = time.perf_counter()
+  proc = subprocess.run([sys.executable, "-c", _CLS_CHILD,
+                         "on" if knob else "off", *flags], cwd=root,
+                        capture_output=True, text=True, timeout=600,
+                        check=False)
+  wall = time.perf_counter() - t0
+  for line in proc.stdout.splitlines():
+    if line.startswith("step ") and int(line.split()[1]) % 10 in (1, 0):
+      print(f"  {line}")
+  if proc.returncode != 0:
+    print(proc.stdout[-3000:], proc.stderr[-6000:])
+    raise AssertionError(f"main_cls (knob {knob}) exited {proc.returncode}")
+  marks = json.loads(next(l for l in proc.stdout.splitlines()
+                          if l.startswith("CLS_STAGES "))[11:])
+  recs = [json.loads(line) for line in
+          open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
+  losses = [r["loss"] for r in recs]
+  print(f"losses (K6 knob {'on' if knob else 'off'}): "
+        f"{' '.join(f'{x:.3f}' for x in losses)}")
+  if [r["step"] for r in recs] != list(range(1, steps + 1)) or not all(
+      math.isfinite(x) for x in losses):
+    raise AssertionError("training steps missing or loss not finite")
+  # Each stage draws its own synthetic batch (at its canvas), repeated
+  # through the stage: the loss must fall within each stage after the
+  # first (the mean of its last 3 steps below its first step's). Stage 0
+  # rises before it falls, in both runs alike: 40 steps of a 350-epoch
+  # config make steps_per_epoch 1, so the lr warms up to 0.016 in 5 steps,
+  # and RMSProp's nu starts at 0 (decay 0.9), which scales step t's update
+  # by 1 / sqrt(1 - 0.9^t), 3.2x at step 1. The update itself is held to
+  # the CPU's in _cls_step1, and the two runs' losses to each other in
+  # cls_phase.
+  per_stage = steps // len(stage_sizes)
+  for i in range(1, len(stage_sizes)):
+    stage = losses[i * per_stage:(i + 1) * per_stage]
+    if not np.mean(stage[-3:]) < stage[0]:
+      raise AssertionError(f"loss did not fall in stage {i}: {stage[0]:.4f} "
+                           f"-> {np.mean(stage[-3:]):.4f}")
+  out = []
+  for i, size in enumerate(stage_sizes):
+    launches = marks[i + 1]["launches"] - marks[i]["launches"]
+    sm90 = marks[i + 1]["sm90"] - marks[i]["sm90"]
+    secs = [r["secs_per_step"] for r in recs[i * per_stage:(i + 1) *
+                                              per_stage]]
+    step_ms = float(np.median(secs[2:])) * 1e3
+    peak = marks[i + 1]["peak"] / 2**30
+    out.append((size, step_ms, V2S_BATCH / step_ms * 1e3, peak, launches))
+    print(f"V2-S train b{V2S_BATCH} stage {i} {size}x{size} bf16, K6 knob "
+          f"{'on' if knob else 'off'}: step {step_ms:.1f} ms (median of the "
+          f"stage's steps 3-{per_stage}), {V2S_BATCH / step_ms * 1e3:.1f} "
+          f"img/s, peak memory {peak:.2f} GiB, K6 launches {launches} "
+          f"({sm90} Hopper)")
+    expected = per_step * per_stage if knob else 0
+    if launches != expected or sm90 != expected:
+      raise AssertionError(f"stage {i}: {launches} K6 launches ({sm90} "
+                           f"Hopper), expected {expected}")
+  print(f"V2-S, {steps} steps in {wall:.1f} s (the child's start and model "
+        f"build included); loss by stage, first step -> mean of the last 3: "
+        + ", ".join(f"{stage[0]:.4f} -> {np.mean(stage[-3:]):.4f}"
+                    for stage in (losses[i * per_stage:(i + 1) * per_stage]
+                                  for i in range(len(stage_sizes)))))
+  return out, losses
+
+
+def _cls_knob_losses_check(on, off):
+  """The knob-on and knob-off V2-S runs' losses against each other: each
+  of stage 0's steps and each stage's mean within CLS_KNOB_RTOL."""
+  import numpy as np
+  on, off = np.asarray(on), np.asarray(off)
+  per = V2S_STAGE_STEPS
+  step_rel = np.abs(on[:per] - off[:per]) / np.abs(off[:per])
+  means_on, means_off = (x.reshape(-1, per).mean(1) for x in (on, off))
+  mean_rel = np.abs(means_on - means_off) / np.abs(means_off)
+  print(f"V2-S losses, K6 knob on vs off: stage 0's steps at most "
+        f"{100 * step_rel.max():.3f}% apart, the stages' mean losses "
+        f"{' '.join(f'{a:.4f}/{b:.4f}' for a, b in zip(means_on, means_off))}"
+        f" at most {100 * mean_rel.max():.3f}% apart (limit "
+        f"{100 * CLS_KNOB_RTOL:g}%); the whole run's steps at most "
+        f"{100 * (np.abs(on - off) / np.abs(off)).max():.3f}% apart")
+  if step_rel.max() > CLS_KNOB_RTOL or mean_rel.max() > CLS_KNOB_RTOL:
+    raise AssertionError("the V2-S run with the K6 knob on drifted from "
+                         "the run with it off")
+
+
+def _cls_state_check(name, new, ref_new, ref_old, limit=None):
+  """Leaves after one f32 step, card against CPU: the largest max|diff|
+  within `limit`, by default CLS_STATE_SHARE of the largest change the
+  step made to these leaves on the CPU."""
+  diff = {k: float((new[k].double() - ref_new[k].double()).abs().max())
+          for k in ref_new}
+  step = max(float((ref_new[k].double() - ref_old[k].double()).abs().max())
+             for k in ref_new)
+  limit = CLS_STATE_SHARE * step if limit is None else limit
+  worst = max(diff, key=diff.get)
+  print(f"  {name}: {len(diff)} leaves, largest change {step:.3e}, largest "
+        f"max|card - CPU| {diff[worst]:.3e} at {worst} (limit {limit:.3e})")
+  if diff[worst] > limit:
+    raise AssertionError(f"V2-S f32 step 1: the card's {name} disagree "
+                         "with the CPU's")
+
+
+def _cls_step1(dev):
+  """(c) Step 1 of V2-S (b8, 168 x 168, bf16) with the K6 knob off and on,
+  from one model and one preprocessed batch, the dropout / drop_connect
+  masks from one seed; then _cls_card_vs_cpu from the same weights and
+  batch."""
+  import torch
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.nn import layers as L
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.ops import depthwise as dw
+  from automl_tpu_torch.ops import losses
+  from automl_tpu_torch.train import runners
+  cfg = _cls_config()
+  b, size = 8, 168
+  raw = pipeline.SyntheticClassification(b, int(size * 1.15) // 2 * 2,
+                                         1000).batch
+  precision.set_policy("mixed_bfloat16")
+  model = runners.seeded_classification_model(cfg.model, 0, dev)
+  prep = runners.make_cls_preprocess(cfg, size, 2.5, 0.0, 0.0)
+  cpu_gen = torch.Generator()
+  batch = prep({k: torch.from_numpy(v).to(dev) for k, v in raw.items()},
+               cpu_gen.manual_seed(7))
+  trainable = {k: p for k, p in model.named_parameters()}
+  out = {}
+  for knob in (False, True):
+    dw.enable_pallas_filter_grad(knob)
+    try:
+      logits = model(batch["image"], train=True,
+                     generator=cpu_gen.manual_seed(8))
+      L.take_bn_updates(model)
+      loss = losses.cross_entropy(logits, batch["label"], 0.1)
+      grads = torch.autograd.grad(loss, list(trainable.values()),
+                                  allow_unused=True)
+      torch.cuda.synchronize()
+    finally:
+      dw.enable_pallas_filter_grad(False)
+    print(f"V2-S step 1 (b{b}, {size}x{size}), K6 knob "
+          f"{'on' if knob else 'off'}: loss {float(loss.detach()):.6f}")
+    out[knob] = (float(loss.detach()),
+                 {k: g if g is not None else torch.zeros_like(p)
+                  for (k, p), g in zip(trainable.items(), grads)})
+  k6_leaves = sorted(
+      f"{name}.kernel" for name, m in model.named_modules()
+      if isinstance(m, L.DepthwiseConv2D) and m.strides == (1, 1))
+  if len(k6_leaves) != 28:
+    raise AssertionError(f"V2-S has {len(k6_leaves)} stride-1 depthwise "
+                         "convs, not 28")
+  _det_step1_check(out, k6_leaves, "V2-S")
+  del model, out, batch
+  torch.cuda.empty_cache()
+
+  _cls_card_vs_cpu(dev, cfg, raw, prep, f"b{b}, {size}x{size}")
+
+
+def _cls_card_vs_cpu(dev, cfg, raw, prep, what):
+  """Two f32 make_cls_train_step steps (RMSProp, EMA, the stage's
+  preprocess) on the card and on the CPU from the same weights, batch and
+  draws (a CPU generator feeds both): each step's loss within
+  CLS_LOSS_RTOL (step 2's after the update); after step 1 the params, the
+  BN statistics and their EMA under _cls_state_check."""
+  import torch
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.train import optimizers, runners, train_lib
+  precision.set_policy("float32")
+  losses_by, snaps = {}, {}
+  snap = lambda d: {k: v.detach().clone().cpu() for k, v in d.items()}
+  for where in (str(dev), "cpu"):
+    m = runners.seeded_classification_model(cfg.model, 0, where)
+    tx = optimizers.masked_for_params(optimizers.build_optimizer(
+        "rmsprop", CLS_F32_LR))
+    step = train_lib.make_cls_train_step(m, tx, cfg, preprocess_fn=prep)
+    state = train_lib.create_train_state(m, tx)
+    old = snap(state.params)
+    batch = {k: torch.from_numpy(v).to(where) for k, v in raw.items()}
+    gen = torch.Generator()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, gen.manual_seed(9))
+    snaps[where] = (snap(state.params), old, snap(state.ema_params))
+    state, metrics2 = step(state, batch, gen.manual_seed(10))
+    losses_by[where] = (float(metrics["loss"]), float(metrics2["loss"]))
+    print(f"V2-S f32 steps 1 and 2 ({what}) on the {where}: loss "
+          f"{losses_by[where][0]:.7f}, {losses_by[where][1]:.7f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del m, state, step, batch
+  precision.set_policy("mixed_bfloat16")
+  card, cpu = losses_by[str(dev)], losses_by["cpu"]
+  rel = [abs(a - c) / abs(c) for a, c in zip(card, cpu)]
+  print(f"V2-S f32 steps 1 and 2, card vs CPU: loss rel. diff {rel[0]:.3e} "
+        f"and {rel[1]:.3e} (limit {CLS_LOSS_RTOL})")
+  (p_card, _, ema_card), (p_cpu, old_cpu, ema_cpu) = (snaps[str(dev)],
+                                                       snaps["cpu"])
+  stats = [k for k in p_cpu if optimizers.is_batch_stat(k)]
+  params = [k for k in p_cpu if k not in stats]
+  for what, card_d, cpu_d in (("", p_card, p_cpu),
+                              ("EMA of the ", ema_card, ema_cpu)):
+    _cls_state_check(what + "params", {k: card_d[k] for k in params},
+                     {k: cpu_d[k] for k in params}, old_cpu, CLS_UPDATE_ATOL)
+    _cls_state_check(what + "BN statistics", {k: card_d[k] for k in stats},
+                     {k: cpu_d[k] for k in stats}, old_cpu)
+  if max(rel) > CLS_LOSS_RTOL:
+    raise AssertionError("V2-S f32 steps on the card disagree with the CPU")
+  torch.cuda.empty_cache()
+
+
+def _cls_mixing_run(workdir):
+  """(d) 10 V2-S steps (b32, one stage at 168 x 168) with V2-M's
+  mixup_alpha = cutmix_alpha = 0.2, through main_cls: every step mixes
+  (augment.mixing called once a step), the loss finite."""
+  import torch
+  from automl_tpu_torch.cli import main_cls
+  from automl_tpu_torch.data import augment
+  shutil.rmtree(workdir, ignore_errors=True)
+  calls = []
+  mixing = augment.mixing
+  augment.mixing = lambda *a, **k: calls.append(1) or mixing(*a, **k)
+  try:
+    t0 = time.perf_counter()
+    out = main_cls.main([
+        "--model_name=efficientnetv2-s", f"--model_dir={workdir}",
+        "--train_steps=10", "--log_every=1", "--device=cuda",
+        "--hparam_str=train.batch_size=32,train.stages=1,train.isize=168,"
+        "data.mixup_alpha=0.2,data.cutmix_alpha=0.2"])
+  finally:
+    augment.mixing = mixing
+  recs = [json.loads(line) for line in
+          open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
+  losses = [r["loss"] for r in recs]
+  print(f"V2-S b32 168x168 with mixup and cutmix 0.2 (half the batch each): "
+        f"10 steps in {time.perf_counter() - t0:.1f} s, mixing called "
+        f"{len(calls)} times; losses {' '.join(f'{x:.3f}' for x in losses)}")
+  if len(calls) != 10 or len(losses) != 10 or not all(
+      math.isfinite(x) for x in losses) or not math.isfinite(out["loss"]):
+    raise AssertionError("the mixing run failed")
+  torch.cuda.empty_cache()
+
+
+def _cls_preprocess_check(dev):
+  """(e) cls_train_preprocess (crop, flip, RandAugment 2 layers at m 10,
+  v2 normalization) at b32 from 340 x 340 canvases to 296 x 296, on the
+  card and on the CPU from the same draws, compared on [0, 255]: images
+  with no nearest warp drawn within PRE_ATOL, the others at most
+  PRE_WARP_SHARE of their pixels off by more."""
+  import torch
+  from automl_tpu_torch.data import augment, pipeline, preprocessing
+  b, canvas, out = 32, 340, 296
+  images = torch.from_numpy(pipeline.SyntheticClassification(
+      b, canvas, 1000, seed=3).batch["image"])
+  draws = preprocessing.cls_train_draws(b, out, torch.Generator().manual_seed(
+      0), 2)   # seed 0 draws all 16 ops
+  to = lambda d, dev: {k: (to(v, dev) if isinstance(v, dict) else v.to(dev))
+                       for k, v in d.items()}
+  res = {}
+  for where in ("cpu", dev):
+    x = preprocessing.cls_train_preprocess(images.to(where), to(draws, where),
+                                           out, "randaug", 10.0)
+    res[str(where)] = (x.float().cpu().permute(0, 2, 3, 1) * 128.0 + 128.0)
+  cpu, card = res["cpu"], res[str(dev)]
+  warps = {augment.OPS.index(n) for n in ("rotate", "shear_x", "shear_y",
+                                          "translate_x", "translate_y")}
+  off = ((card - cpu).abs() > PRE_ATOL).any(-1).float().mean((1, 2))
+  worst_plain = worst_warp = 0.0
+  for i in range(b):
+    ops = set(draws["randaug"]["op"][i].tolist())
+    if ops & warps:
+      worst_warp = max(worst_warp, float(off[i]))
+    else:
+      worst_plain = max(worst_plain, float((card[i] - cpu[i]).abs().max()))
+  n_warp = sum(bool(set(o.tolist()) & warps) for o in draws["randaug"]["op"])
+  print(f"cls_train_preprocess b{b} {canvas}->{out}, RandAugment m10, card "
+        f"vs CPU from the same draws: {b - n_warp} images without a nearest "
+        f"warp, max|diff| {worst_plain:.3e} on [0, 255] (limit {PRE_ATOL}); "
+        f"{n_warp} with one, at most {100 * worst_warp:.3f}% of an image's "
+        f"pixels off by more than {PRE_ATOL} (limit {100 * PRE_WARP_SHARE}%)")
+  if worst_plain > PRE_ATOL or worst_warp > PRE_WARP_SHARE:
+    raise AssertionError("cls_train_preprocess on the card disagrees with "
+                         "the CPU")
+  ops_seen = sorted({augment.OPS[o] for o in
+                     draws["randaug"]["op"].flatten().tolist()})
+  print(f"  ops drawn: {len(ops_seen)} of 16 ({', '.join(ops_seen)})")
+
+
+def _cls_eval_check(dev, ckpt_dir):
+  """(f) evaluate_classification at 384 x 384 (V2-S's eval size, b32, 2
+  synthetic minival batches) with the EMA of the knob-on run's last
+  checkpoint (stage 4): top-1 and top-5 in [0, 1]."""
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.cli import infer_cls
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.train import runners
+  cfg = _cls_config()
+  precision.set_policy("mixed_bfloat16")
+  model = runners.seeded_classification_model(cfg.model, 0, dev)
+  infer_cls.load_params(model, ckpt_dir, use_ema=True)
+  t0 = time.perf_counter()
+  m = runners.evaluate_classification(
+      model, convert.model_state(model), cfg,
+      iter(pipeline.SyntheticClassification(32, 384 + 32, 1000)), 2)
+  print(f"evaluate_classification, V2-S 384x384 b32, the EMA of the last "
+        f"checkpoint, 2 synthetic batches ({time.perf_counter() - t0:.1f} "
+        f"s): top1 {m['top1']:.4f}, top5 {m['top5']:.4f}, samples "
+        f"{m['samples']:.0f}")
+  if m["samples"] != 64 or not (0 <= m["top1"] <= m["top5"] <= 1):
+    raise AssertionError(f"classification eval malformed: {m}")
+  del model
+  torch.cuda.empty_cache()
+
+
+def k6_v2s_phase(dev, flush, sizes=(168, 296), batches=(8, V2S_BATCH)):
+  """(g) K6 at every distinct map of V2-S's training steps at 168 and 296
+  (bf16, b8 and the smoke's batch): the Hopper kernel against its plain
+  version (K6_SHARE, a second call bit-equal), then the Hopper kernel,
+  depthwise.cu's and cuDNN's weight gradient timed in turns (L2
+  flushed), beside the bound; and each step's launch-weighted sums."""
+  import torch
+  from automl_tpu_torch.models.efficientnet import EfficientNet
+  from automl_tpu_torch.ops import depthwise as dw
+  model = EfficientNet(_cls_config().model, device="meta")
+  gen = torch.Generator(device=dev).manual_seed(5)
+  kern = dw.depthwise_filter_grad_kernel
+  ref = dw.depthwise_filter_grad_reference
+  f = dw.depthwise_filter_grad
+  for size in sizes:
+    maps = _stride1_depthwise_maps(model, size)
+    for b in batches:
+      sums = dict(ms=0.0, simt=0.0, lib=0.0, bound=0.0)
+      for (c, h, w, k), calls in maps.items():
+        label = f"[{b},{c},{h},{w}] k{k}"
+        x, dy = [torch.randn((b, c, h, w), generator=gen, device=dev)
+                 .to(torch.bfloat16).contiguous(
+                     memory_format=torch.channels_last) for _ in range(2)]
+        before = f.launches_sm90
+        got = kern(x, dy, k)
+        torch.cuda.synchronize()
+        if f.launches_sm90 != before + 1:
+          raise AssertionError(f"K6 {label}: not the Hopper kernel")
+        _compare_scaled(f"V2-S {size} {label}", got, ref(x, dy, k), K6_SHARE)
+        if not torch.equal(got, kern(x, dy, k)):
+          raise AssertionError(f"K6 gave two results: {label}")
+        weight = torch.randn((c, 1, k, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        pad = (k - 1) // 2
+        fns = {
+            "ms": lambda: kern(x, dy, k),
+            "simt": lambda: kern(x, dy, k, _simt=True),
+            "lib": lambda: torch.ops.aten.convolution_backward(
+                dy, x, weight, None, [1, 1], [pad, pad], [1, 1], False,
+                [0, 0], c, [False, True, False])[1]}
+        order = ["ms", "simt", "lib", "lib", "simt", "ms"]
+        turns = {key: [] for key in fns}
+        for key in order:
+          turns[key].append(_time_ms(fns[key], 20, flush))
+        t = {key: sum(v) / len(v) for key, v in turns.items()}
+        n = b * c * h * w
+        bound_ms, by = _bound(2.0 * k * k * n, 2 * 2 * n + 4 * c * k * k,
+                              PEAK_F32_FLOPS)
+        for key in ("ms", "simt", "lib"):
+          sums[key] += calls * t[key]
+        sums["bound"] += calls * bound_ms
+        plan = dw.sm90_plan(b, c, h, w, k, dw._sms(dev.index or 0))
+        print(f"  K6 V2-S {size}: {label} x{calls} a step (plan "
+              f"{tuple(plan)}): Hopper {t['ms']:.4f} ms, depthwise.cu "
+              f"{t['simt']:.4f}, cuDNN {t['lib']:.4f}, bound {bound_ms:.4f} "
+              f"({by}); Hopper/cuDNN {t['ms'] / t['lib']:.2f}")
+        del x, dy, got
+      print(f"K6 over a V2-S step at {size}x{size}, b{b} "
+            f"({sum(maps.values())} calls, calls x ms): Hopper "
+            f"{sums['ms']:.4f} ms, depthwise.cu {sums['simt']:.4f}, cuDNN "
+            f"{sums['lib']:.4f}, bound {sums['bound']:.4f}; Hopper/cuDNN "
+            f"{sums['ms'] / sums['lib']:.2f}")
+  torch.cuda.empty_cache()
+
+
+def cls_phase(dev, workdir):
+  """Classification: (a) inference, (b) V2-S training through main_cls
+  with the K6 knob on and off, (c) the step-1 checks, (d) mixing, (e) the
+  preprocess card vs CPU, (f) eval with the EMA. Returns the knob-on run's
+  K6 launches."""
+  import torch
+  from automl_tpu_torch.models.efficientnet import EfficientNet
+  from automl_tpu_torch.train import runners
+  t0 = time.perf_counter()
+  _cls_infer_check(dev)
+  cfg = _cls_config()
+  sizes = [runners._progressive_stage_params(cfg, i, 4)[0] for i in range(4)]
+  meta = EfficientNet(cfg.model, device="meta")
+  per_step = sum(_stride1_depthwise_maps(meta, sizes[0]).values())
+  print(f"V2-S progressive stages: {sizes} px, RandAugment magnitude "
+        f"{[runners._progressive_stage_params(cfg, i, 4)[1] for i in range(4)]}"
+        f"; {per_step} K6 calls a step; maps at {sizes[0]}: "
+        f"{_stride1_depthwise_maps(meta, sizes[0])}, at {sizes[-1]}: "
+        f"{_stride1_depthwise_maps(meta, sizes[-1])}")
+  steps = 4 * V2S_STAGE_STEPS
+  on, losses_on = _cls_train_run(workdir, True, steps, per_step, sizes)
+  off, losses_off = _cls_train_run(workdir + "_off", False, steps, per_step,
+                                   sizes)
+  for (size, ms_on, _, peak_on, _), (_, ms_off, _, peak_off, _) in zip(on,
+                                                                       off):
+    print(f"V2-S {size}x{size} b{V2S_BATCH}: step {ms_on:.1f} ms knob on vs "
+          f"{ms_off:.1f} off; peak {peak_on:.2f} vs {peak_off:.2f} GiB")
+  _cls_knob_losses_check(losses_on, losses_off)
+  _cls_step1(dev)
+  _cls_mixing_run(workdir + "_mix")
+  _cls_preprocess_check(dev)
+  _cls_eval_check(dev, os.path.join(workdir, "ckpt"))
+  torch.cuda.empty_cache()
+  print(f"classification phase: {time.perf_counter() - t0:.1f} s")
+  return sum(r[4] for r in on)
+
+
 def _entry(name, source, replaces, launches, r):
   return {"name": name, "route": "cuda", "source": source,
           "replaces": replaces, "launches": launches,
@@ -2241,19 +2916,23 @@ def main() -> int:
   flash = flash_phase(dev, flush_buf.zero_)
   k3 = xent_phase(dev, flush_buf.zero_)
   k6 = k6_phase(dev, flush_buf.zero_)
+  k6_v2s_phase(dev, flush_buf.zero_)
   del flush_buf
   torch.cuda.empty_cache()
   # The training runs' model_dirs, inside the checkout (build/ is ignored).
   build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
   workdir = os.path.join(build, "chip_smoke_lm")
   det_dir = os.path.join(build, "chip_smoke_det")
+  cls_dir = os.path.join(build, "chip_smoke_cls")
   for d in (workdir, workdir + "_fused", workdir + "_split", det_dir,
-            det_dir + "_off", os.path.join(build, "chip_smoke_infer")):
+            det_dir + "_off", os.path.join(build, "chip_smoke_infer"),
+            cls_dir, cls_dir + "_off", cls_dir + "_mix"):
     shutil.rmtree(d, ignore_errors=True)
   runs = training_phase(dev, workdir)
   k6_launches = detection_phase(dev, det_dir)
   inference_phase(dev, os.path.join(det_dir + "_off", "ckpt"),
                   os.path.join(build, "chip_smoke_infer"))
+  cls_k6_launches = cls_phase(dev, cls_dir)
   k4_launches = serving_phase(dev)
   print(f"prefill K4 at the slice's shapes: {json.dumps(k4['prefill T=512'])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -2285,7 +2964,7 @@ def main() -> int:
              k3["dw"]),
       _entry("depthwise_filter_grad",
              "automl_tpu_torch/csrc/depthwise_sm90.cu",
-             "automl_tpu/ops/depthwise.py:37", k6_launches,
+             "automl_tpu/ops/depthwise.py:37", k6_launches + cls_k6_launches,
              k6["[16,32,256,256] k3"]),
   ]}))
   print(card)

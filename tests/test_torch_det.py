@@ -47,6 +47,7 @@ from automl_tpu_torch.ops import depthwise as tdw
 from automl_tpu_torch.ops import losses as tlosses
 from automl_tpu_torch.train import optimizers as topt
 from automl_tpu_torch.train import schedules as tsched
+from automl_tpu_torch.train import runners as trunners
 from automl_tpu_torch.train import train_lib as ttrain
 
 torch.set_num_threads(1)
@@ -713,6 +714,120 @@ def test_det_train_step_options_match_jax(no_drop_connect):
   _check_state(tstate, jstate, "options step")
 
 
+@pytest.mark.parametrize("name", ["adam", "rmsprop"])
+def test_det_train_step_with_adam_or_rmsprop_matches_jax(name,
+                                                         no_drop_connect):
+  """One detection step with config.optimizer adam (and rmsprop), as
+  run_detection builds it, against JAX's: metrics rtol 1e-4; the
+  optimizer's moments, parameters and EMA within STEP_TOL. Adam's first
+  update is lr * g / (|g| + 1e-8): on the leaves whose gradient is zero
+  but for rounding (a bias or BN beta that a train-mode BN normalizes
+  away: |g| < 1e-6, a rounding of sums of order 1), it is lr times the sign of
+  that rounding, another in each program; there only the moments are
+  held."""
+  jcfg, tcfg, jm, jparams, tm, _ = _det_pair(optimizer=name)
+  jtx = jopt.masked_for_params(jopt.build_optimizer(jcfg.optimizer, 1e-3),
+                               jparams)
+  ttx = topt.masked_for_params(topt.build_optimizer(tcfg.optimizer, 1e-3))
+  jstate = jtrain.create_train_state(jparams, jtx)
+  jstate, jmetrics = jax.jit(jtrain.make_det_train_step(jm, jtx, jcfg))(
+      jstate, _train_batch()[0], jax.random.key(2))
+  tstate = ttrain.create_train_state(tm, ttx)
+  tstate, tmetrics = ttrain.make_det_train_step(tm, ttx, tcfg)(
+      tstate, _train_batch()[1], torch.Generator())
+  for k in jmetrics:
+    np.testing.assert_allclose(float(tmetrics[k]), float(jmetrics[k]),
+                               rtol=1e-4, atol=1e-6, err_msg=k)
+  inner = jstate.opt_state.inner_state[0]
+  moments = ("mu", "nu") if name == "adam" else ("nu",)
+  for m in moments:
+    _assert_trees_close(
+        convert.det_torch_to_jax_tree(tstate.opt_state[0][m]),
+        getattr(inner, m), what=m, **STEP_TOL)
+  noise = set()
+  if name == "adam":   # |mu| = 0.1 |g| on step 1
+    noise = {k for k, v in _flat(inner.mu).items()
+             if 0 < np.abs(v).max() < 1e-7}
+    assert len(noise) < len(_flat(inner.mu)) // 4
+  for got, want, what in (
+      (tstate.params, jstate.params, "params"),
+      (tstate.ema_params, jstate.ema_params, "ema")):
+    got = _flat(convert.det_torch_to_jax_tree(got))
+    for k, v in _flat(want).items():
+      if k not in noise:
+        np.testing.assert_allclose(got[k], v, err_msg=f"{what}: {k}",
+                                   **STEP_TOL)
+
+
+def test_det_grid_mask_preprocess_matches_jax():
+  """grid_mask: JAX's run_detection preprocess (gridmask with fill 1 on
+  each canvas, then det_train_preprocess) and the port's from JAX's draws;
+  images as test_det_train_preprocess_matches_jax's (atol 1e-3, at most
+  0.1% of the values), boxes atol 1e-3, classes equal. The port's
+  make_preprocess with grid_mask on runs the mask (its output differs from
+  grid_mask off on the same draws)."""
+  b, canvas, out = 3, 40, 32
+  rng = np.random.default_rng(12)
+  images = rng.integers(0, 256, (b, canvas, canvas, 3)).astype(np.uint8)
+  true_hw = np.full((b, 2), canvas, np.float32)
+  boxes = np.array([[[3.2, 4.1, 20.5, 30.3], [0, 0, 0, 0]]] * b, np.float32)
+  classes = np.array([[2, -1]] * b, np.int32)
+  from automl_tpu.data import augment as jaug
+  from automl_tpu_torch.data import augment as taug
+  key = jax.random.key(4)
+  gkeys = jax.random.split(jax.random.fold_in(key, 11), b)
+  masked = jax.vmap(jaug.gridmask)(jnp.asarray(images, jnp.float32), gkeys)
+  keys = jax.random.split(key, b)
+  want = jax.vmap(lambda im, bx, c, hw, k: jpre.det_train_preprocess(
+      im, bx, c, k, out, true_hw=hw))(masked, jnp.asarray(boxes),
+                                       jnp.asarray(classes),
+                                       jnp.asarray(true_hw), keys)
+  d, offs = [], []
+  for k in gkeys:
+    k1, k2, k3 = jax.random.split(k, 3)
+    dd = int(jax.random.randint(k1, (), canvas // 8, canvas // 2))
+    d.append(dd)
+    offs.append([int(jax.random.randint(k2, (), 0, dd)),
+                 int(jax.random.randint(k3, (), 0, dd))])
+  draws = []
+  for k in keys:
+    k1, k2, k3 = jax.random.split(k, 3)
+    draws.append((bool(jax.random.bernoulli(k1)),
+                  float(jax.random.uniform(k2, ())),
+                  np.asarray(jax.random.uniform(k3, (2,)))))
+  tmasked = taug.gridmask(torch.from_numpy(images).float(),
+                          {"d": torch.tensor(d), "offset": torch.tensor(offs)})
+  np.testing.assert_array_equal(tmasked.numpy(), np.asarray(masked))
+  img, tb, tc = tpre.det_train_preprocess(
+      tmasked, torch.from_numpy(boxes), torch.from_numpy(classes),
+      torch.tensor([x[0] for x in draws]), torch.tensor([x[1] for x in draws]),
+      torch.from_numpy(np.stack([x[2] for x in draws])), out,
+      true_hw=torch.from_numpy(true_hw))
+  diff = np.abs(_nhwc(img) - np.asarray(want[0]))
+  assert (diff > 1e-3).mean() <= 1e-3, diff.max()
+  np.testing.assert_allclose(tb.numpy(), np.asarray(want[1]), atol=1e-3)
+  np.testing.assert_array_equal(tc.numpy(), np.asarray(want[2]))
+  cfg = tdet_configs.get_efficientdet_config("efficientdet-test")
+  batch = {"image": torch.from_numpy(images),
+           "gt_boxes": torch.from_numpy(boxes),
+           "gt_classes": torch.from_numpy(classes),
+           "true_hw": torch.from_numpy(true_hw)}
+  plain = trunners.make_preprocess(cfg)(batch,
+                                        torch.Generator().manual_seed(0))
+  cfg.grid_mask = True
+  gridded = trunners.make_preprocess(cfg)(batch,
+                                          torch.Generator().manual_seed(0))
+  assert gridded["image"].shape == plain["image"].shape
+  assert not torch.equal(gridded["image"], plain["image"])
+
+
+def test_main_det_trains_with_grid_mask(tmp_path):
+  out = tcli.main(["--model_name=efficientdet-test", "--device=cpu",
+                   f"--model_dir={tmp_path}", "--use_fake_data",
+                   "--train_steps=1", "--hparams=grid_mask=true"])
+  assert np.isfinite(out["loss"])
+
+
 @pytest.mark.slow
 def test_d0_step_matches_jax_full_size(no_drop_connect):
   """One D0 step at 512 x 512, b4, on a batch from the port's
@@ -770,7 +885,7 @@ UNPORTED_FLAGS = {
     "--mode=eval": "M9", "--mesh_shape=1,2,1": "M10",
     "--init_backbone_ckpt=x": "M9", "--native_loader": "M9",
     "--profile": "M9", "--run_epoch_in_child_process": "M9",
-    "--hparams=qat=true": "M11", "--hparams=grid_mask=true": "M8",
+    "--hparams=qat=true": "M11",
     "--hparams=autoaugment_policy=v0": "M9",
     "--val_file_pattern=x": "M9", "--testdev_dir=x": "M9",
     "--eval_timeout=5": "M9"}

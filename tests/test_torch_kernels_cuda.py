@@ -1057,6 +1057,64 @@ def test_depthwise_sm90_matches_plain_at_d0_maps(dev, c, h, w, k):
   assert torch.equal(got, again)
 
 
+# EfficientNetV2-S's stride-1 depthwise convs (C, H, W, k) at its four
+# progressive training sizes (168, 208, 256, 296): 5 at C 512, 1 at 768 and
+# 8 at 960 on the stride-16 map, 14 at 1,536 on the stride-32 map.
+V2S_K6_SHAPES = [(c, h, h, 3) for s16, s32 in ((11, 6), (13, 7), (16, 8),
+                                                (19, 10))
+                 for c, h in ((512, s16), (768, s16), (960, s16),
+                              (1536, s32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w,k", V2S_K6_SHAPES,
+                         ids=[f"{c}x{h}x{w}_k{k}" for c, h, w, k in
+                              V2S_K6_SHAPES])
+def test_depthwise_sm90_matches_plain_at_v2s_maps(dev, c, h, w, k):
+  """The Hopper K6 at every map of V2-S's progressive training (bf16, b8:
+  odd maps, not powers of two) against the plain version (K6_SHARE of the
+  largest entry); one Hopper launch a call; a second call bit-equal."""
+  x, dy = _dw_inputs(dev, 8, c, h, w, torch.bfloat16, seed=4)
+  f = dwise.depthwise_filter_grad
+  before = (f.launches, f.launches_sm90)
+  got = dwise.depthwise_filter_grad(x, dy, k)
+  again = dwise.depthwise_filter_grad(x, dy, k)
+  torch.cuda.synchronize()
+  assert (f.launches, f.launches_sm90) == (before[0] + 2, before[1] + 2)
+  want = dwise.depthwise_filter_grad_reference(x, dy, k)
+  torch.testing.assert_close(got, want, atol=K6_SHARE * float(
+      want.abs().max()), rtol=K6_SHARE)
+  assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cls_train_preprocess_on_card_matches_cpu(dev):
+  """cls_train_preprocess (crop, flip, RandAugment 2 layers at m 10, v2
+  normalization) at b8 from 120 x 120 canvases to 96 x 96, on the card and
+  on the CPU from the same draws, on [0, 255]: images whose layers draw no
+  nearest warp within atol 1e-3; the others at most 0.1% of their pixels
+  off by more."""
+  from automl_tpu_torch.data import augment, preprocessing
+  gen = torch.Generator().manual_seed(1)
+  images = torch.randint(0, 256, (8, 120, 120, 3), generator=gen,
+                         dtype=torch.uint8)
+  draws = preprocessing.cls_train_draws(8, 96, gen, 2)
+  to = lambda d: {k: to(v) if isinstance(v, dict) else v.to(dev)
+                  for k, v in d.items()}
+  cpu = preprocessing.cls_train_preprocess(images, draws, 96, "randaug", 10.0)
+  card = preprocessing.cls_train_preprocess(images.to(dev), to(draws), 96,
+                                            "randaug", 10.0).cpu()
+  cpu, card = (t.permute(0, 2, 3, 1) * 128.0 + 128.0 for t in (cpu, card))
+  warps = {augment.OPS.index(n) for n in ("rotate", "shear_x", "shear_y",
+                                          "translate_x", "translate_y")}
+  for i in range(8):
+    diff = (card[i] - cpu[i]).abs()
+    if set(draws["randaug"]["op"][i].tolist()) & warps:
+      assert float((diff > 1e-3).any(-1).float().mean()) <= 1e-3, i
+    else:
+      assert float(diff.max()) <= 1e-3, i
+
+
 @pytest.mark.cuda
 def test_depthwise_filter_grad_dispatch_by_counter(dev):
   """bf16 with C a multiple of 8 goes to the Hopper K6; bf16 C 13, float32
