@@ -16,9 +16,14 @@ here), from the port's checkpoint directory (--ckpt_path: the params of
 its latest step, or its EMA with --use_ema) or, as the JAX CLI's key 0,
 run_classification's weights from seed 0. Added here: --device (default
 cuda).
+eval prints {"top1", "samples"} over --val_file_pattern (the TF-free
+ImageNet reader at eval.isize + 32, the reference's eval crop, the last
+partial batch kept) up to --eval_samples, or, for multi-label data
+(--dataset=imagenet21k), {"auc_pr", "precision_at_1", ...} of
+eval/classification.py::MultiLabelEvaluator.
 Not ported yet, and refused with their ROADMAP item: --runmode=export
-(torch.export, inference/driver.py) and --runmode=eval (the TFRecord eval
-reader), --tf_ckpt and the JAX package's orbax directories (all M9).
+(torch.export, inference/driver.py), --tf_ckpt and the JAX package's
+orbax directories (all M9).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ def parse_args(argv=None):
   p.add_argument("--bm_runs", type=int, default=10)
   p.add_argument("--input_image", default=None)
   p.add_argument("--export_dir", default=None)
-  p.add_argument("--val_file_pattern", default=None, help="not ported (M9)")
+  p.add_argument("--val_file_pattern", default=None)
   p.add_argument("--eval_samples", type=int, default=50000)
   p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
   return p.parse_args(argv)
@@ -59,8 +64,6 @@ def _refuse_unported(args):
   unported = [
       (args.runmode == "export", "--runmode=export (torch.export, "
        "inference/driver.py)", "M9"),
-      (args.runmode == "eval", "--runmode=eval (the TFRecord eval reader)",
-       "M9"),
       (args.tf_ckpt, "--tf_ckpt (ckpt/tf_compat.py)", "M9"),
       (orbax, "an orbax checkpoint of the JAX package", "M9"),
   ]
@@ -86,6 +89,45 @@ def load_params(model, ckpt_path: str, use_ema: bool = False) -> dict:
       else saved["params"]
   model.load_state_dict(params, strict=True)
   return params
+
+
+def _eval(args, config, predict, canvas: int, device) -> dict:
+  """ImageNet top-1, or the multi-label metrics, over --val_file_pattern
+  up to --eval_samples."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.data.datasets import multihot_on_device
+  from automl_tpu_torch.eval.classification import MultiLabelEvaluator
+  if not args.val_file_pattern:
+    raise ValueError("--runmode=eval needs --val_file_pattern")
+  logits_of = lambda batch: predict(torch.from_numpy(batch["image"]).to(
+      device)).float().cpu().numpy()
+  if config.data.get("multiclass"):
+    loader = pipeline.MultiLabelTFRecordLoader(
+        args.val_file_pattern, is_training=False, batch_size=args.batch_size,
+        canvas_size=canvas, max_labels=int(config.data.get("max_labels", 16)),
+        drop_remainder=False)
+    ev = MultiLabelEvaluator()
+    for batch in loader:
+      ev.add_batch(logits_of(batch), multihot_on_device(
+          batch["label_ids"], config.data.num_classes).numpy())
+      if ev.num_examples >= args.eval_samples:
+        break
+    return {k: round(v, 4) if isinstance(v, float) else v
+            for k, v in ev.result().items()}
+  loader = pipeline.ImageNetTFRecordLoader(
+      args.val_file_pattern, is_training=False, batch_size=args.batch_size,
+      canvas_size=canvas, num_classes=config.data.num_classes,
+      drop_remainder=False)
+  correct = total = 0
+  for batch in loader:
+    pred = np.argmax(logits_of(batch), -1)
+    correct += int((pred == np.argmax(batch["label"], -1)).sum())
+    total += len(pred)
+    if total >= args.eval_samples:
+      break
+  return {"top1": round(correct / max(total, 1), 4), "samples": total}
 
 
 def main(argv=None):
@@ -145,6 +187,8 @@ def main(argv=None):
       best = min(best, secs / args.bm_runs)
     result = {"fps": round(args.batch_size / best, 2),
               "latency_ms": round(best * 1000, 3)}
+  elif args.runmode == "eval":
+    result = _eval(args, config, predict, canvas, device)
   else:   # infer
     from PIL import Image
     img = Image.open(args.input_image).convert("RGB").resize((canvas, canvas))

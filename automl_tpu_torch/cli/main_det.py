@@ -1,4 +1,4 @@
-"""EfficientDet training CLI on one device (automl_tpu/cli/main_det.py's
+"""EfficientDet train / eval CLI on one device (automl_tpu/cli/main_det.py's
 flags).
 
 Examples:
@@ -6,18 +6,27 @@ Examples:
     --model_name=efficientdet-d0 --model_dir=/tmp/d0 --use_fake_data \\
     --train_steps=20 --hparams=mixed_precision=true,batch_size=16
   python -m automl_tpu_torch.cli.main_det --model_name=efficientdet-test \\
-    --model_dir=/tmp/det-test --use_fake_data --device=cpu --train_steps=4
+    --model_dir=/tmp/det-test --train_file_pattern='/tmp/coco/train-*' \\
+    --val_file_pattern='/tmp/coco/val-*' --mode=train_and_eval \\
+    --device=cpu --train_steps=4 --eval_samples=8
+  python -m automl_tpu_torch.cli.main_det --mode=eval --model_dir=/tmp/d0 \\
+    --val_file_pattern='/tmp/coco/val-*' --eval_samples=128
+
+Input: --train_file_pattern through the TF-free reader
+(data/pipeline.py::DetectionTFRecordLoader) or, with --native_loader, the
+C++ pipeline (--native_workers); without one, synthetic batches. On a CUDA
+device the batches are staged by DevicePrefetcher. --mode=eval restores
+the latest checkpoint of model_dir/ckpt (or, with --eval_timeout, each new
+one until that many seconds pass without one) and evaluates its EMA over
+--val_file_pattern (--eval_samples); --testdev_dir writes the COCO-server
+JSON instead of AP. --run_epoch_in_child_process runs each epoch (and, in
+train_and_eval, each eval) in a child process; this process never touches
+CUDA. --profile writes a torch.profiler trace of steps 10-14 into
+model_dir/profile/ (JAX writes an xprof trace).
 
 Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
-Without a train file the synthetic loader is used, as in JAX.
---mode=train_and_eval and --eval_every are accepted: their eval set comes
-from --val_file_pattern, whose reader is not ported yet, so they train
-only, as JAX does without val files (run_detection's eval_iter takes an
-eval set in code). Not ported yet, and refused with their ROADMAP item:
---mode=eval, --val_file_pattern, --testdev_dir and --eval_timeout (M9:
-the TFRecord eval reader, watch_checkpoints), --train_file_pattern,
---native_loader, --init_backbone_ckpt, --run_epoch_in_child_process and
---profile (M9), --mesh_shape and the multi-process flags (M10).
+Not ported yet, and refused with their ROADMAP item: --init_backbone_ckpt
+(M9: a TF checkpoint), --mesh_shape and the multi-process flags (M10).
 --compilation_cache_dir sets XLA's compile cache and has no meaning in
 eager PyTorch; it is accepted and ignored.
 """
@@ -25,37 +34,50 @@ eager PyTorch; it is accepted and ignored.
 from __future__ import annotations
 
 import argparse
+import glob
+import subprocess
+import sys
 
 
 def parse_args(argv=None):
   p = argparse.ArgumentParser(description=__doc__)
   p.add_argument("--mode", default="train",
-                 choices=["train", "eval", "train_and_eval"],
-                 help="train or train_and_eval (eval: ROADMAP M9)")
+                 choices=["train", "eval", "train_and_eval"])
   p.add_argument("--model_name", default="efficientdet-d0")
   p.add_argument("--model_dir", required=True)
   p.add_argument("--hparams", default="",
                  help="k=v,k2.k3=v override string or YAML path")
-  p.add_argument("--train_file_pattern", default=None, help="not ported (M9)")
-  p.add_argument("--val_file_pattern", default=None, help="not ported (M9)")
+  p.add_argument("--train_file_pattern", default=None)
+  p.add_argument("--val_file_pattern", default=None)
   p.add_argument("--use_fake_data", action="store_true")
   p.add_argument("--train_steps", type=int, default=0,
                  help="0 -> num_epochs * num_examples_per_epoch / batch_size")
   p.add_argument("--num_examples_per_epoch", type=int, default=120000)
   p.add_argument("--eval_samples", type=int, default=5000)
   p.add_argument("--native_loader", action="store_true",
-                 help="not ported (M9)")
+                 help="the C++ pipeline (reader thread, JPEG worker pool, "
+                      "prefetch ring; gt parsed in C++) instead of the "
+                      "TF-free reader")
   p.add_argument("--native_workers", type=int, default=4)
-  p.add_argument("--eval_every", type=int, default=0)
-  p.add_argument("--testdev_dir", default=None, help="not ported (M9)")
+  p.add_argument("--eval_every", type=int, default=0,
+                 help="steps between in-training evals (train_and_eval)")
+  p.add_argument("--testdev_dir", default=None,
+                 help="eval mode: write the COCO-server submission JSON "
+                      "into this directory instead of computing AP")
   p.add_argument("--eval_timeout", type=float, default=0,
-                 help="not ported (M9)")
+                 help="eval mode: evaluate each new checkpoint until this "
+                      "many seconds pass with no new one; 0 = the latest "
+                      "once")
   p.add_argument("--mesh_shape", default=None, help="not ported (M10)")
   p.add_argument("--init_backbone_ckpt", default=None,
                  help="not ported (M9)")
-  p.add_argument("--profile", action="store_true", help="not ported (M9)")
+  p.add_argument("--profile", action="store_true",
+                 help="a torch.profiler trace of steps 10-14 into "
+                      "model_dir/profile/")
   p.add_argument("--run_epoch_in_child_process", action="store_true",
-                 help="not ported (M9)")
+                 help="each epoch in a fresh child process (resuming from "
+                      "the latest checkpoint; a nonzero exit propagates; "
+                      "train_and_eval adds an eval child per epoch)")
   p.add_argument("--coordinator_address", default=None,
                  help="not ported (M10)")
   p.add_argument("--num_processes", type=int, default=None)
@@ -71,19 +93,8 @@ def parse_args(argv=None):
 
 def _refuse_unported(args):
   unported = [
-      (args.mode == "eval", "--mode=eval (it reads the eval set's TFRecords)",
+      (args.init_backbone_ckpt, "--init_backbone_ckpt (a TF checkpoint)",
        "M9"),
-      (args.val_file_pattern, "--val_file_pattern (TFRecord eval input)",
-       "M9"),
-      (args.testdev_dir, "--testdev_dir (TFRecord eval input)", "M9"),
-      (args.eval_timeout, "--eval_timeout (watch_checkpoints)", "M9"),
-      (args.train_file_pattern and not args.use_fake_data,
-       "--train_file_pattern (TFRecord input)", "M9"),
-      (args.native_loader, "--native_loader", "M9"),
-      (args.init_backbone_ckpt, "--init_backbone_ckpt", "M9"),
-      (args.run_epoch_in_child_process, "--run_epoch_in_child_process",
-       "M9"),
-      (args.profile, "--profile", "M9"),
       (args.mesh_shape, "--mesh_shape", "M10"),
       (args.coordinator_address or args.num_processes or args.process_id,
        "multi-process training", "M10"),
@@ -94,26 +105,174 @@ def _refuse_unported(args):
           f"{what} is not ported to automl_tpu_torch yet: ROADMAP {item}")
 
 
+def _shard_files(files, proc_id, n_proc):
+  """This process's files; ValueError on an empty shard (rather than
+  streaming the whole set, which would repeat data across processes)."""
+  mine = files[proc_id::n_proc]
+  if not mine:
+    raise ValueError(
+        f"process {proc_id}/{n_proc} got no input files from {len(files)} "
+        "matches: --native_loader shards by file; use at least one file "
+        "per process")
+  return mine
+
+
+def _config(args):
+  from automl_tpu_torch.configs.efficientdet_configs import (
+      get_efficientdet_config)
+  config = get_efficientdet_config(args.model_name)
+  config.override(args.hparams)
+  return config
+
+
+def _train_steps(args, config) -> int:
+  return args.train_steps or (
+      config.num_epochs * args.num_examples_per_epoch
+      // int(config.batch_size))
+
+
+def _run_epochs_in_children(args):
+  """One child process per epoch: each runs this CLI to the epoch's
+  cumulative step count and exits (so host-memory leaks die with it),
+  resuming from the latest checkpoint; in train_and_eval an eval child
+  follows each epoch. This process does config arithmetic only and never
+  initialises CUDA, so the children own the card. A child's nonzero exit
+  propagates."""
+  config = _config(args)
+  batch_size = int(config.batch_size)
+  train_steps = _train_steps(args, config)
+  steps_per_epoch = max(args.num_examples_per_epoch // batch_size, 1)
+  epoch_ends = list(range(steps_per_epoch, train_steps, steps_per_epoch))
+  epoch_ends.append(train_steps)
+
+  def flags(extra):
+    out = [sys.executable, "-m", "automl_tpu_torch.cli.main_det",
+           f"--model_dir={args.model_dir}",
+           f"--model_name={args.model_name}", f"--seed={args.seed}",
+           f"--num_examples_per_epoch={args.num_examples_per_epoch}",
+           f"--device={args.device}", f"--log_every={args.log_every}",
+           f"--native_workers={args.native_workers}"]
+    for name in ("hparams", "train_file_pattern", "val_file_pattern"):
+      v = getattr(args, name)
+      if v:
+        out.append(f"--{name}={v}")
+    for name in ("use_fake_data", "native_loader"):
+      if getattr(args, name):
+        out.append(f"--{name}")
+    return out + extra
+
+  do_eval = args.mode == "train_and_eval" and args.val_file_pattern
+  for end in epoch_ends:
+    rc = subprocess.call(flags(["--mode=train", f"--train_steps={end}"]))
+    if rc != 0:
+      raise SystemExit(rc)
+    if do_eval:
+      rc = subprocess.call(flags(
+          ["--mode=eval", f"--eval_samples={args.eval_samples}"]))
+      if rc != 0:
+        raise SystemExit(rc)
+  return {"train_steps": float(train_steps)}
+
+
+def _eval_mode(args, config, eval_iter, eval_steps, device):
+  """Evaluates the latest checkpoint of model_dir/ckpt (or, with
+  --eval_timeout, each new one) on its EMA parameters; a checkpoint that
+  vanishes or is cut short is skipped."""
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.train import runners
+  from automl_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                 watch_checkpoints)
+  precision.set_policy("mixed_bfloat16" if config.mixed_precision
+                       else "float32")
+  model = runners.seeded_detection_model(config, args.seed, device)
+  template, _ = runners.detection_state(model, config)
+  mngr = CheckpointManager(f"{args.model_dir}/ckpt")
+
+  def eval_step_num(step):
+    params = runners.restore_eval_params(mngr, template, step)
+    if params is None:
+      return None
+    m = runners.evaluate_detection(model, params, config, eval_iter(),
+                                   eval_steps, testdev_dir=args.testdev_dir)
+    print(f"step {step}:", {k: (round(v, 4) if isinstance(v, float) else v)
+                            for k, v in m.items()})
+    return m
+
+  metrics = None
+  if args.eval_timeout:
+    for step in watch_checkpoints(mngr.directory,
+                                  timeout_secs=args.eval_timeout,
+                                  poll_secs=min(10.0, args.eval_timeout / 5)):
+      metrics = eval_step_num(step) or metrics
+  else:
+    metrics = eval_step_num(mngr.latest_step())
+  if metrics is None:
+    raise FileNotFoundError(f"no checkpoint in {args.model_dir}/ckpt")
+  return metrics
+
+
 def main(argv=None):
   args = parse_args(argv)
   _refuse_unported(args)
-  from automl_tpu_torch.configs.efficientdet_configs import (
-      get_efficientdet_config)
+  if args.run_epoch_in_child_process:
+    return _run_epochs_in_children(args)
+  import torch
+  from automl_tpu_torch.data import native_loader, pipeline
+  from automl_tpu_torch.ops import anchors
   from automl_tpu_torch.train import runners
 
-  config = get_efficientdet_config(args.model_name)
-  config.override(args.hparams)
+  config = _config(args)
+  device = torch.device(args.device)
   batch_size = int(config.batch_size)
-  train_steps = args.train_steps or (
-      config.num_epochs * args.num_examples_per_epoch // batch_size)
+  train_steps = _train_steps(args, config)
+  size = anchors.parse_image_size(config.image_size)
+
+  eval_iter, eval_steps = None, 0
   eval_every = args.eval_every
   if args.mode == "train_and_eval" and not eval_every:
     eval_every = max(args.num_examples_per_epoch // batch_size, 1)
-  # No eval set without --val_file_pattern (M9): train_and_eval trains.
-  metrics = runners.run_detection(
-      config, args.model_dir, train_steps,
-      eval_every=eval_every if args.mode == "train_and_eval" else 0,
-      log_every=args.log_every, seed=args.seed, device=args.device)
+  if args.mode in ("eval", "train_and_eval") and args.val_file_pattern:
+    def eval_iter():  # a fresh iterator per eval pass
+      return iter(pipeline.DetectionTFRecordLoader(
+          args.val_file_pattern, is_training=False, batch_size=batch_size,
+          canvas_size=size[0], max_instances=config.max_instances_per_image))
+    eval_steps = max(args.eval_samples // batch_size, 1)
+
+  if args.mode == "eval":
+    if eval_iter is None:
+      raise ValueError("--mode=eval needs --val_file_pattern")
+    return _eval_mode(args, config, eval_iter, eval_steps, device)
+
+  train_iter = prefetcher = None
+  if args.train_file_pattern and not args.use_fake_data:
+    if args.native_loader:
+      files = _shard_files(sorted(glob.glob(args.train_file_pattern)), 0, 1)
+      host = native_loader.NativeParallelDetectionLoader(
+          files, batch_size, size[0],
+          max_instances=config.max_instances_per_image,
+          skip_crowd=config.skip_crowd_during_training,
+          num_workers=args.native_workers)
+    else:
+      host = pipeline.DetectionTFRecordLoader(
+          args.train_file_pattern, is_training=True, batch_size=batch_size,
+          canvas_size=size[0], max_instances=config.max_instances_per_image,
+          skip_crowd_during_training=config.skip_crowd_during_training,
+          seed=args.seed)
+    if device.type == "cuda":
+      prefetcher = pipeline.DevicePrefetcher(iter(host), device)
+      train_iter = iter(prefetcher)
+    else:
+      train_iter = iter(host)
+  try:
+    metrics = runners.run_detection(
+        config, args.model_dir, train_steps, data_iter=train_iter,
+        eval_iter=eval_iter, eval_steps=eval_steps,
+        eval_every=eval_every if args.mode == "train_and_eval" else 0,
+        log_every=args.log_every, profile=args.profile, seed=args.seed,
+        device=args.device)
+  finally:
+    if prefetcher is not None:
+      prefetcher.close()
   print({k: round(v, 4) for k, v in metrics.items()})
   return metrics
 

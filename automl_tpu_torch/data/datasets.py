@@ -7,8 +7,8 @@ get_dataset_config(name) returns the training overlay merged with its
 dataset's spec. With data_dir None / 'null' build_dataset yields synthetic
 batches (the reference's null-input mode); multi-label (ImageNet21k-style)
 batches carry padded label-id lists, expanded to dense multi-hot on the
-device by multihot_on_device. The TFRecord readers (a data_dir) come with
-ROADMAP M9.
+device by multihot_on_device. With a data_dir, build_dataset reads the
+split's TFRecords through data/pipeline.py's TF-free readers.
 """
 
 from __future__ import annotations
@@ -201,20 +201,30 @@ def multihot_on_device(label_ids, num_classes: int):
 
 def build_dataset(config, split: str, batch_size: int,
                   canvas_size: int | None = None, shard_index: int = 0,
-                  num_shards: int = 1):
-  """Host iterator for `config.data` (train / minival / eval split):
-  synthetic batches with data_dir None or 'null'. TFRecords under a
-  data_dir (and shards) need the readers of ROADMAP M9."""
+                  num_shards: int = 1, seed: int = 0):
+  """Host iterator for `config.data` (train / minival / eval split).
+
+  data_dir None or 'null': synthetic batches (the reference's null-input
+  mode); otherwise the TFRecords under data_dir that the split's file
+  pattern matches, through the multi-label reader (label ids; the
+  multi-hot expansion stays on the device) or the ImageNet one, this
+  shard's files. seed orders training (data/pipeline.py)."""
   spec = DATASETS[config.data.ds_name]
   canvas = canvas_size or spec.default_canvas
   data_dir = config.data.get("data_dir")
-  if data_dir and data_dir != "null":
-    raise NotImplementedError(
-        "TFRecord input (data.data_dir) is not ported to automl_tpu_torch "
-        "yet: ROADMAP M9")
-  del split, shard_index, num_shards
+  is_training = split == "train"
+  if not data_dir or data_dir == "null":
+    if spec.multiclass:
+      return SyntheticMultiLabel(batch_size, canvas, spec.num_classes,
+                                 spec.max_labels)
+    return pipeline.SyntheticClassification(batch_size, canvas,
+                                            spec.num_classes)
+  pattern = f"{data_dir}/{spec.splits[split].file_pattern}"
   if spec.multiclass:
-    return SyntheticMultiLabel(batch_size, canvas, spec.num_classes,
-                               spec.max_labels)
-  return pipeline.SyntheticClassification(batch_size, canvas,
-                                          spec.num_classes)
+    return pipeline.MultiLabelTFRecordLoader(
+        pattern, is_training, batch_size, canvas,
+        max_labels=spec.max_labels, shard_index=shard_index,
+        num_shards=num_shards, seed=seed)
+  return pipeline.ImageNetTFRecordLoader(
+      pattern, is_training, batch_size, canvas, spec.num_classes,
+      shard_index=shard_index, num_shards=num_shards, seed=seed)

@@ -5,15 +5,19 @@ its directory layout (<directory>/<step>/) and methods. A checkpoint holds
 every field of a training state (a NamedTuple: step, params, opt_state and,
 for the detection trainer, ema_params and normalizer) as CPU tensors in
 <directory>/<step>/state.pt.
-Saves are synchronous, so wait_until_finished has nothing to wait for.
-archive_ckpt keeps the best checkpoint by an eval objective. Restoring the JAX package's orbax checkpoints needs jax: ROADMAP M9.
+Saves are synchronous (written to <step>.tmp, then renamed), so
+wait_until_finished has nothing to wait for. watch_checkpoints follows a
+trainer's directory for a continuous eval. archive_ckpt keeps the best
+checkpoint by an eval objective. Restoring the JAX package's orbax
+checkpoints needs jax: ROADMAP M9.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional
+import time
+from typing import Iterator, Optional
 
 import torch
 
@@ -41,9 +45,7 @@ class CheckpointManager:
     self.max_to_keep = max_to_keep
 
   def all_steps(self) -> list[int]:
-    return sorted(int(name) for name in os.listdir(self.directory)
-                  if name.isdigit() and os.path.exists(
-                      os.path.join(self.directory, name, _FILE)))
+    return all_checkpoint_steps(self.directory)
 
   def latest_step(self) -> Optional[int]:
     steps = self.all_steps()
@@ -90,6 +92,43 @@ class CheckpointManager:
 
   def wait_until_finished(self):
     """Saves are synchronous: nothing to wait for."""
+
+
+# What restoring a checkpoint that vanished or was cut short raises: the
+# file gone (FileNotFoundError), a truncated archive (RuntimeError from
+# torch.load, EOFError) or parameters that do not match (ValueError).
+RESTORE_ERRORS = (FileNotFoundError, RuntimeError, EOFError, ValueError)
+
+
+def all_checkpoint_steps(directory: str) -> list[int]:
+  """The sorted steps with a complete checkpoint on disk
+  (<directory>/<step>/state.pt; a save in progress is <step>.tmp)."""
+  if not os.path.isdir(directory):
+    return []
+  return sorted(int(name) for name in os.listdir(directory)
+                if name.isdigit() and os.path.exists(
+                    os.path.join(directory, name, _FILE)))
+
+
+def watch_checkpoints(directory: str, timeout_secs: float = 3600.0,
+                      poll_secs: float = 10.0,
+                      last_seen: Optional[int] = None) -> Iterator[int]:
+  """Yields each new checkpoint step as it appears in `directory`, in
+  order, until timeout_secs pass with no new one (JAX's
+  watch_checkpoints; tf.train.checkpoints_iterator's role). A checkpoint
+  may vanish (the trainer keeps max_to_keep) before the caller restores
+  it: the caller skips it (RESTORE_ERRORS)."""
+  deadline = time.time() + timeout_secs
+  while time.time() < deadline:
+    fresh = [s for s in all_checkpoint_steps(directory)
+             if last_seen is None or s > last_seen]
+    if fresh:
+      for s in fresh:
+        last_seen = s
+        yield s
+      deadline = time.time() + timeout_secs
+    else:
+      time.sleep(poll_secs)
 
 
 def archive_ckpt(ckpt_dir: str, step: int, objective: float,

@@ -20,9 +20,12 @@ top-1 / top-5 (or AUC-PR and precision@1) on the host.
 
 Detection (run_detection): detection_lr over steps_per_epoch =
 train_steps // num_epochs, momentum SGD for optimizer="sgd" with the BN
-statistics masked, EMA, resume from model_dir/ckpt, the synthetic loader
-(SyntheticDetection), grid_mask and preprocessing on the device
-(det_train_preprocess), metrics.jsonl and a final checkpoint. Evaluation
+statistics masked, EMA, resume from model_dir/ckpt, a host loader
+(data_iter: the TFRecord readers, or SyntheticDetection by default),
+box-aware AutoAugment (autoaugment_policy), grid_mask and preprocessing on
+the device (det_train_preprocess), metrics.jsonl and a final checkpoint;
+profile=True writes a torch.profiler trace of steps 10-14 into
+model_dir/profile/ (JAX writes an xprof trace there). Evaluation
 (eval_iter): every eval_every steps, after a checkpoint, or once at the
 end, on the EMA parameters when there are any; evaluate_detection runs the
 model and postprocess.generate_detections on the device and the
@@ -33,10 +36,13 @@ masks) comes from a torch.Generator seeded from (seed, step), as JAX folds
 the step into its key, so a resumed run draws what an uninterrupted one
 would.
 
+A loader's batches may be numpy arrays or tensors, on the host or
+already on the device (data/pipeline.py::DevicePrefetcher).
+
 Not ported yet, each refused naming its ROADMAP item: the eval images
 (vis_dir: inference/visualize.py, M9; the in-training eval writes none),
-autoaugment_policy (M9), ft_init_ckpt (M9: ckpt/tf_compat.py), qat (M11),
-init_backbone_ckpt (M9), meshes (M10).
+ft_init_ckpt (M9: ckpt/tf_compat.py), qat (M11), init_backbone_ckpt (M9),
+meshes (M10).
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ import numpy as np
 import torch
 
 from automl_tpu_torch import convert
-from automl_tpu_torch.data import augment, datasets, pipeline, preprocessing
+from automl_tpu_torch.data import (augment, datasets, det_autoaugment,
+                                   pipeline, preprocessing)
 from automl_tpu_torch.models.efficientdet import EfficientDet
 from automl_tpu_torch.models.efficientnet import EfficientNet
 from automl_tpu_torch.nn import precision
@@ -64,8 +71,6 @@ def _refuse_unported(config, mesh_shape, init_backbone_ckpt):
   unported = [
       (mesh_shape, "a device mesh", "M10"),
       (init_backbone_ckpt, "init_backbone_ckpt", "M9"),
-      (config.get("autoaugment_policy"), "autoaugment_policy",
-       "M9 (det_autoaugment)"),
       (config.get("qat"), "qat", "M11"),
   ]
   for on, what, item in unported:
@@ -77,6 +82,18 @@ def _refuse_unported(config, mesh_shape, init_backbone_ckpt):
 def step_seed(seed: int, step: int) -> int:
   """The seed of step `step`'s generator."""
   return (seed + 1) * 1_000_003 + step
+
+
+def on_device(batch: dict, device) -> dict:
+  """A loader's batch ({name: numpy array or tensor}) as tensors on
+  `device`; tensors already there are taken as they are."""
+  return {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+              ).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def _host(v) -> np.ndarray:
+  """A batch value (numpy array or tensor, on any device) as numpy."""
+  return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +140,15 @@ def _refuse_unported_cls(config, mesh_shape):
     if on:
       raise NotImplementedError(
           f"{what} is not ported to automl_tpu_torch yet: ROADMAP {item}")
+
+
+def classification_state(model, config, lr_fn=lambda step: 0.0):
+  """(training state, optimizer) of run_classification for `model`: also
+  the template an eval restores a checkpoint into."""
+  tx = opt_lib.masked_for_params(
+      opt_lib.build_optimizer(config.train.optimizer, lr_fn))
+  return train_lib.create_train_state(
+      model, tx, ema=bool(config.train.ema_decay)), tx
 
 
 def seeded_classification_model(mcfg, seed: int = 0, device="cuda"):
@@ -199,10 +225,7 @@ def run_classification(config, model_dir: str, train_steps: int,
       decay_epochs=config.train.lr_decay_epoch,
       decay_factor=config.train.lr_decay_factor,
       minimal_lr=config.train.lr_min)
-  tx = opt_lib.masked_for_params(
-      opt_lib.build_optimizer(config.train.optimizer, lr_fn))
-  state = train_lib.create_train_state(model, tx,
-                                       ema=bool(config.train.ema_decay))
+  state, tx = classification_state(model, config, lr_fn)
   mngr = CheckpointManager(os.path.join(model_dir, "ckpt"),
                            max_to_keep=config.runtime.keep_checkpoint_max)
   restored = mngr.restore(state)
@@ -249,8 +272,7 @@ def run_classification(config, model_dir: str, train_steps: int,
     stage_end = min((stage + 1) * stage_steps, train_steps)
     last_log = step
     while step < stage_end:
-      batch = {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
-               for k, v in next(it).items()}
+      batch = on_device(next(it), device)
       generator.manual_seed(step_seed(seed, step))
       state, metrics = step_fn(state, batch, generator)
       step += 1
@@ -309,15 +331,15 @@ def evaluate_classification(model, params, config, eval_iter, eval_steps: int,
         batch = next(eval_iter)
       except StopIteration:
         break  # a finite eval set smaller than eval_steps: a partial pass
-      images = torch.as_tensor(np.asarray(batch["image"])).to(device)
+      images = on_device({"image": batch["image"]}, device)["image"]
       logits = model(preprocessing.cls_eval_preprocess(images, isize,
                                                        norm=norm),
                      train=False).float().cpu().numpy()
       if multiclass:
         ev.add_batch(logits, datasets.multihot_on_device(
-            np.asarray(batch["label_ids"]), num_classes).numpy())
+            _host(batch["label_ids"]), num_classes).numpy())
         continue
-      labels = np.asarray(batch["label"])
+      labels = _host(batch["label"])
       if labels.ndim > 1:  # one-hot -> ids
         labels = np.argmax(labels, -1)
       order = np.argsort(-logits, axis=-1)
@@ -336,14 +358,23 @@ def evaluate_classification(model, params, config, eval_iter, eval_steps: int,
 
 
 def make_preprocess(config):
-  """preprocess(batch, generator) on the device: gridmask (with
-  config.grid_mask; fill 1) then det_train_preprocess, with draws from the
-  generator."""
+  """preprocess(batch, generator) on the device: box-aware AutoAugment
+  (with config.autoaugment_policy), gridmask (with config.grid_mask; fill
+  1), then det_train_preprocess, with draws from the generator in that
+  order."""
   size = anchors_lib.parse_image_size(config.image_size)[0]
   use_gridmask = bool(config.get("grid_mask"))
+  aa_policy = config.get("autoaugment_policy")
 
   def preprocess(batch, generator):
     images = batch["image"]
+    boxes, classes = batch["gt_boxes"], batch["gt_classes"]
+    if aa_policy:   # before the geometric jitter, as in JAX
+      _, h, w, _ = images.shape
+      draws = det_autoaugment.autoaugment_draws(
+          images.shape[0], aa_policy, h, w, generator, images.device)
+      images, boxes, classes = det_autoaugment.distort(
+          images, boxes, classes, draws, aa_policy)
     if use_gridmask:
       _, h, w, _ = images.shape
       images = augment.gridmask(images.float(), augment.gridmask_draws(
@@ -351,7 +382,7 @@ def make_preprocess(config):
     flip, jitter, offsets = preprocessing.det_train_draws(
         images.shape[0], generator, images.device)
     image, boxes, classes = preprocessing.det_train_preprocess(
-        images, batch["gt_boxes"], batch["gt_classes"], flip, jitter,
+        images, boxes, classes, flip, jitter,
         offsets, size, true_hw=batch["true_hw"],
         jitter_min=config.jitter_min, jitter_max=config.jitter_max,
         rand_hflip=config.input_rand_hflip, mean=config.mean_rgb,
@@ -359,6 +390,34 @@ def make_preprocess(config):
     return {"image": image, "gt_boxes": boxes, "gt_classes": classes}
 
   return preprocess
+
+
+def detection_state(model, config, lr_fn=lambda step: 0.0):
+  """(training state, optimizer) of run_detection for `model`: also the
+  template an eval restores a checkpoint into."""
+  tx = opt_lib.masked_for_params(opt_lib.build_optimizer(
+      config.optimizer if config.optimizer != "sgd" else "momentum", lr_fn,
+      momentum=config.momentum))
+  return train_lib.create_train_state(
+      model, tx, ema=bool(config.moving_average_decay),
+      moving_normalizer=(config.get("positives_momentum", 0.0) or 0.0) > 0
+  ), tx
+
+
+def restore_eval_params(mngr, template, step):
+  """The EMA (else the params) of checkpoint `step`, restored into
+  `template` (its model's tensors take the params); None when the
+  checkpoint vanished or was cut short (a concurrent trainer keeps
+  max_to_keep), as JAX's eval loop skips it."""
+  from automl_tpu_torch.train.checkpoint import RESTORE_ERRORS
+  try:
+    state = mngr.restore(template, step=step)
+  except RESTORE_ERRORS as e:
+    print(f"checkpoint {step} vanished, skipping: {e!r}")
+    return None
+  if state is None:
+    return None
+  return state.ema_params if state.ema_params is not None else state.params
 
 
 def seeded_detection_model(config, seed: int = 0, device="cuda"):
@@ -369,10 +428,35 @@ def seeded_detection_model(config, seed: int = 0, device="cuda"):
   return model
 
 
+PROFILE_STEPS = (10, 14)   # the steps run_detection(profile=True) traces
+
+
+def _start_profile(device):
+  activities = [torch.profiler.ProfilerActivity.CPU]
+  if device.type == "cuda":
+    activities.append(torch.profiler.ProfilerActivity.CUDA)
+  profiler = torch.profiler.profile(activities=activities)
+  profiler.start()
+  return profiler
+
+
+def _stop_profile(profiler, model_dir: str, device):
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+  profiler.stop()
+  out = os.path.join(model_dir, "profile")
+  os.makedirs(out, exist_ok=True)
+  a, b = PROFILE_STEPS
+  path = os.path.join(out, f"trace_steps_{a}-{b}.json")
+  profiler.export_chrome_trace(path)
+  print(f"profile of steps {a}-{b}: {path}")
+
+
 def run_detection(config, model_dir: str, train_steps: int,
-                  mesh_shape=None, eval_iter=None, eval_steps: int = 0,
-                  eval_every: int = 0, log_every: int = 50,
-                  init_backbone_ckpt=None, seed: int = 0,
+                  mesh_shape=None, data_iter=None, eval_iter=None,
+                  eval_steps: int = 0, eval_every: int = 0,
+                  log_every: int = 50, init_backbone_ckpt=None,
+                  profile: bool = False, seed: int = 0,
                   device="cuda") -> dict:
   """Trains EfficientDet on one device, with optional COCO evals; returns
   the last metrics as floats (and the final eval's, when there is one).
@@ -380,9 +464,14 @@ def run_detection(config, model_dir: str, train_steps: int,
   secs_per_step and examples_per_sec (host clock, each logged step waits
   for its loss), and each in-training eval's metrics as eval/<name>.
 
-  eval_iter: an iterator (one eval at the end) or a zero-argument factory
-  of fresh iterators (needed for eval_every > 0: an eval every eval_every
-  steps and at the last step)."""
+  data_iter: a host iterator of {'image' uint8 [B, S, S, 3] canvases,
+  'true_hw', 'gt_boxes', 'gt_classes' (extra keys such as image_scale and
+  source_id are ignored)}; by default synthetic batches. eval_iter: an
+  iterator (one eval at the end) or a zero-argument factory of fresh
+  iterators (needed for eval_every > 0: an eval every eval_every steps and
+  at the last step). profile: a torch.profiler trace of steps 10-14 (or
+  from step 10 to the end, if that comes first) into
+  model_dir/profile/trace_steps_10-14.json."""
   _refuse_unported(config, mesh_shape, init_backbone_ckpt)
   device = torch.device(device)
   os.makedirs(model_dir, exist_ok=True)
@@ -393,12 +482,7 @@ def run_detection(config, model_dir: str, train_steps: int,
   batch_size = int(config.batch_size)
   steps_per_epoch = max(train_steps // max(config.num_epochs, 1), 1)
   lr_fn = schedules.detection_lr(config, steps_per_epoch)
-  tx = opt_lib.masked_for_params(opt_lib.build_optimizer(
-      config.optimizer if config.optimizer != "sgd" else "momentum", lr_fn,
-      momentum=config.momentum))
-  state = train_lib.create_train_state(
-      model, tx, ema=bool(config.moving_average_decay),
-      moving_normalizer=(config.get("positives_momentum", 0.0) or 0.0) > 0)
+  state, tx = detection_state(model, config, lr_fn)
   mngr = CheckpointManager(os.path.join(model_dir, "ckpt"))
   restored = mngr.restore(state)
   if restored is not None:
@@ -406,11 +490,13 @@ def run_detection(config, model_dir: str, train_steps: int,
   step_fn = train_lib.make_det_train_step(model, tx, config,
                                           preprocess_fn=make_preprocess(config))
   size = anchors_lib.parse_image_size(config.image_size)
-  it = iter(pipeline.SyntheticDetection(batch_size, size[0],
-                                        config.max_instances_per_image,
-                                        config.num_classes))
+  it = data_iter if data_iter is not None else iter(
+      pipeline.SyntheticDetection(batch_size, size[0],
+                                  config.max_instances_per_image,
+                                  config.num_classes))
   generator = torch.Generator(device=device)
   writer = MetricsWriter(model_dir)
+  profiler = None
 
   def evaluate():
     fresh = eval_iter() if callable(eval_iter) else eval_iter
@@ -422,11 +508,15 @@ def run_detection(config, model_dir: str, train_steps: int,
   step = state.step
   prev_t = time.perf_counter()
   while step < train_steps:
-    batch = {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
-             for k, v in next(it).items()}
+    batch = on_device(next(it), device)
     generator.manual_seed(step_seed(seed, step))
+    if profile and step == PROFILE_STEPS[0]:
+      profiler = _start_profile(device)
     state, metrics = step_fn(state, batch, generator)
     step += 1
+    if profiler is not None and step > PROFILE_STEPS[1]:
+      _stop_profile(profiler, model_dir, device)
+      profiler = None
     if step % log_every == 0 or step == train_steps:
       m = {k: float(v) for k, v in metrics.items()}   # waits for the step
       now = time.perf_counter()
@@ -447,6 +537,8 @@ def run_detection(config, model_dir: str, train_steps: int,
             f"AP50 {em.get('AP50', -1):.4f}")
       if em.get("AP", -1) >= 0:
         archive_ckpt(model_dir, step, em["AP"], mngr)
+  if profiler is not None:
+    _stop_profile(profiler, model_dir, device)
   writer.close()
   mngr.save(step, state)
   mngr.wait_until_finished()
@@ -498,16 +590,16 @@ def evaluate_detection(model, params, config, eval_iter, eval_steps: int,
         batch = next(eval_iter)
       except StopIteration:
         break  # a finite eval set smaller than eval_steps: a partial pass
-      images = torch.as_tensor(np.asarray(batch["image"]),
-                               dtype=torch.float32).to(device)
+      images = on_device({"image": batch["image"]}, device)["image"].float()
       images = ((images - mean) / std).permute(0, 3, 1, 2).contiguous(
           memory_format=torch.channels_last)
       b = images.shape[0]
-      scale = np.asarray(batch.get("image_scale", 1.0), np.float32)
-      scales = np.broadcast_to(scale.reshape(-1), (b,))
+      scale = _host(batch.get("image_scale", 1.0)).astype(np.float32)
+      scales = np.broadcast_to(scale.reshape(-1), (b,)).copy()
       if "source_id" in batch:
         ids = np.broadcast_to(
-            np.asarray(batch["source_id"], np.float32).reshape(-1), (b,))
+            _host(batch["source_id"]).astype(np.float32).reshape(-1),
+            (b,)).copy()
       else:
         ids = np.arange(step * b, step * b + b, dtype=np.float32)
       # gt boxes are in canvas coordinates: scaled as the detections are
@@ -515,9 +607,9 @@ def evaluate_detection(model, params, config, eval_iter, eval_steps: int,
         gt_boxes = np.zeros((b, 0, 4), np.float32)
         gt_classes = np.zeros((b, 0), np.int32)
       else:
-        gt_boxes = (np.asarray(batch["gt_boxes"], np.float32)
+        gt_boxes = (_host(batch["gt_boxes"]).astype(np.float32)
                     * scale.reshape(-1, 1, 1))
-        gt_classes = np.asarray(batch["gt_classes"])
+        gt_classes = _host(batch["gt_classes"])
       cls_out, box_out = model(images, train=False)
       dets, valid = postprocess.generate_detections(
           config, cls_out, box_out,

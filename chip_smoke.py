@@ -13,6 +13,8 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
+     the host's toolchain for the host library (g++, jpeglib.h, the JPEG
+     libraries ldconfig sees, whether PIL imports) and its CPU count;
   1. build: compiles the CUDA kernels from automl_tpu_torch/csrc/ with nvcc
      for sm_90a, one nvcc per source (eight), all at once; prints each
      kernel's registers and spills, and the HGMMA and LDL/STL counts of the
@@ -132,7 +134,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      after a 512-token prompt at batch 8, through generate_lm.load_model and
      greedy_generate. The run must launch K4 exactly n_layers * 512 times,
      every launch the Hopper kernels' (a counter per implementation); its
-     prefill logits are held against the plain-attention path.
+     prefill logits are held against the plain-attention path;
+  11. real input files (run after 9, before 10): the host library
+     csrc/host/tfrecord_jpeg.cc built with this machine's codec (nvJPEG
+     where there is no libjpeg); fixtures encoded here (512 COCO-like
+     JPEGs, 640 x 480 / 480 x 640 / 640 x 427 with 1-8 boxes, through
+     cli/create_coco_tfrecord into 8 shards; 1,024 ImageNet-like 500 x 375
+     in 8 shards; decode(encode(x)) above DATA_PSNR_DB; the boxes as read
+     equal the written ones x scale in float32); each reader's img/s alone
+     (the TF-free detection reader at canvas 512 b16 and the native one at
+     4 workers and at the CPU count; the ImageNet ones at V2-S's canvas
+     b256 likewise); one batch through DevicePrefetcher equal to its
+     source; D0 b16 trained 20 steps through cli/main_det from files with
+     each reader, step ms beside phase 7's synthetic-fed knob-off run; its
+     --mode=eval (128 samples) against an in-process evaluate_detection
+     over the same batches (metrics within 1e-4, and the --testdev_dir
+     detections equal as multisets); V2-S b256 10 steps at stage 0's 168 px
+     from files with --native_loader, beside phase 9's synthetic-fed stage
+     0.
 
 Every kernel time is the mean over calls of CUDA events around one call,
 after an L2 flush and a sleep kernel that keeps the card busy while the
@@ -156,6 +175,8 @@ Prints a {"kernels": [...]} JSON line, then the card line, and last
 from __future__ import annotations
 
 import concurrent.futures
+import glob
+import itertools
 import json
 import math
 import os
@@ -1493,7 +1514,7 @@ def _det_train_run(workdir, flags, steps, knob, per_step):
 def detection_phase(dev, workdir):
   """EfficientDet-D0 training: step 1 knob on vs off, then 20 steps through
   main_det with the knob on (and a resume to 21) and 20 with it off.
-  Returns the knob-on run's K6 launches."""
+  Returns the knob-on run's K6 launches and the knob-off run's step ms."""
   import torch
   from automl_tpu_torch.models import efficientdet
   cfg = _det_config()
@@ -1518,7 +1539,7 @@ def detection_phase(dev, workdir):
         f"; img/s {on[2]:.1f} vs {off[2]:.1f}; peak {on[3]:.2f} vs "
         f"{off[3]:.2f} GiB")
   torch.cuda.empty_cache()
-  return on[0]
+  return on[0], off[1]
 
 
 D0_INFER_BATCH = 32
@@ -2795,7 +2816,7 @@ def cls_phase(dev, workdir):
   """Classification: (a) inference, (b) V2-S training through main_cls
   with the K6 knob on and off, (c) the step-1 checks, (d) mixing, (e) the
   preprocess card vs CPU, (f) eval with the EMA. Returns the knob-on run's
-  K6 launches."""
+  K6 launches and the knob-off run's stage-0 step ms."""
   import torch
   from automl_tpu_torch.models.efficientnet import EfficientNet
   from automl_tpu_torch.train import runners
@@ -2825,7 +2846,321 @@ def cls_phase(dev, workdir):
   _cls_eval_check(dev, os.path.join(workdir, "ckpt"))
   torch.cuda.empty_cache()
   print(f"classification phase: {time.perf_counter() - t0:.1f} s")
-  return sum(r[4] for r in on)
+  return sum(r[4] for r in on), off[0][1]
+
+
+# ---------------------------------------------------------------------------
+# 11. Real input files: the host library, fixtures, readers, training and
+# eval from TFRecords.
+# ---------------------------------------------------------------------------
+
+DATA_DET_IMAGES = 512      # COCO-like fixtures, 8 shards
+DATA_CLS_IMAGES = 1024     # ImageNet-like fixtures, 8 shards
+DATA_SHARDS = 8
+DATA_PSNR_DB = 30.0        # decode(encode(x)) of a fixture, quality 90
+DATA_EVAL_SAMPLES = 128
+
+
+def host_facts():
+  """The card machine's toolchain for the host library: g++, libjpeg's
+  header, the JPEG libraries the loader sees, PIL (nothing on the card's
+  path imports it) and the CPU count."""
+  def sh(cmd):
+    p = subprocess.run(cmd, shell=True, capture_output=True, text=True,
+                       timeout=60, check=False)
+    return p.returncode, (p.stdout + p.stderr).strip()
+  rc, out = sh("g++ --version")
+  print(f"host: g++: {out.splitlines()[0] if rc == 0 and out else 'missing'}")
+  rc, _ = sh("echo '#include <jpeglib.h>' | g++ -E -x c++ - >/dev/null")
+  print(f"host: jpeglib.h {'found' if rc == 0 else 'not found'} by g++")
+  _, out = sh("ldconfig -p | grep -E 'libjpeg|libnvjpeg'")
+  for line in out.splitlines() or ["(none)"]:
+    print(f"host: ldconfig: {line.strip()}")
+  rc, _ = sh(f"{sys.executable} -c 'import PIL'")
+  print(f"host: PIL {'importable' if rc == 0 else 'not importable'}")
+  print(f"host: nproc {os.cpu_count()}")
+
+
+def _smooth_image(rng, h, w, boxes=()):
+  """A COCO-like test image: gradients, a little noise, and a filled
+  rectangle of its own colour per box (ymin, xmin, ymax, xmax) in
+  pixels."""
+  import numpy as np
+  y = np.arange(h, dtype=np.float32)[:, None, None]
+  x = np.arange(w, dtype=np.float32)[None, :, None]
+  c = rng.uniform(0.2, 1.0, 3).astype(np.float32)
+  img = (x * (255 / w) * c + y * (255 / h) * c[::-1]) * 0.5 + 40
+  for y0, x0, y1, x1 in boxes:
+    img[int(y0):int(y1), int(x0):int(x1)] = rng.uniform(0, 255, 3)
+  img += rng.randint(-3, 4, (h, w, 1))
+  return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _data_fixtures(root):
+  """512 COCO-like JPEGs (640 x 480, 480 x 640, 640 x 427; 1-8 boxes) as
+  a COCO directory, turned into 8 shards by cli/create_coco_tfrecord, and
+  1,024 ImageNet-like 500 x 375 JPEGs in 8 shards, all encoded on this
+  machine (native_loader.jpeg_encode_rgb). Checks decode(encode(x)) on a
+  few. Returns (det pattern, cls pattern, {source id: (h, w, annotations)})."""
+  import numpy as np
+  from automl_tpu_torch.cli import create_coco_tfrecord
+  from automl_tpu_torch.data import native_loader as nl
+  rng = np.random.RandomState(0)
+  os.makedirs(os.path.join(root, "images"))
+  images, anns, meta, psnr = [], [], {}, []
+  t0 = time.perf_counter()
+  for i in range(DATA_DET_IMAGES):
+    h, w = ((480, 640), (640, 480), (427, 640))[i % 3]
+    n = rng.randint(1, 9)
+    bh, bw = rng.uniform(0.1, 0.5, n) * h, rng.uniform(0.1, 0.5, n) * w
+    y0, x0 = rng.uniform(0, 1, n) * (h - bh), rng.uniform(0, 1, n) * (w - bw)
+    boxes = np.stack([y0, x0, y0 + bh, x0 + bw], 1)
+    img = _smooth_image(rng, h, w, boxes)
+    data = nl.jpeg_encode_rgb(img, 90)
+    if i < 8:
+      psnr.append(10 * np.log10(255 ** 2 / np.mean(
+          (nl.jpeg_decode_full(data).astype(np.float64) - img) ** 2)))
+    with open(os.path.join(root, "images", f"{i}.jpg"), "wb") as f:
+      f.write(data)
+    images.append({"id": 1 + i, "file_name": f"{i}.jpg", "height": h,
+                   "width": w})
+    a = [{"id": len(anns) + j + 1, "image_id": 1 + i,
+          "bbox": [float(x0[j]), float(y0[j]), float(bw[j]), float(bh[j])],
+          "category_id": int(rng.randint(1, 91)), "iscrowd": 0,
+          "area": float(bw[j] * bh[j])} for j in range(n)]
+    anns += a
+    meta[1 + i] = (h, w, a)
+  with open(os.path.join(root, "ann.json"), "w") as f:
+    json.dump({"images": images, "annotations": anns, "categories": [
+        {"id": c, "name": str(c)} for c in range(1, 91)]}, f)
+  create_coco_tfrecord.main([
+      f"--image_dir={os.path.join(root, 'images')}",
+      f"--object_annotations_file={os.path.join(root, 'ann.json')}",
+      f"--output_file_prefix={os.path.join(root, 'coco', 'train')}",
+      f"--num_shards={DATA_SHARDS}"])
+  writers = [nl.TFRecordWriter(os.path.join(root, f"train-{s:05d}-of-"
+                                            f"{DATA_SHARDS:05d}"))
+             for s in range(DATA_SHARDS)]
+  for i in range(DATA_CLS_IMAGES):
+    y0, x0 = rng.uniform(0, 1, 2) * (200, 250)
+    img = _smooth_image(rng, 375, 500, [(y0, x0, y0 + 175, x0 + 250)])
+    data = nl.jpeg_encode_rgb(img, 90)
+    if i < 4:
+      psnr.append(10 * np.log10(255 ** 2 / np.mean(
+          (nl.jpeg_decode_full(data).astype(np.float64) - img) ** 2)))
+    writers[i % DATA_SHARDS].write(nl.build_example({
+        "image/encoded": [data], "image/class/label": [int(i % 1000)]}))
+  for w in writers:
+    w.close()
+  print(f"data: fixtures ({DATA_DET_IMAGES} COCO-like, {DATA_CLS_IMAGES} "
+        f"ImageNet-like JPEGs, quality 90, {DATA_SHARDS} shards each) in "
+        f"{time.perf_counter() - t0:.1f} s; decode(encode(x)) PSNR "
+        f"{min(psnr):.2f}-{max(psnr):.2f} dB (must be > {DATA_PSNR_DB})")
+  if min(psnr) <= DATA_PSNR_DB:
+    raise AssertionError("a fixture's decode is too far from its source")
+  return (os.path.join(root, "coco", "train-*"),
+          os.path.join(root, "train-*"), meta)
+
+
+def _check_read_boxes(det_pattern, meta):
+  """The eval reader's boxes equal the written ones (normalised float32 in
+  the record) times the scale, in float32, and their classes."""
+  import numpy as np
+  from automl_tpu_torch.data import pipeline
+  n = 0
+  for batch in itertools.islice(pipeline.DetectionTFRecordLoader(
+      det_pattern, False, 16, 512, 100), 2):
+    for i, sid in enumerate(batch["source_id"]):
+      h, w, anns = meta[int(sid)]
+      fh, fw = np.float32(h), np.float32(w)
+      scale = np.float32(512) / max(fh, fw)
+      norm = lambda v, d: np.float32(v / d)
+      want = np.array([[norm(a["bbox"][1], h) * fh, norm(a["bbox"][0], w) * fw,
+                        norm(a["bbox"][1] + a["bbox"][3], h) * fh,
+                        norm(a["bbox"][0] + a["bbox"][2], w) * fw]
+                       for a in anns], np.float32) * scale
+      got = batch["gt_boxes"][i, :len(anns)]
+      if not (np.array_equal(got, want) and list(
+          batch["gt_classes"][i, :len(anns)]) == [a["category_id"]
+                                                  for a in anns]):
+        raise AssertionError(f"record {sid}: read boxes {got} != {want}")
+      n += 1
+  print(f"data: {n} records' boxes as read equal the written ones x scale "
+        "(float32, exact)")
+
+
+def _reader_rate(make, batches: int, label: str) -> float:
+  """img/s of a reader alone: one batch to warm up, then `batches`."""
+  it = iter(make())
+  next(it)
+  t0 = time.perf_counter()
+  n = sum(next(it)["image"].shape[0] for _ in range(batches))
+  rate = n / (time.perf_counter() - t0)
+  if hasattr(it, "close"):
+    it.close()
+  print(f"data: reader {label}: {rate:.1f} img/s ({n} images)")
+  return rate
+
+
+def _file_step_ms(workdir) -> float:
+  import numpy as np
+  recs = [json.loads(line) for line in
+          open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
+  if not all(math.isfinite(r["loss"]) for r in recs if "loss" in r):
+    raise AssertionError(f"{workdir}: a loss is not finite")
+  return float(np.median([r["secs_per_step"] for r in recs
+                          if "secs_per_step" in r][4:])) * 1e3
+
+
+def data_phase(dev, root, d0_synthetic_ms=None, v2s_synthetic_ms=None):
+  """11. The host library with this machine's codec; the fixtures; each
+  reader's img/s alone; D0 b16 trained 20 steps through cli/main_det from
+  files with each reader, its eval mode (AP against an in-process
+  evaluate_detection over the same batches, within 1e-4) and test-dev
+  JSON; V2-S b256 10 steps at stage 0's size (168 px) through cli/main_cls
+  from files with --native_loader; one batch through DevicePrefetcher.
+  The from-files step times stand beside the synthetic-fed ones of the
+  same call (the D0 knob-off run, V2-S's knob-off stage 0)."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch.cli import main_cls, main_det
+  from automl_tpu_torch.data import native_loader as nl
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.ops import depthwise as dw
+  from automl_tpu_torch.train import runners
+  t_phase = time.perf_counter()
+  shutil.rmtree(root, ignore_errors=True)
+  t0 = time.perf_counter()
+  lib = nl.build_host()
+  print(f"data: host library {lib.name} (codec {nl.codec()}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+  det_pattern, cls_pattern, meta = _data_fixtures(root)
+  _check_read_boxes(det_pattern, meta)
+  nproc = os.cpu_count() or 1
+  files = sorted(glob.glob(det_pattern))
+  cls_files = sorted(glob.glob(cls_pattern))
+  v2s_canvas = int(runners.resolve_train_size(_cls_config()) * 1.15) // 2 * 2
+  _reader_rate(lambda: pipeline.DetectionTFRecordLoader(
+      det_pattern, True, D0_BATCH, 512), 8,
+      f"DetectionTFRecordLoader (TF-free) b{D0_BATCH} canvas 512, "
+      f"{nproc} threads")
+  for workers in sorted({4, nproc}):
+    _reader_rate(lambda: nl.NativeParallelDetectionLoader(
+        files, D0_BATCH, 512, num_workers=workers), 8,
+        f"NativeParallelDetectionLoader b{D0_BATCH} canvas 512, {workers} "
+        "workers")
+  _reader_rate(lambda: pipeline.ImageNetTFRecordLoader(
+      cls_pattern, True, V2S_BATCH, v2s_canvas, 1000), 2,
+      f"ImageNetTFRecordLoader (TF-free) b{V2S_BATCH} canvas {v2s_canvas}, "
+      f"{nproc} threads")
+  for workers in sorted({4, nproc}):
+    _reader_rate(lambda: nl.NativeParallelClassificationLoader(
+        cls_files, V2S_BATCH, v2s_canvas, 1000, num_workers=workers), 2,
+        f"NativeParallelClassificationLoader b{V2S_BATCH} canvas "
+        f"{v2s_canvas}, {workers} workers")
+
+  # DevicePrefetcher: one batch staged on the card equals its source.
+  src = next(iter(pipeline.DetectionTFRecordLoader(det_pattern, False,
+                                                   D0_BATCH, 512)))
+  pf = pipeline.DevicePrefetcher(iter([src]), dev)
+  (staged,) = list(pf)
+  pf.close()
+  for k, v in src.items():
+    if staged[k].device.type != "cuda" or not torch.equal(
+        staged[k].cpu(), torch.as_tensor(v)):
+      raise AssertionError(f"DevicePrefetcher: {k} differs from its source")
+  print(f"data: DevicePrefetcher staged a b{D0_BATCH} batch ({len(src)} "
+        "keys) on the card, equal to its source")
+
+  # D0 b16 from files, each reader (the K6 knob off, as in the synthetic
+  # knob-off run it stands beside).
+  flags = ["--mode=train", "--model_name=efficientdet-d0",
+           f"--train_file_pattern={det_pattern}",
+           f"--hparams=mixed_precision=true,batch_size={D0_BATCH}",
+           "--log_every=1", "--device=cuda", "--train_steps=20"]
+  step_ms = {}
+  for name, extra in (("TF-free reader", []),
+                      (f"native loader, {nproc} workers",
+                       ["--native_loader", f"--native_workers={nproc}"])):
+    d = os.path.join(root, "d0_" + ("native" if extra else "tf_free"))
+    dw.depthwise_filter_grad.launches = 0
+    main_det.main(flags + extra + [f"--model_dir={d}"])
+    step_ms[name] = _file_step_ms(d)
+    print(f"data: D0 b{D0_BATCH} 512x512 bf16 from files ({name}): step "
+          f"{step_ms[name]:.1f} ms (median of steps 5-20), "
+          f"{D0_BATCH / step_ms[name] * 1e3:.1f} img/s; K6 launches "
+          f"{dw.depthwise_filter_grad.launches} (knob off)")
+  synth = ("not measured in this call" if d0_synthetic_ms is None else
+           f"{d0_synthetic_ms:.1f} ms")
+  print(f"data: D0 b{D0_BATCH} step ms, synthetic-fed {synth} vs from files "
+        + ", ".join(f"{k} {v:.1f}" for k, v in step_ms.items()))
+
+  # --mode=eval on the TF-free run's checkpoint against an in-process
+  # evaluate_detection over the same batches; --testdev_dir writes JSON.
+  d = os.path.join(root, "d0_tf_free")
+  eval_flags = ["--mode=eval", "--model_name=efficientdet-d0",
+                f"--model_dir={d}", f"--val_file_pattern={det_pattern}",
+                f"--eval_samples={DATA_EVAL_SAMPLES}", "--device=cuda",
+                f"--hparams=mixed_precision=true,batch_size={D0_BATCH}"]
+  got = main_det.main(eval_flags)
+  cfg = _det_config()
+  model = runners.seeded_detection_model(cfg, 0, dev)
+  template, _ = runners.detection_state(model, cfg)
+  from automl_tpu_torch.train.checkpoint import CheckpointManager
+  params = runners.restore_eval_params(
+      CheckpointManager(os.path.join(d, "ckpt")), template, None)
+  want = runners.evaluate_detection(
+      model, params, cfg, iter(pipeline.DetectionTFRecordLoader(
+          det_pattern, False, D0_BATCH, 512)), DATA_EVAL_SAMPLES // D0_BATCH)
+  worst = max(abs(got[k] - want[k]) for k in want)
+  print(f"data: --mode=eval {json.dumps(got)} vs in-process "
+        f"{json.dumps(want)}; largest metric difference {worst:.2e} (limit "
+        "1e-4)")
+  if set(got) != set(want) or worst > 1e-4:
+    raise AssertionError("eval mode's metrics differ from evaluate_detection")
+  # The metrics of 20 steps from random weights are about 0, so the
+  # detections themselves are compared too: the test-dev JSON of the eval
+  # mode and of evaluate_detection, as multisets of rows, equal.
+  testdev = main_det.main(eval_flags + [
+      f"--testdev_dir={os.path.join(root, 'testdev')}"])
+  want_json = runners.evaluate_detection(
+      model, params, cfg, iter(pipeline.DetectionTFRecordLoader(
+          det_pattern, False, D0_BATCH, 512)), DATA_EVAL_SAMPLES // D0_BATCH,
+      testdev_dir=os.path.join(root, "testdev_in_process"))
+  rows, want_rows = (json.load(open(r["detections_json"]))
+                     for r in (testdev, want_json))
+  key = lambda r: (r["image_id"], r["category_id"], tuple(r["bbox"]),
+                   r["score"])
+  if testdev["AP"] != -1.0 or not rows or set(rows[0]) != {
+      "image_id", "category_id", "bbox", "score"}:
+    raise AssertionError(f"--testdev_dir: {testdev}, {rows[:1]}")
+  if sorted(map(key, rows)) != sorted(map(key, want_rows)):
+    raise AssertionError("--testdev_dir's detections differ from "
+                         "evaluate_detection's")
+  print(f"data: --testdev_dir wrote {len(rows)} detections to "
+        f"{os.path.basename(testdev['detections_json'])}, equal to the "
+        "in-process evaluate_detection's")
+  del model, template, params
+  torch.cuda.empty_cache()
+
+  # V2-S b256 at stage 0's size from files, the native loader.
+  d = os.path.join(root, "v2s_native")
+  main_cls.main(["--model_name=efficientnetv2-s", f"--model_dir={d}",
+                 f"--train_file_pattern={cls_pattern}", "--native_loader",
+                 f"--native_workers={nproc}", "--train_steps=10",
+                 "--log_every=1", "--device=cuda",
+                 f"--hparam_str=train.batch_size={V2S_BATCH},train.stages=1,"
+                 "train.isize=168"])
+  ms = _file_step_ms(d)
+  synth = ("not measured in this call" if v2s_synthetic_ms is None else
+           f"{v2s_synthetic_ms:.1f} ms")
+  print(f"data: V2-S b{V2S_BATCH} 168x168 bf16 from files (native loader, "
+        f"{nproc} workers): step {ms:.1f} ms (median of steps 5-10), "
+        f"{V2S_BATCH / ms * 1e3:.1f} img/s; synthetic-fed stage 0 {synth}")
+  torch.cuda.empty_cache()
+  print(f"data phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 
 
 def _entry(name, source, replaces, launches, r):
@@ -2889,6 +3224,7 @@ def main() -> int:
   print(f"card: {card}")
   print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+  host_facts()
 
   t = time.perf_counter()
   sources = ("decode_attention", "decode_attention_sm90", "flash_attention",
@@ -2929,10 +3265,12 @@ def main() -> int:
             cls_dir, cls_dir + "_off", cls_dir + "_mix"):
     shutil.rmtree(d, ignore_errors=True)
   runs = training_phase(dev, workdir)
-  k6_launches = detection_phase(dev, det_dir)
+  k6_launches, d0_synthetic_ms = detection_phase(dev, det_dir)
   inference_phase(dev, os.path.join(det_dir + "_off", "ckpt"),
                   os.path.join(build, "chip_smoke_infer"))
-  cls_k6_launches = cls_phase(dev, cls_dir)
+  cls_k6_launches, v2s_synthetic_ms = cls_phase(dev, cls_dir)
+  data_phase(dev, os.path.join(build, "chip_smoke_data"), d0_synthetic_ms,
+             v2s_synthetic_ms)
   k4_launches = serving_phase(dev)
   print(f"prefill K4 at the slice's shapes: {json.dumps(k4['prefill T=512'])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

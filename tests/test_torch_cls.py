@@ -547,14 +547,10 @@ def test_infer_cls_bm_and_infer_match_jax(tmp_path, capsys):
 
 
 CLS_REFUSED = {
-    "--mode=eval": "M9", "--train_file_pattern=x": "M9",
-    "--val_file_pattern=x": "M9", "--native_loader": "M9",
-    "--data_dir=/x": "M9", "--ft_init_ckpt=x": "M9", "--eval_timeout=3": "M9",
-    "--mesh_shape=1,2": "M10", "--num_processes=2": "M10",
-    "--hparam_str=train.qat=true": "M11",
+    "--ft_init_ckpt=x": "M9", "--mesh_shape=1,2": "M10",
+    "--num_processes=2": "M10", "--hparam_str=train.qat=true": "M11",
     "--hparam_str=train.ft_init_ckpt=x": "M9"}
-INFER_REFUSED = {"--runmode=export": "M9", "--runmode=eval": "M9",
-                 "--tf_ckpt": "M9"}
+INFER_REFUSED = {"--runmode=export": "M9", "--tf_ckpt": "M9"}
 
 
 @pytest.mark.parametrize("flag", list(CLS_REFUSED) + list(INFER_REFUSED))
@@ -574,9 +570,13 @@ def test_data_dir_and_mesh_refused_in_code(tmp_path):
   with pytest.raises(NotImplementedError, match="M10"):
     trun.run_classification(cfg, str(tmp_path), 1, mesh_shape=(1, 2),
                             device="cpu")
+  # a data_dir reads the split's TFRecords there (none under /data)
   cfg.data.data_dir = "/data"
-  with pytest.raises(NotImplementedError, match="M9"):
-    tds.build_dataset(cfg, "train", 2)
+  loader = tds.build_dataset(cfg, "train", 2)
+  assert isinstance(loader, tpipe.ImageNetTFRecordLoader)
+  assert loader.file_pattern.startswith("/data/")
+  with pytest.raises(ValueError, match="no files match"):
+    next(iter(loader))
   tm = teff.EfficientNet(cfg.model)
   with pytest.raises(NotImplementedError, match="M10"):
     trun.evaluate_classification(tm, convert.model_state(tm), cfg, iter(()),

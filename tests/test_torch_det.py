@@ -882,13 +882,8 @@ def test_synthetic_detection_matches_jax():
 # Each refused flag and the ROADMAP item its message names. The eval-only
 # flags read the eval set's TFRecords (or watch checkpoints): M9.
 UNPORTED_FLAGS = {
-    "--mode=eval": "M9", "--mesh_shape=1,2,1": "M10",
-    "--init_backbone_ckpt=x": "M9", "--native_loader": "M9",
-    "--profile": "M9", "--run_epoch_in_child_process": "M9",
-    "--hparams=qat=true": "M11",
-    "--hparams=autoaugment_policy=v0": "M9",
-    "--val_file_pattern=x": "M9", "--testdev_dir=x": "M9",
-    "--eval_timeout=5": "M9"}
+    "--mesh_shape=1,2,1": "M10", "--init_backbone_ckpt=x": "M9",
+    "--hparams=qat=true": "M11"}
 
 
 @pytest.mark.parametrize("flag", list(UNPORTED_FLAGS))

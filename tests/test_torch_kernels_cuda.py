@@ -1142,3 +1142,97 @@ def test_depthwise_filter_grad_dispatch_by_counter(dev):
   with pytest.raises(ValueError, match="16-byte aligned"):
     dwise.depthwise_filter_grad(odd, odd, 3)
   assert (f.launches, f.launches_sm90) == before
+
+
+# ---------------------------------------------------------------------------
+# The host library (csrc/host/tfrecord_jpeg.cc) with the card machine's
+# codec (nvJPEG where there is no libjpeg), and DevicePrefetcher to the
+# card. nvJPEG's decode is held to the source pixels: PSNR above 30 dB at
+# quality 90 on a smooth image, as libjpeg's is.
+# ---------------------------------------------------------------------------
+
+
+def _smooth_rgb(h, w, seed=0):
+  import numpy as np
+  rng = np.random.RandomState(seed)
+  y, x = np.mgrid[:h, :w]
+  img = np.stack([x * 255 // w, y * 255 // h, (x + y) * 127 // (h + w)], -1)
+  return np.clip(img + rng.randint(-3, 4, (h, w, 3)), 0, 255).astype(
+      np.uint8)
+
+
+def _psnr(a, b):
+  import numpy as np
+  mse = np.mean((a.astype(np.float64) - b) ** 2)
+  return 10 * np.log10(255 ** 2 / max(mse, 1e-12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(480, 640), (427, 640), (375, 500), (17, 23)])
+def test_host_library_codec_round_trip(dev, hw):
+  from automl_tpu_torch.data import native_loader as nl
+  nl.build_host()
+  assert nl._load().jpeg_codec().decode() == nl.codec()
+  img = _smooth_rgb(*hw)
+  data = nl.jpeg_encode_rgb(img, 90)
+  assert nl.image_format(data) == "jpeg"
+  back = nl.jpeg_decode_full(data)
+  assert back.shape == img.shape and _psnr(back, img) > 30
+  canvas, (ch, cw) = nl.jpeg_decode_to_canvas(data, 512, 512)
+  scale = min(512 / hw[0], 512 / hw[1])
+  assert abs(ch - hw[0] * scale) <= 8 and abs(cw - hw[1] * scale) <= 8
+  assert canvas[ch:].max(initial=0) == 0 and canvas[:, cw:].max(initial=0) == 0
+
+
+@pytest.mark.cuda
+def test_host_library_pipelines_on_card_machine(dev, tmp_path):
+  import numpy as np
+  from automl_tpu_torch.data import native_loader as nl
+  from automl_tpu_torch.data import pipeline
+  path = str(tmp_path / "d.tfrecord")
+  with nl.TFRecordWriter(path) as w:
+    for i in range(7):
+      w.write(nl.build_example({
+          "image/encoded": [nl.jpeg_encode_rgb(_smooth_rgb(60 + i, 80, i))],
+          "image/source_id": [str(i)],
+          "image/object/bbox/ymin": [0.1], "image/object/bbox/xmin": [0.2],
+          "image/object/bbox/ymax": [0.5], "image/object/bbox/xmax": [0.9],
+          "image/object/class/label": [i + 1],
+          "image/object/is_crowd": [0]}))
+  got = list(nl.NativeParallelDetectionLoader([path], 3, 64, max_instances=2,
+                                              num_workers=3, repeat=False))
+  assert [b["image"].shape[0] for b in got] == [3, 3, 1]
+  ids = sorted(float(v) for b in got for v in b["source_id"])
+  assert ids == list(range(7))
+  evals = list(pipeline.DetectionTFRecordLoader(path, False, 4, 64,
+                                                max_instances=2))
+  assert [b["image"].shape for b in evals] == [(4, 64, 64, 3), (3, 64, 64, 3)]
+  b = evals[0]
+  h = np.float32(60.0)
+  scale = np.float32(64) / np.float32(80.0)
+  np.testing.assert_array_equal(
+      b["gt_boxes"][0, 0], np.stack([np.float32(0.1) * h,
+                                     np.float32(0.2) * np.float32(80.0),
+                                     np.float32(0.5) * h,
+                                     np.float32(0.9) * np.float32(80.0)])
+      * scale)
+
+
+@pytest.mark.cuda
+def test_device_prefetcher_stages_to_the_card(dev):
+  import numpy as np
+  from automl_tpu_torch.data import pipeline
+  rng = np.random.RandomState(0)
+  batches = [{"image": rng.randint(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+              "gt_boxes": rng.rand(4, 5, 4).astype(np.float32)}
+             for _ in range(5)]
+  pf = pipeline.DevicePrefetcher(iter(batches), dev, buffer_size=2)
+  got = []
+  for b in pf:
+    assert all(v.device.type == "cuda" for v in b.values())
+    got.append({k: (v * 1).cpu() for k, v in b.items()})  # use on the card
+  pf.close()
+  assert not pf._thread.is_alive() and len(got) == 5
+  for g, w in zip(got, batches):
+    for k in w:
+      np.testing.assert_array_equal(g[k].numpy(), w[k])
