@@ -21,8 +21,15 @@ Subpackages:
   train     -- LM trainer, detection train step and runner, optimizers,
                schedules, metrics, checkpoints
   data      -- byte tokenizer, document packing, packed batches; synthetic
-               detection data and its preprocessing
-  cli       -- main_lm, main_det (training), generate_lm
+               detection data and its preprocessing; the TF-free TFRecord
+               readers and the native C++ loader
+  ckpt      -- published TF checkpoints, read without TensorFlow
+               (tf_bundle) and mapped onto the models (tf_compat)
+  inference -- detection serving (ServingDriver / InferenceDriver, export
+               with torch.export), drawing and label maps
+  cli       -- main_lm, main_det, main_cls (training), generate_lm,
+               infer_cls, inspector, inspect_tfrecords, the TFRecord
+               converters
 """
 
 __version__ = "0.1.0"

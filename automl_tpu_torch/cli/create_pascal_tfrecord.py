@@ -18,14 +18,7 @@ import os
 import xml.etree.ElementTree as ET
 
 from automl_tpu_torch.data.native_loader import TFRecordWriter, build_example
-# The VOC label map of automl_tpu/inference/label_util.py (the port's
-# inference/label_util.py comes with ROADMAP M9's second half).
-VOC_LABELS = {
-    1: "aeroplane", 2: "bicycle", 3: "bird", 4: "boat", 5: "bottle",
-    6: "bus", 7: "car", 8: "cat", 9: "chair", 10: "cow", 11: "diningtable",
-    12: "dog", 13: "horse", 14: "motorbike", 15: "person", 16: "pottedplant",
-    17: "sheep", 18: "sofa", 19: "train", 20: "tvmonitor",
-}
+from automl_tpu_torch.inference.label_util import voc as VOC_LABELS
 
 _NAME_TO_ID = {name: cid for cid, name in VOC_LABELS.items()}
 

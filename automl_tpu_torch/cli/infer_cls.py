@@ -6,6 +6,10 @@ Examples:
     --runmode=bm --batch_size=8
   python -m automl_tpu_torch.cli.infer_cls --runmode=infer \\
     --input_image=cat.jpg --ckpt_path=/tmp/v2s/ckpt --device=cpu
+  python -m automl_tpu_torch.cli.infer_cls --runmode=infer --tf_ckpt \\
+    --ckpt_path=/ckpts/efficientnetv2-b0/model --use_ema --input_image=cat.jpg
+  python -m automl_tpu_torch.cli.infer_cls --runmode=export \\
+    --export_dir=/tmp/v2b0-export --batch_size=8
 
 bm prints {"fps", "latency_ms"} of predict (the eval preprocess from a
 uint8 canvas of eval.isize + 32 plus the forward) at --batch_size: the
@@ -13,17 +17,20 @@ best of 3 rounds of --bm_runs calls, CUDA events around each round (a
 host clock with a synchronise on the CPU). infer prints the top-5 classes
 and their softmax probabilities for --input_image (PIL, imported only
 here), from the port's checkpoint directory (--ckpt_path: the params of
-its latest step, or its EMA with --use_ema) or, as the JAX CLI's key 0,
-run_classification's weights from seed 0. Added here: --device (default
-cuda).
+its latest step, or its EMA with --use_ema), or with --tf_ckpt from a
+published TF checkpoint (a prefix or directory, read without TF by
+ckpt/tf_compat.py; --use_ema prefers its EMA shadows), or, as the JAX
+CLI's key 0, run_classification's weights from seed 0. Added here:
+--device (default cuda).
 eval prints {"top1", "samples"} over --val_file_pattern (the TF-free
 ImageNet reader at eval.isize + 32, the reference's eval crop, the last
 partial batch kept) up to --eval_samples, or, for multi-label data
 (--dataset=imagenet21k), {"auc_pr", "precision_at_1", ...} of
 eval/classification.py::MultiLabelEvaluator.
-Not ported yet, and refused with their ROADMAP item: --runmode=export
-(torch.export, inference/driver.py), --tf_ckpt and the JAX package's
-orbax directories (all M9).
+export saves torch.export's program of predict at uint8 [batch_size,
+canvas, canvas, 3] as --export_dir/model.pt2 (JAX writes StableHLO,
+model.stablehlo). The JAX package's orbax directories are refused (they
+need tensorstore; ROADMAP M9's orbax item).
 """
 
 from __future__ import annotations
@@ -33,6 +40,10 @@ import json
 import os
 import time
 
+import torch
+
+from automl_tpu_torch.data import preprocessing
+
 
 def parse_args(argv=None):
   p = argparse.ArgumentParser(description=__doc__)
@@ -41,7 +52,8 @@ def parse_args(argv=None):
   p.add_argument("--model_name", default="efficientnetv2-b0")
   p.add_argument("--ckpt_path", default=None,
                  help="the port's checkpoint directory (model_dir/ckpt)")
-  p.add_argument("--tf_ckpt", action="store_true", help="not ported (M9)")
+  p.add_argument("--tf_ckpt", action="store_true",
+                 help="ckpt_path is a published TF checkpoint")
   p.add_argument("--use_ema", action="store_true")
   p.add_argument("--dataset", default=None,
                  help="dataset config overlay (e.g. imagenet21k)")
@@ -56,37 +68,28 @@ def parse_args(argv=None):
   return p.parse_args(argv)
 
 
-def _refuse_unported(args):
-  orbax = args.ckpt_path and os.path.isdir(args.ckpt_path) and any(
-      os.path.exists(os.path.join(args.ckpt_path, d, "_CHECKPOINT_METADATA"))
-      or os.path.isdir(os.path.join(args.ckpt_path, d, "default"))
-      for d in os.listdir(args.ckpt_path))
-  unported = [
-      (args.runmode == "export", "--runmode=export (torch.export, "
-       "inference/driver.py)", "M9"),
-      (args.tf_ckpt, "--tf_ckpt (ckpt/tf_compat.py)", "M9"),
-      (orbax, "an orbax checkpoint of the JAX package", "M9"),
-  ]
-  for on, what, item in unported:
-    if on:
-      raise NotImplementedError(
-          f"{what} is not ported to automl_tpu_torch yet: ROADMAP {item}")
+EXPORT_FILE = "model.pt2"
+
+
+class Predict(torch.nn.Module):
+  """uint8 [B, H, W, 3] canvases -> logits: the eval preprocess (centre
+  crop, resize to isize, the augname's normalization) and the forward."""
+
+  def __init__(self, model, isize: int, norm: str):
+    super().__init__()
+    self.model, self.isize, self.norm = model, isize, norm
+
+  def forward(self, images):
+    x = preprocessing.cls_eval_preprocess(images, self.isize, norm=self.norm)
+    return self.model(x, train=False)
 
 
 def load_params(model, ckpt_path: str, use_ema: bool = False) -> dict:
   """The params (or EMA) of the latest step of a port checkpoint directory
   (train/checkpoint.py's <ckpt_path>/<step>/state.pt), copied into the
   model."""
-  import torch
-  from automl_tpu_torch.train.checkpoint import CheckpointManager
-  mngr = CheckpointManager(ckpt_path)
-  step = mngr.latest_step()
-  if step is None:
-    raise FileNotFoundError(f"no checkpoint in {ckpt_path}")
-  saved = torch.load(os.path.join(mngr.directory, str(step), "state.pt"),
-                     map_location="cpu", weights_only=True)
-  params = saved["ema_params"] if use_ema and saved.get("ema_params") \
-      else saved["params"]
+  from automl_tpu_torch.train.checkpoint import saved_params
+  params = saved_params(ckpt_path, use_ema=use_ema)
   model.load_state_dict(params, strict=True)
   return params
 
@@ -95,7 +98,6 @@ def _eval(args, config, predict, canvas: int, device) -> dict:
   """ImageNet top-1, or the multi-label metrics, over --val_file_pattern
   up to --eval_samples."""
   import numpy as np
-  import torch
   from automl_tpu_torch.data import pipeline
   from automl_tpu_torch.data.datasets import multihot_on_device
   from automl_tpu_torch.eval.classification import MultiLabelEvaluator
@@ -132,11 +134,8 @@ def _eval(args, config, predict, canvas: int, device) -> dict:
 
 def main(argv=None):
   args = parse_args(argv)
-  _refuse_unported(args)
   import numpy as np
-  import torch
   from automl_tpu_torch.configs.effnet_configs import get_model_config
-  from automl_tpu_torch.data import preprocessing
   from automl_tpu_torch.nn import precision
   from automl_tpu_torch.train import runners
 
@@ -150,7 +149,11 @@ def main(argv=None):
                        else "float32")
   device = torch.device(args.device)
   model = runners.seeded_classification_model(config.model, 0, device)
-  if args.ckpt_path:
+  if args.ckpt_path and args.tf_ckpt:
+    from automl_tpu_torch.ckpt import tf_compat
+    tf_compat.convert_effnet_checkpoint(args.ckpt_path, model,
+                                        use_ema=args.use_ema)
+  elif args.ckpt_path:
     load_params(model, args.ckpt_path, args.use_ema)
   model.eval()
   isize = int(config.eval.isize)
@@ -158,10 +161,8 @@ def main(argv=None):
   # The serving normalization is training's (by the augname).
   norm, _ = preprocessing.norm_for_augname(config.data.get("augname"))
 
-  @torch.no_grad()
-  def predict(images):
-    x = preprocessing.cls_eval_preprocess(images, isize, norm=norm)
-    return model(x, train=False)
+  program = Predict(model, isize, norm).eval()
+  predict = torch.no_grad()(program)
 
   if args.runmode == "bm":
     images = torch.zeros((args.batch_size, canvas, canvas, 3),
@@ -189,6 +190,16 @@ def main(argv=None):
               "latency_ms": round(best * 1000, 3)}
   elif args.runmode == "eval":
     result = _eval(args, config, predict, canvas, device)
+  elif args.runmode == "export":
+    if not args.export_dir:
+      raise ValueError("--runmode=export needs --export_dir")
+    example = torch.zeros((args.batch_size, canvas, canvas, 3),
+                          dtype=torch.uint8, device=device)
+    with torch.no_grad():
+      exported = torch.export.export(program, (example,))
+    os.makedirs(args.export_dir, exist_ok=True)
+    torch.export.save(exported, os.path.join(args.export_dir, EXPORT_FILE))
+    result = {"export_dir": args.export_dir}
   else:   # infer
     from PIL import Image
     img = Image.open(args.input_image).convert("RGB").resize((canvas, canvas))

@@ -22,9 +22,13 @@ synthetic minival); --mode=eval restores the latest checkpoint of
 model_dir/ckpt (or, with --eval_timeout, each new one) and evaluates its
 EMA.
 
+--ft_init_ckpt (train.ft_init_ckpt) finetunes from a published TF
+checkpoint (read without TF, ckpt/tf_compat.py): every weight but the
+head's fc, its EMA shadows with train.ft_init_ema (the default).
+
 Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
-Not ported yet, and refused with their ROADMAP item: --ft_init_ckpt (M9:
-ckpt/tf_compat.py), --mesh_shape and the multi-process flags (M10).
+Not ported yet, and refused with their ROADMAP item: --mesh_shape and the
+multi-process flags (M10).
 --compilation_cache_dir sets XLA's compile cache and has no meaning in
 eager PyTorch; it is accepted and ignored.
 """
@@ -61,7 +65,8 @@ def parse_args(argv=None):
                  help="eval mode: evaluate each new checkpoint until this "
                       "many seconds pass with no new one; 0 = the latest "
                       "once")
-  p.add_argument("--ft_init_ckpt", default=None, help="not ported (M9)")
+  p.add_argument("--ft_init_ckpt", default=None,
+                 help="a TF checkpoint to finetune from (head excluded)")
   p.add_argument("--train_steps", type=int, default=0)
   p.add_argument("--mesh_shape", default=None, help="not ported (M10)")
   p.add_argument("--coordinator_address", default=None,
@@ -79,7 +84,6 @@ def parse_args(argv=None):
 
 def _refuse_unported(args):
   unported = [
-      (args.ft_init_ckpt, "--ft_init_ckpt (ckpt/tf_compat.py)", "M9"),
       (args.mesh_shape, "--mesh_shape", "M10"),
       (args.coordinator_address or args.num_processes or args.process_id,
        "multi-process training", "M10"),
@@ -144,6 +148,8 @@ def main(argv=None):
     config.override(ds_lib.get_dataset_config(args.dataset).as_dict(),
                     allow_new_keys=True)
   config.override(args.hparam_str)
+  if args.ft_init_ckpt:
+    config.train.ft_init_ckpt = args.ft_init_ckpt
   if args.data_dir:
     config.data.data_dir = args.data_dir
   device = torch.device(args.device)

@@ -24,9 +24,13 @@ train_and_eval, each eval) in a child process; this process never touches
 CUDA. --profile writes a torch.profiler trace of steps 10-14 into
 model_dir/profile/ (JAX writes an xprof trace).
 
+--init_backbone_ckpt starts the backbone from a published TF EfficientNet
+checkpoint (read without TF, ckpt/tf_compat.py; its EMA shadows where it
+has them).
+
 Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
-Not ported yet, and refused with their ROADMAP item: --init_backbone_ckpt
-(M9: a TF checkpoint), --mesh_shape and the multi-process flags (M10).
+Not ported yet, and refused with their ROADMAP item: --mesh_shape and the
+multi-process flags (M10).
 --compilation_cache_dir sets XLA's compile cache and has no meaning in
 eager PyTorch; it is accepted and ignored.
 """
@@ -70,7 +74,7 @@ def parse_args(argv=None):
                       "once")
   p.add_argument("--mesh_shape", default=None, help="not ported (M10)")
   p.add_argument("--init_backbone_ckpt", default=None,
-                 help="not ported (M9)")
+                 help="a TF EfficientNet checkpoint for the backbone")
   p.add_argument("--profile", action="store_true",
                  help="a torch.profiler trace of steps 10-14 into "
                       "model_dir/profile/")
@@ -93,8 +97,6 @@ def parse_args(argv=None):
 
 def _refuse_unported(args):
   unported = [
-      (args.init_backbone_ckpt, "--init_backbone_ckpt (a TF checkpoint)",
-       "M9"),
       (args.mesh_shape, "--mesh_shape", "M10"),
       (args.coordinator_address or args.num_processes or args.process_id,
        "multi-process training", "M10"),
@@ -152,7 +154,8 @@ def _run_epochs_in_children(args):
            f"--num_examples_per_epoch={args.num_examples_per_epoch}",
            f"--device={args.device}", f"--log_every={args.log_every}",
            f"--native_workers={args.native_workers}"]
-    for name in ("hparams", "train_file_pattern", "val_file_pattern"):
+    for name in ("hparams", "train_file_pattern", "val_file_pattern",
+                 "init_backbone_ckpt"):
       v = getattr(args, name)
       if v:
         out.append(f"--{name}={v}")
@@ -268,8 +271,8 @@ def main(argv=None):
         config, args.model_dir, train_steps, data_iter=train_iter,
         eval_iter=eval_iter, eval_steps=eval_steps,
         eval_every=eval_every if args.mode == "train_and_eval" else 0,
-        log_every=args.log_every, profile=args.profile, seed=args.seed,
-        device=args.device)
+        log_every=args.log_every, init_backbone_ckpt=args.init_backbone_ckpt,
+        profile=args.profile, seed=args.seed, device=args.device)
   finally:
     if prefetcher is not None:
       prefetcher.close()

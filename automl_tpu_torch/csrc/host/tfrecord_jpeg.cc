@@ -127,6 +127,12 @@ void tfrecord_close(void* handle) {
   delete r;
 }
 
+// The masked CRC32C of n bytes: TFRecord framing's, and the crc32c field
+// of a TF checkpoint's BundleEntryProto and of its index blocks.
+uint32_t crc32c_masked(const uint8_t* data, int64_t n) {
+  return masked_crc(data, (size_t)n);
+}
+
 }  // extern "C"
 
 // ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ TFRecordFile, jpeg_decode_to_canvas, parse_example, the classification
 and detection loaders (one serial, two with a C++ reader thread and a
 JPEG worker pool), TFRecordWriter, build_example and the pure-Python
 CRC32C. Added here: jpeg_decode_full (the whole image as
-tf.io.decode_image decodes it), jpeg_encode_rgb, and codec().
+tf.io.decode_image decodes it), jpeg_encode_rgb, codec(), and
+masked_crc32c (the library's CRC, which ckpt/tf_bundle.py checks TF
+checkpoints with).
 
 The library is built with g++ at first use into
 build/automl_tpu_torch/tfrecord_jpeg-<codec>-<hash>.so (never into
@@ -118,6 +120,7 @@ def _load() -> ctypes.CDLL:
                         [ctypes.c_void_p, ctypes.POINTER(_U8P)]),
       "tfrecord_rewind": (None, [ctypes.c_void_p]),
       "tfrecord_close": (None, [ctypes.c_void_p]),
+      "crc32c_masked": (ctypes.c_uint32, [_U8P, ctypes.c_int64]),
       "jpeg_codec": (ctypes.c_char_p, []),
       "jpeg_last_error": (ctypes.c_char_p, []),
       "jpeg_image_info": (ctypes.c_int, [_U8P, ctypes.c_int64, i32p]),
@@ -161,6 +164,14 @@ def _load() -> ctypes.CDLL:
 
 def _u8(a: np.ndarray):
   return a.ctypes.data_as(_U8P)
+
+
+def masked_crc32c(data) -> int:
+  """The masked CRC32C (TFRecord framing's) of a bytes object or a
+  contiguous numpy array's bytes, computed by the host library."""
+  buf = (np.frombuffer(data, np.uint8) if isinstance(data, (bytes, bytearray))
+         else np.ascontiguousarray(data).reshape(-1).view(np.uint8))
+  return int(_load().crc32c_masked(_u8(buf), buf.size))
 
 
 def _codec_error(what: str) -> str:

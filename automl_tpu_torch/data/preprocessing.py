@@ -113,28 +113,31 @@ def det_train_preprocess(images, boxes, classes, flip, jitter, offsets,
 
 def det_eval_preprocess(image, out_size: int, mean=MEAN_RGB,
                         stddev=STDDEV_RGB):
-  """One [H, W, C] image -> ([out, out, C] f32, the scale that undoes the
-  resize), automl_tpu/data/preprocessing.py::det_eval_preprocess's recipe:
+  """One [H, W, C] image, or a batch [B, H, W, C] of one size -> ([out,
+  out, C] (or [B, out, out, C]) f32, the scale that undoes the resize),
+  automl_tpu/data/preprocessing.py::det_eval_preprocess's recipe:
   normalize first (so the padding is zero in normalized space), then a
   half-pixel bilinear resize without antialias (F.interpolate's
   align_corners=False is jax.image.resize's convention), then pad bottom
   and right. The scale and the scaled sizes are computed in float32 and
   truncated, as TF does: h 636 -> 256 gives 636 * (256 / 636) =
-  255.99998f -> 255, not 256."""
+  255.99998f -> 255, not 256. No step reads a tensor's value, so the
+  function traces under torch.export."""
   image = torch.as_tensor(image)
-  h, w, c = image.shape
+  batched = image.dim() == 4
+  images = image if batched else image[None]
+  _, h, w, _ = images.shape
   scale32 = np.float32(min(np.float32(out_size) / np.float32(h),
                            np.float32(out_size) / np.float32(w)))
   sh = int(np.float32(h) * scale32)
   sw = int(np.float32(w) * scale32)
-  normalized = normalize_image(image, mean, stddev)
-  scaled = F.interpolate(normalized.permute(2, 0, 1)[None], size=(sh, sw),
+  normalized = normalize_image(images, mean, stddev)
+  scaled = F.interpolate(normalized.permute(0, 3, 1, 2), size=(sh, sw),
                          mode="bilinear", align_corners=False,
-                         antialias=False)[0].permute(1, 2, 0)
-  out = torch.zeros((out_size, out_size, c), dtype=torch.float32,
-                    device=image.device)
-  out[:sh, :sw] = scaled
-  return out, 1.0 / float(scale32)
+                         antialias=False)
+  out = F.pad(scaled, (0, out_size - sw, 0, out_size - sh)).permute(
+      0, 2, 3, 1)
+  return (out if batched else out[0]), 1.0 / float(scale32)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ for the detection trainer, ema_params and normalizer) as CPU tensors in
 Saves are synchronous (written to <step>.tmp, then renamed), so
 wait_until_finished has nothing to wait for. watch_checkpoints follows a
 trainer's directory for a continuous eval. archive_ckpt keeps the best
-checkpoint by an eval objective. Restoring the JAX package's orbax
-checkpoints needs jax: ROADMAP M9.
+checkpoint by an eval objective. saved_params reads the parameters (or
+their EMA) of one step for inference. The JAX package's orbax checkpoints
+are OCDBT stores of zarr chunks, which need tensorstore: they are refused
+(refuse_orbax, ROADMAP M9's orbax item).
 """
 
 from __future__ import annotations
@@ -92,6 +94,38 @@ class CheckpointManager:
 
   def wait_until_finished(self):
     """Saves are synchronous: nothing to wait for."""
+
+
+def refuse_orbax(path: str) -> None:
+  """NotImplementedError when `path` is a checkpoint directory of the JAX
+  package (orbax: step directories holding _CHECKPOINT_METADATA or
+  default/)."""
+  if os.path.isdir(path) and any(
+      os.path.exists(os.path.join(path, d, "_CHECKPOINT_METADATA"))
+      or os.path.isdir(os.path.join(path, d, "default"))
+      for d in os.listdir(path)):
+    raise NotImplementedError(
+        f"{path} is an orbax checkpoint of the JAX package: its OCDBT "
+        "store of zarr chunks needs tensorstore, and automl_tpu_torch does "
+        "not read it (ROADMAP M9, its orbax item, stays queued)")
+
+
+def saved_params(directory: str, step: Optional[int] = None,
+                 use_ema: bool = False) -> dict:
+  """{name: CPU tensor} of the params (with use_ema, the EMA when the
+  checkpoint has one) of step `step` (default: the latest) of a port
+  checkpoint directory. FileNotFoundError without a checkpoint; an orbax
+  directory of the JAX package is refused (refuse_orbax)."""
+  refuse_orbax(directory)
+  mngr = CheckpointManager(directory)
+  step = mngr.latest_step() if step is None else step
+  if step is None:
+    raise FileNotFoundError(f"no checkpoint in {directory}")
+  saved = torch.load(os.path.join(mngr.directory, str(step), _FILE),
+                     map_location="cpu", weights_only=True)
+  if use_ema and saved.get("ema_params"):
+    return saved["ema_params"]
+  return saved["params"]
 
 
 # What restoring a checkpoint that vanished or was cut short raises: the

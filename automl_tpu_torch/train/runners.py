@@ -39,10 +39,18 @@ would.
 A loader's batches may be numpy arrays or tensors, on the host or
 already on the device (data/pipeline.py::DevicePrefetcher).
 
-Not ported yet, each refused naming its ROADMAP item: the eval images
-(vis_dir: inference/visualize.py, M9; the in-training eval writes none),
-ft_init_ckpt (M9: ckpt/tf_compat.py), qat (M11), init_backbone_ckpt (M9),
-meshes (M10).
+Published TF checkpoints (ckpt/tf_compat.py, read without TF):
+train.ft_init_ckpt starts a classifier from one, all but its head's fc
+(train.ft_init_ema: its EMA shadows, by default); init_backbone_ckpt
+starts a detector's backbone from an EfficientNet checkpoint
+(init_backbone_ema). Both fill the seeded weights with strict=False, before
+a checkpoint in model_dir is restored. evaluate_detection(vis_dir=...)
+writes [detections | ground truth] PNGs of the first batch
+(inference/visualize.py); run_detection's in-training evals write them to
+model_dir/vis/step_<n>/.
+
+Not ported yet, each refused naming its ROADMAP item: qat (M11), meshes
+(M10).
 """
 
 from __future__ import annotations
@@ -67,10 +75,9 @@ from automl_tpu_torch.train.checkpoint import CheckpointManager, archive_ckpt
 from automl_tpu_torch.train.metrics import MetricsWriter
 
 
-def _refuse_unported(config, mesh_shape, init_backbone_ckpt):
+def _refuse_unported(config, mesh_shape):
   unported = [
       (mesh_shape, "a device mesh", "M10"),
-      (init_backbone_ckpt, "init_backbone_ckpt", "M9"),
       (config.get("qat"), "qat", "M11"),
   ]
   for on, what, item in unported:
@@ -132,8 +139,6 @@ def _progressive_stage_params(config, stage: int, total_stages: int):
 def _refuse_unported_cls(config, mesh_shape):
   unported = [
       (mesh_shape, "a device mesh", "M10"),
-      (config.train.get("ft_init_ckpt"),
-       "train.ft_init_ckpt (a TF checkpoint: ckpt/tf_compat.py)", "M9"),
       (config.train.get("qat"), "train.qat", "M11"),
   ]
   for on, what, item in unported:
@@ -149,6 +154,18 @@ def classification_state(model, config, lr_fn=lambda step: 0.0):
       opt_lib.build_optimizer(config.train.optimizer, lr_fn))
   return train_lib.create_train_state(
       model, tx, ema=bool(config.train.ema_decay)), tx
+
+
+def init_from_tf_checkpoint(model, ckpt: str, **kwargs) -> None:
+  """Overwrites the EfficientNet `model`'s (seeded) weights with those of
+  a TF checkpoint, strict=False: what the checkpoint lacks, or kwargs'
+  exclude_prefixes name, keeps its value (tf_compat's
+  convert_effnet_checkpoint, with kwargs use_ema, scope,
+  exclude_prefixes)."""
+  from automl_tpu_torch.ckpt import tf_compat
+  tf_compat.convert_effnet_checkpoint(
+      ckpt, model, params=convert.det_torch_to_jax_tree(
+          convert.model_state(model), model), strict=False, **kwargs)
 
 
 def seeded_classification_model(mcfg, seed: int = 0, device="cuda"):
@@ -216,6 +233,11 @@ def run_classification(config, model_dir: str, train_steps: int,
   precision.set_policy("mixed_bfloat16" if config.runtime.mixed_precision
                        else "float32")
   model = seeded_classification_model(config.model, seed, device)
+  ft_ckpt = config.train.get("ft_init_ckpt")
+  if ft_ckpt:   # finetune: everything but the classifier's fc
+    init_from_tf_checkpoint(
+        model, ft_ckpt, use_ema=bool(config.train.get("ft_init_ema", True)),
+        exclude_prefixes=(("head", "fc"),))
   batch_size = int(config.train.batch_size)
   steps_per_epoch = max(train_steps // max(config.train.epochs, 1), 1)
   lr_fn = schedules.warmup_lr(
@@ -456,8 +478,8 @@ def run_detection(config, model_dir: str, train_steps: int,
                   mesh_shape=None, data_iter=None, eval_iter=None,
                   eval_steps: int = 0, eval_every: int = 0,
                   log_every: int = 50, init_backbone_ckpt=None,
-                  profile: bool = False, seed: int = 0,
-                  device="cuda") -> dict:
+                  init_backbone_ema: bool = True, profile: bool = False,
+                  seed: int = 0, device="cuda") -> dict:
   """Trains EfficientDet on one device, with optional COCO evals; returns
   the last metrics as floats (and the final eval's, when there is one).
   metrics.jsonl gets, every log_every steps, the step's metrics plus lr,
@@ -469,16 +491,22 @@ def run_detection(config, model_dir: str, train_steps: int,
   source_id are ignored)}; by default synthetic batches. eval_iter: an
   iterator (one eval at the end) or a zero-argument factory of fresh
   iterators (needed for eval_every > 0: an eval every eval_every steps and
-  at the last step). profile: a torch.profiler trace of steps 10-14 (or
+  at the last step; each writes its eval images to
+  model_dir/vis/step_<n>/). init_backbone_ckpt: a TF EfficientNet
+  checkpoint (scope config.backbone_name) for the backbone's weights. profile: a torch.profiler trace of steps 10-14 (or
   from step 10 to the end, if that comes first) into
   model_dir/profile/trace_steps_10-14.json."""
-  _refuse_unported(config, mesh_shape, init_backbone_ckpt)
+  _refuse_unported(config, mesh_shape)
   device = torch.device(device)
   os.makedirs(model_dir, exist_ok=True)
   config.save_to_yaml(os.path.join(model_dir, "config.yaml"))
   precision.set_policy("mixed_bfloat16" if config.mixed_precision
                        else "float32")
   model = seeded_detection_model(config, seed, device)
+  if init_backbone_ckpt:
+    init_from_tf_checkpoint(model.backbone, init_backbone_ckpt,
+                            use_ema=init_backbone_ema,
+                            scope=config.backbone_name)
   batch_size = int(config.batch_size)
   steps_per_epoch = max(train_steps // max(config.num_epochs, 1), 1)
   lr_fn = schedules.detection_lr(config, steps_per_epoch)
@@ -498,11 +526,12 @@ def run_detection(config, model_dir: str, train_steps: int,
   writer = MetricsWriter(model_dir)
   profiler = None
 
-  def evaluate():
+  def evaluate(vis_dir=None):
     fresh = eval_iter() if callable(eval_iter) else eval_iter
     params = (state.ema_params if state.ema_params is not None
               else state.params)
-    return evaluate_detection(model, params, config, fresh, eval_steps)
+    return evaluate_detection(model, params, config, fresh, eval_steps,
+                              vis_dir=vis_dir)
 
   metrics = {}
   step = state.step
@@ -531,7 +560,7 @@ def run_detection(config, model_dir: str, train_steps: int,
     if (eval_every and eval_iter is not None and eval_steps
         and (step % eval_every == 0 or step == train_steps)):
       mngr.save(step, state)
-      em = evaluate()
+      em = evaluate(os.path.join(model_dir, "vis", f"step_{step}"))
       writer.write(step, {f"eval/{k}": v for k, v in em.items()})
       print(f"eval @ {step}: AP {em.get('AP', -1):.4f} "
             f"AP50 {em.get('AP50', -1):.4f}")
@@ -568,14 +597,11 @@ def evaluate_detection(model, params, config, eval_iter, eval_steps: int,
   needed: the detections go to the COCO-server submission JSON and the
   result is {'AP': -1.0, 'detections_json': path}.
 
-  vis_dir (the eval images) needs inference/visualize.py, and mesh a
-  multi-process run: not ported yet (ROADMAP M9, M10) and refused
-  (vis_samples belongs to vis_dir)."""
+  With vis_dir set, [detections | ground truth] PNGs of the first
+  vis_samples images of the first batch go there as eval_image_<i>.png
+  (_write_eval_images). mesh (a multi-process run) is not ported yet
+  (ROADMAP M10) and refused."""
   from automl_tpu_torch.eval.coco_metric import COCOEvaluator
-  if vis_dir:
-    raise NotImplementedError(
-        "eval images (vis_dir) need inference/visualize.py, which is not "
-        "ported to automl_tpu_torch yet: ROADMAP M9")
   if mesh is not None:
     raise NotImplementedError(
         "multi-process eval is not ported to automl_tpu_torch yet: ROADMAP "
@@ -615,11 +641,37 @@ def evaluate_detection(model, params, config, eval_iter, eval_steps: int,
           config, cls_out, box_out,
           torch.from_numpy(np.ascontiguousarray(scales)).to(device),
           torch.from_numpy(np.ascontiguousarray(ids)).to(device))
-      evaluator.add_batch_from_detections(dets.cpu().numpy(),
-                                          valid.cpu().numpy(), gt_boxes,
-                                          gt_classes)
+      dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+      evaluator.add_batch_from_detections(dets, valid, gt_boxes, gt_classes)
+      if vis_dir and step == 0:
+        _write_eval_images(batch, dets, valid, vis_dir, vis_samples)
   if testdev_dir is not None:
     # the reference returns [-1.] in test-dev mode
     return {"AP": -1.0,
             "detections_json": evaluator.write_detections_json(testdev_dir)}
   return evaluator.compute()
+
+
+def _write_eval_images(batch, dets, valid, vis_dir: str, n: int) -> None:
+  """[detections | ground truth] PNGs of the batch's first n images
+  (canvas coordinates) as vis_dir/eval_image_<i>.png. dets: [B, K, 7]
+  rows [id, ymin, xmin, ymax, xmax, score, class] in source coordinates,
+  mapped back to the canvas by the batch's image_scale."""
+  from automl_tpu_torch.inference import visualize
+  os.makedirs(vis_dir, exist_ok=True)
+  images = _host(batch["image"])
+  if images.dtype != np.uint8:
+    images = np.clip(images, 0, 255).astype(np.uint8)
+  scales = np.broadcast_to(
+      _host(batch.get("image_scale", 1.0)).astype(np.float32).reshape(-1),
+      (images.shape[0],))
+  gt_boxes, gt_classes = _host(batch["gt_boxes"]), _host(batch["gt_classes"])
+  for i in range(min(n, images.shape[0])):
+    k = int(valid[i])
+    s = float(scales[i])
+    panel = visualize.side_by_side_evaluation_image(
+        images[i], gt_boxes[i], gt_classes[i],
+        dets[i, :k, 1:5] / max(s, 1e-8), dets[i, :k, 6].astype(np.int32),
+        dets[i, :k, 5])
+    visualize.save_image_array_as_png(
+        panel, os.path.join(vis_dir, f"eval_image_{i}.png"))

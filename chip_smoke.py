@@ -14,7 +14,8 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
   0. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
      the host's toolchain for the host library (g++, jpeglib.h, the JPEG
-     libraries ldconfig sees, whether PIL imports) and its CPU count;
+     libraries ldconfig sees), whether PIL, matplotlib, cv2 and yaml import
+     (with their versions) and its CPU count, on "host:" lines;
   1. build: compiles the CUDA kernels from automl_tpu_torch/csrc/ with nvcc
      for sm_90a, one nvcc per source (eight), all at once; prints each
      kernel's registers and spills, and the HGMMA and LDL/STL counts of the
@@ -105,10 +106,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      subprocess at pre_nms_topk 2048 and 5000, its JSON lines printed;
      entry() on the card (zeros [1, 512, 512, 3]); evaluate_detection on
      D0 b16 with the EMA params of the 20-step knob-off run, 2 synthetic
-     batches, in COCO mode (every metric finite or -1) and testdev_dir
-     mode (the JSON rows with their four keys); the closed loop of
-     tests/test_closed_loop.py through the port (efficientdet-test, 400
-     steps on one box-coded batch, then hard-NMS eval): AP50 > 0.5;
+     batches, in COCO mode (every metric finite or -1; its vis_dir gets
+     eval_image_0/1.png of 512 x 1024) and testdev_dir mode (the JSON rows
+     with their four keys); the closed loop of tests/test_closed_loop.py
+     through the port (efficientdet-test, 400 steps on one box-coded batch,
+     then hard-NMS eval): AP50 > 0.5;
+  8b. detection serving (inference/driver.py) with the 20-step knob-off
+     run's checkpoint (ServingDriver.load): D0's float32 serve of 2
+     480 x 640 images (resized on the card) against the same serve on the
+     CPU (_detections_agree: the slots up to the first near tie, within
+     INFER_BOX_TOL / INFER_SCORE_TOL); ServingDriver.benchmark at b1 and b8
+     under mixed_bfloat16 (img/s, ms a call); the b1 export (torch.export,
+     serving.pt2) loaded back: its detections bit-equal to the eager
+     serve's, and both timed in turns (ms a call); InferenceDriver.inference
+     on a JPEG, the annotated image written (and as a PNG); infer_cls
+     --runmode=export of EfficientNetV2-B0 b8 loaded back: its logits
+     bit-equal to the eager predict's;
   9. classification: (g) K6 at every map of V2-S's stride-1 depthwise
      convs at 168 and 296 (bf16, b8 and b V2S_BATCH) against its plain
      version, timed in turns with depthwise.cu's and cuDNN's (in phase 6's
@@ -1582,10 +1595,11 @@ def _infer_model(dev, batch):
   return model, images
 
 
-def _detections_agree(name, card, cpu, exact):
+def _detections_agree(name, card, cpu, exact, confident=INFER_CONFIDENT):
   """card and cpu: (boxes, scores, classes, valid_len) of one batch.
-  exact: the same detections in every slot (hard NMS); else the confident
-  slots up to the first near tie (gaussian NMS, see INFER_BOX_TOL)."""
+  exact: the same detections in every slot (hard NMS); else the slots
+  scoring above `confident` up to the first near tie (gaussian NMS, see
+  INFER_BOX_TOL)."""
   import torch
   card = [t.cpu() for t in card]
   if exact:
@@ -1600,7 +1614,7 @@ def _detections_agree(name, card, cpu, exact):
     n, ties = 0, []
     for b in range(cpu[1].shape[0]):
       for i in range(int(min(cpu[3][b], card[3][b]))):
-        if float(cpu[1][b, i]) <= INFER_CONFIDENT:
+        if float(cpu[1][b, i]) <= confident:
           break
         db = float((card[0][b, i] - cpu[0][b, i]).abs().max())
         ds = abs(float(card[1][b, i] - cpu[1][b, i]))
@@ -1715,13 +1729,16 @@ def _eval_check(dev, ckpt_dir, workdir):
         D0_BATCH, cfg.image_size, cfg.max_instances_per_image,
         cfg.num_classes))
   t = time.perf_counter()
-  m = runners.evaluate_detection(model, state.ema_params, cfg, batches(), 2)
+  vis_dir = os.path.join(workdir, "vis")
+  m = runners.evaluate_detection(model, state.ema_params, cfg, batches(), 2,
+                                 vis_dir=vis_dir)
   print(f"evaluate_detection, D0 b{D0_BATCH}, EMA params of step "
         f"{state.step}, 2 batches ({time.perf_counter() - t:.1f} s): "
         + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
   if len(m) != 12 or not all(math.isfinite(v) and (v >= 0 or v == -1)
                              for v in m.values()):
     raise AssertionError(f"COCO metrics malformed: {m}")
+  _check_eval_images(vis_dir, 2, (512, 1024, 3))
   td = runners.evaluate_detection(model, state.ema_params, cfg, batches(), 2,
                                   testdev_dir=os.path.join(workdir,
                                                            "testdev"))
@@ -1733,6 +1750,20 @@ def _eval_check(dev, ckpt_dir, workdir):
     raise AssertionError("test-dev detections malformed")
   del model, state
   torch.cuda.empty_cache()
+
+
+def _check_eval_images(vis_dir, n, shape):
+  """vis_dir holds eval_image_0..n-1.png, each of `shape`."""
+  import numpy as np
+  from PIL import Image
+  names = sorted(os.listdir(vis_dir))
+  want = [f"eval_image_{i}.png" for i in range(n)]
+  shapes = [np.asarray(Image.open(os.path.join(vis_dir, f))).shape
+            for f in names]
+  print(f"eval images in {os.path.basename(vis_dir)}/: {names}, shapes "
+        f"{sorted(set(shapes))}")
+  if names != want or any(s != shape for s in shapes):
+    raise AssertionError(f"eval images: want {want} of {shape}")
 
 
 def _closed_loop(dev, steps=400):
@@ -1795,6 +1826,158 @@ def _closed_loop(dev, steps=400):
         f"{metrics['AP50']:.4f} (must be > 0.5), AP {metrics['AP']:.4f}")
   if not metrics["AP50"] > 0.5:
     raise AssertionError("the closed loop did not reach AP50 > 0.5")
+
+
+DRIVER_BM_RUNS = 30
+
+
+def _driver_images(n, h, w, seed=21):
+  """n COCO-like uint8 images [n, h, w, 3], a few filled boxes each."""
+  import numpy as np
+  rng = np.random.RandomState(seed)
+  out = []
+  for _ in range(n):
+    yx = rng.uniform(0, 0.6, (3, 2)) * (h, w)
+    boxes = np.concatenate([yx, yx + rng.uniform(0.1, 0.4, (3, 2)) * (h, w)],
+                           1)
+    out.append(_smooth_image(rng, h, w, boxes))
+  return np.stack(out)
+
+
+def _serve_ms(fns, x, runs=DRIVER_BM_RUNS):
+  """{name: ms a call} of each fn(x), timed in turns (a, b, b, a), each
+  turn `runs` calls on the host clock ending in a synchronise."""
+  import torch
+  times = {name: [] for name in fns}
+  order = list(fns) + list(fns)[::-1]
+  with torch.no_grad():
+    for name in fns:
+      fns[name](x)
+    torch.cuda.synchronize()
+    for name in order:
+      t = time.perf_counter()
+      for _ in range(runs):
+        fns[name](x)
+      torch.cuda.synchronize()
+      times[name].append((time.perf_counter() - t) / runs * 1e3)
+  return {name: sum(v) / len(v) for name, v in times.items()}
+
+
+def _same_detections(name, got, want):
+  """Bit-equal detections (the exported program and the eager one run the
+  same ops on the same inputs): valid_len, classes, boxes and scores."""
+  import torch
+  diffs = [float((g.float() - w.float()).abs().max()) for g, w in
+           zip(got, want)]
+  print(f"  {name}: valid_len {got[3].tolist()} vs {want[3].tolist()}, "
+        f"max|diff| boxes {diffs[0]:.3e}, scores {diffs[1]:.3e}, classes "
+        f"{diffs[2]:.3e}")
+  if not all(torch.equal(g, w) for g, w in zip(got, want)):
+    raise AssertionError(f"{name}: the detections differ")
+
+
+def driver_phase(dev, ckpt_dir, workdir, card):
+  """The detection serving API (inference/driver.py) on D0 with the
+  20-step knob-off run's checkpoint: f32 serve of 2 non-square images on
+  the card against the CPU; ServingDriver.benchmark at b1 and b8 under
+  mixed_bfloat16; the b1 export (torch.export) loaded back, its
+  detections equal to the eager serve's and its ms a call beside the
+  eager one's; InferenceDriver.inference on a JPEG; infer_cls
+  --runmode=export of V2-B0 b8, its logits equal to the eager
+  predict's."""
+  import numpy as np
+  import torch
+  from PIL import Image
+  from automl_tpu_torch.cli import infer_cls
+  from automl_tpu_torch.configs.effnet_configs import get_model_config
+  from automl_tpu_torch.data import preprocessing
+  from automl_tpu_torch.inference import driver, visualize
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.train import runners
+  t_phase = time.perf_counter()
+  os.makedirs(workdir, exist_ok=True)
+  try:
+    images = torch.from_numpy(_driver_images(2, 480, 640))
+
+    def serve_f32(where):
+      d = driver.ServingDriver("efficientdet-d0", batch_size=2,
+                               mixed_precision=False,
+                               device=where).load(ckpt_dir)
+      with torch.no_grad():
+        return d.program(images.to(where))
+
+    on_card, on_cpu = serve_f32(dev), serve_f32(torch.device("cpu"))
+    print(f"ServingDriver D0 f32 serve (per_class) of 2 480 x 640 images, "
+          f"the checkpoint {ckpt_dir}: valid_len {on_card[3].tolist()}, top "
+          f"scores {[[round(v, 5) for v in r] for r in on_card[1][:, :3].tolist()]}")
+    _detections_agree("D0 serve f32, card vs CPU", on_card, on_cpu,
+                      exact=False, confident=0.0)
+
+    for b in (1, 8):
+      d = driver.ServingDriver("efficientdet-d0", batch_size=b,
+                               device=dev).load(ckpt_dir)
+      r = d.benchmark(bm_runs=DRIVER_BM_RUNS)
+      print(f"ServingDriver.benchmark D0 b{b} mixed_bfloat16 ({card}): "
+            f"{r['fps']:.2f} img/s, {r['latency_ms']:.2f} ms a call")
+      del d
+
+    d = driver.ServingDriver("efficientdet-d0", batch_size=1,
+                             device=dev).load(ckpt_dir)
+    t = time.perf_counter()
+    d.export(os.path.join(workdir, "export"))
+    program = driver.load_exported(os.path.join(workdir, "export"))
+    print(f"D0 b1 export (torch.export, mixed_bfloat16) and load: "
+          f"{time.perf_counter() - t:.1f} s")
+    h, w = json.load(open(os.path.join(workdir, "export",
+                                       "config.json")))["image_size"]
+    x = torch.from_numpy(_driver_images(1, h, w, seed=22)).to(dev)
+    with torch.no_grad():
+      _same_detections("D0 b1 exported vs eager serve", program(x),
+                       d.program(x))
+    ms = _serve_ms({"eager": d.program, "exported": program}, x)
+    print(f"D0 b1 serve, eager vs exported ({card}): {ms['eager']:.2f} vs "
+          f"{ms['exported']:.2f} ms a call")
+    del d, program
+
+    jpeg = os.path.join(workdir, "fixture.jpg")
+    Image.fromarray(_driver_images(1, 427, 640, seed=23)[0]).save(
+        jpeg, quality=90)
+    dets, annotated = driver.InferenceDriver(
+        "efficientdet-d0", ckpt_dir, device=dev).inference(
+            jpeg, os.path.join(workdir, "annotated"))
+    png = os.path.join(workdir, "annotated", "fixture.png")
+    visualize.save_image_array_as_png(annotated, png)
+    print(f"InferenceDriver.inference on {os.path.basename(jpeg)}: "
+          f"valid_len {dets['valid_len'].tolist()}, annotated "
+          f"{annotated.shape} -> {os.path.basename(png)} "
+          f"({os.path.getsize(png)} bytes)")
+    if annotated.shape != (427, 640, 3) or not os.path.exists(
+        os.path.join(workdir, "annotated", "fixture.jpg")):
+      raise AssertionError("InferenceDriver.inference wrote no image")
+
+    out_dir = os.path.join(workdir, "v2b0_export")
+    infer_cls.main(["--runmode=export", "--model_name=efficientnetv2-b0",
+                    "--batch_size=8", f"--export_dir={out_dir}",
+                    "--device=cuda"])
+    cls_program = torch.export.load(os.path.join(out_dir, "model.pt2")).module()
+    cfg = get_model_config("efficientnetv2-b0")
+    model = runners.seeded_classification_model(cfg.model, 0, dev).eval()
+    isize = int(cfg.eval.isize)
+    norm, _ = preprocessing.norm_for_augname(cfg.data.get("augname"))
+    x = torch.from_numpy(_driver_images(8, isize + 32, isize + 32,
+                                        seed=24)).to(dev)
+    with torch.no_grad():
+      got = cls_program(x)
+      want = infer_cls.Predict(model, isize, norm)(x)
+    print(f"infer_cls --runmode=export V2-B0 b8 ({got.dtype}): max|logit "
+          f"diff| exported vs eager {float((got - want).abs().max()):.3e} "
+          f"(logits up to {float(want.abs().max()):.3e})")
+    if not torch.equal(got, want):
+      raise AssertionError("V2-B0's exported logits differ from predict's")
+  finally:
+    precision.set_policy("mixed_bfloat16")
+  torch.cuda.empty_cache()
+  print(f"driver phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def inference_phase(dev, ckpt_dir, workdir):
@@ -2863,8 +3046,10 @@ DATA_EVAL_SAMPLES = 128
 
 def host_facts():
   """The card machine's toolchain for the host library: g++, libjpeg's
-  header, the JPEG libraries the loader sees, PIL (nothing on the card's
-  path imports it) and the CPU count."""
+  header, the JPEG libraries the loader sees; the drawing and video
+  modules (PIL, matplotlib, cv2, yaml: inference/visualize.py,
+  cli/inspector.py's video mode, label_util's yaml maps) with their
+  versions; and the CPU count."""
   def sh(cmd):
     p = subprocess.run(cmd, shell=True, capture_output=True, text=True,
                        timeout=60, check=False)
@@ -2876,8 +3061,11 @@ def host_facts():
   _, out = sh("ldconfig -p | grep -E 'libjpeg|libnvjpeg'")
   for line in out.splitlines() or ["(none)"]:
     print(f"host: ldconfig: {line.strip()}")
-  rc, _ = sh(f"{sys.executable} -c 'import PIL'")
-  print(f"host: PIL {'importable' if rc == 0 else 'not importable'}")
+  for module in ("PIL", "matplotlib", "cv2", "yaml"):
+    rc, out = sh(f"{sys.executable} -c 'import {module}; "
+                 f"print({module}.__version__)'")
+    print(f"host: {module} " + (out.splitlines()[-1] if rc == 0 else
+                                "not importable"))
   print(f"host: nproc {os.cpu_count()}")
 
 
@@ -3262,12 +3450,15 @@ def main() -> int:
   cls_dir = os.path.join(build, "chip_smoke_cls")
   for d in (workdir, workdir + "_fused", workdir + "_split", det_dir,
             det_dir + "_off", os.path.join(build, "chip_smoke_infer"),
+            os.path.join(build, "chip_smoke_serve"),
             cls_dir, cls_dir + "_off", cls_dir + "_mix"):
     shutil.rmtree(d, ignore_errors=True)
   runs = training_phase(dev, workdir)
   k6_launches, d0_synthetic_ms = detection_phase(dev, det_dir)
   inference_phase(dev, os.path.join(det_dir + "_off", "ckpt"),
                   os.path.join(build, "chip_smoke_infer"))
+  driver_phase(dev, os.path.join(det_dir + "_off", "ckpt"),
+               os.path.join(build, "chip_smoke_serve"), card)
   cls_k6_launches, v2s_synthetic_ms = cls_phase(dev, cls_dir)
   data_phase(dev, os.path.join(build, "chip_smoke_data"), d0_synthetic_ms,
              v2s_synthetic_ms)

@@ -547,19 +547,12 @@ def test_infer_cls_bm_and_infer_match_jax(tmp_path, capsys):
 
 
 CLS_REFUSED = {
-    "--ft_init_ckpt=x": "M9", "--mesh_shape=1,2": "M10",
-    "--num_processes=2": "M10", "--hparam_str=train.qat=true": "M11",
-    "--hparam_str=train.ft_init_ckpt=x": "M9"}
-INFER_REFUSED = {"--runmode=export": "M9", "--tf_ckpt": "M9"}
+    "--mesh_shape=1,2": "M10", "--num_processes=2": "M10",
+    "--hparam_str=train.qat=true": "M11"}
 
 
-@pytest.mark.parametrize("flag", list(CLS_REFUSED) + list(INFER_REFUSED))
+@pytest.mark.parametrize("flag", list(CLS_REFUSED))
 def test_cli_refusals_name_their_roadmap_items(flag, tmp_path):
-  if flag in INFER_REFUSED:
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP {INFER_REFUSED[flag]}"):
-      tinfer.main(["--model_name=efficientnetv2-test", "--device=cpu", flag])
-    return
   with pytest.raises(NotImplementedError, match=f"ROADMAP {CLS_REFUSED[flag]}"):
     tmain.main(["--model_name=efficientnetv2-test", "--device=cpu",
                 f"--model_dir={tmp_path}", "--train_steps=1", flag])

@@ -879,11 +879,8 @@ def test_synthetic_detection_matches_jax():
     np.testing.assert_array_equal(got[k], want[k])
 
 
-# Each refused flag and the ROADMAP item its message names. The eval-only
-# flags read the eval set's TFRecords (or watch checkpoints): M9.
-UNPORTED_FLAGS = {
-    "--mesh_shape=1,2,1": "M10", "--init_backbone_ckpt=x": "M9",
-    "--hparams=qat=true": "M11"}
+# Each refused flag and the ROADMAP item its message names.
+UNPORTED_FLAGS = {"--mesh_shape=1,2,1": "M10", "--hparams=qat=true": "M11"}
 
 
 @pytest.mark.parametrize("flag", list(UNPORTED_FLAGS))

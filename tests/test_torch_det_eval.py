@@ -261,22 +261,11 @@ def test_evaluate_detection_testdev_and_params(tmp_path):
     torch.testing.assert_close(v, own[k], rtol=0, atol=0)
 
 
-def test_evaluate_detection_refuses_vis_dir(tmp_path):
-  """The eval images need inference/visualize.py (ROADMAP M9): vis_dir
-  raises, naming it (a divergence kept on purpose: JAX writes PNGs)."""
-  _, tcfg, _, _, tm, _ = _det_pair()
-  with pytest.raises(NotImplementedError, match="M9"):
-    trunners.evaluate_detection(
-        tm, convert.model_state(tm), tcfg,
-        iter(tpipeline.SyntheticDetection(2, 64, 4, 3)), 1,
-        vis_dir=str(tmp_path))
-
-
 def test_run_detection_evals_and_archives(tmp_path):
   """run_detection with an eval_iter factory and eval_every=1: an eval
   after each of 3 steps (on the EMA params) written to metrics.jsonl as
   eval/<metric>, a checkpoint before each, archive/ holding the first step
-  with the best AP and no PNGs; then with an iterator and eval_every=0,
+  with the best AP, and each eval's two PNGs in vis/step_<n>/; then with an iterator and eval_every=0,
   one eval at the end, returned with the training metrics."""
   cfg = tdet_configs.get_efficientdet_config("efficientdet-test")
   cfg.nms_configs.method = "hard"
@@ -298,7 +287,9 @@ def test_run_detection_evals_and_archives(tmp_path):
   archived = open(os.path.join(d, "archive", "best_objective.txt")).read()
   assert archived == f"step {best} objective {max(aps)}\n"
   assert os.path.isdir(os.path.join(d, "archive", str(best)))
-  assert not os.path.exists(os.path.join(d, "vis"))
+  for step in (1, 2, 3):
+    assert sorted(os.listdir(os.path.join(d, "vis", f"step_{step}"))) == [
+        "eval_image_0.png", "eval_image_1.png"]
 
   d2 = str(tmp_path / "det2")
   out = trunners.run_detection(cfg, d2, 2, eval_iter=eval_iter(),

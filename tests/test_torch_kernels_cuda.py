@@ -1236,3 +1236,87 @@ def test_device_prefetcher_stages_to_the_card(dev):
   for g, w in zip(got, batches):
     for k in w:
       np.testing.assert_array_equal(g[k].numpy(), w[k])
+
+
+def _serving_driver(device, post_mode="per_class", batch_size=2,
+                    mixed_precision=False):
+  """efficientdet-test's ServingDriver with seeded weights whose
+  class-predict bias is 0 (scores spread around 0.5)."""
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.inference.driver import ServingDriver
+  d = ServingDriver("efficientdet-test", batch_size=batch_size,
+                    mixed_precision=mixed_precision, post_mode=post_mode,
+                    device=device)
+  tree = convert.det_numpy_init(d.model, 0)
+  tree["class_net"]["class-predict"]["pointwise"]["bias"][:] = 0.0
+  convert.load_det_params(d.model, tree)
+  return d._loaded()
+
+
+@pytest.fixture
+def f32_card():
+  """True float32 convs and matmuls (no TF32) on the card; the policy
+  ServingDriver sets is restored."""
+  from automl_tpu_torch.nn import precision
+  flags = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+        flags)
+    precision.set_policy("mixed_bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("post_mode", ["per_class", "global", "combined"])
+def test_serving_driver_on_card_matches_cpu(dev, f32_card, post_mode):
+  """ServingDriver.serve (float32) of 2 random 75 x 100 uint8 images on the
+  card against the same driver on the CPU: valid_len equal, and every
+  confident detection (score > 0.5) on either side has a partner on the
+  other with the same class, its score within 1e-5 and its box within
+  1e-4 px (the card's and the CPU's f32 convs sum in other orders)."""
+  import numpy as np
+  x = np.random.default_rng(0).integers(0, 256, (2, 75, 100, 3)).astype(
+      np.uint8)
+  got = _serving_driver(dev, post_mode).serve(x)
+  want = _serving_driver("cpu", post_mode).serve(x)
+  np.testing.assert_array_equal(got["valid_len"], want["valid_len"])
+  n = 0
+  for src, dst in ((want, got), (got, want)):
+    for b in range(2):
+      k = int(dst["valid_len"][b])
+      for i in range(int(src["valid_len"][b])):
+        if src["scores"][b, i] <= 0.5:
+          continue
+        n += 1
+        ok = ((dst["classes"][b, :k] == src["classes"][b, i])
+              & (np.abs(dst["scores"][b, :k] - src["scores"][b, i]) <= 1e-5)
+              & (np.abs(dst["boxes"][b, :k] - src["boxes"][b, i]).max(-1)
+                 <= 1e-4))
+        assert ok.any(), (b, i, float(src["scores"][b, i]))
+  assert n >= 4
+
+
+@pytest.mark.cuda
+def test_serving_export_round_trip_on_card(dev, tmp_path):
+  """ServingDriver.export on the card (mixed_bfloat16, b2): serving.pt2
+  loaded back gives the eager serve's detections bit for bit, on the
+  card."""
+  from automl_tpu_torch.inference import driver
+  from automl_tpu_torch.nn import precision
+  try:
+    d = _serving_driver(dev, mixed_precision=True)
+    d.export(str(tmp_path))
+    program = driver.load_exported(str(tmp_path))
+    x = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad():
+      got, want = program(x), d.program(x)
+    assert got[0].device.type == "cuda"
+    for g, w in zip(got, want):
+      assert torch.equal(g, w)
+  finally:
+    precision.set_policy("mixed_bfloat16")
