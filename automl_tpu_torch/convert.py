@@ -4,9 +4,11 @@ The JAX LM (automl_tpu/models/lm.py TransformerLM.init) keeps its
 parameters as a nested dict of arrays:
 
   embed [V, d]; unembed [d, V] (untied only); final_norm/scale [d];
-  blocks/...: attn/{wq, wo} [d, n, h], attn/{wk, wv} [d, n_kv, h],
-  attn/per_dim_scale [h], ffn/{w0, wg} [d, f], ffn/w1 [f, d],
-  {pre,post}_{attn,ffn}_norm/scale [d]
+  blocks/...: attn/{wq, wo} [d, n, h], attn/{wk, wv} [d, n_kv, h] (with
+  use_combined_qkv attn/wqkv [3, d, n, h], or attn/wkv [2, d, n_kv, h]
+  beside wq under GQA), attn/per_dim_scale [h], ffn/{w0, wg} [d, f],
+  ffn/w1 [f, d], {pre,post}_{attn,ffn}_norm/scale [d]; after
+  quantize_lm_params a quantized weight w is {w/qvalue int8, w/scale f32}
 
 where every `blocks` leaf carries a leading [L] axis (the scan-stacked
 layout), or `blocks` is a list of per-layer dicts. The PyTorch modules use
@@ -123,8 +125,23 @@ def save_npz(path, tree) -> None:
 
 
 def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
-  """Copies a JAX-layout tree into the model's parameters (strict)."""
-  model.load_state_dict(jax_to_torch_state(tree), strict=True)
+  """Copies a JAX-layout tree into the model's parameters (strict).
+
+  An int8 leaf of JAX's quantize_lm_params ({'qvalue', 'scale'}) turns the
+  model's float parameter of that name into a QuantizedWeight first."""
+  from automl_tpu_torch.models.lm import QuantizedWeight
+  state = jax_to_torch_state(tree)
+  for key in [k for k in state if k.endswith(".qvalue")]:
+    owner_name, _, attr = key[:-len(".qvalue")].rpartition(".")
+    owner = model.get_submodule(owner_name)
+    weight = getattr(owner, attr)
+    if not isinstance(weight, QuantizedWeight):
+      scale = state[key[:-len("qvalue")] + "scale"]
+      delattr(owner, attr)
+      setattr(owner, attr, QuantizedWeight(
+          torch.empty_like(state[key], device=weight.device),
+          torch.empty_like(scale, device=weight.device)))
+  model.load_state_dict(state, strict=True)
   return model
 
 
@@ -149,6 +166,14 @@ def numpy_init(cfg: Config, seed: int = 0) -> dict:
           "wk": normal((L, d, n_kv, hd), d ** -0.5),
           "wv": normal((L, d, n_kv, hd), d ** -0.5),
           "wo": normal((L, d, n, hd), (n * hd) ** -0.5)}
+  if cfg.get("use_combined_qkv"):
+    # The same draws, stacked: JAX's wqkv [3, d, n, h] where the heads
+    # match, else wq and wkv [2, d, n_kv, h] (each with the [L] axis first).
+    wk, wv = attn.pop("wk"), attn.pop("wv")
+    if n_kv == n:
+      attn["wqkv"] = np.stack([attn.pop("wq"), wk, wv], axis=1)
+    else:
+      attn["wkv"] = np.stack([wk, wv], axis=1)
   if cfg.get("use_per_dim_scale"):
     attn["per_dim_scale"] = np.zeros((L, hd), np.float32)
   ffn = {"w0": normal((L, d, f), d ** -0.5),

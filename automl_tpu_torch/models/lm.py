@@ -1,9 +1,11 @@
-"""Decoder-only Transformer LM in PyTorch: training and greedy serving.
+"""Decoder-only Transformer LM in PyTorch: training and serving.
 
 The counterpart of automl_tpu/models/lm.py: configs, RoPE, masks, RMSNorm,
 gated FFN, attention with GQA, per-dim query scale and logit caps, the
-rank-3 KV cache, greedy / sampled generation, block rematerialisation under
-the JAX model's remat policies and the LM losses (plain, chunked, fused).
+combined qkv projection, the rank-3 KV cache written at one offset or per
+row (continuous batching), int8 weights, greedy / sampled generation, block
+rematerialisation under the JAX model's remat policies and the LM losses
+(plain, chunked, fused).
 The KV-cached attention runs through ops/decode_attention.py (the port of
 the TPU decode kernel), the full-sequence attention with use_flash_attention
 through ops/attention.py (the ports of the TPU flash forward and the fused
@@ -11,8 +13,11 @@ and split backward kernels), the fused loss through ops/xent.py (the ports
 of the TPU xent kernels).
 
 Parameters keep the JAX package's layouts, so one parameter tree drives
-both packages (convert.py): wq/wk/wv/wo [d, n, h], per_dim_scale [h],
-w0/wg [d, f], w1 [f, d], norm scale [d], embed [V, d], unembed [d, V]. The
+both packages (convert.py): wq/wk/wv/wo [d, n, h] (with use_combined_qkv,
+wqkv [3, d, n, h] where the heads match, else wq and wkv [2, d, n_kv, h]),
+per_dim_scale [h], w0/wg [d, f], w1 [f, d], norm scale [d], embed [V, d],
+unembed [d, V]. An int8 weight (quantize_lm_params) is a QuantizedWeight
+module in the parameter's place, {qvalue, scale} as in the JAX tree. The
 module holds one TransformerBlock per layer where the JAX tree stacks them
 on a leading [L] axis.
 
@@ -163,7 +168,6 @@ def get_lm_config(name: str = "") -> Config:
 _UNPORTED = (
     ("use_window_chunk", "M6 (chunked local attention)"),
     ("moe_num_experts", "M6 (MoE FFN)"),
-    ("use_combined_qkv", "M7 (combined qkv projection)"),
     ("use_ring_attention", "M10 (ring attention)"),
     ("use_pipeline", "M10 (pipeline parallelism)"),
     ("serve_tp", "M10 (tensor-parallel serving, decode_attention_tp)"),
@@ -222,6 +226,73 @@ def _param(shape, dtype, device):
   return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
+class QuantizedWeight(nn.Module):
+  """An int8 weight in a parameter's place: qvalue int8 in the weight's
+  shape and scale f32 [1, ..., 1, out], the weight being qvalue * scale
+  (the JAX tree's {'qvalue', 'scale'} dict; quantize_lm_params)."""
+
+  def __init__(self, qvalue, scale):
+    super().__init__()
+    self.qvalue = nn.Parameter(qvalue, requires_grad=False)
+    self.scale = nn.Parameter(scale, requires_grad=False)
+
+
+def _maybe_dequant(w, dtype):
+  """The weight in `dtype`: qvalue * scale, each cast first, for an int8
+  weight (as JAX's _maybe_dequant), else w cast."""
+  if isinstance(w, QuantizedWeight):
+    return w.qvalue.to(dtype) * w.scale.to(dtype)
+  return w.to(dtype)
+
+
+def _row_writes(cache_index, t: int, s_len: int, n_kv: int):
+  """Where a per-row cache write lands, without a host sync: (at, src, live)
+  for the rank-3 cache's B * n_kv rows.
+
+  cache_index [B]: row b writes its T tokens at cache_index[b] + arange(T);
+  [B, T]: explicit positions. A position outside [0, S) is dropped (JAX's
+  scatter mode="drop"). torch's scatter has no drop mode, and its order
+  between equal indices is undefined, so no write may go to a position
+  another write of the row takes with another value: a dropped token
+  writes its row's first valid token's value at that token's position
+  (the same bits twice), and a row with no valid token writes position 0's
+  own old value back. at [R, T] is each write's position, src [R, T] the
+  token whose value it writes, live [R, 1, 1] whether the row has a valid
+  token (else the value is position 0's)."""
+  if cache_index.ndim == 1:
+    pos = cache_index[:, None] + torch.arange(t, device=cache_index.device)
+  else:
+    pos = cache_index
+  pos = pos.long()
+  valid = (pos >= 0) & (pos < s_len)
+  first = valid.to(torch.int32).argmax(dim=1, keepdim=True)
+  src = torch.where(valid, torch.arange(t, device=pos.device), first)
+  live = valid.any(dim=1, keepdim=True)
+  at = torch.where(live, pos.gather(1, src), 0)
+  rows = lambda x: x.repeat_interleave(n_kv, dim=0)
+  return rows(at), rows(src), rows(live)[:, :, None]
+
+
+def _write_cache(kc, vc, k, v, cache_index):
+  """Writes k, v [B, T, n_kv, hd] into the rank-3 cache in place: at one
+  offset (an int), or per row (_row_writes' triple)."""
+  b, t, n_kv, hd = k.shape
+  kr = k.permute(0, 2, 3, 1).reshape(b * n_kv, hd, t).to(kc.dtype)
+  vr = v.permute(0, 2, 1, 3).reshape(b * n_kv, t, hd).to(vc.dtype)
+  if isinstance(cache_index, int):
+    kc[:, :, cache_index:cache_index + t] = kr
+    vc[:, cache_index:cache_index + t] = vr
+    return
+  at, src, live = cache_index
+  at_k, at_v = at[:, None].expand(-1, hd, -1), at[..., None].expand(-1, -1, hd)
+  k_val = torch.where(live, kr.gather(2, src[:, None].expand(-1, hd, -1)),
+                      kc.gather(2, at_k))
+  v_val = torch.where(live, vr.gather(1, src[..., None].expand(-1, -1, hd)),
+                      vc.gather(1, at_v))
+  kc.scatter_(2, at_k, k_val)
+  vc.scatter_(1, at_v, v_val)
+
+
 # ---------------------------------------------------------------------------
 # Attention.
 # ---------------------------------------------------------------------------
@@ -238,26 +309,45 @@ class Attention(nn.Module):
     self.head_dim = cfg.head_dim
     d, hd = cfg.model_dim, cfg.head_dim
     dt = _dtype(cfg.param_dtype)
-    self.wq = _param((d, self.n_heads, hd), dt, device)
-    self.wk = _param((d, self.n_kv, hd), dt, device)
-    self.wv = _param((d, self.n_kv, hd), dt, device)
+    if cfg.get("use_combined_qkv") and self.n_kv == self.n_heads:
+      self.wqkv = _param((3, d, self.n_heads, hd), dt, device)
+    else:
+      self.wq = _param((d, self.n_heads, hd), dt, device)
+      if cfg.get("use_combined_qkv"):           # GQA: q apart, k and v stacked
+        self.wkv = _param((2, d, self.n_kv, hd), dt, device)
+      else:
+        self.wk = _param((d, self.n_kv, hd), dt, device)
+        self.wv = _param((d, self.n_kv, hd), dt, device)
     self.wo = _param((d, self.n_heads, hd), dt, device)
     if cfg.get("use_per_dim_scale"):
       self.per_dim_scale = _param((hd,), torch.float32, device)
+
+  def _qkv(self, x, adt):
+    if hasattr(self, "wqkv"):
+      return torch.einsum("btd,cdnh->cbtnh", x,
+                          _maybe_dequant(self.wqkv, adt)).unbind(0)
+    q = torch.einsum("btd,dnh->btnh", x, _maybe_dequant(self.wq, adt))
+    if hasattr(self, "wkv"):
+      k, v = torch.einsum("btd,cdnh->cbtnh", x,
+                          _maybe_dequant(self.wkv, adt)).unbind(0)
+    else:
+      k = torch.einsum("btd,dnh->btnh", x, _maybe_dequant(self.wk, adt))
+      v = torch.einsum("btd,dnh->btnh", x, _maybe_dequant(self.wv, adt))
+    return q, k, v
 
   def forward(self, x, positions, mask, cache=None, cache_index=None,
               segment_ids=None):
     """x: [B, T, D]; mask: [B, T, S] bool, or None where the flash kernel
     masks by itself (causal, window and segment_ids [B, T]). cache: optional
     {k: [B*n_kv, hd, S], v: [B*n_kv, S, hd]} (TransformerLM.init_cache),
-    written at cache_index in place. Returns (out [B, T, D], cache)."""
+    written in place at cache_index: an int (every row at that offset), or
+    _row_writes' triple for per-row positions (TransformerLM.forward makes
+    it once for every layer). Returns (out [B, T, D], cache)."""
     cfg = self.cfg
     adt = _dtype(cfg.activation_dtype)
     x = x.to(adt)
-    wo = self.wo.to(adt)
-    q = torch.einsum("btd,dnh->btnh", x, self.wq.to(adt))
-    k = torch.einsum("btd,dnh->btnh", x, self.wk.to(adt))
-    v = torch.einsum("btd,dnh->btnh", x, self.wv.to(adt))
+    wo = _maybe_dequant(self.wo, adt)
+    q, k, v = self._qkv(x, adt)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cfg.get("use_per_dim_scale"):
@@ -289,19 +379,13 @@ class Attention(nn.Module):
       return self._dense(q, k, v, mask, wo, adt), None
 
     b, t = x.shape[0], x.shape[1]
-    if torch.is_tensor(cache_index) and cache_index.ndim >= 1:
-      raise NotImplementedError(
-          "per-row cache_index (continuous batching) is not ported to "
-          "automl_tpu_torch yet: ROADMAP M7 (LMServer)")
-    idx = int(cache_index)
     kc, vc = cache["k"], cache["v"]
+    s_len = kc.shape[-1]
+    if not isinstance(cache_index, tuple):
+      cache_index = int(cache_index)
     # Written in place: the JAX model returns a new cache, the port keeps
     # one copy of it on the device.
-    kc[:, :, idx:idx + t] = k.permute(0, 2, 3, 1).reshape(
-        b * self.n_kv, self.head_dim, t).to(kc.dtype)
-    vc[:, idx:idx + t] = v.permute(0, 2, 1, 3).reshape(
-        b * self.n_kv, t, self.head_dim).to(vc.dtype)
-    s_len = kc.shape[-1]
+    _write_cache(kc, vc, k, v, cache_index)
     if cfg.get("use_decode_kernel", True) and \
         s_len >= int(cfg.get("decode_kernel_min_s", 768) or 0):
       out = decode_attention_lib.decode_attention(
@@ -382,12 +466,12 @@ class FFN(nn.Module):
   def forward(self, x):
     adt = _dtype(self.cfg.activation_dtype)
     x = x.to(adt)
-    h = x @ self.w0.to(adt)
+    h = x @ _maybe_dequant(self.w0, adt)
     if self.cfg.use_gated_ffn:
-      h = F.silu(x @ self.wg.to(adt)) * h
+      h = F.silu(x @ _maybe_dequant(self.wg, adt)) * h
     else:
       h = F.silu(h)
-    return h @ self.w1.to(adt)
+    return h @ _maybe_dequant(self.w1, adt)
 
 
 class TransformerBlock(nn.Module):
@@ -508,13 +592,14 @@ class TransformerLM(nn.Module):
 
   @property
   def device(self) -> torch.device:
-    return self.embed.device
+    return self.final_norm.scale.device
 
   def forward(self, tokens, positions=None, segment_ids=None, cache=None,
               cache_index=None, kv_positions=None, causal_attention=None,
               return_hidden=False):
     """tokens: [B, T] int. cache: optional per-layer tuple from init_cache,
-    written at cache_index. causal_attention: optional [B, T] {0,1}
+    written at cache_index (an int, or a [B] / [B, T] tensor of per-row
+    positions: Attention.forward). causal_attention: optional [B, T] {0,1}
     prefix-LM markers.
 
     Returns (logits [B, T, V] f32, cache or None); with return_hidden, the
@@ -526,7 +611,12 @@ class TransformerLM(nn.Module):
       positions = torch.arange(t, device=tokens.device).expand(b, t)
     if kv_positions is None:
       kv_positions = positions
-    x = F.embedding(tokens, self.embed).to(adt) * (cfg.model_dim ** 0.5)
+    if isinstance(self.embed, QuantizedWeight):
+      # int8: the rows are gathered first and only they are dequantised.
+      x = (self.embed.qvalue[tokens].to(adt) * self.embed.scale.to(adt)
+           ) * (cfg.model_dim ** 0.5)
+    else:
+      x = F.embedding(tokens, self.embed).to(adt) * (cfg.model_dim ** 0.5)
     # The flash kernel masks by itself (causal, window, segments); a
     # prefix-LM mask or a cache takes the materialised mask (JAX:
     # uses_fused_mask).
@@ -544,6 +634,11 @@ class TransformerLM(nn.Module):
     if remat and (policy := _remat_policy(cfg)) is not None:
       remat_kw["context_fn"] = functools.partial(
           torch.utils.checkpoint.create_selective_checkpoint_contexts, policy)
+    if (cache is not None and torch.is_tensor(cache_index)
+        and cache_index.ndim >= 1):
+      # Where each row's tokens land: once for every layer.
+      cache_index = _row_writes(cache_index, t, cache[0]["k"].shape[-1],
+                                cfg.n_kv_heads)
     new_caches = []
     for i, block in enumerate(self.blocks):
       if remat:
@@ -580,8 +675,8 @@ def cast_lm_params_for_serving(model: TransformerLM) -> TransformerLM:
 
   The layers cast each weight to the activation dtype at use, so this
   changes no result. Left alone, as in the JAX package: embed/unembed
-  (they also feed the f32 logits matmul), the MoE router, and 1-D leaves
-  (norm scales, per_dim_scale)."""
+  (they also feed the f32 logits matmul), the MoE router, 1-D leaves
+  (norm scales, per_dim_scale) and int8 weights (qvalue, scale)."""
   adt = _dtype(model.cfg.activation_dtype)
   for name, p in model.named_parameters():
     if name.split(".")[-1] in ("embed", "unembed", "router", "scale"):
@@ -589,6 +684,30 @@ def cast_lm_params_for_serving(model: TransformerLM) -> TransformerLM:
     if p.ndim < 2 or not p.is_floating_point():
       continue
     p.data = p.data.to(adt)
+  return model
+
+
+def quantize_lm_params(model: TransformerLM, min_size: int = 1 << 12):
+  """Int8 weights in place (JAX's quantize_lm_params): every parameter of at
+  least 2 dims and min_size elements becomes a QuantizedWeight, symmetric
+  with one scale per output channel (the last axis): scale = max |w| over
+  the other axes / 127, at least 1e-8, qvalue = clip(round(w / scale),
+  -127, 127), rounding half to even, all in f32. JAX's stacked block
+  weights keep a scale per layer, which is what a per-layer parameter here
+  has. The layers dequantise at use (_maybe_dequant). The MoE router would
+  stay float (the port has no MoE yet, ROADMAP M6)."""
+  for name, p in list(model.named_parameters()):
+    owner_name, _, attr = name.rpartition(".")
+    owner = model.get_submodule(owner_name)
+    if (isinstance(owner, QuantizedWeight) or attr == "router"
+        or p.ndim < 2 or p.numel() < min_size):
+      continue
+    w = p.detach().float()
+    scale = (w.abs().amax(dim=tuple(range(w.ndim - 1)), keepdim=True)
+             / 127.0).clamp_min(1e-8)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    delattr(owner, attr)
+    setattr(owner, attr, QuantizedWeight(q, scale))
   return model
 
 
@@ -635,6 +754,13 @@ class _UnembedBf16Vjp(torch.autograd.Function):
     return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None
 
 
+def _unembed_weight(model: TransformerLM, dtype):
+  """The unembedding ([V, d] embed when tied, else [d, V] unembed): an int8
+  one dequantised to `dtype`, a float one as it is."""
+  w = model.embed if model.cfg.tie_embeddings else model.unembed
+  return _maybe_dequant(w, dtype) if isinstance(w, QuantizedWeight) else w
+
+
 def unembed_logits(model: TransformerLM, x):
   """Final projection [B, T, d] -> f32 logits [B, T, V], then the soft cap.
 
@@ -645,8 +771,9 @@ def unembed_logits(model: TransformerLM, x):
   as JAX's custom vjp does."""
   cfg = model.cfg
   tied = bool(cfg.tie_embeddings)
-  w = model.embed if tied else model.unembed     # [V, d] or [d, V]
   mm_dtype = cfg.get("unembed_matmul_dtype", "float32") or "float32"
+  w = _unembed_weight(model, torch.bfloat16 if mm_dtype == "bfloat16"
+                      else torch.float32)    # [V, d] or [d, V]
   if mm_dtype == "bfloat16":
     logits = _bf16_mm(x, w.t() if tied else w)
   elif mm_dtype == "bfloat16_vjp":

@@ -30,7 +30,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      row in both designs, whole splits masked at decode; the SIMT kernel of
      decode_attention.cu on f32, hd 256 and a fully-masked row); the Hopper
      and the SIMT kernel timed in turns with CUDA events at the slice's
-     shapes, beside the plain version and the library yardstick;
+     shapes, beside the plain version and the library yardstick; M7's
+     shapes (case 7): the speculative verify (b1, T 5, S 768) and a chunk
+     prefill (b1, T 256 at offset 256, S 1024) checked and timed likewise,
+     per-row masks with a parked row in both designs, the draft's verify,
+     causal T 507 prefill and T 1 steps at hd 32, and 64 beam rows checked;
   3. K1 / K2 / K5a / K5b (flash-attention forward, fused backward and the
      split backward's dq and dk/dv kernels) against their plain versions at
      the training slice's shapes (b8, T 2048, 8 heads, hd 128, bf16,
@@ -164,7 +168,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      over the same batches (metrics within 1e-4, and the --testdev_dir
      detections equal as multisets); V2-S b256 10 steps at stage 0's 168 px
      from files with --native_loader, beside phase 9's synthetic-fed stage
-     0.
+     0;
+  12. the rest of LM serving (after 10; lm_serving_phase): lm-flops1e19
+     and the lm-flops2e17 draft, seeded, norm scales drawn (LM_NORM_SIGMA),
+     cast for serving. (a) one decode step with a vector cache_index of
+     equal entries bit-equal to the scalar one (logits and cache), a parked
+     row's cache rows untouched, K4 on; (b) LMServer with K4 (max_batch 8,
+     cache 1024, burst 8, prefill_chunk 256) on 24 seeded requests (prompts
+     16-700, budgets 16-300): K4 launches = n_layers x (8 x bursts +
+     chunks), all Hopper's, the bursts under sync debug mode "error", every
+     token teacher-forced (SERVE_TF_GAP, SERVE_TF_EXACT); (c) the default
+     server (the dots): no K4 launch; both servers in turns: useful
+     tokens/s, time to first token, a burst's device-busy share; (d) the
+     prefix cache (a 128-token shared prefix), teacher-forced; (e)
+     speculative b1 (507 + 256, k 4) with the target as its own draft and
+     with lm-flops2e17: K4 launches = 16 + iterations x 8 x (k + 2),
+     teacher-forced, accept rate, tokens/s against greedy_generate; (f)
+     beam b2 x 4 (512 + 256): num_beams=1 bit-equal to greedy_generate, 8 x
+     256 K4 launches, scores against teacher forcing (BEAM_SCORE_TOL); (g)
+     int8: weight bytes, teacher-forced; (h) use_combined_qkv's prefill
+     logits against the separate weights; (i) cli/generate_lm's
+     --serve_slots (stdin prompts, --prefill_chunk, --system_prompt),
+     --num_beams, --draft_model_dir and --int8 on the default device, one
+     output per prompt.
 
 Every kernel time is the mean over calls of CUDA events around one call,
 after an L2 flush and a sleep kernel that keeps the card busy while the
@@ -181,8 +207,9 @@ call the port makes with the knob off. The port never calls the others. If
 one cannot be compiled or run, the reason is printed and library_ms is
 null.
 
-Prints a {"kernels": [...]} JSON line, then the card line, and last
-{"ok": true, "device": {...}}. Imports no jax.
+Prints a {"kernels": [...]} JSON line (K4's launches: those of phases 10
+and 12's runs), then the card line, and last {"ok": true, "device":
+{...}}. Imports no jax.
 """
 
 from __future__ import annotations
@@ -312,6 +339,72 @@ def _k4_bound(q, mask, n_kv):
   return _bound(4.0 * h * n * float(mask.sum()), nbytes)
 
 
+def _k4_timed(label, qq, kc, vc, mm, n_kv, check, flush, flex, block_mask,
+              simt=True):
+  """K4 at one of a slice's shapes: checked against the plain version, a
+  second call bit-equal, the SIMT kernel checked beside it; the Hopper
+  kernel (and the SIMT one) timed in turns, the plain version and
+  flex_attention timed; returns dict(err, ms, plain_ms, library_ms,
+  bound_ms, bound_by, simt_ms)."""
+  import torch
+  from automl_tpu_torch.ops import decode_attention as da
+  kern, ref = da.decode_attention, da.decode_attention_reference
+  dev = qq.device
+  b, t, n, h = qq.shape
+  s = kc.shape[-1]
+  kw = dict(n_kv_heads=n_kv, logit_cap=50.0)
+  err, got = check(label, qq, kc, vc, mm, BF16_TOL, **kw)
+  again = kern(qq, kc, vc, mm, **kw)
+  if not torch.equal(got, again):
+    raise AssertionError(f"{label}: two calls of the Hopper kernel differ")
+  print(f"  {label}: a second call bit-equal")
+  iters = 100 if t <= 16 else 20
+  sm90 = lambda: kern(qq, kc, vc, mm, **kw)
+  t_simt = None
+  if simt:
+    _compare(f"{label} SIMT kernel", kern(qq, kc, vc, mm, _simt=True, **kw),
+             ref(qq, kc, vc, mm, **kw), **BF16_TOL)
+    simt_fn = lambda: kern(qq, kc, vc, mm, _simt=True, **kw)
+    turns = [_time_ms(fn, iters, flush)
+             for fn in (sm90, simt_fn, simt_fn, sm90)]
+    t_kern, t_simt = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+  else:
+    turns = [_time_ms(sm90, iters, flush) for _ in range(2)]
+    t_kern = sum(turns) / 2
+  t_ref = _time_ms(lambda: ref(qq, kc, vc, mm, **kw), iters, flush)
+  bound_ms, bound_by = _k4_bound(qq, mm, n_kv)
+  rep = n // n_kv
+
+  def make_lib():
+    qf = qq.transpose(1, 2).contiguous()                   # [B, N, T, H]
+    kf = kc.reshape(b, n_kv, h, s).transpose(2, 3).repeat_interleave(
+        rep, dim=1).contiguous()
+    vf = vc.reshape(b, n_kv, s, h).repeat_interleave(rep, dim=1).contiguous()
+    bm = block_mask(lambda bb, hh, qi, ki: mm[bb, qi, ki], B=b, H=None,
+                    Q_LEN=t, KV_LEN=s, device=dev)
+    return lambda: flex(qf, kf, vf, score_mod=_cap_mod(50.0), block_mask=bm,
+                        scale=1.0)
+
+  t_lib = _library_ms(label, make_lib, iters, flush)
+  if t == 1:
+    # What one PyTorch reduction takes to read as many bytes as the live
+    # K/V: a floor for a bytes-bound kernel at this size, beside bound_ms.
+    live = torch.empty(int(2 * 2 * float(mm.any(dim=1).sum()) * n_kv * h)
+                       // 2, dtype=torch.bfloat16, device=dev)
+    t_read = _time_ms(lambda: live.amax(), iters, flush)
+    print(f"  {label}: torch.amax over {live.numel() * 2 / 1e6:.1f} MB (the "
+          f"live K/V's bytes) {t_read:.4f} ms")
+    del live
+  simt_txt = (f"SIMT kernel {t_simt:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}), "
+              if simt else "")
+  print(f"  {label}: Hopper kernel {t_kern:.4f} ms ({turns[0]:.4f}, "
+        f"{turns[-1]:.4f}), {simt_txt}plain {t_ref:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; live keys' K/V) (in turns, L2 "
+        f"flushed before each call)")
+  return dict(err=err, ms=t_kern, plain_ms=t_ref, library_ms=t_lib,
+              bound_ms=bound_ms, bound_by=bound_by, simt_ms=t_simt)
+
+
 def k4_phase(dev, flush):
   """K4 vs plain version; returns {shape label: dict(err, ms, plain_ms,
   library_ms, bound_ms, bound_by)} for the Hopper kernels (bf16 routes to
@@ -347,50 +440,8 @@ def k4_phase(dev, flush):
   flex, block_mask = _flex()
   out = {}
   for label, (qq, mm) in shapes.items():
-    kw = dict(n_kv_heads=n, logit_cap=50.0)
-    err, got = check(label, qq, kc, vc, mm, BF16_TOL, **kw)
-    again = kern(qq, kc, vc, mm, **kw)
-    if not torch.equal(got, again):
-      raise AssertionError(f"{label}: two calls of the Hopper kernel differ")
-    print(f"  {label}: a second call bit-equal")
-    _compare(f"{label} SIMT kernel", kern(qq, kc, vc, mm, _simt=True, **kw),
-             ref(qq, kc, vc, mm, **kw), **BF16_TOL)
-    iters = 100 if qq.shape[1] == 1 else 20
-    sm90 = lambda: kern(qq, kc, vc, mm, **kw)
-    simt = lambda: kern(qq, kc, vc, mm, _simt=True, **kw)
-    turns = [_time_ms(fn, iters, flush) for fn in (sm90, simt, simt, sm90)]
-    t_kern, t_simt = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    t_ref = _time_ms(lambda: ref(qq, kc, vc, mm, **kw), iters, flush)
-    bound_ms, bound_by = _k4_bound(qq, mm, n)
-    t = qq.shape[1]
-
-    def make_lib(qq=qq, mm=mm, t=t):
-      qf = qq.transpose(1, 2).contiguous()                  # [B, N, T, H]
-      kf = kc.reshape(b, n, h, s).transpose(2, 3).contiguous()
-      vf = vc.reshape(b, n, s, h).contiguous()
-      bm = block_mask(lambda bb, hh, qi, ki: mm[bb, qi, ki], B=b, H=None,
-                      Q_LEN=t, KV_LEN=s, device=dev)
-      return lambda: flex(qf, kf, vf, score_mod=_cap_mod(50.0),
-                          block_mask=bm, scale=1.0)
-
-    t_lib = _library_ms(label, make_lib, iters, flush)
-    if t == 1:
-      # What one PyTorch reduction takes to read as many bytes as the live
-      # K/V: a floor for a bytes-bound kernel at this size, beside bound_ms.
-      live = torch.empty(int(2 * 2 * float(mm.any(dim=1).sum()) * n * h) // 2,
-                         dtype=torch.bfloat16, device=dev)
-      t_read = _time_ms(lambda: live.amax(), iters, flush)
-      print(f"  {label}: torch.amax over {live.numel() * 2 / 1e6:.1f} MB (the "
-            f"live K/V's bytes) {t_read:.4f} ms")
-      del live
-    out[label] = dict(err=err, ms=t_kern, plain_ms=t_ref, library_ms=t_lib,
-                      bound_ms=bound_ms, bound_by=bound_by, simt_ms=t_simt)
-    print(f"  {label}: Hopper kernel {t_kern:.4f} ms ({turns[0]:.4f}, "
-          f"{turns[3]:.4f}), SIMT kernel {t_simt:.4f} ms ({turns[1]:.4f}, "
-          f"{turns[2]:.4f}), plain {t_ref:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}; live keys' K/V) (in turns, L2 flushed before each "
-          f"call)")
-
+    out[label] = _k4_timed(label, qq, kc, vc, mm, n, check, flush, flex,
+                           block_mask)
   print("K4 case 2: GQA N8/n_kv2, T 1-8 (split-S up to T 4, wgmma above), "
         "S 200, bf16, cap 50")
   for t in range(1, 9):
@@ -456,6 +507,52 @@ def k4_phase(dev, flush):
                  n_kv_heads=4)
   if float(got[1, 2].abs().max()) != 0.0:
     raise AssertionError("fully-masked row is not 0")
+
+  print("K4 case 7: M7's shapes (bf16, cap 50, Hopper kernels): the "
+        "speculative verify (b1, T 5, hd 128, S 768) and a chunk prefill (b1, "
+        "T 256 at offset 256, S 1024), timed; per-row masks with a parked "
+        "row (split-S and wgmma), the draft's verify, prefill and steps at hd "
+        "32, 64 beam rows")
+  ki = torch.arange(1024, device=dev)
+  for label, (t, s7, off) in {"verify T=5": (5, 768, 502),
+                              "chunk T=256": (256, 1024, 256)}.items():
+    q7, kc7, vc7, _ = _kernel_inputs(dev, gen, 1, t, 8, 8, 128, s7,
+                                     torch.bfloat16)
+    m7 = (ki[None, :s7] <= off + torch.arange(t, device=dev)[:, None])
+    out[label] = _k4_timed(label, q7, kc7, vc7, m7[None].contiguous(), 8,
+                           check, flush, flex, block_mask, simt=False)
+  # The server's burst: row b at its own length, row 5 parked (key 0 only);
+  # the same per-row offsets for a 32-token chunk (the wgmma design).
+  for t in (1, 32):
+    q7, kc7, vc7, _ = _kernel_inputs(dev, gen, 8, t, 8, 8, 128, 1024,
+                                     torch.bfloat16)
+    lens = torch.tensor([40, 900, 511, 512, 1, 0, 700, 990], device=dev)
+    m7 = ki[None, None] <= lens[:, None, None] + torch.arange(
+        t, device=dev)[None, :, None]
+    m7[5] = ki == 0
+    check(f"per-row lengths, a parked row, T {t}", q7, kc7, vc7,
+          m7.contiguous(), BF16_TOL, n_kv_heads=8, logit_cap=50.0)
+  q7, kc7, vc7, _ = _kernel_inputs(dev, gen, 1, 5, 8, 8, 32, 768,
+                                   torch.bfloat16)
+  m7 = (ki[None, :768] <= 502 + torch.arange(5, device=dev)[:, None])
+  check("draft verify, T 5 hd 32", q7, kc7, vc7, m7[None].contiguous(),
+        BF16_TOL, n_kv_heads=8, logit_cap=50.0)
+  # What the lm-flops2e17 draft itself runs in check (e): its causal T 507
+  # prefill (wgmma) and its T 1 steps (split-S), keys live up to ~767.
+  q7, kc7, vc7, _ = _kernel_inputs(dev, gen, 1, 507, 8, 8, 32, 768,
+                                   torch.bfloat16)
+  m7 = (ki[None, :768] <= torch.arange(507, device=dev)[:, None])
+  check("draft prefill, T 507 hd 32, causal from 0", q7, kc7, vc7,
+        m7[None].contiguous(), BF16_TOL, n_kv_heads=8, logit_cap=50.0)
+  for last in (507, 760):
+    m7 = (ki[:768] <= last).expand(1, 1, 768).contiguous()
+    check(f"draft step, T 1 hd 32, keys 0-{last}", q7[:, :1].contiguous(),
+          kc7, vc7, m7, BF16_TOL, n_kv_heads=8, logit_cap=50.0)
+  q7, kc7, vc7, _ = _kernel_inputs(dev, gen, 64, 1, 8, 8, 128, 768,
+                                   torch.bfloat16)
+  m7 = (ki[:768] <= 600).expand(64, 1, 768).contiguous()
+  check("64 beam rows, T 1", q7, kc7, vc7, m7, BF16_TOL, n_kv_heads=8,
+        logit_cap=50.0)
   torch.cuda.synchronize()
   return out
 
@@ -2461,6 +2558,504 @@ def serving_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# The rest of LM serving: LMServer, speculative decoding, beam search, int8
+# weights, the combined qkv and the generate_lm CLI's modes.
+# ---------------------------------------------------------------------------
+
+# Teacher-forced limits of a generated token (bf16 logits capped at 30, the
+# cached path against one no-cache forward): the argmax of the forward, or
+# within SERVE_TF_GAP of its max logit (the serving phase's prefill limit),
+# and at least SERVE_TF_EXACT of the tokens exact argmaxes. Measured on one
+# H100 (the norm scales below): the largest gap 0.0729 (the K4
+# server), 0.0712 (the prefix cache), 0.0882 (int8), 0 (speculative); exact
+# 99.77%, 99.53%, 99.80% and 100%.
+SERVE_TF_GAP = 0.25
+SERVE_TF_EXACT = 0.99
+# |beam score - the teacher-forced, length-normalised sum of log-probs of
+# the returned sequence| (bf16 logits through 8 layers, 256 steps, f32
+# sums): measured 0.0322 on one H100 (b2 x 4 beams); the
+# limit is three times that.
+BEAM_SCORE_TOL = 0.1
+LM_SERVE_REQUESTS = 24
+# Requests of (b) also run alone through greedy_generate for the report
+# (b1 decodes at ~15 ms a token on the card's host: all 24 would take ~70
+# s of the phase).
+LM_GREEDY_REPORT = 8
+# The phase's models draw their norm scales from N(0, LM_NORM_SIGMA²)
+# (zero at init). With zero scales a seeded lm-flops1e19 repeats one token
+# whatever its context (top-1 leads top-2 by ~7.7 logits), so a wrong cache
+# would go unseen; at 1.0 the greedy tokens follow the context (3-4
+# distinct tokens in 48, my CPU run at f32) while the top-1 lead stays
+# large enough (1% of tokens under 0.09) that bf16 rounding flips few
+# argmaxes and beam search's f32 sums keep num_beams=1 equal to greedy.
+# From 1.25 up the logits turn flat (6% of leads under 0.02).
+LM_NORM_SIGMA = 1.0
+
+
+def _write_model_dir(path, cfg, tree):
+  """A model directory as generate_lm --model_dir reads it:
+  experiment_config.yaml + params.npz (the JAX-layout tree)."""
+  import yaml
+  from automl_tpu_torch import convert
+  os.makedirs(path, exist_ok=True)
+  convert.save_npz(os.path.join(path, "params.npz"), tree)
+  with open(os.path.join(path, "experiment_config.yaml"), "w") as f:
+    yaml.safe_dump(cfg.as_dict(), f)
+
+
+def _lm_tree(cfg, seed):
+  """convert.numpy_init's tree with the norm scales drawn (LM_NORM_SIGMA)."""
+  import numpy as np
+  from automl_tpu_torch import convert
+  flat = convert.flatten_tree(convert.numpy_init(cfg, seed))
+  rng = np.random.default_rng(seed + 100)
+  for path, value in flat.items():
+    if path.endswith("scale"):
+      flat[path] = (LM_NORM_SIGMA * rng.standard_normal(value.shape)).astype(
+          np.float32)
+  return convert.unflatten_tree(flat)
+
+
+def _teacher_forced(model, label, seqs):
+  """seqs: [(context ids, generated ids)]. One no-cache forward of each
+  context + output; every generated token must be the forward's argmax or
+  within SERVE_TF_GAP of its max logit, and SERVE_TF_EXACT of them exact
+  argmaxes. Returns (exact, total, largest gap)."""
+  import torch
+  exact = total = 0
+  worst = 0.0
+  with torch.inference_mode():
+    for ctx, gen in seqs:
+      if not gen:
+        continue
+      ids = torch.tensor([list(ctx) + list(gen)], device=model.device)
+      logits = model(ids[:, :-1])[0][0, len(ctx) - 1:].float()  # [n, V]
+      tok = torch.tensor(gen, device=model.device)
+      gap = logits.max(-1).values - logits.gather(-1, tok[:, None])[:, 0]
+      exact += int((logits.argmax(-1) == tok).sum())
+      total += len(gen)
+      worst = max(worst, float(gap.max()))
+      if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+  share = exact / max(total, 1)
+  print(f"  {label}: teacher-forced, {exact} of {total} tokens the argmax "
+        f"({share:.4f}; limit {SERVE_TF_EXACT}), largest gap to the max "
+        f"logit {worst:.4f} (limit {SERVE_TF_GAP})")
+  if worst > SERVE_TF_GAP or share < SERVE_TF_EXACT:
+    raise AssertionError(f"{label}: outside the teacher-forced limits")
+  return exact, total, worst
+
+
+def _k4_counts():
+  from automl_tpu_torch.ops import decode_attention as da
+  f = da.decode_attention
+  return f.launches, f.launches_sm90
+
+
+def _k4_reset():
+  from automl_tpu_torch.ops import decode_attention as da
+  da.decode_attention.launches = da.decode_attention.launches_sm90 = 0
+  da.decode_attention.launches_simt = 0
+
+
+def _k4_expect(label, expected):
+  """The launches since _k4_reset: exactly `expected`, all Hopper's."""
+  launches, sm90 = _k4_counts()
+  print(f"  {label}: K4 launches {launches}, {sm90} of them the Hopper "
+        f"kernels' (expected {expected}, all Hopper)")
+  if launches != expected or sm90 != expected:
+    raise AssertionError(f"{label}: K4 launches {launches} / {sm90} Hopper, "
+                         f"expected {expected}")
+  return launches
+
+
+def _equal_prefix(a, b):
+  n = 0
+  for x, y in zip(a, b):
+    if x != y:
+      break
+    n += 1
+  return n
+
+
+def _instrument(server, no_sync):
+  """Wraps the server's device calls: each ends in a synchronise and stamps
+  the host clock (stamps[k] is the end of timeline entry k); with no_sync,
+  the bursts run under sync debug mode "error" (a host sync inside
+  raises)."""
+  import torch
+  stamps = []
+
+  def wrap(fn, check):
+    def run(*a, **kw):
+      if check:
+        torch.cuda.set_sync_debug_mode("error")
+      try:
+        out = fn(*a, **kw)
+      finally:
+        if check:
+          torch.cuda.set_sync_debug_mode(0)
+      torch.cuda.synchronize()
+      stamps.append(time.perf_counter())
+      return out
+    return run
+
+  server._decode_burst = wrap(server._decode_burst, no_sync)
+  for name in ("_prefill", "_chunk_prefill", "_template"):
+    setattr(server, name, wrap(getattr(server, name), False))
+  return stamps
+
+
+def _serve(label, model, requests, shared_prefix=None, no_sync=False, **kw):
+  """One serve() of `requests` [(prompt, budget)]: (results, server,
+  seconds, useful tokens/s, [TTFT s], [completion s])."""
+  import torch
+  from automl_tpu_torch.inference.lm_server import GenRequest, LMServer
+  server = LMServer(model, max_batch=8, max_seq_len=1024, burst=8,
+                    prefill_chunk=256, **kw)
+  stamps = _instrument(server, no_sync)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  results = server.serve([GenRequest(p, m) for p, m in requests],
+                         shared_prefix=shared_prefix)
+  secs = time.perf_counter() - t0
+  useful = sum(len(r.tokens) for r in results)
+  ev = server.request_events
+  ttft = [stamps[ev[i]["first"] - 1] - t0 for i in range(len(requests))]
+  done = [stamps[ev[i]["done"] - 1] - t0 for i in range(len(requests))]
+  kinds = [e["kind"] for e in server.timeline]
+  print(f"  {label}: {len(requests)} requests, {useful} tokens in "
+        f"{secs:.3f} s: {useful / secs:.1f} useful tokens/s; "
+        f"{kinds.count('burst')} bursts, {kinds.count('chunk')} chunks, "
+        f"{kinds.count('prefill')} prefills; steps {server.steps}, busy "
+        f"slot-steps {server.busy_slot_steps} "
+        f"({server.busy_slot_steps / max(8 * server.steps, 1):.3f} of the "
+        f"slots); TTFT median {sorted(ttft)[len(ttft) // 2]:.3f} s, max "
+        f"{max(ttft):.3f} s")
+  return results, server, secs, useful / secs, ttft, done
+
+
+def _burst_profile(label, server):
+  """One burst of 8 active slots at length 512 of a 1024 cache: host ms a
+  step (wall, unprofiled) and the device's busy share (torch.profiler)."""
+  import torch
+  dev, b = server.device, server.B
+  cache = server.model.init_cache(b, server.S)
+  tok = torch.randint(3, 1000, (b,), device=dev)
+  lengths = torch.full((b,), 512, device=dev)
+  active = torch.ones((b,), dtype=torch.bool, device=dev)
+  remaining = torch.full((b,), 100, device=dev)
+  win = torch.full((b, 1), -2, device=dev)
+
+  @torch.inference_mode()
+  def burst():
+    server._decode_burst(cache, tok, lengths, active, remaining, win)
+    torch.cuda.synchronize()
+
+  burst()
+  t = time.perf_counter()
+  burst()
+  wall_us = (time.perf_counter() - t) * 1e6
+  _, rows, _ = _profiled(burst)
+  busy = sum(r[0] for r in rows)
+  k4 = sum(r[0] for r in rows if "k4_" in r[2] or "decode_attention" in r[2])
+  steps = server.burst
+  print(f"  {label}: a burst of {steps} steps, 8 slots at 512 of 1024: wall "
+        f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
+        f"{busy / steps / 1e3:.3f} ms/step ({100 * busy / wall_us:.1f}% of "
+        f"the wall time), K4 {k4 / steps / 1e3:.3f} ms/step")
+
+
+def lm_serving_phase(dev, workdir):
+  """M7 on the card (checks (a)-(i)); returns the K4 launches its runs made
+  (each counted from 0 just before the run, read just after)."""
+  import contextlib
+  import copy
+  import io
+  import numpy as np
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.cli import generate_lm
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.models.beam import beam_search_generate
+  from automl_tpu_torch.models.speculative import speculative_generate
+
+  t_phase = time.perf_counter()
+  cfg = lm_lib.get_lm_config("lm-flops1e19")
+  tree = _lm_tree(cfg, 0)
+  model = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev), tree)
+  # The target is written as a model directory too, so that the CLI runs of
+  # (i) read these weights instead of drawing lm-flops1e19 four times.
+  target_dir = os.path.join(workdir, "target")
+  _write_model_dir(target_dir, cfg, tree)
+  del tree
+  int8 = lm_lib.quantize_lm_params(copy.deepcopy(model))
+  lm_lib.cast_lm_params_for_serving(model)
+  lm_lib.cast_lm_params_for_serving(int8)
+  n_layers, v = cfg.n_layers, cfg.vocab_size
+  # The draft: lm-flops2e17 (d 256, hd 32, the same V), seeded, written as a
+  # model directory (experiment_config.yaml + params.npz) for the CLI.
+  draft_dir = os.path.join(workdir, "draft")
+  dcfg = lm_lib.get_lm_config("lm-flops2e17")
+  _write_model_dir(draft_dir, dcfg, _lm_tree(dcfg, 1))
+  _, draft = generate_lm.load_model(model_dir=draft_dir, device=dev)
+  lm_lib.cast_lm_params_for_serving(draft)
+  print(f"lm serving phase: lm-flops1e19 and the lm-flops2e17 draft "
+        f"({sum(p.numel() for p in draft.parameters())} params), norm scales "
+        f"drawn N(0, {LM_NORM_SIGMA}^2), built in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+  rng = np.random.default_rng(15)
+  launches = 0
+
+  # (a) a vector cache_index of equal entries against the scalar one, K4 on.
+  print("(a) vector and scalar cache_index, b8, a 512-token prefill into a "
+        "1024 cache, then one decode step")
+  b, t0, s = 8, 512, 1024
+  prompt = torch.from_numpy(rng.integers(3, v, (b, t0))).to(dev)
+  step = torch.from_numpy(rng.integers(3, v, (b, 1))).to(dev)
+  kv_pos = torch.arange(s, device=dev).expand(b, s)
+  with torch.inference_mode():
+    cache = model.init_cache(b, s)
+    model(prompt, positions=kv_pos[:, :t0], cache=cache, cache_index=0,
+          kv_positions=kv_pos)
+    caches = [[{k: x.clone() for k, x in layer.items()} for layer in cache]
+              for _ in range(3)]
+    pos = torch.full((b, 1), t0, device=dev)
+    _k4_reset()
+    scalar = model(step, positions=pos, cache=caches[0], cache_index=t0,
+                   kv_positions=kv_pos)[0]
+    vector = model(step, positions=pos, cache=caches[1],
+                   cache_index=torch.full((b,), t0, device=dev),
+                   kv_positions=kv_pos)[0]
+    parked = torch.full((b,), t0, device=dev)
+    parked[5] = s
+    model(step, positions=pos, cache=caches[2], cache_index=parked,
+          kv_positions=kv_pos)
+    torch.cuda.synchronize()
+  _k4_expect("(a)", 3 * n_layers)
+  rows = slice(5 * cfg.n_kv_heads, 6 * cfg.n_kv_heads)
+  same_cache = all(torch.equal(x[k], y[k]) for x, y in zip(caches[0],
+                                                             caches[1])
+                   for k in ("k", "v"))
+  untouched = all(torch.equal(x[k][rows], y[k][rows])
+                  for x, y in zip(cache, caches[2]) for k in ("k", "v"))
+  print(f"  logits bit-equal: {torch.equal(scalar, vector)}; caches "
+        f"bit-equal: {same_cache}; the parked row's cache rows untouched: "
+        f"{untouched}")
+  if not (torch.equal(scalar, vector) and same_cache and untouched):
+    raise AssertionError("(a) the vector cache_index disagrees")
+  del cache, caches
+
+  # (b) LMServer with K4: 24 requests, prompts 16-700 (at least 4 chunked).
+  lens = rng.integers(16, 701, LM_SERVE_REQUESTS)
+  lens[:6] = rng.integers(257, 701, 6)
+  rng.shuffle(lens)
+  requests = [(rng.integers(3, v, int(n)).tolist(),
+               int(min(rng.integers(16, 301), 1024 - n))) for n in lens]
+  print(f"(b) LMServer, K4 on: max_batch 8, max_seq_len 1024, burst 8, "
+        f"prefill_chunk 256; {len(requests)} requests, prompts "
+        f"{min(lens)}-{max(lens)} ({int((lens > 256).sum())} over 256), "
+        f"budgets {min(m for _, m in requests)}-"
+        f"{max(m for _, m in requests)}")
+  warm = [(requests[0][0], 9)]
+  _serve("warm-up", model, warm, use_decode_kernel=True)
+  _k4_reset()
+  res_k, srv, _, tps_k1, ttft_k, done_k = _serve(
+      "K4 server", model, requests, no_sync=True, use_decode_kernel=True)
+  kinds = [e["kind"] for e in srv.timeline]
+  launches += _k4_expect("(b)", n_layers * (srv.burst * kinds.count("burst")
+                                            + kinds.count("chunk")))
+  print("  no host sync inside a burst (sync debug mode \"error\")")
+  _teacher_forced(model, "(b)", [(p, r.tokens)
+                                 for (p, _), r in zip(requests, res_k)])
+  prefixes = []
+  for (p, m), r in zip(requests[:LM_GREEDY_REPORT], res_k):
+    ref = lm_lib.greedy_generate(model, torch.tensor([p], device=dev), m)
+    prefixes.append(_equal_prefix(ref[0, len(p):].tolist(), r.tokens))
+  print(f"  equal prefix against a per-request greedy_generate, the first "
+        f"{LM_GREEDY_REPORT} requests (tokens): {prefixes} (of "
+        f"{[m for _, m in requests[:LM_GREEDY_REPORT]]})")
+  print(f"  first-token / completion timeline index per request: "
+        f"{[(srv.request_events[i]['first'], srv.request_events[i]['done']) for i in range(len(requests))]}")
+
+  # (c) the default server: the dots, no K4; then the two in turns.
+  print("(c) the default server (use_decode_kernel None: the dots)")
+  _serve("warm-up", model, warm)
+  _k4_reset()
+  res_d, _, _, tps_d1, ttft_d, done_d = _serve("dots server", model,
+                                               requests)
+  _k4_expect("(c)", 0)
+  same = [_equal_prefix(a.tokens, b.tokens) for a, b in zip(res_k, res_d)]
+  print(f"  tokens equal to (b)'s: {sum(a.tokens == b.tokens for a, b in zip(res_k, res_d))} "
+        f"of {len(requests)} requests; equal prefix {same}")
+  _, _, _, tps_d2, _, _ = _serve("dots server, again", model, requests)
+  _k4_reset()
+  _, _, _, tps_k2, ttft_k2, _ = _serve("K4 server, again", model, requests,
+                                       use_decode_kernel=True)
+  launches += _k4_counts()[0]
+  med = lambda xs: sorted(xs)[len(xs) // 2]
+  print(f"  in turns (K4, dots, dots, K4): useful tokens/s {tps_k1:.1f}, "
+        f"{tps_d1:.1f}, {tps_d2:.1f}, {tps_k2:.1f}; TTFT median K4 "
+        f"{med(ttft_k):.3f} / {med(ttft_k2):.3f} s, dots "
+        f"{med(ttft_d):.3f} s; completion median K4 {med(done_k):.3f} s, "
+        f"dots {med(done_d):.3f} s")
+  from automl_tpu_torch.inference.lm_server import LMServer
+  for label, flag in (("K4 burst", True), ("dots burst", None)):
+    _burst_profile(label, LMServer(model, max_batch=8, max_seq_len=1024,
+                                   burst=8, use_decode_kernel=flag))
+
+  # (d) the prefix cache: 8 requests behind a 128-token shared prefix.
+  prefix = rng.integers(3, v, 128).tolist()
+  reqs_d = [(rng.integers(3, v, int(n)).tolist(), int(m)) for n, m in zip(
+      rng.integers(16, 301, 8), rng.integers(16, 129, 8))]
+  print("(d) the prefix cache: 8 requests behind a 128-token shared prefix, "
+        "K4 on")
+  _k4_reset()
+  res_p, _, _, _, _, _ = _serve("prefix server", model, reqs_d,
+                                shared_prefix=prefix, use_decode_kernel=True)
+  launches += _k4_counts()[0]
+  _teacher_forced(model, "(d)", [(prefix + p, r.tokens)
+                                 for (p, _), r in zip(reqs_d, res_p)])
+
+  # (e) speculative decoding, b1: t0 507 + 256 new, k 4 (buf 768).
+  t0, new, k = 507, 256, 4
+  prompt = torch.from_numpy(rng.integers(3, v, (1, t0))).to(dev)
+  print(f"(e) speculative decoding, b1, {t0} + {new} tokens, k {k}, K4 on")
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  ref = lm_lib.greedy_generate(model, prompt, new)
+  torch.cuda.synchronize()
+  greedy_s = time.perf_counter() - t
+  print(f"  greedy_generate b1: {new / greedy_s:.1f} tokens/s "
+        f"({greedy_s:.3f} s; cache {t0 + new} < 768: the dots)")
+  for name, dm in (("self-draft", model), ("lm-flops2e17 draft", draft)):
+    speculative_generate(model, dm, prompt, 8, n_draft=k)   # warm-up
+    _k4_reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, stats = speculative_generate(model, dm, prompt, new, n_draft=k,
+                                      return_stats=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches += _k4_expect(f"(e) {name}", 2 * n_layers + stats["iterations"]
+                           * n_layers * (k + 2))
+    gen = out[0, t0:].tolist()
+    print(f"  {name}: {stats['iterations']} iterations, accept rate "
+          f"{stats['accept_rate']:.4f}, {new / secs:.1f} tokens/s "
+          f"({secs:.3f} s; greedy_generate {new / greedy_s:.1f}); equal "
+          f"prefix against greedy_generate "
+          f"{_equal_prefix(gen, ref[0, t0:].tolist())} of {new}")
+    _teacher_forced(model, f"(e) {name}", [(prompt[0].tolist(), gen)])
+
+  # (f) beam search, b2 x 4 beams, 512 + 256.
+  t0, new = 512, 256
+  prompt = torch.from_numpy(rng.integers(3, v, (2, t0))).to(dev)
+  print(f"(f) beam search, b2, {t0} + {new} tokens")
+  one, _ = beam_search_generate(model, prompt, new, num_beams=1)
+  greedy = lm_lib.greedy_generate(model, prompt, new)
+  print(f"  num_beams=1 bit-equal to greedy_generate: "
+        f"{torch.equal(one, greedy)}")
+  if not torch.equal(one, greedy):
+    raise AssertionError("(f) num_beams=1 differs from greedy_generate")
+  _k4_reset()
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  out, scores = beam_search_generate(model, prompt, new, num_beams=4)
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t
+  launches += _k4_expect("(f) 4 beams", n_layers * new)
+  with torch.inference_mode():
+    logp = torch.log_softmax(model(out[:, :-1])[0][:, t0 - 1:].float(), -1)
+    forced = logp.gather(-1, out[:, t0:, None])[..., 0].sum(-1) / new ** 0.6
+  err = float((forced - scores).abs().max())
+  print(f"  4 beams: {2 * new / secs:.1f} tokens/s ({secs:.3f} s); scores "
+        f"{scores.tolist()}, teacher-forced {forced.tolist()}: max|diff| "
+        f"{err:.4f} (limit {BEAM_SCORE_TOL}); equal prefix against greedy "
+        f"{[_equal_prefix(a, b) for a, b in zip(out[:, t0:].tolist(), greedy[:, t0:].tolist())]}")
+  if not err <= BEAM_SCORE_TOL:
+    raise AssertionError("(f) beam scores disagree with teacher forcing")
+
+  # (g) int8 weights.
+  nbytes = lambda m: sum(p.numel() * p.element_size()
+                         for p in m.parameters())
+  print(f"(g) int8: weights {nbytes(int8) / 1e6:.1f} MB against "
+        f"{nbytes(model) / 1e6:.1f} MB cast for serving (bf16, embed f32)")
+  t0, new = 512, 256
+  prompt = torch.from_numpy(rng.integers(3, v, (4, t0))).to(dev)
+  _k4_reset()
+  out8 = lm_lib.greedy_generate(int8, prompt, new)
+  launches += _k4_expect("(g) int8 greedy b4", n_layers * new)
+  _teacher_forced(int8, "(g) int8", [(p[:t0], p[t0:])
+                                     for p in out8.tolist()])
+  out16 = lm_lib.greedy_generate(model, prompt, new)
+  print(f"  equal prefix against the bf16 model: "
+        f"{[_equal_prefix(a, b) for a, b in zip(out8[:, t0:].tolist(), out16[:, t0:].tolist())]} of {new}")
+  del int8
+
+  # (h) use_combined_qkv: wqkv stacked from the separate weights.
+  ccfg = copy.deepcopy(cfg)
+  ccfg.update(dict(use_combined_qkv=True))
+  combined = lm_lib.TransformerLM(ccfg, device=dev)
+  state = model.state_dict()
+  for i in range(n_layers):
+    pre = f"blocks.{i}.attn."
+    state[pre + "wqkv"] = torch.stack([state.pop(pre + w)
+                                       for w in ("wq", "wk", "wv")])
+  combined.load_state_dict(state)
+  lm_lib.cast_lm_params_for_serving(combined)
+  prompt = torch.from_numpy(rng.integers(3, v, (2, 512))).to(dev)
+  kv_pos = torch.arange(1024, device=dev).expand(2, 1024)
+  with torch.inference_mode():
+    got, want = (m(prompt, positions=kv_pos[:, :512],
+                   cache=m.init_cache(2, 1024), cache_index=0,
+                   kv_positions=kv_pos)[0] for m in (combined, model))
+  diff = (got - want).abs()
+  print(f"(h) use_combined_qkv prefill logits (b2 x 512) against the separate "
+        f"weights: max|diff| {float(diff.max()):.4f} (limit 0.25), "
+        f"mean|diff| {float(diff.mean()):.5f} (limit 0.02)")
+  if float(diff.max()) > 0.25 or float(diff.mean()) > 0.02:
+    raise AssertionError("(h) the combined qkv disagrees")
+  del combined, state, got, want, diff
+
+  # (i) the CLI on the card, each mode with its default device.
+  print("(i) cli/generate_lm --model_dir=<this phase's lm-flops1e19>, "
+        "default device")
+  base = [f"--model_dir={target_dir}", "--max_new_tokens=32"]
+  texts = [f"request {i}: " + "the quick brown fox " * (2 + 9 * i)
+           for i in range(8)]
+  runs = {
+      "serve_slots": (base + ["--serve_slots=8", "--prefill_chunk=256",
+                              "--system_prompt=You are a helpful model. "],
+                      "\n".join(texts) + "\n"),
+      "num_beams": (base + ["--num_beams=4", f"--prompt={texts[1]}"], None),
+      "draft": (base + [f"--draft_model_dir={draft_dir}",
+                        f"--prompt={texts[2]}"], None),
+      "int8": (base + ["--int8", f"--prompt={texts[3]}"], None),
+  }
+  for name, (argv, stdin) in runs.items():
+    t = time.perf_counter()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(stdin or "")
+    _k4_reset()
+    try:
+      with contextlib.redirect_stdout(io.StringIO()):
+        outs = generate_lm.main(argv)
+    finally:
+      sys.stdin = saved
+    launches += _k4_counts()[0]
+    want_n = len(texts) if stdin else 1
+    print(f"  {name}: {len(outs)} outputs (expected {want_n}) in "
+          f"{time.perf_counter() - t:.1f} s; K4 launches "
+          f"{_k4_counts()[0]}; first: {outs[0][:40]!r}")
+    if len(outs) != want_n:
+      raise AssertionError(f"(i) {name}: {len(outs)} outputs")
+  del model, draft
+  torch.cuda.empty_cache()
+  print(f"lm serving phase: {time.perf_counter() - t_phase:.1f} s")
+  return launches
+
+
+# ---------------------------------------------------------------------------
 # Classification (EfficientNetV2): inference, training, K6 at V2-S's maps.
 # ---------------------------------------------------------------------------
 
@@ -3451,6 +4046,7 @@ def main() -> int:
   for d in (workdir, workdir + "_fused", workdir + "_split", det_dir,
             det_dir + "_off", os.path.join(build, "chip_smoke_infer"),
             os.path.join(build, "chip_smoke_serve"),
+            os.path.join(build, "chip_smoke_lm_serving"),
             cls_dir, cls_dir + "_off", cls_dir + "_mix"):
     shutil.rmtree(d, ignore_errors=True)
   runs = training_phase(dev, workdir)
@@ -3463,7 +4059,10 @@ def main() -> int:
   data_phase(dev, os.path.join(build, "chip_smoke_data"), d0_synthetic_ms,
              v2s_synthetic_ms)
   k4_launches = serving_phase(dev)
-  print(f"prefill K4 at the slice's shapes: {json.dumps(k4['prefill T=512'])}")
+  k4_launches += lm_serving_phase(dev, os.path.join(build,
+                                                    "chip_smoke_lm_serving"))
+  for label in ("prefill T=512", "verify T=5", "chunk T=256"):
+    print(f"K4 {label}: {json.dumps(k4[label])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
   print(json.dumps({"kernels": [
       _entry("decode_attention",

@@ -173,6 +173,98 @@ def test_decode_attention_sm90_matches_plain(dev, case):
   assert torch.equal(got, again), "two calls differ"
 
 
+def _m7_mask(dev, kind, b, t, s):
+  """M7's masks: rows at their own lengths with row 5 parked (key 0 only),
+  as the server's bursts and chunks; a T-token block at an offset (the
+  speculative verify, a chunk prefill; the draft's causal prefill from
+  0 and its decode step at key 760); one length for every beam row."""
+  ki = torch.arange(s, device=dev)
+  tq = torch.arange(t, device=dev)[None, :, None]
+  if kind == "per_row":
+    lens = torch.tensor([40, 900, 511, 512, 1, 0, 700, 990],
+                        device=dev)[:b, None, None]
+    mask = ki <= lens + tq
+    mask[5] = ki == 0
+    return mask.contiguous()
+  off = {"verify": s - 266, "chunk": 256, "beam": 600, "draft_step": 760,
+         "prefill": 0}[kind]
+  return (ki <= off + tq).expand(b, t, s).contiguous()
+
+
+# M7's shapes on the Hopper kernels: the server's per-row masks with a
+# parked row (split-S at T 1, wgmma at T 32), the speculative verify (T 5)
+# at the target's hd 128 and the draft's hd 32, the draft's own steps at
+# hd 32 (its T 507 prefill and a T 1 step late in its 768 cache, which
+# the speculative path runs), a 256-token chunk at an offset, 64 beam rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(b=8, t=1, h=128, s=1024, mask="per_row"),
+    dict(b=8, t=32, h=128, s=1024, mask="per_row"),
+    dict(b=1, t=5, h=128, s=768, mask="verify"),
+    dict(b=1, t=5, h=32, s=768, mask="verify"),
+    dict(b=1, t=1, h=32, s=768, mask="draft_step"),
+    dict(b=1, t=507, h=32, s=768, mask="prefill"),
+    dict(b=1, t=256, h=128, s=1024, mask="chunk"),
+    dict(b=64, t=1, h=128, s=768, mask="beam"),
+], ids=["burst_parked", "chunk32_parked", "verify_hd128", "verify_hd32",
+        "draft_step_hd32", "draft_prefill_hd32", "chunk256_offset",
+        "beam_rows_64"])
+def test_decode_attention_sm90_at_m7_shapes(dev, case):
+  case = dict(case)
+  kind = case.pop("mask")
+  q, kc, vc, _ = _inputs(dev, n=8, n_kv=8, dtype=torch.bfloat16, seed=15,
+                         **case)
+  mask = _m7_mask(dev, kind, case["b"], case["t"], case["s"])
+  kw = dict(n_kv_heads=8, logit_cap=50.0)
+  before = _k4_launches()
+  got = da.decode_attention(q, kc, vc, mask, **kw)
+  torch.cuda.synchronize()
+  assert _k4_launches() == tuple(x + d for x, d in zip(before, (1, 1, 0)))
+  _close(got, da.decode_attention_reference(q, kc, vc, mask, **kw),
+         torch.bfloat16)
+  assert torch.equal(got, da.decode_attention(q, kc, vc, mask, **kw))
+
+
+@pytest.mark.cuda
+def test_lm_server_burst_on_card_syncs_nothing_and_runs_k4(dev):
+  """LMServer on the card with use_decode_kernel=True (a small bf16 model,
+  a 1024 cache): no host sync inside a burst (sync debug mode "error"),
+  every burst step and chunk through the Hopper K4 (n_layers a call), each
+  request's budget emitted in the vocabulary."""
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.inference import lm_server
+  from automl_tpu_torch.models import lm as lm_lib
+  cfg = lm_lib.get_lm_config("lm-test")
+  cfg.update(dict(model_dim=64, head_dim=16, vocab_size=384))
+  model = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev),
+                                  convert.numpy_init(cfg, 0))
+  rng = torch.Generator().manual_seed(0)
+  reqs = [lm_server.GenRequest(torch.randint(3, 384, (n,), generator=rng)
+                               .tolist(), m)
+          for n, m in ((40, 30), (300, 20), (9, 50), (500, 12))]
+  server = lm_server.LMServer(model, max_batch=2, max_seq_len=1024, burst=4,
+                              prefill_chunk=128, use_decode_kernel=True)
+  burst = server._decode_burst
+
+  def checked(*a, **kw):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      return burst(*a, **kw)
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+
+  server._decode_burst = checked
+  da.decode_attention.launches = da.decode_attention.launches_sm90 = 0
+  got = server.serve(reqs)
+  kinds = [e["kind"] for e in server.timeline]
+  want = cfg.n_layers * (4 * kinds.count("burst") + kinds.count("chunk"))
+  assert kinds.count("chunk") == 3 + 4
+  assert (da.decode_attention.launches,
+          da.decode_attention.launches_sm90) == (want, want)
+  assert [len(r.tokens) for r in got] == [r.max_new_tokens for r in reqs]
+  assert all(0 <= t < 384 for r in got for t in r.tokens)
+
+
 @pytest.mark.cuda
 def test_decode_attention_sm90_refuses_what_it_does_not_take(dev):
   q, kc, vc, mask = _inputs(dev, 2, 1, 4, 2, 128, 64, torch.bfloat16, seed=8)

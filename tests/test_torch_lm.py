@@ -394,7 +394,7 @@ def test_generate_cli_smoke(tmp_path, capsys):
 @pytest.mark.parametrize("option", [
     "serve_tp=True", "serve_sp=True",
     "use_window_chunk=True", "use_ring_attention=True",
-    "use_combined_qkv=True", "moe_num_experts=4"])
+    "moe_num_experts=4"])
 def test_unported_options_raise(option):
   _, tcfg = _cfgs(**SMALL)
   tcfg.override(option)
@@ -402,12 +402,255 @@ def test_unported_options_raise(option):
     tlm.TransformerLM(tcfg, device="meta")
 
 
-def test_vector_cache_index_raises():
-  _, tcfg = _cfgs(**SMALL)
-  attn = tlm.Attention(tcfg)
-  for p in attn.parameters():
-    p.data.zero_()
-  cache = {"k": torch.zeros(4, 8, 8), "v": torch.zeros(4, 8, 8)}
-  with pytest.raises(NotImplementedError, match="M7"):
-    attn(torch.zeros(1, 1, 32), torch.zeros(1, 1, dtype=torch.int64),
-         torch.ones(1, 1, 8, dtype=torch.bool), cache, torch.tensor([0]))
+# --- per-row cache_index (continuous batching) -------------------------------
+
+
+@pytest.mark.parametrize("branch", ["dots", "kernel"])
+def test_vector_cache_index_matches_scalar_and_jax(branch):
+  """A [B] cache_index of equal entries writes and attends as the scalar
+  one does (bit-equal logits and cache); a row parked at S leaves its cache
+  rows bit-equal to before. Logits against JAX's vector path: 1e-4."""
+  jcfg, tcfg = _cfgs(decode_kernel_min_s={"dots": 33, "kernel": 32}[branch],
+                     **GQA)
+  jmodel, jparams, tmodel = _models(jcfg, tcfg, seed=20)
+  b, t0, s = 2, 6, 32
+  toks = np.random.default_rng(21).integers(3, 384, (b, t0))
+  kv_pos = np.broadcast_to(np.arange(s), (b, s)).copy()
+  with torch.inference_mode():
+    got_s, cache_s = tmodel(torch.from_numpy(toks), cache=tmodel.init_cache(
+        b, s), cache_index=0, kv_positions=torch.from_numpy(kv_pos))
+    got_v, cache_v = tmodel(torch.from_numpy(toks), cache=tmodel.init_cache(
+        b, s), cache_index=torch.zeros(b, dtype=torch.int64),
+        kv_positions=torch.from_numpy(kv_pos))
+  assert torch.equal(got_s, got_v)
+  for cs, cv in zip(cache_s, cache_v):
+    assert torch.equal(cs["k"], cv["k"]) and torch.equal(cs["v"], cv["v"])
+  want, jcache = jmodel(jparams, jnp.asarray(toks),
+                        cache=jmodel.init_cache(b, s),
+                        cache_index=jnp.zeros((b,), jnp.int32),
+                        kv_positions=jnp.asarray(kv_pos))
+  np.testing.assert_allclose(_np(got_v), _np(want), atol=1e-4, rtol=1e-4)
+
+  step = np.random.default_rng(22).integers(3, 384, (b, 1))
+  pos = np.full((b, 1), t0)
+  before = [{k: x.clone() for k, x in layer.items()} for layer in cache_v]
+  idx = np.asarray([t0, s])
+  with torch.inference_mode():
+    got, cache_p = tmodel(torch.from_numpy(step), positions=torch.from_numpy(
+        pos), cache=cache_v, cache_index=torch.from_numpy(idx),
+        kv_positions=torch.from_numpy(kv_pos))
+  want, _ = jmodel(jparams, jnp.asarray(step), positions=jnp.asarray(pos),
+                   cache=jcache, cache_index=jnp.asarray(idx),
+                   kv_positions=jnp.asarray(kv_pos))
+  np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+  n_kv = tcfg.n_kv_heads
+  for old, new in zip(before, cache_p):
+    assert not torch.equal(old["k"][:n_kv], new["k"][:n_kv])   # row 0 wrote
+    assert torch.equal(old["k"][n_kv:], new["k"][n_kv:])       # row 1 parked
+    assert torch.equal(old["v"][n_kv:], new["v"][n_kv:])
+
+
+def _drop_write_reference(kc, vc, k, v, pos):
+  """numpy: JAX's scatter with mode="drop" on the rank-3 cache."""
+  kc, vc = kc.copy(), vc.copy()
+  b, t, n_kv, _ = k.shape
+  s = kc.shape[-1]
+  for bi in range(b):
+    for j in range(t):
+      if 0 <= pos[bi, j] < s:
+        for h in range(n_kv):
+          kc[bi * n_kv + h, :, pos[bi, j]] = k[bi, j, h]
+          vc[bi * n_kv + h, pos[bi, j]] = v[bi, j, h]
+  return kc, vc
+
+
+@pytest.mark.parametrize("form", ["per_row_offset", "explicit"])
+def test_cache_write_drops_out_of_range_and_survives_collisions(form):
+  """The per-row write against JAX's drop semantics, bit for bit. Row 0
+  writes S-2 and S-1 while its other tokens are out of range (a clamp to
+  S-1 would collide with the real write at S-1); row 1 writes nothing; row
+  2 writes inside."""
+  rng = np.random.default_rng(23)
+  b, t, n_kv, hd, s = 3, 4, 2, 8, 16
+  kc = rng.standard_normal((b * n_kv, hd, s)).astype(np.float32)
+  vc = rng.standard_normal((b * n_kv, s, hd)).astype(np.float32)
+  k = rng.standard_normal((b, t, n_kv, hd)).astype(np.float32)
+  v = rng.standard_normal((b, t, n_kv, hd)).astype(np.float32)
+  if form == "per_row_offset":
+    idx = np.asarray([s - 2, s, 5])
+    pos = idx[:, None] + np.arange(t)
+  else:
+    idx = pos = np.asarray([[s + 1, s - 2, s, s - 1], [s, s + 7, s, s],
+                            [3, 9, 4, 0]])
+  want_k, want_v = _drop_write_reference(kc, vc, k, v, pos)
+  tk, tv = torch.from_numpy(kc), torch.from_numpy(vc)
+  tlm._write_cache(tk, tv, torch.from_numpy(k), torch.from_numpy(v),
+                   tlm._row_writes(torch.from_numpy(idx), t, s, n_kv))
+  np.testing.assert_array_equal(tk.numpy(), want_k)
+  np.testing.assert_array_equal(tv.numpy(), want_v)
+
+
+def test_attention_explicit_positions_match_jax():
+  """A chunk prefill's [B, T] positions with the tail parked at S (the
+  server's chunks) through Attention against JAX's: outputs and the written
+  cache within 1e-5; the parked positions keep their old values exactly."""
+  jcfg, tcfg = _cfgs(decode_kernel_min_s=0, **GQA)
+  tree = _tree(tcfg, seed=24)
+  jattn, jp, tattn = _attn_pair(jcfg, tcfg, tree)
+  b, t, s, n_kv = 1, 8, 16, tcfg.n_kv_heads
+  rng = np.random.default_rng(25)
+  x = rng.standard_normal((b, t, 32), dtype=np.float32)
+  pos = (4 + np.arange(t))[None]
+  write = np.where(pos < 9, pos, s)
+  mask = np.array(jlm.causal_mask(jnp.asarray(pos),
+                                  jnp.asarray(np.arange(s)[None])))
+  kc = rng.standard_normal((b * n_kv, 8, s)).astype(np.float32)
+  vc = rng.standard_normal((b * n_kv, s, 8)).astype(np.float32)
+  want, jcache = jattn.apply(jp, jnp.asarray(x), jnp.asarray(pos),
+                             jnp.asarray(mask),
+                             cache={"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+                             cache_index=jnp.asarray(write))
+  tcache = {"k": torch.from_numpy(kc.copy()), "v": torch.from_numpy(vc.copy())}
+  got, _ = tattn(torch.from_numpy(x), torch.from_numpy(pos),
+                 torch.from_numpy(mask), cache=tcache,
+                 cache_index=tlm._row_writes(torch.from_numpy(write), t, s,
+                                             n_kv))
+  np.testing.assert_allclose(_np(got[:, :5]), _np(want[:, :5]), atol=1e-5,
+                             rtol=1e-5)
+  for key in ("k", "v"):
+    np.testing.assert_allclose(_np(tcache[key]), _np(jcache[key]), atol=1e-5,
+                               rtol=1e-5)
+  np.testing.assert_array_equal(_np(tcache["k"])[:, :, 9:], kc[:, :, 9:])
+  np.testing.assert_array_equal(_np(tcache["v"])[:, 9:], vc[:, 9:])
+
+
+# --- combined qkv ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("heads", [SMALL, GQA], ids=["mha", "gqa"])
+def test_combined_qkv_matches_jax_and_separate_weights(heads):
+  """use_combined_qkv: wqkv [3, d, n, h] where the heads match, wq + wkv
+  [2, d, n_kv, h] under GQA (numpy_init stacks the separate draws). Logits
+  against JAX and against the separate weights: 1e-4; greedy tokens equal
+  JAX's."""
+  jcfg, tcfg = _cfgs(use_combined_qkv=True, decode_kernel_min_s=0, **heads)
+  jmodel, jparams, tmodel = _models(jcfg, tcfg, seed=26)
+  attn = tmodel.blocks[0].attn
+  assert hasattr(attn, "wqkv") == (heads is SMALL)
+  assert hasattr(attn, "wkv") == (heads is GQA)
+  _, sep_cfg = _cfgs(decode_kernel_min_s=0, **heads)
+  sep = convert.load_jax_params(tlm.TransformerLM(sep_cfg), _tree(sep_cfg, 26))
+  tokens = np.random.default_rng(27).integers(3, 384, (2, 9))
+  want, _ = jmodel(jparams, jnp.asarray(tokens))
+  got, _ = tmodel(torch.from_numpy(tokens))
+  np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+  np.testing.assert_allclose(_np(got), _np(sep(torch.from_numpy(tokens))[0]),
+                             atol=1e-4, rtol=1e-4)
+  prompt = tokens[:, :5]
+  np.testing.assert_array_equal(
+      _np(tlm.greedy_generate(tmodel, torch.from_numpy(prompt), 7)),
+      _np(jlm.greedy_generate(jmodel, jparams, jnp.asarray(prompt), 7)))
+
+
+# --- int8 weights --------------------------------------------------------------
+
+INT8 = dict(activation_dtype="float32", model_dim=64, head_dim=16)
+
+
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+def test_quantize_lm_params_bit_equal_to_jax(tied):
+  """The port's quantize_lm_params against JAX's on one tree: the same
+  weights quantised (attention at d 64 and the FFN, embed / unembed; not
+  the norm scales), each qvalue and scale bit-equal; convert loads JAX's
+  int8 tree into the same module layout."""
+  jcfg, tcfg = _cfgs(tie_embeddings=tied, **INT8)
+  tree = _tree(tcfg, seed=28)
+  jq = jlm.quantize_lm_params(jax.tree_util.tree_map(jnp.asarray, tree))
+  loaded = convert.load_jax_params(
+      tlm.TransformerLM(tcfg), jax.tree_util.tree_map(np.asarray, jq))
+  ours = tlm.quantize_lm_params(
+      convert.load_jax_params(tlm.TransformerLM(tcfg), tree))
+  want, got = loaded.state_dict(), ours.state_dict()
+  assert set(want) == set(got)
+  quantized = {k for k in got if k.endswith(".qvalue")}
+  assert "blocks.0.attn.wq.qvalue" in quantized and "blocks.1.ffn.w1.qvalue" \
+      in quantized and ("embed.qvalue" in quantized) and (
+          tied or "unembed.qvalue" in quantized)
+  for name in got:
+    assert got[name].dtype == want[name].dtype, name
+    assert torch.equal(got[name], want[name]), name
+
+
+def test_int8_generation_token_exact():
+  """Greedy generation with int8 weights (GQA, the kernel's plain version
+  on prefill and every step) equals JAX's on its quantised tree; log-probs
+  within 1e-4."""
+  jcfg, tcfg = _cfgs(decode_kernel_min_s=0, n_kv_heads=2, **INT8)
+  tree = _tree(tcfg, seed=29)
+  jmodel = jlm.TransformerLM(jcfg)
+  jparams = jlm.quantize_lm_params(jax.tree_util.tree_map(jnp.asarray, tree))
+  tmodel = tlm.quantize_lm_params(
+      convert.load_jax_params(tlm.TransformerLM(tcfg), tree))
+  prompt = np.random.default_rng(30).integers(3, 384, (2, 6))
+  want, want_lp = jlm.greedy_generate(jmodel, jparams, jnp.asarray(prompt), 8,
+                                      return_logprobs=True)
+  got, got_lp = tlm.greedy_generate(tmodel, torch.from_numpy(prompt), 8,
+                                    return_logprobs=True)
+  np.testing.assert_array_equal(_np(got), _np(want))
+  np.testing.assert_allclose(_np(got_lp), _np(want_lp), atol=1e-4)
+
+
+def test_cast_for_serving_leaves_int8_weights_alone():
+  """After quantisation, cast_lm_params_for_serving keeps qvalue int8 and
+  scale f32 (as JAX's cast skips {qvalue, scale} leaves); JAX's own cast of
+  its int8 tree gives the same dtypes leaf for leaf."""
+  jcfg, tcfg = _cfgs(activation_dtype="bfloat16", model_dim=64, head_dim=16)
+  tree = _tree(tcfg)
+  jtree = jlm.cast_lm_params_for_serving(
+      jlm.quantize_lm_params(jax.tree_util.tree_map(jnp.asarray, tree)), jcfg)
+  model = tlm.cast_lm_params_for_serving(tlm.quantize_lm_params(
+      convert.load_jax_params(tlm.TransformerLM(tcfg), tree)))
+  dtypes = {n: str(p.dtype).replace("torch.", "")
+            for n, p in model.state_dict().items()}
+  for path, leaf in convert.flatten_tree(jtree).items():
+    name = (path.replace("blocks/", "blocks.0.", 1) if path.startswith(
+        "blocks/") else path).replace("/", ".")
+    assert dtypes[name] == str(leaf.dtype), path
+
+
+# --- the CLI -------------------------------------------------------------------
+
+
+def test_generate_cli_beam_draft_server_and_int8(tmp_path, capsys,
+                                                 monkeypatch):
+  """Each mode of the port's generate_lm on the CPU returns one completion
+  per prompt: beams, a draft model directory, the server on stdin prompts
+  with a system prompt and chunked prefill, and int8 weights."""
+  import io
+  _, dcfg = _cfgs(**SMALL)
+  convert.save_npz(tmp_path / "params.npz", convert.numpy_init(dcfg, 3))
+  (tmp_path / "experiment_config.yaml").write_text(yaml.safe_dump(
+      dcfg.as_dict()))
+  base = ["--config_name=lm-test", "--device=cpu", "--max_new_tokens=5"]
+  assert len(torch_cli.main(base + ["--prompt=hi", "--num_beams=3"])) == 1
+  out = torch_cli.main(base + ["--prompt=hi", f"--draft_model_dir={tmp_path}",
+                               "--n_draft=2", "--int8"])
+  assert len(out) == 1
+  monkeypatch.setattr("sys.stdin", io.StringIO("first prompt\nb\n\nthird\n"))
+  out = torch_cli.main(base + ["--serve_slots=2", "--prefill_chunk=4",
+                               "--system_prompt=sys: ", "--logprobs"])
+  assert len(out) == 3 and capsys.readouterr().out.count("logprobs:") == 3
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--serve_mode=tp"], NotImplementedError, "M10"),
+    (["--mesh_model=4"], NotImplementedError, "M10"),
+    (["--tokenizer=/tmp/spm.model"], NotImplementedError, "M6"),
+    (["--num_beams=2", "--serve_slots=2"], ValueError, "num_beams"),
+    (["--draft_model_dir=/tmp/d", "--logprobs"], ValueError, "draft"),
+], ids=["serve_mode", "mesh_model", "tokenizer", "beams_with_slots",
+        "draft_with_logprobs"])
+def test_generate_cli_refusals(flags, error, match):
+  with pytest.raises(error, match=match):
+    torch_cli.main(["--config_name=lm-test", "--device=cpu", "--prompt=a"]
+                   + flags)
