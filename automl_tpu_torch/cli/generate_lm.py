@@ -17,9 +17,10 @@ Examples:
   printf 'a\nb\n' | python -m automl_tpu_torch.cli.generate_lm \
     --config_name=lm-test --device=cpu --serve_slots=2 --system_prompt=sys
 
-Not ported yet: restoring an orbax checkpoint (it needs jax; ROADMAP M9),
-a SentencePiece --tokenizer (ROADMAP M6), and sharded serving
-(--serve_mode, --mesh_model; ROADMAP M10).
+--tokenizer takes 'byte' or the path of a SentencePiece .model.
+
+Not ported yet: restoring an orbax checkpoint (it needs jax; ROADMAP M9)
+and sharded serving (--serve_mode, --mesh_model; ROADMAP M10).
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def parse_args(argv=None):
   p.add_argument("--seed", type=int, default=0,
                  help="weights seed for --config_name, and sampling seed")
   p.add_argument("--tokenizer", default="byte",
-                 help="'byte' (a SentencePiece model is not ported yet)")
+                 help="'byte' or the path of a SentencePiece .model")
   p.add_argument("--int8", action="store_true",
                  help="serve with int8 weights (quantize_lm_params)")
   p.add_argument("--draft_model_dir", default=None,
@@ -121,10 +122,6 @@ def _check_flags(args):
     raise NotImplementedError(
         "sharded serving (--serve_mode, --mesh_model) is not ported to "
         "automl_tpu_torch yet: ROADMAP M10")
-  if args.tokenizer != "byte":
-    raise NotImplementedError(
-        "a SentencePiece --tokenizer is not ported to automl_tpu_torch yet: "
-        "ROADMAP M6")
   if args.num_beams > 1 and (args.serve_slots or args.draft_model_dir
                              or args.stop or args.logprobs):
     raise ValueError("--num_beams > 1 runs standalone beam search; it does "
@@ -146,10 +143,11 @@ def _serving_model(model_dir, config_name, args):
 def main(argv=None):
   args = parse_args(argv)
   _check_flags(args)
+  tok = (lm_pipeline.ByteTokenizer() if args.tokenizer == "byte"
+         else lm_pipeline.SentencePieceModel(args.tokenizer))
   config, model = _serving_model(args.model_dir, args.config_name, args)
   draft = (_serving_model(args.draft_model_dir, None, args)[1]
            if args.draft_model_dir else None)
-  tok = lm_pipeline.ByteTokenizer()
   eos_id = lm_pipeline.EOS_ID if args.stop_at_eos else None
   prompts = ([args.prompt] if args.prompt is not None
              else [ln.rstrip("\n") for ln in sys.stdin if ln.strip()])

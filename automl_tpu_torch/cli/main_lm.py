@@ -7,11 +7,15 @@ Examples:
   python -m automl_tpu_torch.cli.main_lm --model_dir=/tmp/lm-test \\
     --config_name=lm-test --device=cpu --train_steps=8 --log_every=1
 
+  python -m automl_tpu_torch.cli.main_lm --model_dir=/tmp/lm-prefix \
+    --config_name=lm-test --device=cpu --prefix_lm --tokenizer=spm.model \
+    --train_file=train.tsv --valid_file=valid.tsv --train_steps=8
+
 Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
 Left out: --compilation_cache_dir, which sets XLA's compile cache and has
 no meaning in eager PyTorch. Not ported yet, and refused with their ROADMAP
 item: --mesh_shape, --dcn_mesh_shape, --sharding_config sp / fsdp and the
-multi-process flags (M10), --prefix_lm and a SentencePiece --tokenizer (M6).
+multi-process flags (M10).
 """
 
 from __future__ import annotations
@@ -42,14 +46,17 @@ def parse_args(argv=None):
   p.add_argument("--learning_rate", type=float, default=None)
   p.add_argument("--optimizer", default=None)
   p.add_argument("--prefix_lm", action="store_true",
-                 help="not ported (ROADMAP M6)")
+                 help="read --train_file / --valid_file lines as "
+                      "input<TAB>target pairs and train a prefix-LM "
+                      "(attention both ways within the inputs, the loss on "
+                      "the targets)")
   p.add_argument("--train_file", default=None,
                  help="text file of documents (blank-line separated); "
                       "default: synthetic copy-task data")
   p.add_argument("--valid_file", default=None,
                  help="held-out text file for periodic validation")
   p.add_argument("--tokenizer", default="byte",
-                 help="'byte' (a SentencePiece .model is not ported: M6)")
+                 help="'byte' or the path of a SentencePiece .model")
   p.add_argument("--lr_schedule", default=None,
                  choices=[None, "cosine_decay", "constant"])
   p.add_argument("--warmup_steps", type=int, default=None,
@@ -77,9 +84,6 @@ def _refuse_unported(args):
        f"--sharding_config={args.sharding_config}", "M10"),
       (args.coordinator_address or args.num_processes or args.process_id,
        "multi-process training", "M10"),
-      (args.prefix_lm, "--prefix_lm", "M6 (PrefixLMLoader)"),
-      (args.tokenizer != "byte", "a SentencePiece --tokenizer",
-       "M6 (SentencePieceModel)"),
   ]
   for on, what, item in unported:
     if on:
@@ -90,7 +94,10 @@ def _refuse_unported(args):
 def main(argv=None):
   args = parse_args(argv)
   _refuse_unported(args)
-  from automl_tpu_torch.data.lm_pipeline import ByteTokenizer, PackedLMLoader
+  from automl_tpu_torch.data.lm_pipeline import (ByteTokenizer,
+                                                 PackedLMLoader,
+                                                 PrefixLMLoader,
+                                                 SentencePieceModel)
   from automl_tpu_torch.models import lm as lm_lib
   from automl_tpu_torch.train import lm_trainer
 
@@ -111,14 +118,16 @@ def main(argv=None):
   data_iter = None
   eval_iter = None
   if args.train_file:
-    tok = ByteTokenizer()
+    tok = (ByteTokenizer() if args.tokenizer == "byte"
+           else SentencePieceModel(args.tokenizer))
     config.vocab_size = max(config.vocab_size, tok.vocab_size)
-    data_iter = iter(PackedLMLoader.from_text_file(
-        args.train_file, config.batch_size, config.seq_len, tokenizer=tok))
+    loader = (PrefixLMLoader.from_tsv_file if args.prefix_lm
+              else PackedLMLoader.from_text_file)
+    data_iter = iter(loader(args.train_file, config.batch_size,
+                            config.seq_len, tokenizer=tok))
     if args.valid_file:
-      eval_iter = PackedLMLoader.from_text_file(
-          args.valid_file, config.batch_size, config.seq_len, tokenizer=tok,
-          repeat=False)
+      eval_iter = loader(args.valid_file, config.batch_size, config.seq_len,
+                         tokenizer=tok, repeat=False)
   logs = lm_trainer.run_lm(
       config, args.model_dir, config.num_train_steps, data_iter=data_iter,
       log_every=args.log_every, learning_rate=config.learning_rate,

@@ -7,7 +7,9 @@ parameters as a nested dict of arrays:
   blocks/...: attn/{wq, wo} [d, n, h], attn/{wk, wv} [d, n_kv, h] (with
   use_combined_qkv attn/wqkv [3, d, n, h], or attn/wkv [2, d, n_kv, h]
   beside wq under GQA), attn/per_dim_scale [h], ffn/{w0, wg} [d, f],
-  ffn/w1 [f, d], {pre,post}_{attn,ffn}_norm/scale [d]; after
+  ffn/w1 [f, d] (with moe_num_experts E: ffn/router [d, E] f32,
+  ffn/{w0, wg} [E, d, f], ffn/w1 [E, f, d]),
+  {pre,post}_{attn,ffn}_norm/scale [d]; after
   quantize_lm_params a quantized weight w is {w/qvalue int8, w/scale f32}
 
 where every `blocks` leaf carries a leading [L] axis (the scan-stacked
@@ -176,10 +178,14 @@ def numpy_init(cfg: Config, seed: int = 0) -> dict:
       attn["wkv"] = np.stack([wk, wv], axis=1)
   if cfg.get("use_per_dim_scale"):
     attn["per_dim_scale"] = np.zeros((L, hd), np.float32)
-  ffn = {"w0": normal((L, d, f), d ** -0.5),
-         "w1": normal((L, f, d), f ** -0.5)}
+  e = int(cfg.get("moe_num_experts") or 0)
+  experts = (e,) if e else ()     # the MoE FFN's expert axis
+  ffn = {"w0": normal((L, *experts, d, f), d ** -0.5),
+         "w1": normal((L, *experts, f, d), f ** -0.5)}
   if cfg.use_gated_ffn:
-    ffn["wg"] = normal((L, d, f), d ** -0.5)
+    ffn["wg"] = normal((L, *experts, d, f), d ** -0.5)
+  if e:
+    ffn["router"] = normal((L, d, e), d ** -0.5).astype(np.float32)
   blocks = {"attn": attn, "ffn": ffn}
   norms = ["pre_attn_norm", "pre_ffn_norm"]
   if cfg.use_post_ln:

@@ -1,11 +1,12 @@
 """Decoder-only Transformer LM in PyTorch: training and serving.
 
 The counterpart of automl_tpu/models/lm.py: configs, RoPE, masks, RMSNorm,
-gated FFN, attention with GQA, per-dim query scale and logit caps, the
-combined qkv projection, the rank-3 KV cache written at one offset or per
-row (continuous batching), int8 weights, greedy / sampled generation, block
-rematerialisation under the JAX model's remat policies and the LM losses
-(plain, chunked, fused).
+gated FFN, the MoE FFN with its load-balance loss, attention with GQA,
+per-dim query scale and logit caps, chunked local attention, the combined
+qkv projection, the rank-3 KV cache written at one offset or per row
+(continuous batching), int8 weights, greedy / sampled generation, block
+rematerialisation under the JAX model's remat policies, the LM losses
+(plain, chunked, fused), distillation and the scaling summary.
 The KV-cached attention runs through ops/decode_attention.py (the port of
 the TPU decode kernel), the full-sequence attention with use_flash_attention
 through ops/attention.py (the ports of the TPU flash forward and the fused
@@ -15,8 +16,9 @@ of the TPU xent kernels).
 Parameters keep the JAX package's layouts, so one parameter tree drives
 both packages (convert.py): wq/wk/wv/wo [d, n, h] (with use_combined_qkv,
 wqkv [3, d, n, h] where the heads match, else wq and wkv [2, d, n_kv, h]),
-per_dim_scale [h], w0/wg [d, f], w1 [f, d], norm scale [d], embed [V, d],
-unembed [d, V]. An int8 weight (quantize_lm_params) is a QuantizedWeight
+per_dim_scale [h], w0/wg [d, f], w1 [f, d] (MoE: router [d, E] f32,
+w0/wg [E, d, f], w1 [E, f, d]), norm scale [d], embed [V, d], unembed
+[d, V]. An int8 weight (quantize_lm_params) is a QuantizedWeight
 module in the parameter's place, {qvalue, scale} as in the JAX tree. The
 module holds one TransformerBlock per layer where the JAX tree stacks them
 on a leading [L] axis.
@@ -39,6 +41,8 @@ import torch.utils.checkpoint
 from torch.utils.checkpoint import CheckpointPolicy
 
 from automl_tpu_torch.config import Config
+# lax.top_k's order among ties (torch.topk promises none): the MoE router's.
+from automl_tpu_torch.models.beam import _top_k
 from automl_tpu_torch.ops import attention as attention_lib
 from automl_tpu_torch.ops import decode_attention as decode_attention_lib
 from automl_tpu_torch.ops import xent as xent_lib
@@ -166,8 +170,6 @@ def get_lm_config(name: str = "") -> Config:
 # Options of the JAX model not ported yet, with the ROADMAP item that ports
 # each. A config that turns one on is refused rather than run another way.
 _UNPORTED = (
-    ("use_window_chunk", "M6 (chunked local attention)"),
-    ("moe_num_experts", "M6 (MoE FFN)"),
     ("use_ring_attention", "M10 (ring attention)"),
     ("use_pipeline", "M10 (pipeline parallelism)"),
     ("serve_tp", "M10 (tensor-parallel serving, decode_attention_tp)"),
@@ -362,8 +364,18 @@ class Attention(nn.Module):
       q = q * (self.head_dim ** -0.5)
 
     if cache is None:
+      if mask is None and cfg.get("use_window_chunk") and \
+          cfg.get("window_chunk_size"):
+        # The two-chunk local attention, before the flash branch as in JAX:
+        # with both options on, the chunk path runs.
+        kk, vv = self._repeat_kv(k), self._repeat_kv(v)
+        out = chunked_local_attn(q, kk, vv, positions,
+                                 int(cfg.window_chunk_size),
+                                 cfg.attn_logit_cap or 0.0,
+                                 segment_ids=segment_ids)
+        return torch.einsum("bqnh,dnh->bqd", out.to(adt), wo), None
       if mask is None:
-        # TransformerLM passes mask=None exactly when the flash path
+        # TransformerLM passes mask=None exactly when a fused path
         # should mask by itself (JAX: uses_fused_mask).
         out = attention_lib.flash_attention(
             q, k, v, causal=True, window=cfg.window_size,
@@ -417,17 +429,67 @@ class Attention(nn.Module):
       return cap * torch.tanh(logits.float() / cap)
     return logits.float()
 
+  def _repeat_kv(self, x):
+    """[B, T, n_kv, hd] -> [B, T, n, hd] (GQA: each kv head repeated)."""
+    if self.n_kv == self.n_heads:
+      return x
+    return x.repeat_interleave(self.n_heads // self.n_kv, dim=2)
+
   def _dense(self, q, k, v, mask, wo, adt):
     """The no-cache path: dense softmax attention over [B, T, T]."""
-    if self.n_kv != self.n_heads:
-      rep = self.n_heads // self.n_kv
-      k = k.repeat_interleave(rep, dim=2)
-      v = v.repeat_interleave(rep, dim=2)
+    k, v = self._repeat_kv(k), self._repeat_kv(v)
     logits = self._cap(torch.einsum("bqnh,bknh->bnqk", q, k.to(q.dtype)))
     logits = logits.masked_fill(~mask[:, None], -1e9)
     probs = torch.softmax(logits, dim=-1).to(adt)
     out = torch.einsum("bnqk,bknh->bqnh", probs, v.to(adt))
     return torch.einsum("bqnh,dnh->bqd", out, wo)
+
+
+def chunked_local_attn(q, k, v, positions, window_chunk_size: int,
+                       attn_logit_cap: float = ATTN_LOGIT_CAP,
+                       segment_ids=None):
+  """Blockwise local attention (JAX's chunked_local_attn): chunk i attends
+  to chunks i - 1 and i, causally, O(T * 2c) in place of O(T^2).
+
+  q, k, v: [B, T, N, H] with T a multiple of the chunk (positions is
+  unused, as in JAX). segment_ids: optional [B, T] packed-document ids (no
+  attention across documents). With a cap the logits are capped in f32,
+  else they stay in q's dtype, as in JAX. Returns [B, T, N, H]."""
+  del positions
+  b, t, n, h = q.shape
+  c = window_chunk_size
+  if t % c:
+    raise ValueError(f"sequence length {t} is not a multiple of "
+                     f"window_chunk_size {c}")
+  nc = t // c
+  qc = q.reshape(b, nc, c, n, h)
+  kc = k.reshape(b, nc, c, n, h)
+  vc = v.reshape(b, nc, c, n, h)
+  # The previous chunk's k / v (zeros before chunk 0).
+  kprev = F.pad(kc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+  vprev = F.pad(vc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+  k2 = torch.cat([kprev, kc], dim=2)                   # [B, nc, 2c, N, H]
+  v2 = torch.cat([vprev, vc], dim=2)
+  logits = torch.einsum("bgqnh,bgknh->bgnqk", qc, k2)
+  if attn_logit_cap:
+    logits = attn_logit_cap * torch.tanh(logits.float() / attn_logit_cap)
+  # Query i of chunk g sits at c + i of its two-chunk window, key j at j:
+  # attend where j <= c + i, and never to chunk 0's missing predecessor.
+  qi = torch.arange(c, device=q.device)[:, None] + c
+  kj = torch.arange(2 * c, device=q.device)[None, :]
+  base = kj <= qi
+  chunk_ids = torch.arange(nc, device=q.device)[:, None, None]
+  mask = torch.where(chunk_ids == 0, base & (kj >= c), base)
+  mask = mask[None].expand(b, nc, c, 2 * c)
+  if segment_ids is not None:
+    seg_c = segment_ids.reshape(b, nc, c)
+    seg_prev = F.pad(seg_c, (0, 0, 1, 0), value=-1)[:, :-1]
+    seg_k = torch.cat([seg_prev, seg_c], dim=2)        # [B, nc, 2c]
+    mask = mask & (seg_c[..., :, None] == seg_k[..., None, :])
+  logits = logits.masked_fill(~mask[:, :, None], -1e9)
+  probs = torch.softmax(logits, dim=-1).to(v2.dtype)
+  out = torch.einsum("bgnqk,bgknh->bgqnh", probs, v2)
+  return out.reshape(b, t, n, h)
 
 
 # ---------------------------------------------------------------------------
@@ -474,13 +536,119 @@ class FFN(nn.Module):
     return h @ _maybe_dequant(self.w1, adt)
 
 
+class MoEFFN(nn.Module):
+  """Mixture-of-experts FFN (JAX's MoEFFN): top-k routing with a static
+  capacity per routing group; forward(x) -> (out, aux).
+
+  The router logits are taken in full f32 (no TF32: a flipped expert
+  changes the output), then the softmax and the top-k (lax.top_k's order
+  among ties); the k gates are renormalised by max(sum, 1e-9). aux is the
+  Switch load-balance loss from the top-1 choice, E * sum_e (share of
+  tokens routed to e) * (mean probability of e), 1 at perfect balance.
+  Tokens are routed in groups of the largest divisor of B * T that is at
+  most moe_group_size; each expert takes capacity = max(1, int(cf * k *
+  group / E)) slots of a group, filled in token-major order over the
+  flattened [group * k] (token, choice) slots, and a slot past it is
+  dropped. JAX dispatches and combines with one-hot einsums; here a gather
+  takes each kept slot's activation to its (expert, position), and a
+  gather takes each expert output back to its slot. A one-hot contraction
+  has one non-zero term, so the values are the same: the expert input in
+  the activation dtype, silu(x wg) * (x w0) (or silu(x w0)) then w1 per
+  expert, the gated sum of the k slots in f32, cast to the activation
+  dtype."""
+
+  def __init__(self, cfg: Config, device=None):
+    super().__init__()
+    self.cfg = cfg
+    d = cfg.model_dim
+    hidden = cfg.expand_factor * d
+    e = self.num_experts = int(cfg.moe_num_experts)
+    self.top_k = int(cfg.get("moe_top_k", 1) or 1)
+    self.capacity_factor = float(cfg.get("moe_capacity_factor", 1.25))
+    dt = _dtype(cfg.param_dtype)
+    self.router = _param((d, e), torch.float32, device)
+    self.w0 = _param((e, d, hidden), dt, device)
+    self.w1 = _param((e, hidden, d), dt, device)
+    if cfg.use_gated_ffn:
+      self.wg = _param((e, d, hidden), dt, device)
+
+  def routing(self, s: int):
+    """(group size, capacity) for s = B * T tokens."""
+    g_size = min(s, int(self.cfg.get("moe_group_size", 4096) or 4096))
+    if s % g_size:
+      g_size = max(g for g in range(1, g_size + 1) if s % g == 0)
+    return g_size, max(1, int(self.capacity_factor * self.top_k * g_size
+                              / self.num_experts))
+
+  def route(self, x):
+    """(gates [S, k] renormalised, experts [S, k], probs [S, E]) of x
+    [B, T, D]."""
+    xf = x.reshape(-1, x.shape[-1])
+    with _full_f32_matmul():
+      logits = xf.float() @ self.router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = _top_k(probs, self.top_k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return gates, idx, probs
+
+  def slots(self, idx, g_size: int, capacity: int):
+    """Where each of the S * k (token, choice) slots goes: its flat
+    (group, expert, position) index, or groups * E * capacity (a spare
+    row) where it is dropped; and whether it is kept. [S * k] each."""
+    e, k = self.num_experts, self.top_k
+    flat_e = idx.reshape(-1, g_size * k)                       # [G, Sg*k]
+    onehot = F.one_hot(flat_e, e)
+    pos = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(-1)
+    keep = pos < capacity
+    group = torch.arange(flat_e.shape[0], device=idx.device)[:, None]
+    dest = (group * e + flat_e) * capacity + pos
+    spare = flat_e.shape[0] * e * capacity
+    return torch.where(keep, dest, spare).reshape(-1), keep.reshape(-1)
+
+  def forward(self, x):
+    adt = _dtype(self.cfg.activation_dtype)
+    e, k = self.num_experts, self.top_k
+    b, t, d = x.shape
+    s = b * t
+    gates, idx, probs = self.route(x)
+    top1 = F.one_hot(idx[:, 0], e).float()
+    aux = e * torch.sum(top1.mean(0) * probs.mean(0))
+
+    g_size, capacity = self.routing(s)
+    groups = s // g_size
+    dest, keep = self.slots(idx, g_size, capacity)
+    n_rows = groups * e * capacity
+    # The slot each (group, expert, position) row takes its input from; the
+    # spare slot index s * k (a zero row) where no slot lands.
+    z = torch.arange(s * k, device=x.device)
+    src = torch.full((n_rows + 1,), s * k, dtype=torch.long,
+                     device=x.device).scatter_(0, dest, z)[:n_rows]
+    x_slots = x.reshape(s, d).to(adt).repeat_interleave(k, dim=0)
+    x_slots = torch.cat([x_slots, x_slots.new_zeros(1, d)])
+    expert_in = x_slots[src].reshape(groups, e, capacity, d)
+    expert_in = expert_in.transpose(0, 1).reshape(e, groups * capacity, d)
+    h = torch.bmm(expert_in, _maybe_dequant(self.w0, adt))
+    if self.cfg.use_gated_ffn:
+      h = F.silu(torch.bmm(expert_in, _maybe_dequant(self.wg, adt))) * h
+    else:
+      h = F.silu(h)
+    out_e = torch.bmm(h, _maybe_dequant(self.w1, adt))   # [E, G*C, D]
+    out_e = out_e.reshape(e, groups, capacity, d).transpose(0, 1)
+    out_e = torch.cat([out_e.reshape(n_rows, d).float(),
+                       out_e.new_zeros(1, d, dtype=torch.float32)])
+    gate_flat = gates.reshape(-1) * keep.float()
+    out = out_e[dest] * gate_flat[:, None]                # [S*k, D] f32
+    return out.reshape(s, k, d).sum(1).reshape(b, t, d).to(adt), aux
+
+
 class TransformerBlock(nn.Module):
 
   def __init__(self, cfg: Config, device=None):
     super().__init__()
     d = cfg.model_dim
     self.attn = Attention(cfg, device)
-    self.ffn = FFN(cfg, device)
+    self.is_moe = bool(cfg.get("moe_num_experts"))
+    self.ffn = MoEFFN(cfg, device) if self.is_moe else FFN(cfg, device)
     self.pre_attn_norm = RMSNorm(d, device)
     self.pre_ffn_norm = RMSNorm(d, device)
     self.post_attn_norm = RMSNorm(d, device) if cfg.use_post_ln else None
@@ -488,14 +656,19 @@ class TransformerBlock(nn.Module):
 
   def forward(self, x, positions, mask, cache=None, cache_index=None,
               segment_ids=None):
+    """-> (x, cache); an MoE block also returns its FFN's load-balance
+    loss: (x, cache, aux)."""
     attn_out, new_cache = self.attn(self.pre_attn_norm(x), positions, mask,
                                     cache, cache_index, segment_ids)
     if self.post_attn_norm is not None:
       attn_out = self.post_attn_norm(attn_out)
     x = x + attn_out
-    ffn_out = self.ffn(self.pre_ffn_norm(x))
+    h = self.pre_ffn_norm(x)
+    ffn_out, aux = self.ffn(h) if self.is_moe else (self.ffn(h), None)
     if self.post_ffn_norm is not None:
       ffn_out = self.post_ffn_norm(ffn_out)
+    if self.is_moe:
+      return x + ffn_out, new_cache, aux
     return x + ffn_out, new_cache
 
 
@@ -596,14 +769,16 @@ class TransformerLM(nn.Module):
 
   def forward(self, tokens, positions=None, segment_ids=None, cache=None,
               cache_index=None, kv_positions=None, causal_attention=None,
-              return_hidden=False):
+              return_aux=False, return_hidden=False):
     """tokens: [B, T] int. cache: optional per-layer tuple from init_cache,
     written at cache_index (an int, or a [B] / [B, T] tensor of per-row
     positions: Attention.forward). causal_attention: optional [B, T] {0,1}
     prefix-LM markers.
 
     Returns (logits [B, T, V] f32, cache or None); with return_hidden, the
-    final-normed hidden states [B, T, D] in place of the logits."""
+    final-normed hidden states [B, T, D] in place of the logits; with
+    return_aux, a third value: the layers' summed MoE load-balance loss
+    (0 for dense FFNs, and with a cache, as in JAX)."""
     cfg = self.cfg
     adt = _dtype(cfg.activation_dtype)
     b, t = tokens.shape
@@ -617,11 +792,12 @@ class TransformerLM(nn.Module):
            ) * (cfg.model_dim ** 0.5)
     else:
       x = F.embedding(tokens, self.embed).to(adt) * (cfg.model_dim ** 0.5)
-    # The flash kernel masks by itself (causal, window, segments); a
-    # prefix-LM mask or a cache takes the materialised mask (JAX:
-    # uses_fused_mask).
-    uses_fused_mask = (causal_attention is None and cache is None
-                       and cfg.get("use_flash_attention"))
+    # The flash kernel and the chunked local attention mask by themselves
+    # (causal, window, segments); a prefix-LM mask or a cache takes the
+    # materialised mask (JAX: uses_fused_mask).
+    uses_fused_mask = causal_attention is None and cache is None and bool(
+        cfg.get("use_flash_attention")
+        or (cfg.get("use_window_chunk") and cfg.get("window_chunk_size")))
     mask = None if uses_fused_mask else causal_mask(
         positions, kv_positions, cfg.window_size, segment_ids, segment_ids,
         prefix_q=causal_attention, prefix_k=causal_attention)
@@ -640,21 +816,28 @@ class TransformerLM(nn.Module):
       cache_index = _row_writes(cache_index, t, cache[0]["k"].shape[-1],
                                 cfg.n_kv_heads)
     new_caches = []
+    aux = None
     for i, block in enumerate(self.blocks):
       if remat:
-        x, nc = torch.utils.checkpoint.checkpoint(
+        # An MoE block's aux comes out of the checkpoint with its output.
+        outs = torch.utils.checkpoint.checkpoint(
             block, x, positions, mask, None, None, segment_ids,
             use_reentrant=False, **remat_kw)
       else:
-        x, nc = block(x, positions, mask,
-                      None if cache is None else cache[i], cache_index,
-                      segment_ids)
+        outs = block(x, positions, mask, None if cache is None else cache[i],
+                     cache_index, segment_ids)
+      x, nc = outs[:2]
+      if block.is_moe and cache is None:
+        aux = outs[2] if aux is None else aux + outs[2]
       new_caches.append(nc)
     new_cache = tuple(new_caches) if cache is not None else None
     x = self.final_norm(x)
-    if return_hidden:
-      return x, new_cache
-    return unembed_logits(self, x), new_cache
+    out = x if return_hidden else unembed_logits(self, x)
+    if not return_aux:
+      return out, new_cache
+    if aux is None:
+      aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return out, new_cache, aux
 
   def init_cache(self, batch_size: int, max_len: int):
     """Per-layer KV cache tuple of {k: [B*n_kv, hd, S], v: [B*n_kv, S, hd]}
@@ -675,8 +858,9 @@ def cast_lm_params_for_serving(model: TransformerLM) -> TransformerLM:
 
   The layers cast each weight to the activation dtype at use, so this
   changes no result. Left alone, as in the JAX package: embed/unembed
-  (they also feed the f32 logits matmul), the MoE router, 1-D leaves
-  (norm scales, per_dim_scale) and int8 weights (qvalue, scale)."""
+  (they also feed the f32 logits matmul), the MoE router (f32 routing
+  decisions), 1-D leaves (norm scales, per_dim_scale) and int8 weights
+  (qvalue, scale)."""
   adt = _dtype(model.cfg.activation_dtype)
   for name, p in model.named_parameters():
     if name.split(".")[-1] in ("embed", "unembed", "router", "scale"):
@@ -694,8 +878,9 @@ def quantize_lm_params(model: TransformerLM, min_size: int = 1 << 12):
   the other axes / 127, at least 1e-8, qvalue = clip(round(w / scale),
   -127, 127), rounding half to even, all in f32. JAX's stacked block
   weights keep a scale per layer, which is what a per-layer parameter here
-  has. The layers dequantise at use (_maybe_dequant). The MoE router would
-  stay float (the port has no MoE yet, ROADMAP M6)."""
+  has; an expert weight [E, d, f] reduces over E and d, as JAX's axes do.
+  The layers dequantise at use (_maybe_dequant). The MoE router is never
+  quantised: int8 rounding could flip a top-k routing decision."""
   for name, p in list(model.named_parameters()):
     owner_name, _, attr = name.rpartition(".")
     owner = model.get_submodule(owner_name)
@@ -840,6 +1025,42 @@ def lm_loss_fused_pallas(model: TransformerLM, x, targets, loss_weights=None):
       tied=tied, logit_cap=float(cfg.final_logit_cap or 0.0),
       block_m=int(cfg.get("loss_block_m", 1024) or 1024),
       block_v=int(cfg.get("loss_block_v", 1024) or 1024))
+
+
+def distill_loss(student_logits, teacher_logits, loss_weights=None,
+                 temperature: float = 1.0):
+  """Distillation: the cross-entropy of the student's softmax against the
+  teacher's, both at `temperature`, in f32; the (weighted) mean over
+  tokens times temperature^2."""
+  t = temperature
+  teacher = torch.softmax(teacher_logits.float() / t, dim=-1)
+  logp = torch.log_softmax(student_logits.float() / t, dim=-1)
+  per_tok = -torch.sum(teacher * logp, dim=-1)
+  if loss_weights is None:
+    return per_tok.mean() * t * t
+  w = loss_weights.float()
+  return (per_tok * w).sum() / w.sum().clamp_min(1.0) * t * t
+
+
+def scaling_summary(cfg) -> dict:
+  """Parameter and training-FLOPs-per-token counts of a config (JAX's
+  scaling_summary: a dense FFN whatever moe_num_experts says; attention
+  counted over the full sequence)."""
+  d, l, v = cfg.model_dim, cfg.n_layers, cfg.vocab_size
+  h = cfg.n_heads * cfg.head_dim
+  hkv = cfg.n_kv_heads * cfg.head_dim
+  ffn = cfg.expand_factor * d
+  attn_params = d * h * 2 + d * hkv * 2          # wq, wo, wk, wv
+  ffn_params = d * ffn * (3 if cfg.use_gated_ffn else 2)
+  block_params = attn_params + ffn_params + 2 * d
+  embed_params = v * d * (1 if cfg.tie_embeddings else 2)
+  total = l * block_params + embed_params + d
+  attn_flops = 2 * cfg.seq_len * h
+  flops_per_token = 6 * (total - embed_params + v * d) + 2 * l * attn_flops
+  return {"params": int(total), "embed_params": int(embed_params),
+          "non_embed_params": int(total - embed_params),
+          "flops_per_token_train": int(flops_per_token),
+          "chinchilla_tokens": int(20 * (total - embed_params))}
 
 
 # ---------------------------------------------------------------------------

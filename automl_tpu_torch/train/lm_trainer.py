@@ -11,8 +11,9 @@ params += updates.
 
 run_lm runs on one device; a mesh, a sharding config and multi-process
 input are not ported yet (ROADMAP M10). The loss follows
-cfg.fused_softmax_loss as the JAX step's does; the eval step stays unfused,
-as JAX's does.
+cfg.fused_softmax_loss as the JAX step's does, plus moe_aux_loss_weight
+times the MoE load-balance loss where moe_num_experts is set; the eval step
+stays unfused and without the aux, as JAX's does.
 """
 
 from __future__ import annotations
@@ -86,17 +87,23 @@ def _loss(model: lm_lib.TransformerLM, inputs, targets, weights, segment_ids,
   """The training loss, dispatched on cfg.fused_softmax_loss as in the JAX
   step: False, the logits and lm_loss; "pallas", the fused kernels
   (lm_loss_fused_pallas); any other true value ("scan", True), the chunked
-  lm_loss_fused."""
+  lm_loss_fused. Plus moe_aux_loss_weight times the layers' summed MoE
+  load-balance loss (a weight of 0 without moe_num_experts)."""
   cfg = model.cfg
   fused = cfg.get("fused_softmax_loss", False)
-  out, _ = model(inputs, segment_ids=segment_ids,
-                 causal_attention=causal_attention, return_hidden=bool(fused))
+  aux_w = (float(cfg.get("moe_aux_loss_weight", 0.0) or 0.0)
+           if cfg.get("moe_num_experts") else 0.0)
+  out, _, aux = model(inputs, segment_ids=segment_ids,
+                      causal_attention=causal_attention, return_aux=True,
+                      return_hidden=bool(fused))
   if not fused:
-    return lm_lib.lm_loss(out, targets, weights)
-  if fused == "pallas":
-    return lm_lib.lm_loss_fused_pallas(model, out, targets, weights)
-  return lm_lib.lm_loss_fused(model, out, targets, weights,
-                              int(cfg.get("loss_chunk_size", 256)))
+    loss = lm_lib.lm_loss(out, targets, weights)
+  elif fused == "pallas":
+    loss = lm_lib.lm_loss_fused_pallas(model, out, targets, weights)
+  else:
+    loss = lm_lib.lm_loss_fused(model, out, targets, weights,
+                                int(cfg.get("loss_chunk_size", 256)))
+  return loss + aux_w * aux
 
 
 def lm_loss_and_grads(model: lm_lib.TransformerLM, batch: dict):

@@ -35,6 +35,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      prefill (b1, T 256 at offset 256, S 1024) checked and timed likewise,
      per-row masks with a parked row in both designs, the draft's verify,
      causal T 507 prefill and T 1 steps at hd 32, and 64 beam rows checked;
+     the MoE model's generation in phase 5b (case 8): b8, S 576, the causal
+     T 512 prefill and T 1 steps with keys 0-512 and 0-575, checked;
   3. K1 / K2 / K5a / K5b (flash-attention forward, fused backward and the
      split backward's dq and dk/dv kernels) against their plain versions at
      the training slice's shapes (b8, T 2048, 8 heads, hd 128, bf16,
@@ -46,16 +48,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      K1 / K2 / K5a / K5b are the Hopper kernels (flash_attention_sm90.cu),
      f32 ones the scalar-FMA kernels (flash_attention.cu), whose bf16
      instances are also checked and timed at the slice's shapes, in the
-     same call; timed as in 2;
+     same call; timed as in 2; and at the default LM's 16 heads (case 9:
+     b8, T 2048, hd 128, bf16, causal, cap 50), checked;
   4. K3a / K3b / K3c (fused softmax xent forward, dx, dW) against their
      plain versions at the fused-loss slice's shapes (M 16,384 = b8 x T2048
      tokens, D 1,024, V 100,864, bf16 operands, cap 30, about 20% zero loss
      weights; bf16 K3a, K3b and K3c are the Hopper kernels of
      xent_sm90.cu, called twice they must be bit-equal; the kernels of
      xent.cu, reached with _simt, are checked and timed beside them in the
-     same call) and on small cases (the default LM's M 4,096, V 32,000, D
-     2,048 through all three, K3a timed beside xent.cu's and the chain's
-     forward; ragged M and V at D 256, 512 and 2,048; cap 0; f32 operands
+     same call) and on small cases (the default LM's M 16,384, V 32,000,
+     D 2,048 through all three, timed beside xent.cu's K3a and the chain's
+     forward and backward; ragged M and V at D 256, 512 and 2,048; cap 0; f32 operands
      and bf16 D 72, which take xent.cu's kernels; untied w through
      fused_softmax_xent's autograd against the CPU); timed as in 2;
   5. training slices: step 1 of lm-flops1e19 with use_flash_attention (K1/K2)
@@ -78,6 +81,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      run's K3a, K3b and K3c launches all the Hopper kernels'); a rerun of
      the unfused run to 31 steps must resume from the checkpoint at step
      30;
+  5b. the rest of LM training (M6; lm_training_m6_phase), each run through
+     cli/main_lm with its launches counted and every one the Hopper
+     kernels': (A) the default LM (lm_defaults: D 2,048, 24 layers, V
+     32,000, flash attention, Lion) at b8 T2048: step 1 fused "pallas"
+     against unfused "bfloat16_vjp" and "scan" against f32 (phase 5's
+     limits), 30 steps with the fused loss at its config's Lion lr 1e-3
+     (the loss need not fall) and 30 at M6_LOW_LR (it must), then the
+     largest batch of 8 x 2^n that fits (out of memory caught) for 5
+     steps; (B) MoE at
+     lm-flops1e19's width (8 experts, top-2, capacity 1.25, groups of
+     4096, aux 0.01, the fused loss): step 1 with E = 1 against the dense
+     FFN and with groups of 4096 against 2048 at a capacity where nothing
+     drops, 30 steps (aux and dropped slots at steps 1 and 30), greedy
+     generation of 64 tokens after 512 at b8 through K4 (S 576)
+     teacher-forced against the model's own forward (checked at capacity
+     M6_GEN_CF, reported at 1.25), the int8 model's router f32; (C) the
+     chunked local attention (chunks of 512): step 1 against the dense
+     path given the same two-chunk mask, 10 steps; (D) a prefix-LM from
+     TSV files with a SentencePiece model written here: its ids of
+     M6_TEXT equal the JAX package's (constants), step 1 with all-zero
+     prefix markers against the plain causal run, 10 steps and a
+     validation; (E) the JAX flagship's LM composition (D 1,024, 12
+     layers, V 32,000, dots_flash, K2) for 30 steps. Each run prints step
+     ms, tokens/s, FLOP shares and peak memory;
   6. K6 (the depthwise filter gradient) against its plain version at every
      map of a D0 step (the 13 shapes of its 76 stride-1 depthwise convs,
      bf16, b16: the Hopper kernel of depthwise_sm90.cu, two calls
@@ -207,8 +234,9 @@ call the port makes with the knob off. The port never calls the others. If
 one cannot be compiled or run, the reason is printed and library_ms is
 null.
 
-Prints a {"kernels": [...]} JSON line (K4's launches: those of phases 10
-and 12's runs), then the card line, and last {"ok": true, "device":
+Prints a {"kernels": [...]} JSON line (K4's launches: those of phases 10,
+12 and 5b's runs; K1, K2 and K3a-c: phase 5's runs and 5b's), then the
+card line, and last {"ok": true, "device":
 {...}}. Imports no jax.
 """
 
@@ -553,6 +581,19 @@ def k4_phase(dev, flush):
   m7 = (ki[:768] <= 600).expand(64, 1, 768).contiguous()
   check("64 beam rows, T 1", q7, kc7, vc7, m7, BF16_TOL, n_kv_heads=8,
         logit_cap=50.0)
+  print("K4 case 8: the MoE model's greedy generation (phase 5b): b8, N8/8, "
+        "hd128, S 576, bf16, cap 50: the causal T 512 prefill (wgmma) and T 1 "
+        "steps (split-S)")
+  q8, kc8, vc8, _ = _kernel_inputs(dev, gen, 8, 512, 8, 8, 128, 576,
+                                   torch.bfloat16)
+  m8 = ki[None, :576] <= torch.arange(512, device=dev)[:, None]
+  check("MoE prefill, T 512, causal from 0", q8, kc8, vc8,
+        m8.expand(8, 512, 576).contiguous(), BF16_TOL, n_kv_heads=8,
+        logit_cap=50.0)
+  for last in (512, 575):
+    m8 = (ki[:576] <= last).expand(8, 1, 576).contiguous()
+    check(f"MoE step, T 1, keys 0-{last}", q8[:, :1].contiguous(), kc8, vc8,
+          m8, BF16_TOL, n_kv_heads=8, logit_cap=50.0)
   torch.cuda.synchronize()
   return out
 
@@ -799,7 +840,24 @@ def flash_phase(dev, flush):
        sm_scale=0.125)
   o, _ = fa.flash_fwd(qd, kd, vd, segs1, sm_scale=0.125)
   _compare("bf16 length-1 docs out == v", o, vd, atol=0, rtol=0)
+  del qd, kd, vd, gd, o
+  print("K1/K2/K5 case 9: the default LM's shapes (phase 5b): b8 T2048 "
+        "N16/16 hd128 bf16 causal cap50 sm_scale 1 (the Hopper kernels)")
+  qd, kd, vd, gd = _flash_inputs(dev, gen, 8, 2048, 16, 128, torch.bfloat16)
+  qd = (qd.float() * 128 ** -0.5).bfloat16()
+  fl = fa.flash_attention
+  before = (fl.launches_fwd_sm90, fl.launches_bwd_sm90, fl.launches_dq_sm90,
+            fl.launches_dkv_sm90)
+  both("default LM", qd, kd, vd, gd, tol=BF16_TOL, causal=True,
+       logit_cap=50.0, sm_scale=1.0)
+  if (fl.launches_fwd_sm90 - before[0], fl.launches_bwd_sm90 - before[1],
+      fl.launches_dq_sm90 - before[2], fl.launches_dkv_sm90 - before[3]
+      ) != (1, 1, 1, 1):
+    raise AssertionError("default LM: K1 / K2 / K5a / K5b did not go to the "
+                         "Hopper kernels")
+  del qd, kd, vd, gd
   torch.cuda.synchronize()
+  torch.cuda.empty_cache()
   return res
 
 
@@ -1025,6 +1083,7 @@ def xent_phase(dev, flush):
             f"{bound_ms:.4f} ms ({bound_by}) (in turns, L2 flushed before "
             "each call)")
     kw = dict(logit_cap=cap, out_dtype=torch.float32)
+    bwd_ms = 0.0
     for key, (kern, ref, _) in fns.items():
       before = sm90_launches()
       got = (xent.xent_dx if key == "dx" else xent.xent_dw)(
@@ -1036,14 +1095,26 @@ def xent_phase(dev, flush):
       if time_it:
         ms = _time_ms(lambda kern=kern: kern(x, w, targets, lse_r, coef,
                                              **kw), 3, flush)
+        bwd_ms += ms
         bound_ms, bound_by = _xent_bounds(m, v, d)[key]
         print(f"  {name} {key}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}) (L2 flushed before each call)")
+    if time_it:
+      def chain_bwd():
+        xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+        loss = _xent_chain(xs, ws, targets, weights, cap)
+        return lambda: torch.autograd.grad(loss, (xs, ws), retain_graph=True)
+      lib = _library_ms(f"{name} K3b + K3c", chain_bwd, 3, flush,
+                        "chain bf16 matmul -> cap -> cross_entropy, autograd "
+                        "backward")
+      if lib:
+        print(f"  {name} K3b + K3c: {bwd_ms:.4f} ms = {bwd_ms / lib:.2f}x "
+              f"the chain's backward ({lib:.4f} ms)")
 
-  print("K3 case 2: the default LM's shapes: M 4096 (b2 x T2048), V 32000, "
+  print("K3 case 2: the default LM's shapes: M 16384 (b8 x T2048), V 32000, "
         "D 2048, bf16 operands, cap 30 (K3a-c on the Hopper kernels, "
         "clusters of 8)")
-  small("D=2048", 4096, 32_000, 2048, torch.bfloat16, 30.0, True,
+  small("D=2048", 16_384, 32_000, 2048, torch.bfloat16, 30.0, True,
         time_it=True)
   print("K3 case 3: ragged M and V on the Hopper kernels: M 300, V 1000, "
         "D 256 (clusters of 1), M 257, V 333, D 512 (of 2) and M 1000, V "
@@ -1078,7 +1149,8 @@ def xent_phase(dev, flush):
   return res
 
 
-def _step_flops(cfg, b, t, fused=False, policy="full", split=False):
+def _step_flops(cfg, b, t, fused=False, policy="full", split=False,
+                window=None):
   """(executed, model) FLOPs of one training step.
 
   Executed: the blocks' matmuls 8 * params * tokens under full remat
@@ -1090,34 +1162,55 @@ def _step_flops(cfg, b, t, fused=False, policy="full", split=False):
   logits). Model: what the step must compute, without any recompute:
   6 * params * tokens, attention forward and backward 12 * hd per causal
   pair and layer, the unembed 6 * d * V * tokens; the same for all
-  paths."""
+  paths. With moe_num_experts, the FFN's rows: executed, each expert's
+  capacity (cf * k rows a token, empty slots included); model, the k
+  routed slots. `window`: the chunked local attention's chunk c (its
+  einsums take every (query, key) pair of a two-chunk window: 2c keys a
+  query, executed; the live pairs, model)."""
   d, hd, n, f = cfg.model_dim, cfg.head_dim, cfg.n_heads, \
       cfg.expand_factor * cfg.model_dim
-  block_params = cfg.n_layers * (d * hd * (2 * n + 2 * cfg.n_kv_heads)
-                                 + (3 if cfg.use_gated_ffn else 2) * d * f)
+  attn_params = cfg.n_layers * d * hd * (2 * n + 2 * cfg.n_kv_heads)
+  ffn_params = cfg.n_layers * (3 if cfg.use_gated_ffn else 2) * d * f
+  ffn_rows = ffn_model_rows = 1.0
+  if cfg.get("moe_num_experts"):
+    ffn_rows = float(cfg.moe_capacity_factor) * int(cfg.moe_top_k)
+    ffn_model_rows = float(int(cfg.moe_top_k))
   tokens = b * t
   live = b * n * t * (t + 1) / 2
+  pairs = live
+  if window:
+    # A query at i of its chunk sees the c + i + 1 keys up to it (chunk 0:
+    # i + 1); the einsums take all 2c keys of the window.
+    nc, c = t // window, window
+    pairs = b * n * t * 2 * c
+    live = b * n * (nc * c * (c + 1) / 2 + (nc - 1) * c * c)
   unembed = d * cfg.vocab_size * tokens
   k1_runs = 1 if policy == "dots_flash" else 2
-  attention = cfg.n_layers * hd * live * (
-      k1_runs * 4.0 + (14.0 if split else 10.0))
-  executed = ((8.0 if policy == "full" else 6.0) * block_params * tokens
+  if window:    # plain einsums: forward 4 * hd a pair, backward 8 * hd
+    attention = cfg.n_layers * hd * pairs * (
+        (2 if policy == "full" else 1) * 4.0 + 8.0)
+  else:
+    attention = cfg.n_layers * hd * live * (
+        k1_runs * 4.0 + (14.0 if split else 10.0))
+  executed = ((8.0 if policy == "full" else 6.0)
+              * (attn_params + ffn_rows * ffn_params) * tokens
               + attention + (10.0 if fused else 6.0) * unembed)
-  model = (6.0 * block_params * tokens + cfg.n_layers * 12.0 * hd * live
-           + 6.0 * unembed)
+  model = (6.0 * (attn_params + ffn_model_rows * ffn_params) * tokens
+           + cfg.n_layers * 12.0 * hd * live + 6.0 * unembed)
   return executed, model
 
 
-def _step1(dev, tree, first, configs):
-  """{label: (loss, grads)} of step 1 of lm-flops1e19 (lm_loss_and_grads)
-  for each label's override string, from one parameter tree and batch."""
+def _step1(dev, tree, first, configs, base="lm-flops1e19"):
+  """{label: (loss, grads)} of step 1 of the named config `base` ("" for
+  lm_defaults) (lm_loss_and_grads) for each label's override string, from
+  one parameter tree and batch."""
   import torch
   from automl_tpu_torch import convert
   from automl_tpu_torch.models import lm as lm_lib
   from automl_tpu_torch.train import lm_trainer
   out = {}
   for label, overrides in configs.items():
-    c = lm_lib.get_lm_config("lm-flops1e19")
+    c = lm_lib.get_lm_config(base)
     c.override(overrides)
     model = convert.load_jax_params(lm_lib.TransformerLM(c, device=dev), tree)
     torch.cuda.synchronize()
@@ -1158,11 +1251,14 @@ def _step1_check(results, a, b, limits, why, bit_equal=False):
                          "path")
 
 
-def _train_run(workdir, flags, steps, label, expected, flops):
+def _train_run(workdir, flags, steps, label, expected, flops, cfg=None,
+               batch=8, falls=True):
   """cli/main_lm for `steps` steps with every launch count set to 0 just
-  before and read just after; checks that the loss is finite and falls and
-  that the launches are `expected` ({kernel: launches}). `flops`: (executed,
-  model) FLOPs of a step. Returns {kernel: launches}."""
+  before and read just after; prints the losses and gradient norms, checks
+  that the loss is finite and falls (with `falls`) and that the launches
+  are `expected` ({kernel: launches}).
+  `flops`: (executed, model) FLOPs of a step of `cfg` (default
+  lm-flops1e19) at `batch`. Returns {kernel: launches}."""
   import numpy as np
   import torch
   from automl_tpu_torch.cli import main_lm
@@ -1184,8 +1280,7 @@ def _train_run(workdir, flags, steps, label, expected, flops):
               "K3b sm90": (xent.fused_softmax_xent, "launches_dx_sm90"),
               "K3c": (xent.fused_softmax_xent, "launches_dw"),
               "K3c sm90": (xent.fused_softmax_xent, "launches_dw_sm90")}
-  cfg = lm_lib.get_lm_config("lm-flops1e19")
-  batch = 8
+  cfg = cfg or lm_lib.get_lm_config("lm-flops1e19")
   torch.cuda.reset_peak_memory_stats()
   for fn, attr in counters.values():
     setattr(fn, attr, 0)
@@ -1196,24 +1291,30 @@ def _train_run(workdir, flags, steps, label, expected, flops):
   peak = torch.cuda.max_memory_allocated()
   recs = [json.loads(line) for line in
           open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
+  valid = [r["validation_loss"] for r in recs if "validation_loss" in r]
+  recs = [r for r in recs if "loss" in r]
   losses = [r["loss"] for r in recs]
   secs = [r["secs_per_step"] for r in recs]
-  print(f"losses: {' '.join(f'{x:.4f}' for x in losses)}")
+  gnorms = [r["gnorm"] for r in recs]
+  print(f"losses: {' '.join(f'{x:.4f}' for x in losses)}"
+        + (f"; validation loss {valid}" if valid else ""))
+  print(f"gradient norms: {' '.join(f'{x:.2f}' for x in gnorms)}")
   if [r["step"] for r in recs] != list(range(1, steps + 1)) or not all(
-      math.isfinite(x) for x in losses):
+      math.isfinite(x) for x in losses + valid):
     raise AssertionError("training steps missing or loss not finite")
-  if not np.mean(losses[-5:]) < losses[0]:
+  if falls and not np.mean(losses[-5:]) < losses[0]:
     raise AssertionError(f"loss did not fall: step 1 {losses[0]:.4f}, mean "
                          f"of the last 5 {np.mean(losses[-5:]):.4f}")
   print(f"launches in the run: {launches} (expected {expected})")
   if launches != expected:
     raise AssertionError("the run did not go through the kernels as "
                          "expected")
-  step_s = float(np.median(secs[4:]))
+  step_s = float(np.median(secs[min(4, steps - 1):]))
   flops, model_flops = flops
   print(f"train b{batch} T{cfg.seq_len} ({label}): {steps} steps in "
         f"{wall:.1f} s (model build included); step "
-        f"{step_s * 1e3:.1f} ms (median of steps 5-{steps}), "
+        f"{step_s * 1e3:.1f} ms (median of steps "
+        f"{min(5, steps)}-{steps}), "
         f"{batch * cfg.seq_len / step_s:.0f} tokens/s, peak memory "
         f"{peak / 2**30:.2f} GiB; {flops / 1e12:.2f} TFLOP per step executed "
         f"= {100 * flops / step_s / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s, "
@@ -1340,6 +1441,625 @@ def _resume_check(flags, workdir, steps, cli="automl_tpu_torch.cli.main_lm"):
     raise AssertionError("the rerun did not resume from the checkpoint")
   print(f"checkpoint at step {steps} restored: the rerun trained only step "
         f"{steps + 1} (loss {recs[-1]['loss']:.4f})")
+
+
+# ---------------------------------------------------------------------------
+# M6: the rest of LM training on the card (lm_training_m6_phase).
+# ---------------------------------------------------------------------------
+
+# The config values convert.numpy_init reads: one seeded tree per value set.
+_TREE_KEYS = ("param_dtype", "model_dim", "head_dim", "n_layers", "n_heads",
+              "n_kv_heads", "expand_factor", "use_combined_qkv",
+              "use_per_dim_scale", "use_gated_ffn", "moe_num_experts",
+              "use_post_ln", "vocab_size", "tie_embeddings")
+
+
+class _Trees:
+  """convert.numpy_init memoised by the config values it reads, for the
+  M6 phase: every run of a configuration, step-1 checks and main_lm runs
+  alike, trains from one seeded tree drawn once. numpy draws ~50M normals
+  a second on one core (the default LM's 1.7B take ~35 s), so prefetch()
+  draws the trees in threads (numpy's fill releases the GIL) while the
+  kernels build, and wait() waits for them before anything is timed.
+  Inside `with`, main_lm's convert.numpy_init is this lookup."""
+
+  def __init__(self):
+    from automl_tpu_torch import convert
+    self._convert = convert
+    self._draw = convert.numpy_init
+    self._trees = {}
+    self._pool = concurrent.futures.ThreadPoolExecutor(4)
+    self._t0 = time.perf_counter()
+
+  @staticmethod
+  def _key(cfg, seed):
+    return tuple(cfg.get(k) for k in _TREE_KEYS) + (seed,)
+
+  def prefetch(self, cfg, seed=0):
+    from automl_tpu_torch.config import Config
+    key = self._key(cfg, seed)
+    if key not in self._trees:
+      self._trees[key] = self._pool.submit(
+          self._draw, Config(cfg.as_dict()), seed)
+
+  def get(self, cfg, seed=0):
+    self.prefetch(cfg, seed)
+    return self._trees[self._key(cfg, seed)].result()
+
+  def wait(self):
+    t = time.perf_counter()
+    concurrent.futures.wait(self._trees.values())
+    print(f"M6 trees: {len(self._trees)} drawn in "
+          f"{time.perf_counter() - self._t0:.1f} s from their start, waited "
+          f"{time.perf_counter() - t:.1f} s for them")
+
+  def drop(self, cfg, seed=0):
+    self._trees.pop(self._key(cfg, seed), None)
+
+  def __enter__(self):
+    self._convert.numpy_init = self.get
+    return self
+
+  def __exit__(self, *exc):
+    self._convert.numpy_init = self._draw
+    self._trees.clear()
+    self._pool.shutdown(wait=False, cancel_futures=True)
+
+
+class _NoCheckpoints:
+  """CheckpointManager.save as a no-op for the duration of a `with`: the
+  M6 runs resume nothing, and the default LM's and the MoE model's
+  checkpoints (weights and Lion momentum in f32) would write 13-14 GB each
+  to a machine whose disk takes 45 GiB of writes a run."""
+
+  def __enter__(self):
+    from automl_tpu_torch.train import checkpoint
+    self._cls, self._save = checkpoint.CheckpointManager, \
+        checkpoint.CheckpointManager.save
+    self._cls.save = lambda self, step, state: False
+    return self
+
+  def __exit__(self, *exc):
+    self._cls.save = self._save
+
+
+def _m6_configs():
+  """{run: (Config, its override string)} of the phase: the default LM
+  (lm_defaults, flash attention, the fused loss), the MoE and
+  chunked-attention variants of lm-flops1e19, lm-flops1e19 itself (the
+  prefix-LM run and the dense references) and the JAX flagship's LM
+  composition (bench_suite.py's _lm_model + bench_lm_train: D 1,024, 12
+  layers, V 32,000, dots_flash with the fused flash backward, the unfused
+  loss)."""
+  from automl_tpu_torch.models import lm as lm_lib
+  out = {}
+  for run, (base, overrides) in {
+      "default": ("", M6_FLASH + ",fused_softmax_loss=pallas"),
+      "moe": ("lm-flops1e19", M6_FLASH + ",fused_softmax_loss=pallas,"
+              + M6_MOE),
+      "chunk": ("lm-flops1e19", M6_FLASH + ",fused_softmax_loss=pallas,"
+                + M6_CHUNK),
+      "dense": ("lm-flops1e19", M6_FLASH + ",fused_softmax_loss=pallas"),
+      "flagship": ("", M6_FLAGSHIP),
+  }.items():
+    c = lm_lib.get_lm_config(base)
+    c.override(overrides)
+    out[run] = (c, overrides)
+  return out
+
+
+M6_FLASH = "use_flash_attention=true"
+M6_MOE = "moe_num_experts=8,moe_top_k=2"
+M6_CHUNK = "use_window_chunk=true,window_chunk_size=512"
+M6_FLAGSHIP = ("model_dim=1024,n_layers=12,n_heads=8,n_kv_heads=8,"
+               "head_dim=128,vocab_size=32000,use_flash_attention=true,"
+               "remat_policy=dots_flash")
+# The first batch size the default LM's probe tries (then up while it
+# fits, or down until it does): the prediction of PERF.md section 6.
+M6_PROBE_BATCH = 64
+# The default LM's second 30-step run: a tenth of its config's Lion lr,
+# where the loss must fall (at 1e-3 it does not; PERF.md section 6).
+M6_LOW_LR = 1e-4
+# The generation check's capacity factor: at E / k no slot is dropped in a
+# decode step's group of 8 tokens nor in the teacher-forcing forward of
+# 575, so the two compute one function (at 1.25 a decode group keeps 2
+# slots an expert, JAX's semantics, and drops about a quarter of them).
+M6_GEN_CF = 4.0
+# The int8 MoE model's greedy tokens against the bf16 model's on one
+# prefill: the share of equal argmaxes, JAX's own limit
+# (tests/test_lm.py:854, test_int8_moe_router_stays_float_and_serves).
+M6_INT8_AGREE = 0.9
+
+# The prefix-LM run's SentencePiece model: the specials, the 256 byte
+# pieces, a user-defined piece and a word list (unigram scores), written by
+# lm_pipeline.sentencepiece_model_proto with the identity normalizer.
+M6_WORDS = ("the", "a", "of", "fish", "swim", "deep", "blue", "sea", "red",
+            "coral", "reef", "light", "dark", "water", "sand", "wave",
+            "tide", "moon", "sun", "star")
+M6_TEXT = "the blue fish <sep> swims deep · ÿ 日本"
+# The ids JAX's SentencePieceModel (automl_tpu/data/lm_pipeline.py) gives
+# M6_TEXT under that model, computed on the CPU with the JAX package
+# (the card's machine has no jax).
+M6_TEXT_IDS = (262, 274, 268, 261, 260, 270, 320, 272, 261, 198, 187, 261,
+               199, 195, 261, 234, 155, 169, 234, 160, 176)
+
+
+def _m6_spm_pieces():
+  pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<s>", 0.0, 3),
+            ("<unk>", 0.0, 2)]
+  pieces += [(f"<0x{i:02X}>", 0.0, 6) for i in range(256)]
+  pieces += [("<sep>", 0.0, 4), ("▁", -3.0, 1)]
+  for i, w in enumerate(M6_WORDS):
+    pieces += [("▁" + w, -4.0 - 0.1 * i, 1), (w, -6.0 - 0.1 * i, 1)]
+  pieces += [(c, -8.0, 1) for c in "abcdefghijklmnopqrstuvwxyz"]
+  return pieces
+
+
+def _m6_prefix_files(workdir, seed=7, n_train=600, n_valid=64):
+  """(model path, train TSV, valid TSV): the SentencePiece model and
+  input<TAB>target pairs (the target: the input's words reversed, so that
+  the loss can fall)."""
+  import numpy as np
+  from automl_tpu_torch.data import lm_pipeline
+  os.makedirs(workdir, exist_ok=True)
+  model = os.path.join(workdir, "m6.model")
+  with open(model, "wb") as f:
+    f.write(lm_pipeline.sentencepiece_model_proto(_m6_spm_pieces()))
+  rng = np.random.default_rng(seed)
+  paths = []
+  for name, n in (("train", n_train), ("valid", n_valid)):
+    lines = []
+    for _ in range(n):
+      words = list(rng.choice(M6_WORDS, rng.integers(4, 24)))
+      lines.append(" ".join(words) + " <sep>\t" + " ".join(words[::-1]))
+    paths.append(os.path.join(workdir, f"{name}.tsv"))
+    with open(paths[-1], "w") as f:
+      f.write("\n".join(lines) + "\n")
+  return model, *paths
+
+
+def _m6_two_chunk_mask(c):
+  """causal_mask in place of lm.causal_mask: the chunked local attention's
+  mask (chunk i attends causally to chunks i - 1 and i) materialised, for
+  the dense path."""
+  def mask(q_positions, k_positions, window_size=None, segment_ids_q=None,
+           segment_ids_k=None, prefix_q=None, prefix_k=None):
+    del window_size, prefix_q, prefix_k
+    dist = q_positions[..., :, None] - k_positions[..., None, :]
+    chunks = (q_positions[..., :, None] // c) - (k_positions[..., None, :]
+                                                  // c)
+    m = (dist >= 0) & (chunks <= 1)
+    if segment_ids_q is not None:
+      m &= segment_ids_q[..., :, None] == segment_ids_k[..., None, :]
+    return m
+  return mask
+
+
+def _moe_records():
+  """Records the MoE FFN's kept-slot share and aux at every call inside
+  TransformerLM.forward (a 0-d tensor each, read after the run: no host
+  sync): one record a layer and model call, none from a remat recompute
+  in the backward. Returns (records, undo)."""
+  from automl_tpu_torch.models import lm as lm_lib
+  records = {"kept": [], "aux": []}
+  inside = [False]
+  slots, forward = lm_lib.MoEFFN.slots, lm_lib.MoEFFN.forward
+  lm_forward = lm_lib.TransformerLM.forward
+
+  def rec_lm_forward(self, *a, **k):
+    inside[0] = True
+    try:
+      return lm_forward(self, *a, **k)
+    finally:
+      inside[0] = False
+
+  def rec_slots(self, idx, g, c):
+    dest, keep = slots(self, idx, g, c)
+    if inside[0]:
+      records["kept"].append(keep.float().mean().detach())
+    return dest, keep
+
+  def rec_forward(self, x):
+    out, aux = forward(self, x)
+    if inside[0]:
+      records["aux"].append(aux.detach())
+    return out, aux
+
+  lm_lib.MoEFFN.slots, lm_lib.MoEFFN.forward = rec_slots, rec_forward
+  lm_lib.TransformerLM.forward = rec_lm_forward
+
+  def undo():
+    lm_lib.MoEFFN.slots, lm_lib.MoEFFN.forward = slots, forward
+    lm_lib.TransformerLM.forward = lm_forward
+  return records, undo
+
+
+def _m6_default_lm(dev, trees, workdir, cfg, batch, steps):
+  """(A): the default LM: step-1 checks, `steps` steps at its config's lr
+  and `steps` at M6_LOW_LR, then the largest batch of 8 * 2^n that fits
+  for 5 steps. Returns {kernel: launches} of the steps run."""
+  import gc
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.train import lm_trainer
+  t = cfg.seq_len
+  tree = trees.get(cfg)
+  n_params = sum(x.size for x in convert.flatten_tree(tree).values())
+  print(f"(A) the default LM (lm_defaults: d {cfg.model_dim}, {cfg.n_layers} "
+        f"layers, {cfg.n_heads} heads, V {cfg.vocab_size}; {n_params} "
+        f"params), b{batch} T{t}, flash attention, Lion")
+  first = next(iter(lm_trainer.SyntheticLMData(batch, t, cfg.vocab_size)))
+  first = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+  # The two pairs one at a time: each holds two sets of 1.7B gradients.
+  res = _step1(dev, tree, first, {
+      "fused pallas": f"{M6_FLASH},fused_softmax_loss=pallas",
+      "unfused bfloat16_vjp": f"{M6_FLASH},unembed_matmul_dtype=bfloat16_vjp",
+  }, base="")
+  _step1_check(res, "fused pallas", "unfused bfloat16_vjp",
+               (1e-4, 1e-3, 0.99995), "The limits of phase 5 (lm-flops1e19).")
+  del res
+  torch.cuda.empty_cache()
+  res = _step1(dev, tree, first, {
+      "fused scan": f"{M6_FLASH},fused_softmax_loss=scan",
+      "flash": M6_FLASH}, base="")
+  _step1_check(res, "fused scan", "flash", (1e-5, 5e-5, 0.99995),
+               "The limits of phase 5 (lm-flops1e19).")
+  del res, first
+  torch.cuda.empty_cache()
+
+  overrides = f"{M6_FLASH},fused_softmax_loss=pallas"
+  common = [f"--experiment_config={overrides}", "--warmup_steps=3",
+            "--log_every=1", "--device=cuda"]
+
+  def expected(n):
+    k = cfg.n_layers * n
+    none = dict.fromkeys(("K5a", "K5a sm90", "K5b", "K5b sm90"), 0)
+    return dict(none, **{"K1": 2 * k, "K1 sm90": 2 * k, "K2": k,
+                         "K2 sm90": k, "K3a": n, "K3a sm90": n, "K3b": n,
+                         "K3b sm90": n, "K3c": n, "K3c sm90": n})
+
+  d = os.path.join(workdir, f"b{batch}")
+  # The config's own Lion lr 1e-3 (warmup 3) does not bring the loss down
+  # in 30 steps at these widths: the gradient norm grows from step 4 on,
+  # in the JAX package's step as in this one (PERF.md section 6;
+  # tests/test_torch_lm_train.py::test_default_lm_widths_lion_matches_jax).
+  # So the losses of the reported run must be finite, and are printed, but
+  # need not fall; the same 30 steps at M6_LOW_LR must bring it down.
+  launches = _train_run(
+      d, common + [f"--model_dir={d}", f"--batch_size={batch}"], steps,
+      "the default LM, fused loss, full remat, K2", expected(steps),
+      _step_flops(cfg, batch, t, fused=True), cfg=cfg, batch=batch,
+      falls=False)
+  torch.cuda.empty_cache()
+  d = os.path.join(workdir, f"b{batch}_lr{M6_LOW_LR:g}")
+  low = _train_run(
+      d, common + [f"--model_dir={d}", f"--batch_size={batch}",
+                   f"--learning_rate={M6_LOW_LR}"], steps,
+      f"the default LM at lr {M6_LOW_LR:g}, fused loss, full remat, K2",
+      expected(steps), _step_flops(cfg, batch, t, fused=True), cfg=cfg,
+      batch=batch)
+  launches = {k: launches[k] + low[k] for k in launches}
+  torch.cuda.empty_cache()
+
+  def fits(b):
+    d = os.path.join(workdir, f"b{b}")
+    try:
+      got = _train_run(
+          d, common + [f"--model_dir={d}", f"--batch_size={b}"], 5,
+          f"the default LM at b{b}, 5 steps", expected(5),
+          _step_flops(cfg, b, t, fused=True), cfg=cfg, batch=b, falls=False)
+    except torch.OutOfMemoryError as e:
+      print(f"  b{b}: out of memory ({str(e).splitlines()[0][:120]})")
+      got = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+  b = M6_PROBE_BATCH
+  best = None
+  if (got := fits(b)) is not None:
+    best = (b, got)
+    while (got := fits(2 * b)) is not None:
+      b *= 2
+      best = (b, got)
+  else:
+    while b > batch and best is None:
+      b //= 2
+      if (got := fits(b)) is not None:
+        best = (b, got)
+  if best is None:
+    raise AssertionError("the default LM fits at no batch above b8")
+  print(f"  the largest batch of 8 * 2^n that fits: b{best[0]}")
+  return {k: launches[k] + best[1][k] for k in launches}
+
+
+def _moe_step1_checks(dev, trees, cfg, dense_cfg, batch):
+  """(B) 1: E = 1 with ample capacity against the dense FFN, and routing
+  groups of 4096 against 2048 at a capacity where nothing drops."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.train import lm_trainer
+  t = cfg.seq_len
+  first = next(iter(lm_trainer.SyntheticLMData(batch, t, cfg.vocab_size)))
+  first = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+  dense_tree = trees.get(dense_cfg)
+  # E = 1: the dense tree's FFN with an expert axis of 1 and a router
+  # [L, d, 1] (a softmax over one expert is 1 whatever its logit).
+  flat = dict(convert.flatten_tree(dense_tree))
+  for name in ("w0", "w1", "wg"):
+    flat[f"blocks/ffn/{name}"] = flat[f"blocks/ffn/{name}"][:, None]
+  flat["blocks/ffn/router"] = np.random.default_rng(3).standard_normal(
+      (cfg.n_layers, cfg.model_dim, 1)).astype(np.float32) * np.float32(
+          cfg.model_dim ** -0.5)
+  base = f"{M6_FLASH},fused_softmax_loss=pallas"
+  res = _step1(dev, convert.unflatten_tree(flat), first, {
+      "moe E=1": f"{base},moe_num_experts=1,moe_top_k=1,"
+                 "moe_capacity_factor=1.0"})
+  res.update(_step1(dev, dense_tree, first, {"dense FFN": base}))
+  del flat
+  loss, grads = res["moe E=1"]
+  router = [g for k, g in grads.items() if k.endswith("ffn.router")]
+  if any(bool(g.abs().max() != 0) for g in router):
+    raise AssertionError("E = 1: the router got a nonzero gradient")
+  # The loss adds 0.01 x aux, aux = 1 a layer exactly at E = 1.
+  aux = float(cfg.moe_aux_loss_weight) * cfg.n_layers
+  res["moe E=1"] = (loss - aux, {k: (g[0] if ".ffn.w" in k else g)
+                                 for k, g in grads.items()
+                                 if not k.endswith("ffn.router")})
+  print(f"  E = 1: the aux term {aux:g} taken off the loss; the router's "
+        "gradient is exactly 0 (checked)")
+  _step1_check(res, "moe E=1", "dense FFN", (1e-4, 1e-3, 0.99995),
+               "The limits: PERF.md section 6's prediction.")
+  del res, grads, router
+  torch.cuda.empty_cache()
+  res = _step1(dev, trees.get(cfg), first, {
+      "groups of 4096": f"{base},{M6_MOE},moe_capacity_factor=4.0",
+      "groups of 2048": f"{base},{M6_MOE},moe_capacity_factor=4.0,"
+                        "moe_group_size=2048"})
+  _step1_check(res, "groups of 4096", "groups of 2048", (1e-5, 1e-4, 0.9999),
+               "Capacity factor 4 = E / k: no slot dropped in either. "
+               "The limits: PERF.md section 6's prediction.")
+  del res, first
+  torch.cuda.empty_cache()
+
+
+def _moe_generation(dev, trees, cfg):
+  """(B) 3-4: greedy_generate 64 tokens after 512 at b8 through K4 (S
+  576), teacher-forced against the model's own full forward, at capacity
+  factors 1.25 (reported) and M6_GEN_CF (checked); then the int8 model's
+  router. Returns the K4 launches."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm as lm_lib
+  flat = dict(convert.flatten_tree(trees.get(cfg)))
+  rng = np.random.default_rng(100)
+  for path, value in flat.items():
+    if path.endswith("scale"):
+      flat[path] = (LM_NORM_SIGMA * rng.standard_normal(value.shape)).astype(
+          np.float32)
+  tree = convert.unflatten_tree(flat)
+  del flat
+  b, t0, new = 8, 512, 64
+  prompt = torch.from_numpy(np.random.default_rng(101).integers(
+      3, cfg.vocab_size, (b, t0))).to(dev)
+  k4 = 0
+  for cf in (1.25, M6_GEN_CF):
+    c = lm_lib.get_lm_config("lm-flops1e19")
+    c.override(f"{M6_FLASH},{M6_MOE},moe_capacity_factor={cf},"
+               "decode_kernel_min_s=0")
+    model = lm_lib.cast_lm_params_for_serving(convert.load_jax_params(
+        lm_lib.TransformerLM(c, device=dev), tree))
+    records, undo = _moe_records()
+    _k4_reset()
+    try:
+      t = time.perf_counter()
+      out = lm_lib.greedy_generate(model, prompt, new)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t
+    finally:
+      undo()
+    label = f"MoE greedy b{b} {t0} + {new}, capacity factor {cf}"
+    k4 += _k4_expect(label, c.n_layers * new)
+    kept = torch.stack(records["kept"]).cpu()
+    print(f"  {label}: {wall:.2f} s; dropped slots: prefill "
+          f"{1 - float(kept[:c.n_layers].mean()):.4f} (groups of "
+          f"{model.blocks[0].ffn.routing(b * t0)[0]}), decode "
+          f"{1 - float(kept[c.n_layers:].mean()):.4f} (groups of {b})")
+    seqs = [(prompt[i].tolist(), out[i, t0:].tolist()) for i in range(b)]
+    # At 1.25 a decode step and the full forward drop other slots: the
+    # shares are reported, not held to the limits.
+    _teacher_forced(model, label, seqs, check=cf == M6_GEN_CF)
+    del records
+  with torch.inference_mode():
+    want = model(prompt)[0].argmax(-1)
+    lm_lib.quantize_lm_params(model)
+    got = model(prompt)[0].argmax(-1)
+  router = model.blocks[0].ffn.router
+  agree = float((got == want).float().mean())
+  print(f"  int8 MoE model: router {type(router).__name__} "
+        f"{router.dtype}, expert w0 {type(model.blocks[0].ffn.w0).__name__}; "
+        f"prefill argmax agreement with bf16 {agree:.4f} (limit "
+        f"{M6_INT8_AGREE})")
+  if not (isinstance(router, torch.nn.Parameter)
+          and router.dtype == torch.float32
+          and isinstance(model.blocks[0].ffn.w0, lm_lib.QuantizedWeight)
+          and agree >= M6_INT8_AGREE):
+    raise AssertionError("int8 MoE: the router was quantised or the model "
+                         "disagrees")
+  del model, tree, out
+  torch.cuda.empty_cache()
+  return k4
+
+
+def lm_training_m6_phase(dev, workdir, trees):
+  """M6 on the card, runs (A)-(E) (the module docstring's phase 5b);
+  returns {kernel: launches} of its runs (each counted from 0 just before
+  the run, read just after), K4 under "K4"."""
+  import torch
+  from automl_tpu_torch.data import lm_pipeline
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.train import lm_trainer
+
+  t_phase = time.perf_counter()
+  cfgs = _m6_configs()
+  totals = {}
+
+  def add(launches):
+    for k, v in launches.items():
+      totals[k] = totals.get(k, 0) + v
+
+  none = dict.fromkeys(("K1", "K1 sm90", "K2", "K2 sm90", "K5a", "K5a sm90",
+                        "K5b", "K5b sm90", "K3a", "K3a sm90", "K3b",
+                        "K3b sm90", "K3c", "K3c sm90"), 0)
+
+  def k3(n):
+    return {"K3a": n, "K3a sm90": n, "K3b": n, "K3b sm90": n, "K3c": n,
+            "K3c sm90": n}
+
+  with trees, _NoCheckpoints():
+    # (A)
+    t = time.perf_counter()
+    cfg = cfgs["default"][0]
+    add(_m6_default_lm(dev, trees, os.path.join(workdir, "default"), cfg,
+                       8, 30))
+    trees.drop(cfg)
+    print(f"(A) {time.perf_counter() - t:.1f} s")
+
+    # (B)
+    t = time.perf_counter()
+    cfg, dense = cfgs["moe"][0], cfgs["dense"][0]
+    print(f"(B) MoE at lm-flops1e19's width: {cfg.moe_num_experts} experts, "
+          f"top-{cfg.moe_top_k}, capacity factor {cfg.moe_capacity_factor}, "
+          f"groups of {cfg.moe_group_size}, aux weight "
+          f"{cfg.moe_aux_loss_weight}, flash attention, the fused loss")
+    _moe_step1_checks(dev, trees, cfg, dense, 8)
+    d = os.path.join(workdir, "moe")
+    records, undo = _moe_records()
+    try:
+      n = cfg.n_layers * 30
+      launches = _train_run(
+          d, ["--config_name=lm-flops1e19", "--batch_size=8",
+              "--warmup_steps=3", "--log_every=1", "--device=cuda",
+              f"--model_dir={d}",
+              f"--experiment_config={cfgs['moe'][1]}"], 30,
+          "MoE, fused loss, full remat, K2",
+          dict(none, **{"K1": 2 * n, "K1 sm90": 2 * n, "K2": n,
+                        "K2 sm90": n}, **k3(30)),
+          _step_flops(cfg, 8, cfg.seq_len, fused=True), cfg=cfg)
+    finally:
+      undo()
+    add(launches)
+    aux_steps = torch.stack(records["aux"]).cpu().reshape(30, -1).sum(1)
+    drop_steps = 1 - torch.stack(records["kept"]).cpu().reshape(
+        30, cfg.n_layers).mean(1)
+    print(f"  MoE run: aux (summed over {cfg.n_layers} layers) step 1 "
+          f"{float(aux_steps[0]):.4f}, step 30 {float(aux_steps[-1]):.4f} "
+          f"(perfect balance {cfg.n_layers}); dropped slots step 1 "
+          f"{float(drop_steps[0]):.4f}, step 30 {float(drop_steps[-1]):.4f}, "
+          f"mean {float(drop_steps.mean()):.4f}")
+    del records
+    totals["K4"] = _moe_generation(dev, trees, cfg)
+    totals["K4 sm90"] = totals["K4"]
+    trees.drop(cfg)
+    print(f"(B) {time.perf_counter() - t:.1f} s")
+
+    # (C)
+    t = time.perf_counter()
+    cfg = cfgs["chunk"][0]
+    c = int(cfg.window_chunk_size)
+    print(f"(C) chunked local attention at lm-flops1e19's width, chunks of "
+          f"{c}, the fused loss")
+    first = next(iter(lm_trainer.SyntheticLMData(8, cfg.seq_len,
+                                                 cfg.vocab_size)))
+    first = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+    base = "fused_softmax_loss=pallas"
+    res = _step1(dev, trees.get(dense), first,
+                 {"window chunk": cfgs["chunk"][1]})
+    mask_fn = lm_lib.causal_mask
+    lm_lib.causal_mask = _m6_two_chunk_mask(c)
+    try:
+      res.update(_step1(dev, trees.get(dense), first, {
+          "dense, the two-chunk mask": f"use_flash_attention=false,{base}"}))
+    finally:
+      lm_lib.causal_mask = mask_fn
+    _step1_check(res, "window chunk", "dense, the two-chunk mask",
+                 (1e-3, 1e-3, 0.9999), "The flash-against-dense limits.")
+    del res, first
+    torch.cuda.empty_cache()
+    d = os.path.join(workdir, "chunk")
+    add(_train_run(
+        d, ["--config_name=lm-flops1e19", "--batch_size=8",
+            "--warmup_steps=3", "--log_every=1", "--device=cuda",
+            f"--model_dir={d}", f"--experiment_config={cfgs['chunk'][1]}"],
+        10, "chunked local attention, fused loss, full remat",
+        dict(none, **k3(10)),
+        _step_flops(cfg, 8, cfg.seq_len, fused=True, window=c), cfg=cfg))
+    print(f"(C) {time.perf_counter() - t:.1f} s")
+
+    # (D)
+    t = time.perf_counter()
+    cfg = cfgs["dense"][0]
+    spm, train, valid = _m6_prefix_files(os.path.join(workdir, "prefix_data"))
+    tok = lm_pipeline.SentencePieceModel(spm)
+    ids = tok.encode(M6_TEXT)
+    print(f"(D) prefix-LM from files with a SentencePiece model ({spm}: "
+          f"{tok.vocab_size} pieces): {M6_TEXT!r} -> {ids}; the JAX "
+          f"package's ids {list(M6_TEXT_IDS)}; decoded {tok.decode(ids)!r}")
+    if ids != list(M6_TEXT_IDS):
+      raise AssertionError("SentencePiece ids differ from the JAX package's")
+    loader = lm_pipeline.PrefixLMLoader.from_tsv_file(
+        train, 8, cfg.seq_len, tokenizer=tok)
+    first = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(iter(loader)).items()}
+    print(f"  first batch: {int(first['causal_attention'].sum())} prefix "
+          f"tokens, {int((first['loss_weights'] > 0).sum())} with a loss "
+          f"weight, {int(first['segment_ids'].max())} examples")
+    plain = {k: v for k, v in first.items() if k != "causal_attention"}
+    zero = dict(plain, causal_attention=torch.zeros_like(
+        first["causal_attention"]))
+    base = f"{M6_FLASH},fused_softmax_loss=pallas"
+    res = _step1(dev, trees.get(cfg), zero, {"zero prefix markers": base})
+    res.update(_step1(dev, trees.get(cfg), plain, {"plain causal": base}))
+    _step1_check(res, "zero prefix markers", "plain causal",
+                 (1e-3, 1e-3, 0.9999), "The flash-against-dense limits.")
+    del res, first, plain, zero
+    torch.cuda.empty_cache()
+    d = os.path.join(workdir, "prefix")
+    # The markers take the materialised mask (as in JAX), so no K1 / K2.
+    add(_train_run(
+        d, ["--config_name=lm-flops1e19", "--batch_size=8",
+            "--warmup_steps=3", "--log_every=1", "--device=cuda",
+            f"--model_dir={d}", f"--experiment_config={base}",
+            "--prefix_lm", f"--tokenizer={spm}", f"--train_file={train}",
+            f"--valid_file={valid}", "--eval_every=10", "--eval_steps=1"],
+        10, "prefix-LM from files, fused loss, full remat",
+        dict(none, **k3(10)), _step_flops(cfg, 8, cfg.seq_len, fused=True),
+        cfg=cfg))
+    trees.drop(cfg)
+    print(f"(D) {time.perf_counter() - t:.1f} s")
+
+    # (E)
+    t = time.perf_counter()
+    cfg = cfgs["flagship"][0]
+    print("(E) the JAX flagship's LM composition (bench_suite.py:355-381): "
+          f"d {cfg.model_dim}, {cfg.n_layers} layers, V {cfg.vocab_size}, "
+          "b8 T2048, Lion, dots_flash with the fused flash backward")
+    d = os.path.join(workdir, "flagship")
+    n = cfg.n_layers * 30
+    add(_train_run(
+        d, ["--batch_size=8", "--warmup_steps=3", "--log_every=1",
+            "--device=cuda", f"--model_dir={d}",
+            f"--experiment_config={M6_FLAGSHIP}"], 30,
+        "the flagship, unfused loss, dots_flash, K2",
+        dict(none, **{"K1": n, "K1 sm90": n, "K2": n, "K2 sm90": n}),
+        _step_flops(cfg, 8, cfg.seq_len, policy="dots_flash"), cfg=cfg))
+    print(f"(E) {time.perf_counter() - t:.1f} s")
+  torch.cuda.empty_cache()
+  print(f"M6 phase launches: {totals}")
+  print(f"M6 phase: {time.perf_counter() - t_phase:.1f} s")
+  return totals
 
 
 # K6 against its plain version: both sum f32 products of the same inputs,
@@ -2616,11 +3336,12 @@ def _lm_tree(cfg, seed):
   return convert.unflatten_tree(flat)
 
 
-def _teacher_forced(model, label, seqs):
+def _teacher_forced(model, label, seqs, check=True):
   """seqs: [(context ids, generated ids)]. One no-cache forward of each
   context + output; every generated token must be the forward's argmax or
   within SERVE_TF_GAP of its max logit, and SERVE_TF_EXACT of them exact
-  argmaxes. Returns (exact, total, largest gap)."""
+  argmaxes (with check; else the numbers are only printed). Returns
+  (exact, total, largest gap)."""
   import torch
   exact = total = 0
   worst = 0.0
@@ -2638,10 +3359,11 @@ def _teacher_forced(model, label, seqs):
       if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{label}: non-finite logits")
   share = exact / max(total, 1)
+  limits = "limit" if check else "reported; the limit would be"
   print(f"  {label}: teacher-forced, {exact} of {total} tokens the argmax "
-        f"({share:.4f}; limit {SERVE_TF_EXACT}), largest gap to the max "
-        f"logit {worst:.4f} (limit {SERVE_TF_GAP})")
-  if worst > SERVE_TF_GAP or share < SERVE_TF_EXACT:
+        f"({share:.4f}; {limits} {SERVE_TF_EXACT}), largest gap to the max "
+        f"logit {worst:.4f} ({limits} {SERVE_TF_GAP})")
+  if check and (worst > SERVE_TF_GAP or share < SERVE_TF_EXACT):
     raise AssertionError(f"{label}: outside the teacher-forced limits")
   return exact, total, worst
 
@@ -4000,6 +4722,13 @@ def main() -> int:
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device("cuda:0")
+  profile = "--profile" in sys.argv[1:]
+  trees = None
+  if not profile:
+    # The M6 phase's weights, drawn on the host while the kernels build.
+    trees = _Trees()
+    for cfg, _ in _m6_configs().values():
+      trees.prefetch(cfg)
   card = subprocess.run(
       ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
        "--format=csv,noheader"],
@@ -4027,9 +4756,10 @@ def main() -> int:
                "depthwise_sm90"):
     _sass_report(libs[sources.index(name)])
 
-  if "--profile" in sys.argv[1:]:
+  if profile:
     profile_phase(dev)
     return 0
+  trees.wait()
   flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
   k4 = k4_phase(dev, flush_buf.zero_)
   flash = flash_phase(dev, flush_buf.zero_)
@@ -4043,13 +4773,15 @@ def main() -> int:
   workdir = os.path.join(build, "chip_smoke_lm")
   det_dir = os.path.join(build, "chip_smoke_det")
   cls_dir = os.path.join(build, "chip_smoke_cls")
-  for d in (workdir, workdir + "_fused", workdir + "_split", det_dir,
+  m6_dir = os.path.join(build, "chip_smoke_lm_m6")
+  for d in (workdir, workdir + "_fused", workdir + "_split", m6_dir, det_dir,
             det_dir + "_off", os.path.join(build, "chip_smoke_infer"),
             os.path.join(build, "chip_smoke_serve"),
             os.path.join(build, "chip_smoke_lm_serving"),
             cls_dir, cls_dir + "_off", cls_dir + "_mix"):
     shutil.rmtree(d, ignore_errors=True)
   runs = training_phase(dev, workdir)
+  m6 = lm_training_m6_phase(dev, m6_dir, trees)
   k6_launches, d0_synthetic_ms = detection_phase(dev, det_dir)
   inference_phase(dev, os.path.join(det_dir + "_off", "ckpt"),
                   os.path.join(build, "chip_smoke_infer"))
@@ -4061,6 +4793,7 @@ def main() -> int:
   k4_launches = serving_phase(dev)
   k4_launches += lm_serving_phase(dev, os.path.join(build,
                                                     "chip_smoke_lm_serving"))
+  k4_launches += m6["K4 sm90"]
   for label in ("prefill T=512", "verify T=5", "chunk T=256"):
     print(f"K4 {label}: {json.dumps(k4[label])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -4070,11 +4803,11 @@ def main() -> int:
              "automl_tpu/ops/decode_attention.py:51", k4_launches,
              k4["decode T=1"]),
       _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
-             "automl_tpu/ops/attention.py:82", runs["unfused"]["K1 sm90"],
-             flash["fwd"]),
+             "automl_tpu/ops/attention.py:82",
+             runs["unfused"]["K1 sm90"] + m6["K1 sm90"], flash["fwd"]),
       _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
-             "automl_tpu/ops/attention.py:320", runs["unfused"]["K2 sm90"],
-             flash["bwd"]),
+             "automl_tpu/ops/attention.py:320",
+             runs["unfused"]["K2 sm90"] + m6["K2 sm90"], flash["bwd"]),
       _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:240", runs["split"]["K5a sm90"],
              flash["dq"]),
@@ -4082,14 +4815,14 @@ def main() -> int:
              "automl_tpu/ops/attention.py:277", runs["split"]["K5b sm90"],
              flash["dkv"]),
       _entry("xent_fwd", "automl_tpu_torch/csrc/xent_sm90.cu",
-             "automl_tpu/ops/xent.py:66", runs["fused"]["K3a sm90"],
-             k3["fwd"]),
+             "automl_tpu/ops/xent.py:66",
+             runs["fused"]["K3a sm90"] + m6["K3a sm90"], k3["fwd"]),
       _entry("xent_dx", "automl_tpu_torch/csrc/xent_sm90.cu",
-             "automl_tpu/ops/xent.py:113", runs["fused"]["K3b sm90"],
-             k3["dx"]),
+             "automl_tpu/ops/xent.py:113",
+             runs["fused"]["K3b sm90"] + m6["K3b sm90"], k3["dx"]),
       _entry("xent_dw", "automl_tpu_torch/csrc/xent_sm90.cu",
-             "automl_tpu/ops/xent.py:138", runs["fused"]["K3c sm90"],
-             k3["dw"]),
+             "automl_tpu/ops/xent.py:138",
+             runs["fused"]["K3c sm90"] + m6["K3c sm90"], k3["dw"]),
       _entry("depthwise_filter_grad",
              "automl_tpu_torch/csrc/depthwise_sm90.cu",
              "automl_tpu/ops/depthwise.py:37", k6_launches + cls_k6_launches,

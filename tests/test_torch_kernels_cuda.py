@@ -187,7 +187,7 @@ def _m7_mask(dev, kind, b, t, s):
     mask[5] = ki == 0
     return mask.contiguous()
   off = {"verify": s - 266, "chunk": 256, "beam": 600, "draft_step": 760,
-         "prefill": 0}[kind]
+         "prefill": 0, "moe_step": 512, "moe_last": s - 1}[kind]
   return (ki <= off + tq).expand(b, t, s).contiguous()
 
 
@@ -195,7 +195,9 @@ def _m7_mask(dev, kind, b, t, s):
 # parked row (split-S at T 1, wgmma at T 32), the speculative verify (T 5)
 # at the target's hd 128 and the draft's hd 32, the draft's own steps at
 # hd 32 (its T 507 prefill and a T 1 step late in its 768 cache, which
-# the speculative path runs), a 256-token chunk at an offset, 64 beam rows.
+# the speculative path runs), a 256-token chunk at an offset, 64 beam rows;
+# and the MoE model's greedy generation (b8, S 576): its causal T 512
+# prefill and its T 1 steps with keys 0-512 and all 576 live.
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     dict(b=8, t=1, h=128, s=1024, mask="per_row"),
@@ -206,9 +208,13 @@ def _m7_mask(dev, kind, b, t, s):
     dict(b=1, t=507, h=32, s=768, mask="prefill"),
     dict(b=1, t=256, h=128, s=1024, mask="chunk"),
     dict(b=64, t=1, h=128, s=768, mask="beam"),
+    dict(b=8, t=512, h=128, s=576, mask="prefill"),
+    dict(b=8, t=1, h=128, s=576, mask="moe_step"),
+    dict(b=8, t=1, h=128, s=576, mask="moe_last"),
 ], ids=["burst_parked", "chunk32_parked", "verify_hd128", "verify_hd32",
         "draft_step_hd32", "draft_prefill_hd32", "chunk256_offset",
-        "beam_rows_64"])
+        "beam_rows_64", "moe_prefill_s576", "moe_step_s576",
+        "moe_last_step_s576"])
 def test_decode_attention_sm90_at_m7_shapes(dev, case):
   case = dict(case)
   kind = case.pop("mask")
@@ -494,6 +500,55 @@ def test_remat_policy_launches_on_card(dev, policy, k1_per_layer):
   n = cfg.n_layers
   assert tuple(a - b for a, b in zip(_flash_launches(), before)) == (
       k1_per_layer * n, 0, n, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides", [
+    dict(use_flash_attention=True, moe_num_experts=4, moe_top_k=2,
+         moe_capacity_factor=1.0),
+    dict(use_flash_attention=True, use_window_chunk=True,
+         window_chunk_size=16),
+], ids=["m6_moe", "m6_window_chunk"])
+def test_m6_step1_on_card_matches_cpu(dev, overrides):
+  """The loss and grads of one lm-test batch (f32 activations, full f32
+  matmuls) on the card and on the CPU from one set of weights: with the
+  MoE FFN (top-2 at capacity 1.0, which drops slots: the same routing on
+  both, so the same slots dropped) and with the chunked local attention.
+  Loss rtol 1e-5, every grad leaf F32_TOL. The MoE case runs the f32 K1
+  twice and K2 once per layer on the card (flash attention; the chunk
+  path runs neither)."""
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm
+  from automl_tpu_torch.train import lm_trainer
+  cfg = lm.get_lm_config("lm-test")
+  cfg.override(dict(activation_dtype="float32", **overrides))
+  tree = convert.numpy_init(cfg, 3)
+  batch = next(iter(lm_trainer.SyntheticLMData(2, cfg.seq_len,
+                                               cfg.vocab_size, seed=4)))
+
+  def run(device):
+    model = convert.load_jax_params(lm.TransformerLM(cfg, device=device),
+                                    tree)
+    loss, grads = lm_trainer.lm_loss_and_grads(
+        model, {k: torch.from_numpy(x).to(device) for k, x in batch.items()})
+    return float(loss), {k: g.cpu() for k, g in grads.items()}
+
+  before = _flash_launches()
+  card = run(dev)
+  launched = tuple(a - b for a, b in zip(_flash_launches(), before))
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  try:
+    cpu = run(torch.device("cpu"))
+  finally:
+    torch.set_num_threads(threads)
+  n = cfg.n_layers
+  assert launched == ((2 * n, n, 0, 0) if "moe_num_experts" in overrides
+                      else (0, 0, 0, 0))
+  assert card[0] == pytest.approx(cpu[0], rel=1e-5)
+  for k in cpu[1]:
+    torch.testing.assert_close(card[1][k], cpu[1][k], **F32_TOL,
+                               msg=lambda m, k=k: f"{k}: {m}")
 
 
 @pytest.mark.cuda

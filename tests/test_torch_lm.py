@@ -392,9 +392,7 @@ def test_generate_cli_smoke(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("option", [
-    "serve_tp=True", "serve_sp=True",
-    "use_window_chunk=True", "use_ring_attention=True",
-    "moe_num_experts=4"])
+    "serve_tp=True", "serve_sp=True", "use_ring_attention=True"])
 def test_unported_options_raise(option):
   _, tcfg = _cfgs(**SMALL)
   tcfg.override(option)
@@ -645,7 +643,8 @@ def test_generate_cli_beam_draft_server_and_int8(tmp_path, capsys,
 @pytest.mark.parametrize("flags,error,match", [
     (["--serve_mode=tp"], NotImplementedError, "M10"),
     (["--mesh_model=4"], NotImplementedError, "M10"),
-    (["--tokenizer=/tmp/spm.model"], NotImplementedError, "M6"),
+    (["--tokenizer=/nonexistent/spm.model"], FileNotFoundError,
+     "spm.model"),
     (["--num_beams=2", "--serve_slots=2"], ValueError, "num_beams"),
     (["--draft_model_dir=/tmp/d", "--logprobs"], ValueError, "draft"),
 ], ids=["serve_mode", "mesh_model", "tokenizer", "beams_with_slots",
@@ -654,3 +653,111 @@ def test_generate_cli_refusals(flags, error, match):
   with pytest.raises(error, match=match):
     torch_cli.main(["--config_name=lm-test", "--device=cpu", "--prompt=a"]
                    + flags)
+
+
+# --- chunked local attention -------------------------------------------------
+
+
+@pytest.mark.parametrize("cap", [50.0, 0.0], ids=["cap", "no_cap"])
+@pytest.mark.parametrize("segments", [False, True], ids=["plain", "segments"])
+def test_chunked_local_attn_matches_jax(segments, cap):
+  """chunked_local_attn on [2, 32, 4, 8] with chunks of 8, with and
+  without segment ids and the cap: atol 1e-5 (f32)."""
+  rng = np.random.default_rng(40)
+  q, k, v = (rng.standard_normal((2, 32, 4, 8)).astype(np.float32)
+             for _ in range(3))
+  pos = np.broadcast_to(np.arange(32), (2, 32)).copy()
+  seg = np.sort(rng.integers(0, 4, (2, 32)), axis=1) if segments else None
+  want = jlm.chunked_local_attn(
+      *(jnp.asarray(x) for x in (q, k, v, pos)), 8, cap,
+      segment_ids=None if seg is None else jnp.asarray(seg))
+  got = tlm.chunked_local_attn(
+      *(torch.from_numpy(x) for x in (q, k, v, pos)), 8, cap,
+      segment_ids=None if seg is None else torch.from_numpy(seg))
+  np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+  with pytest.raises(ValueError, match="window_chunk_size"):
+    tlm.chunked_local_attn(*(torch.from_numpy(x) for x in (q, k, v, pos)), 7)
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["dense", "flash"])
+@pytest.mark.parametrize("segments", [False, True], ids=["plain", "segments"])
+def test_window_chunk_path_matches_jax(flash, segments, monkeypatch):
+  """use_window_chunk with window_chunk_size 16 (T 64, GQA 4/2), with and
+  without use_flash_attention and segment ids: logits atol 1e-4 against
+  JAX's, grads of the summed logits atol 3e-4, rtol 1e-3. The chunk branch
+  comes before the flash one, as in JAX: the flash kernel never runs; the
+  prefix-LM markers still take the materialised mask."""
+  from automl_tpu_torch.ops import attention as tattn
+  kw = dict(use_window_chunk=True, window_chunk_size=16,
+            use_flash_attention=flash, **GQA)
+  jcfg, tcfg = _cfgs(**kw)
+  jmodel, jparams, tmodel = _models(jcfg, tcfg, seed=41)
+  rng = np.random.default_rng(42)
+  tokens = rng.integers(0, 384, (2, 64))
+  seg = np.sort(rng.integers(1, 4, (2, 64)), axis=1) if segments else None
+  calls = []
+  monkeypatch.setattr(tattn, "flash_attention",
+                      lambda *a, **k: calls.append(1))
+  jseg = None if seg is None else jnp.asarray(seg)
+  want_logits, _ = jmodel(jparams, jnp.asarray(tokens), segment_ids=jseg)
+  tseg = None if seg is None else torch.from_numpy(seg)
+  got, _ = tmodel(torch.from_numpy(tokens), segment_ids=tseg)
+  np.testing.assert_allclose(_np(got), _np(want_logits), atol=1e-4,
+                             rtol=1e-4)
+  (got * 1e-2).sum().backward()
+  want_grads = jax.grad(
+      lambda p: jnp.sum(jmodel(p, jnp.asarray(tokens), segment_ids=jseg)[0]
+                        * 1e-2))(jparams)
+  ours = convert.flatten_tree(convert.torch_to_jax_tree(
+      {k: p.grad for k, p in tmodel.named_parameters()}))
+  for path, w in convert.flatten_tree(want_grads).items():
+    np.testing.assert_allclose(_np(ours[path]), _np(w), atol=3e-4, rtol=1e-3,
+                               err_msg=path)
+  assert not calls
+  prefix = torch.zeros((2, 64), dtype=torch.int64)
+  prefix[:, :5] = 1
+  with torch.no_grad():
+    got_p, _ = tmodel(torch.from_numpy(tokens), causal_attention=prefix)
+  want_p, _ = jmodel(jparams, jnp.asarray(tokens),
+                     causal_attention=jnp.asarray(prefix.numpy()))
+  np.testing.assert_allclose(_np(got_p), _np(want_p), atol=1e-4, rtol=1e-4)
+
+
+# --- distillation and the scaling summary ------------------------------------
+
+
+@pytest.mark.parametrize("temperature", [1.0, 2.5])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_distill_loss_matches_jax(weighted, temperature):
+  """distill_loss rtol 1e-6, and its gradient in the student's logits
+  against jax.grad (atol 1e-8, rtol 1e-5)."""
+  rng = np.random.default_rng(43)
+  s = rng.standard_normal((2, 5, 11)).astype(np.float32) * 3
+  t = rng.standard_normal((2, 5, 11)).astype(np.float32) * 3
+  w = (rng.random((2, 5)) < 0.7).astype(np.float32) if weighted else None
+  jw = None if w is None else jnp.asarray(w)
+  want, want_g = jax.value_and_grad(jlm.distill_loss)(
+      jnp.asarray(s), jnp.asarray(t), jw, temperature)
+  ts = torch.from_numpy(s).requires_grad_()
+  got = tlm.distill_loss(ts, torch.from_numpy(t),
+                         None if w is None else torch.from_numpy(w),
+                         temperature)
+  got.backward()
+  np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+  np.testing.assert_allclose(_np(ts.grad), _np(want_g), atol=1e-8,
+                             rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["", *sorted(jlm.lm_experiment_configs())],
+                         ids=["lm_defaults", *sorted(
+                             jlm.lm_experiment_configs())])
+def test_scaling_summary_matches_jax(name):
+  """scaling_summary on lm_defaults and every named config, and on each
+  untied and ungated: the same integers as JAX's."""
+  for kw in ({}, dict(tie_embeddings=False, use_gated_ffn=False)):
+    jcfg, tcfg = _cfgs(name, **kw) if name else (
+        jlm.get_lm_config(""), tlm.get_lm_config(""))
+    if not name:
+      jcfg.override(kw)
+      tcfg.override(kw)
+    assert tlm.scaling_summary(tcfg) == jlm.scaling_summary(jcfg)

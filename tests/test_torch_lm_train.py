@@ -531,6 +531,29 @@ def test_main_lm_cpu_trains_with_the_split_backward_and_dots_flash(
   assert [r["step"] for r in recs][8:] == [9, 10]
 
 
+@pytest.mark.parametrize("overrides", [
+    "moe_num_experts=4,moe_top_k=2,moe_group_size=64",
+    "use_window_chunk=true,window_chunk_size=16",
+], ids=["moe", "window_chunk"])
+def test_main_lm_cpu_trains_moe_and_chunked_attention(tmp_path, overrides):
+  """main_lm --device=cpu with an MoE FFN (4 experts, top-2, routing
+  groups of 64 tokens, aux weight 0.01) or the chunked local attention
+  (chunks of 16), with flash attention on: the override reaches the
+  model, and 8 steps log finite, falling losses."""
+  tcli.main([f"--model_dir={tmp_path}", "--config_name=lm-test",
+             f"--experiment_config=use_flash_attention=true,{overrides}",
+             "--device=cpu", "--log_every=1", "--learning_rate=0.01",
+             "--lr_schedule=constant", "--warmup_steps=1",
+             "--train_steps=8"])
+  saved = (tmp_path / "experiment_config.yaml").read_text()
+  for item in overrides.split(","):
+    assert "{}: {}".format(*item.split("=")) in saved, item
+  losses = [json.loads(l)["loss"] for l in (tmp_path / "metrics.jsonl")
+            .read_text().splitlines()]
+  assert len(losses) == 8 and np.all(np.isfinite(losses))
+  assert np.mean(losses[-2:]) < np.mean(losses[:2])
+
+
 def test_checkpoint_manager_keeps_newest_and_restores(tmp_path):
   _, tcfg = _cfgs()
   model = convert.load_jax_params(tlm.TransformerLM(tcfg), _tree(tcfg, 17))
@@ -557,7 +580,7 @@ def test_checkpoint_manager_keeps_newest_and_restores(tmp_path):
 def test_unported_training_options_raise():
   _, tcfg = _cfgs()
   for flags in (["--mesh_shape=1,2"], ["--sharding_config=fsdp"],
-                ["--prefix_lm"], ["--num_processes=2"]):
+                ["--num_processes=2"]):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
       tcli.main(["--model_dir=/nonexistent", "--device=cpu", *flags])
   with pytest.raises(NotImplementedError, match="M10"):
@@ -704,3 +727,51 @@ def test_lion_trajectory_split_backward_dots_flash_matches_jax(
   record_property("max_param_diff", max(
       float(np.max(np.abs(got[k] - want[k]))) for k in want))
   assert _share_close(got, jstate.params, 1e-6) >= 0.999
+
+
+@pytest.mark.slow
+def test_default_lm_widths_lion_matches_jax(record_property):
+  """The default LM's widths (lm_defaults: D 2048, 16 heads, hd 128, V
+  32,000; 2 of its 24 layers, T 128, b2, f32, its dense attention) with
+  its own optimizer (Lion, lr 1e-3, warmup 3, weight decay 0.1, the
+  cosine schedule of the card's 30-step run) for 8 steps from one tree
+  and the same synthetic batches, against jtrain.make_lm_train_step: the
+  loss at every step within rtol 2e-3 (the two f32 programs part as the
+  gradient norm grows; measured 1.3e-3 at step 8), and the gradient norm
+  grows in both alike (at step 8 more than 2x step 1's; measured 3.6x).
+  On the card the 24-layer model's loss does not fall in 30 steps at this
+  lr (PERF.md): the JAX step moves the same way."""
+  steps = 8
+  over = dict(n_layers=2, seq_len=128, activation_dtype="float32")
+  jcfg, tcfg = jlm.get_lm_config(""), tlm.get_lm_config("")
+  jcfg.override(over)
+  tcfg.override(over)
+  tree = convert.numpy_init(tcfg, 0)
+  jmodel = jlm.TransformerLM(jcfg)
+  jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+  tmodel = convert.load_jax_params(tlm.TransformerLM(tcfg), tree)
+  kw = dict(num_train_steps=30, warmup_steps=3, end_decay=0.1)
+  jlr = jsched.lm_lr("cosine_decay", tcfg.learning_rate, **kw)
+  tlr = tsched.lm_lr("cosine_decay", tcfg.learning_rate, **kw)
+  jtx, ttx = jopt.build_optimizer("lion", jlr), topt.build_optimizer(
+      "lion", tlr)
+  jstep = jax.jit(jtrain.make_lm_train_step(jmodel, jtx, weight_decay=0.1,
+                                            lr_fn=jlr))
+  tstep = ttrain.make_lm_train_step(tmodel, ttx, weight_decay=0.1,
+                                    lr_fn=tlr)
+  jstate = _jax_state(jmodel, jparams, jtx)
+  tstate = ttrain.init_train_state(tmodel, ttx)
+  data = iter(ttrain.SyntheticLMData(2, 128, tcfg.vocab_size))
+  jlogs, tlogs = [], []
+  for _ in range(steps):
+    batch = next(data)
+    jstate, jl = jstep(jstate, _jbatch(batch))
+    tstate, tl = tstep(tstate, _tbatch(batch))
+    jlogs.append((float(jl["loss"]), float(jl["gnorm"])))
+    tlogs.append((float(tl["loss"]), float(tl["gnorm"])))
+  jloss, jnorm = np.array(jlogs).T
+  tloss, tnorm = np.array(tlogs).T
+  record_property("max_rel_loss_diff", float(np.max(np.abs(tloss - jloss)
+                                                    / np.abs(jloss))))
+  np.testing.assert_allclose(tloss, jloss, rtol=2e-3)
+  assert jnorm[-1] > 2 * jnorm[0] and tnorm[-1] > 2 * tnorm[0]
