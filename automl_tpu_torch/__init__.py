@@ -9,17 +9,23 @@ Subpackages:
   configs   -- named EfficientNet and EfficientDet configs
   convert   -- JAX-layout parameter trees (LM, EfficientDet) and training
                states <-> torch
-  nn        -- precision policy; vision layers (conv, depthwise, BatchNorm
-               with JAX state semantics, SE, drop_connect, pools)
+  nn        -- precision policy; vision layers (conv, depthwise, transposed
+               conv, BatchNorm with JAX state semantics, GroupNorm, SE,
+               drop_connect, pools); QAT fake-quant (quant)
   models    -- decoder-only LM: training (flash attention, remat policies,
                plain / chunked / fused loss) and KV-cached serving (greedy
-               / sampled); EfficientNet and EfficientDet
+               / sampled); EfficientNet and EfficientDet (detection and
+               segmentation heads)
   ops       -- flash attention (forward, fused and split backward), decode
                attention, the fused softmax cross-entropy and the depthwise
                filter gradient: CUDA kernels + plain PyTorch versions; anchors,
                IoU and detection losses
-  train     -- LM trainer, detection train step and runner, optimizers,
-               schedules, metrics, checkpoints
+  train     -- LM trainer, detection, segmentation and classification
+               train steps and runners, optimizers, schedules, metrics,
+               checkpoints
+  search    -- symbolic optimizer programs (parse, execute, abstract
+               execution, mutation, hashes), programs as optimizers, and
+               regularized evolution
   data      -- byte tokenizer, document packing, packed batches; synthetic
                detection data and its preprocessing; the TF-free TFRecord
                readers and the native C++ loader

@@ -35,7 +35,12 @@ leading axis what the port keeps as one module per repeat, after a path
 component 'conv_stack', 'cells_rep' or '<prefix>-bn-<level>':
 `class_net/conv_stack/depthwise/kernel[i]` <->
 `class_net.conv_stack.<i>.depthwise.kernel`. BatchNorm moving statistics
-are buffers. det_state_from_jax / det_state_to_jax carry a detection
+are buffers. The segmentation head's transposed-conv kernels
+(con2d_t_<i>, head_transpose) are HWIO in JAX and [I, O, kh, kw] in the
+port, flipped in both spatial dims (lax.conv_transpose does not flip,
+F.conv_transpose2d does): port[i, o, a, b] = jax[kh-1-a, kw-1-b, i, o].
+GroupNorm's gamma / beta carry as they are. det_state_from_jax /
+det_state_to_jax carry a detection
 training state (step, parameters, momentum trace, EMA, moving normalizer).
 An EfficientNet classifier's tree (the backbone plus head/*) maps the same
 way; cls_state_from_jax / cls_state_to_jax carry a classification
@@ -251,7 +256,12 @@ def det_jax_path(key: str):
   return "/".join(parts), None
 
 
+_TRANSPOSED = re.compile(r"(^|\.)(con2d_t_\d+|head_transpose)\.kernel$")
+
+
 def _to_port_layout(key: str, value: np.ndarray) -> np.ndarray:
+  if _TRANSPOSED.search(key):
+    return value[::-1, ::-1].transpose(2, 3, 0, 1).copy()  # HWIO -> IOHW
   if key.rsplit(".", 1)[-1] == "kernel":
     if value.ndim == 4:
       return value.transpose(3, 2, 0, 1)   # HWIO -> OIHW
@@ -261,6 +271,8 @@ def _to_port_layout(key: str, value: np.ndarray) -> np.ndarray:
 
 
 def _to_jax_layout(key: str, value: np.ndarray) -> np.ndarray:
+  if _TRANSPOSED.search(key):
+    return value.transpose(2, 3, 0, 1)[::-1, ::-1].copy()
   if key.rsplit(".", 1)[-1] == "kernel":
     if value.ndim == 4:
       return value.transpose(2, 3, 1, 0)   # OIHW -> HWIO
@@ -281,8 +293,10 @@ def det_jax_to_torch_state(tree, keys) -> dict:
     value = np.asarray(flat[path])
     if idx is not None:
       value = value[idx]
-    state[key] = torch.from_numpy(
-        np.ascontiguousarray(_to_port_layout(key, value)))
+    # A copy: the port updates states in place (the EMA), and the tree's
+    # arrays may be the caller's (or a JAX array's read-only buffer).
+    state[key] = torch.from_numpy(np.array(_to_port_layout(key, value),
+                                           order="C"))
   used = {det_jax_path(k)[0] for k in keys}
   extra = sorted(set(flat) - used)
   if extra:
@@ -342,15 +356,17 @@ def det_numpy_init(model: torch.nn.Module, seed: int = 0) -> dict:
     prefix, leaf = key.rpartition(".")[::2]
     mod = model.get_submodule(prefix)
     shape = tuple(value.shape)
-    if isinstance(mod, L.Conv2D) and leaf == "kernel":
+    if isinstance(mod, (L.Conv2D, L.ConvTranspose2D)) and leaf == "kernel":
       arr = _to_port_layout(key, mod.kernel_init(rng, mod.jax_kernel_shape()))
-    elif isinstance(mod, L.Conv2D) and leaf == "bias":
+    elif isinstance(mod, (L.Conv2D, L.ConvTranspose2D)) and leaf == "bias":
       arr = np.full(shape, mod.bias_init_value, np.float32)
     elif isinstance(mod, L.Dense) and leaf == "kernel":
       arr = _to_port_layout(key, mod.kernel_init(rng, (mod.in_dim,
                                                        mod.out_dim)))
     elif isinstance(mod, L.BatchNorm) and leaf == "gamma":
       arr = np.full(shape, mod.gamma_init_value, np.float32)
+    elif isinstance(mod, L.GroupNorm) and leaf == "gamma":
+      arr = np.ones(shape, np.float32)
     elif leaf in ("beta", "moving_mean", "bias"):
       arr = np.zeros(shape, np.float32)
     elif leaf == "moving_variance" or (isinstance(mod, FNode)

@@ -12,8 +12,10 @@ conv_stack.<i>, class-bn-3.<i>); convert.py stacks and unstacks.
 forward(images [B, 3, H, W], train, generator) -> (class outputs, box
 outputs): per-level lists [B, A*num_classes, H_l, W_l] / [B, A*4, H_l, W_l]
 in the compute dtype; flatten_predictions gives the flat anchor-ordered
-[B, total_anchors, c] form. The segmentation head is not ported (ROADMAP
-M3).
+[B, total_anchors, c] form. config.heads picks the heads, as in JAX:
+["segmentation"] alone returns the bare segmentation logits [B,
+seg_num_classes, H / 4, W / 4] (SegmentationHead), both heads (class, box,
+seg).
 """
 
 from __future__ import annotations
@@ -325,17 +327,51 @@ class BoxNet(_PredictionNet):
         conv_prefix="box", predict_name="box-predict", device=device)
 
 
+class SegmentationHead(tnn.Module):
+  """U-Net-style decoder over the BiFPN features: from the coarsest level,
+  num_up = max_level - min_level times a stride-2 transposed conv
+  (con2d_t_<i>, no bias), BN (bn_<i>), the activation, a crop to the next
+  finer level's size and a concat [x, skip] on the channels; then
+  head_transpose (stride 2, bias) to seg_num_classes, at stride
+  2^(min_level - 1) of the image."""
+
+  def __init__(self, config: Config, device=None):
+    super().__init__()
+    num_filters = config.fpn_num_filters
+    self.act = L.activation_fn(config.act_type)
+    self.num_up = config.max_level - config.min_level
+    self.convs, self.bns = [], []
+    in_ch = num_filters
+    for level in range(self.num_up):
+      conv = L.ConvTranspose2D(in_ch, num_filters, 3, 2, use_bias=False,
+                               device=device)
+      bn = L.BatchNorm(num_filters, device=device)
+      self.add_module(f"con2d_t_{level}", conv)
+      self.add_module(f"bn_{level}", bn)
+      self.convs.append(conv)
+      self.bns.append(bn)
+      in_ch = num_filters * 2  # after the skip concat
+    self.head_transpose = L.ConvTranspose2D(in_ch, config.seg_num_classes, 3,
+                                            2, device=device)
+
+  def forward(self, feats, train=False):
+    x = feats[-1]
+    for conv, bn, skip in zip(self.convs, self.bns, reversed(feats[:-1])):
+      x = self.act(bn(conv(x), train))
+      # tiny inputs can saturate pyramid sizes at 1: crop to the skip's
+      x = x[:, :, :skip.shape[2], :skip.shape[3]]
+      x = torch.cat([x, skip], dim=1)
+    return self.head_transpose(x)
+
+
 class EfficientDet(tnn.Module):
-  """Backbone -> resample P6..Pmax -> BiFPN cells -> class/box heads."""
+  """Backbone -> resample P6..Pmax -> BiFPN cells -> class/box heads and
+  / or the segmentation head."""
 
   def __init__(self, config: Config, device=None):
     super().__init__()
     self.config = config
     heads = config.get("heads") or ["object_detection"]
-    if "segmentation" in heads:
-      raise NotImplementedError(
-          "the segmentation head is not ported to automl_tpu_torch yet: "
-          "ROADMAP M3")
     from automl_tpu_torch.configs import effnet_configs
     bcfg = effnet_configs.get_model_config(config.backbone_name).model
     bcfg.override(dict(
@@ -366,8 +402,12 @@ class EfficientDet(tnn.Module):
 
     self.fpn_cells = FPNCells(input_channels, config, device)
     num_anchors = len(config.aspect_ratios) * config.num_scales
-    self.class_net = ClassNet(config, num_anchors, device)
-    self.box_net = BoxNet(config, num_anchors, device)
+    self.class_net = self.box_net = self.segmentation_head = None
+    if "object_detection" in heads:
+      self.class_net = ClassNet(config, num_anchors, device)
+      self.box_net = BoxNet(config, num_anchors, device)
+    if "segmentation" in heads:
+      self.segmentation_head = SegmentationHead(config, device)
 
   def forward(self, images, train: bool = False, generator=None):
     config = self.config
@@ -383,18 +423,23 @@ class EfficientDet(tnn.Module):
                zip(range(config.min_level, config.max_level + 1), feats)}
     feats = self.fpn_cells(feats, feat_hw, train)
     # Outputs stay in the compute dtype; the loss upcasts.
-    return (self.class_net(feats, train, generator),
-            self.box_net(feats, train, generator))
+    outputs = []
+    if self.class_net is not None:
+      outputs.append(self.class_net(feats, train, generator))
+      outputs.append(self.box_net(feats, train, generator))
+    if self.segmentation_head is not None:
+      outputs.append(self.segmentation_head(feats, train))
+    return tuple(outputs) if len(outputs) != 1 else outputs[0]
 
 
 def filter_grad_calls_per_step(model: EfficientDet) -> int:
   """How many depthwise filter gradients a training step of `model` takes
   through K6 with the knob on: every stride-1, square, SAME depthwise conv
-  once per forward call, the heads' convs (shared across levels) once per
-  level."""
+  once per forward call, the class and box heads' convs (shared across
+  levels) once per level. The segmentation head has no depthwise conv."""
   levels = model.config.max_level - model.config.min_level + 1
   heads = {id(m) for net in (model.class_net, model.box_net)
-           for m in net.modules()}
+           if net is not None for m in net.modules()}
   return sum(levels if id(m) in heads else 1 for m in model.modules()
              if isinstance(m, L.DepthwiseConv2D) and m.strides == (1, 1)
              and m.kernel_size[0] == m.kernel_size[1]

@@ -18,12 +18,18 @@ training a BatchNorm keeps its new moving statistics as a pending update,
 which the train step takes (take_bn_updates) and writes after the optimizer
 step (apply_bn_updates), the order of automl_tpu/train/train_lib.py.
 
+GroupNorm ("gn") holds no moving statistics: take_bn_updates skips it.
+ConvTranspose2D (the segmentation head's upsampling) keeps its kernel as
+[I, O, kh, kw], flipped against JAX's HWIO (convert.py).
+
+QAT (nn/quant.py): with the mode on, Conv2D, DepthwiseConv2D (with the K6
+knob on or off) and Dense fake-quantize their kernel per output channel
+and their output per tensor, where JAX's layers do; SeparableConv2D
+through its two children; ConvTranspose2D and the norms never.
+
 Randomness (drop_connect, dropout) comes from a torch.Generator the caller
 passes in. Initializers draw numpy arrays in the JAX layout
 (convert.det_numpy_init carries them across).
-
-Not ported: GroupNorm (ROADMAP M1), ConvTranspose2D (with the segmentation
-head, M3) and QAT fake-quant (M11).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
+from automl_tpu_torch.nn import quant
 from automl_tpu_torch.nn.precision import get_policy
 from automl_tpu_torch.ops import depthwise
 
@@ -153,10 +160,11 @@ class Conv2D(tnn.Module):
   def forward(self, x):
     policy = get_policy()
     x = policy.cast_to_compute(x)
-    y = self._conv(x, self.kernel.to(policy.compute_dtype))
+    kernel = quant.maybe_quant_kernel(self.kernel).to(policy.compute_dtype)
+    y = self._conv(x, kernel)
     if self.bias is not None:
       y = y + _bias(self.bias, y)
-    return y
+    return quant.maybe_quant_activation(y)
 
 
 class DepthwiseConv2D(Conv2D):
@@ -208,9 +216,64 @@ class Dense(tnn.Module):
   def forward(self, x):
     policy = get_policy()
     y = F.linear(policy.cast_to_compute(x),
-                 self.kernel.to(policy.compute_dtype))
+                 quant.maybe_quant_kernel(self.kernel).to(
+                     policy.compute_dtype))
     if self.bias is not None:
       y = y + self.bias.to(y.dtype)
+    return quant.maybe_quant_activation(y)
+
+
+def conv_transpose_pads(k: int, s: int) -> tuple[int, int]:
+  """lax.conv_transpose's SAME padding (before, after) of the dilated input
+  for kernel size k and stride s (jax.lax's _conv_transpose_padding)."""
+  pad_len = k + s - 2
+  pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+  return pad_a, pad_len - pad_a
+
+
+class ConvTranspose2D(tnn.Module):
+  """NCHW transposed conv with lax.conv_transpose's SAME semantics
+  (transpose_kernel=False): the output is H * s by W * s. The kernel is
+  [I, O, kh, kw], JAX's HWIO kernel flipped in both spatial dims and
+  permuted (convert.py), so F.conv_transpose2d's full output (padding 0)
+  holds JAX's result from row and column k - 1 - pad_before on.
+  No QAT hook, as in JAX."""
+
+  def __init__(self, in_ch: int, out_ch: int, kernel_size=3, strides=2,
+               use_bias=True, device=None):
+    super().__init__()
+    self.in_ch, self.out_ch = in_ch, out_ch
+    self.kernel_size = _pair(kernel_size)
+    self.strides = _pair(strides)
+    self.kernel_init = conv_kernel_init
+    self.bias_init_value = 0.0
+    kh, kw = self.kernel_size
+    self.kernel = tnn.Parameter(torch.empty((in_ch, out_ch, kh, kw),
+                                            device=device))
+    self.bias = (tnn.Parameter(torch.zeros((out_ch,), device=device))
+                 if use_bias else None)
+
+  def jax_kernel_shape(self):
+    kh, kw = self.kernel_size
+    return (kh, kw, self.in_ch, self.out_ch)
+
+  def forward(self, x):
+    policy = get_policy()
+    x = policy.cast_to_compute(x)
+    h, w = x.shape[2], x.shape[3]
+    starts, extra = [], []
+    for size, k, s in zip((h, w), self.kernel_size, self.strides):
+      start = k - 1 - conv_transpose_pads(k, s)[0]
+      starts.append(start)
+      # torch's full output is (size - 1) * s + k; JAX's reaches
+      # start + size * s (past it only when s > k).
+      extra.append(max(start + size * s - ((size - 1) * s + k), 0))
+    y = F.conv_transpose2d(x, self.kernel.to(policy.compute_dtype),
+                           stride=self.strides, output_padding=tuple(extra))
+    (sh, sw), (th, tw) = self.strides, starts
+    y = y[:, :, th:th + h * sh, tw:tw + w * sw]
+    if self.bias is not None:
+      y = y + _bias(self.bias, y)
     return y
 
 
@@ -264,6 +327,36 @@ class BatchNorm(tnn.Module):
     return get_policy().cast_to_compute(y)
 
 
+class GroupNorm(tnn.Module):
+  """GroupNorm over (H, W, the channels of a group), contiguous groups of
+  C // groups channels. Statistics in f32: the mean, then the mean of the
+  squared deviations (jnp.var's order, not F.group_norm's); gamma and beta
+  f32; the output in the compute dtype. No moving statistics: `train` is
+  ignored (automl_tpu/nn/layers.py:349-373)."""
+
+  def __init__(self, channels: int, groups: int = 8, epsilon=1e-3,
+               device=None):
+    super().__init__()
+    self.channels, self.groups, self.epsilon = channels, groups, epsilon
+    self.gamma = tnn.Parameter(torch.ones((channels,), device=device))
+    self.beta = tnn.Parameter(torch.zeros((channels,), device=device))
+
+  def forward(self, x, train: bool = False):
+    del train
+    b, c, h, w = x.shape
+    g = self.groups
+    if c % g:
+      raise ValueError(f"GroupNorm: {c} channels are not a multiple of "
+                       f"{g} groups")
+    # NHWC view (free for channels_last), groups on the last axis.
+    xg = x.float().permute(0, 2, 3, 1).reshape(b, h, w, g, c // g)
+    mean = xg.mean((1, 2, 4), keepdim=True)
+    var = (xg - mean).square().mean((1, 2, 4), keepdim=True)
+    xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
+    y = xg.reshape(b, h, w, c) * self.gamma + self.beta
+    return get_policy().cast_to_compute(y.permute(0, 3, 1, 2))
+
+
 def take_bn_updates(model: tnn.Module) -> dict:
   """{BatchNorm: (moving_mean, moving_variance)} of every BN's pending
   update from the last training forward; the pending updates are
@@ -286,13 +379,13 @@ def apply_bn_updates(updates: dict) -> None:
 def build_norm(channels: int, norm_type: str = "bn", momentum=0.99,
                epsilon=1e-3, gamma_init_value: float = 1.0, device=None):
   """Norm selector: "bn" / "syncbn" / "tpu_bn" -> BatchNorm (one device:
-  the grouped cross-replica moments are ROADMAP M10); "gn" is M1."""
+  the grouped cross-replica moments are ROADMAP M10); "gn" -> GroupNorm
+  (8 groups; momentum and gamma_init_value unused, as in JAX)."""
   if norm_type in ("bn", "syncbn", "tpu_bn"):
     return BatchNorm(channels, momentum, epsilon, gamma_init_value,
                      device=device)
   if norm_type == "gn":
-    raise NotImplementedError(
-        "GroupNorm is not ported to automl_tpu_torch yet: ROADMAP M1")
+    return GroupNorm(channels, epsilon=epsilon, device=device)
   raise ValueError(f"Unknown norm type {norm_type!r}")
 
 

@@ -49,8 +49,12 @@ writes [detections | ground truth] PNGs of the first batch
 (inference/visualize.py); run_detection's in-training evals write them to
 model_dir/vis/step_<n>/.
 
-Not ported yet, each refused naming its ROADMAP item: qat (M11), meshes
-(M10).
+QAT (nn/quant.py): run_detection (config.qat, qat_bits) and
+run_classification (train.qat, train.qat_bits) set the process-wide QAT
+mode both ways at entry, as JAX does, so a run never inherits it and its
+in-training evals run under it.
+
+Not ported yet, refused naming its ROADMAP item: meshes (M10).
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ from automl_tpu_torch.data import (augment, datasets, det_autoaugment,
                                    pipeline, preprocessing)
 from automl_tpu_torch.models.efficientdet import EfficientDet
 from automl_tpu_torch.models.efficientnet import EfficientNet
-from automl_tpu_torch.nn import precision
+from automl_tpu_torch.nn import precision, quant
 from automl_tpu_torch.ops import anchors as anchors_lib
 from automl_tpu_torch.ops import postprocess
 from automl_tpu_torch.train import optimizers as opt_lib
@@ -75,15 +79,19 @@ from automl_tpu_torch.train.checkpoint import CheckpointManager, archive_ckpt
 from automl_tpu_torch.train.metrics import MetricsWriter
 
 
-def _refuse_unported(config, mesh_shape):
-  unported = [
-      (mesh_shape, "a device mesh", "M10"),
-      (config.get("qat"), "qat", "M11"),
-  ]
-  for on, what, item in unported:
-    if on:
-      raise NotImplementedError(
-          f"{what} is not ported to automl_tpu_torch yet: ROADMAP {item}")
+def _refuse_unported(mesh_shape):
+  if mesh_shape:
+    raise NotImplementedError(
+        "a device mesh is not ported to automl_tpu_torch yet: ROADMAP M10")
+
+
+def set_qat_mode(on, bits) -> None:
+  """QAT on (with `bits`, 8 when unset) or off: the mode is process-wide,
+  so a run sets it both ways and never inherits it."""
+  if on:
+    quant.enable_qat(int(bits or 8))
+  else:
+    quant.disable_qat()
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -134,17 +142,6 @@ def _progressive_stage_params(config, stage: int, total_stages: int):
   mix = config.data.mixup_alpha * (stage + 1) / total_stages
   cut = config.data.cutmix_alpha * (stage + 1) / total_stages
   return size, ram, mix, cut
-
-
-def _refuse_unported_cls(config, mesh_shape):
-  unported = [
-      (mesh_shape, "a device mesh", "M10"),
-      (config.train.get("qat"), "train.qat", "M11"),
-  ]
-  for on, what, item in unported:
-    if on:
-      raise NotImplementedError(
-          f"{what} is not ported to automl_tpu_torch yet: ROADMAP {item}")
 
 
 def classification_state(model, config, lr_fn=lambda step: 0.0):
@@ -226,12 +223,13 @@ def run_classification(config, model_dir: str, train_steps: int,
   progressive stage (or every eval_every steps). metrics.jsonl gets every
   log_every steps the step's metrics plus lr, secs_per_step and
   examples_per_sec (host clock; each logged step waits for its loss)."""
-  _refuse_unported_cls(config, mesh_shape)
+  _refuse_unported(mesh_shape)
   device = torch.device(device)
   os.makedirs(model_dir, exist_ok=True)
   config.save_to_yaml(os.path.join(model_dir, "config.yaml"))
   precision.set_policy("mixed_bfloat16" if config.runtime.mixed_precision
                        else "float32")
+  set_qat_mode(config.train.get("qat"), config.train.get("qat_bits", 8))
   model = seeded_classification_model(config.model, seed, device)
   ft_ckpt = config.train.get("ft_init_ckpt")
   if ft_ckpt:   # finetune: everything but the classifier's fc
@@ -496,12 +494,13 @@ def run_detection(config, model_dir: str, train_steps: int,
   checkpoint (scope config.backbone_name) for the backbone's weights. profile: a torch.profiler trace of steps 10-14 (or
   from step 10 to the end, if that comes first) into
   model_dir/profile/trace_steps_10-14.json."""
-  _refuse_unported(config, mesh_shape)
+  _refuse_unported(mesh_shape)
   device = torch.device(device)
   os.makedirs(model_dir, exist_ok=True)
   config.save_to_yaml(os.path.join(model_dir, "config.yaml"))
   precision.set_policy("mixed_bfloat16" if config.mixed_precision
                        else "float32")
+  set_qat_mode(config.get("qat"), config.get("qat_bits", 8))
   model = seeded_detection_model(config, seed, device)
   if init_backbone_ckpt:
     init_from_tf_checkpoint(model.backbone, init_backbone_ckpt,

@@ -3,13 +3,20 @@ BatchNorm statistics and EMA, all on the model's device.
 
 The counterpart of automl_tpu/train/train_lib.py (TrainState,
 create_train_state, make_cls_train_step, make_cls_eval_step,
-make_det_train_step, _freeze_grads).
+make_seg_train_step, make_det_train_step, _freeze_grads).
 
 Classification: the preprocess (crop, flip, RandAugment, mixing) on the
 device, the cross-entropy (softmax with label smoothing, or sigmoid) plus
 the L2 term over the leaves weight_decay_exclude does not match (on the
 JAX path), a global gradient clip (gclip), the masked optimizer, the BN
 moving statistics, the EMA; top-1 against the argmax of the (soft) label.
+
+Segmentation (EfficientDet with heads=["segmentation"]): sparse
+cross-entropy on the f32 log-softmax over the valid pixels (mask ids >= 0;
+the mean over at least 1), plus the L2 term over the leaves
+weight_decay_exclude does not match, a global gradient clip
+(gradient_clip_norm), the optimizer, the BN moving statistics, the EMA;
+pixel accuracy over the valid pixels.
 
 Detection: the order of the
 JAX step is kept: anchor labeling on the device, the (optionally moving)
@@ -21,7 +28,7 @@ moving statistics of the clean forward pass, then the EMA of everything
 
 TrainState.params is the model's own {name: tensor} (parameters and BN
 buffers, convert.model_state), updated in place: one copy of the weights
-on the card. The segmentation step is not ported yet (ROADMAP M3).
+on the card.
 """
 
 from __future__ import annotations
@@ -74,6 +81,18 @@ def l2_mask_fn(exclude_regex):
     return None
   pat = re.compile(exclude_regex)
   return lambda names: not pat.match(convert.det_jax_path(".".join(names))[0])
+
+
+@torch.no_grad()
+def add_l2(trainable: dict, grads: dict, weight_decay: float, mask_fn=None):
+  """The L2 term over losses.l2_leaves(trainable, mask_fn) (tf.nn.l2_loss
+  semantics); its gradient, weight_decay * v a leaf, is added to `grads`
+  in place."""
+  decayed = losses_lib.l2_leaves(trainable, mask_fn)
+  if weight_decay and decayed:
+    torch._foreach_add_([grads[k] for k in decayed], list(decayed.values()),
+                        alpha=weight_decay)
+  return losses_lib.l2_regularization(decayed, weight_decay)
 
 
 @contextlib.contextmanager
@@ -137,11 +156,7 @@ def make_cls_train_step(model, tx, config, preprocess_fn=None):
     for p in trainable.values():
       p.grad = None
     with torch.no_grad():
-      decayed = losses_lib.l2_leaves(trainable, l2_mask)
-      l2 = losses_lib.l2_regularization(decayed, weight_decay).to(xent.device)
-      if weight_decay and decayed:   # d(l2)/dv = weight_decay * v
-        torch._foreach_add_([grads[k] for k in decayed],
-                            list(decayed.values()), alpha=weight_decay)
+      l2 = add_l2(trainable, grads, weight_decay, l2_mask).to(xent.device)
       grads = opt_lib.clip_gradients(grads, gclip, per_var=False)
       updates, opt_state = tx.update(grads, state.opt_state, params)
       torch._foreach_add_([params[k] for k in grads],
@@ -178,6 +193,82 @@ def make_cls_eval_step(model):
             "count": torch.tensor(float(top1.shape[0]))}
 
   return eval_step
+
+
+# ---------------------------------------------------------------------------
+# Segmentation.
+# ---------------------------------------------------------------------------
+
+
+def make_seg_loss_and_grads(model, config):
+  """-> loss_and_grads(params, batch, generator) -> (loss, aux, grads,
+  bn_updates) of the segmentation step on a device batch: the loss with
+  L2, aux {xent, l2, pixel_acc} (0-d tensors), grads {name: tensor} of the
+  trainable leaves (L2's included), and the forward pass's BN updates."""
+  weight_decay = config.get("weight_decay", 0.0) or 0.0
+  l2_mask = l2_mask_fn(config.get("weight_decay_exclude"))
+
+  def loss_and_grads(params, batch, generator=None):
+    trainable = {k: p for k, p in params.items()
+                 if not opt_lib.is_batch_stat(k)}
+    for p in trainable.values():
+      p.grad = None
+    outputs = model(batch["image"], train=True, generator=generator)
+    bn_updates = L.take_bn_updates(model)
+    seg_logits = (outputs[-1] if isinstance(outputs, (tuple, list))
+                  else outputs)
+    mask = batch["mask"].long()
+    logp = torch.log_softmax(seg_logits.float(), dim=1)
+    valid = (mask >= 0).float()
+    n_valid = valid.sum().clamp_min(1.0)
+    nll = -logp.gather(1, mask.clamp_min(0)[:, None])[:, 0]
+    xent = (nll * valid).sum() / n_valid
+    xent.backward()
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in trainable.items()}
+    for p in trainable.values():
+      p.grad = None
+    with torch.no_grad():
+      l2 = add_l2(trainable, grads, weight_decay, l2_mask).to(xent.device)
+      correct = (seg_logits.argmax(1) == mask).float() * valid
+      aux = {"xent": xent.detach(), "l2": l2,
+             "pixel_acc": correct.sum() / n_valid}
+    return xent.detach() + l2, aux, grads, bn_updates
+
+  return loss_and_grads
+
+
+def make_seg_train_step(model, tx, config):
+  """-> train_step(state, batch, generator) -> (state, metrics).
+
+  batch: {'image' [B, 3, H, W] float, 'mask' [B, Hm, Wm] integer class
+  ids at the head's output resolution (ids < 0 are void pixels)} on the
+  model's device; the model's last output (the bare logits when the
+  segmentation head is the only head) is the segmentation. generator
+  draws the drop_connect masks. metrics hold 0-d tensors (no host sync):
+  loss, xent, l2, gnorm, pixel_acc."""
+  loss_and_grads = make_seg_loss_and_grads(model, config)
+  gclip = config.get("gradient_clip_norm", 0.0) or 0.0
+  ema_decay = config.get("moving_average_decay", 0.0) or 0.0
+
+  def train_step(state: TrainState, batch, generator=None):
+    params = state.params
+    loss, aux, grads, bn_updates = loss_and_grads(params, batch, generator)
+    with torch.no_grad():
+      grads = opt_lib.clip_gradients(grads, gclip, per_var=False)
+      updates, opt_state = tx.update(grads, state.opt_state, params)
+      torch._foreach_add_([params[k] for k in grads],
+                          [updates[k] for k in grads])
+      L.apply_bn_updates(bn_updates)
+      ema_params = state.ema_params
+      if ema_params is not None and ema_decay:
+        ema_params = opt_lib.ema_update(ema_params, params, ema_decay,
+                                        state.step)
+      metrics = dict(aux, loss=loss, gnorm=opt_lib.global_norm(grads))
+    return TrainState(state.step + 1, params, opt_state, ema_params,
+                      state.normalizer), metrics
+
+  return train_step
 
 
 # ---------------------------------------------------------------------------
@@ -254,11 +345,7 @@ def make_det_loss_and_grads(model, config):
     for p in trainable.values():
       p.grad = None
     with torch.no_grad():
-      decayed = losses_lib.l2_leaves(trainable)
-      l2 = losses_lib.l2_regularization(decayed, weight_decay)
-      if weight_decay and decayed:   # d(l2)/dv = weight_decay * v
-        torch._foreach_add_([grads[k] for k in decayed],
-                            list(decayed.values()), alpha=weight_decay)
+      l2 = add_l2(trainable, grads, weight_decay)
     loss = det_loss + l2
     aux = {"det_loss": det_loss.detach(), "cls_loss": cls_loss.detach(),
            "box_loss": box_loss.detach(), "box_iou_loss": iou_loss.detach(),

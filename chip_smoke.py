@@ -218,6 +218,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      --serve_slots (stdin prompts, --prefill_chunk, --system_prompt),
      --num_beams, --draft_model_dir and --int8 on the default device, one
      output per prompt.
+  13. segmentation, QAT, GroupNorm and the optimizer search (after 11,
+     before 10; seg_qat_search_phase): (A) EfficientDet-D0 with
+     heads=["segmentation"] (512 x 512, b16, bf16, seeded, a synthetic
+     3-class mask with void pixels): step 1 knob on against off
+     (DET_STEP1_LIMITS), SEG_STEPS make_seg_train_step steps with the knob
+     on (the loss falls, pixel_acc rises, K6 launches
+     filter_grad_calls_per_step x SEG_STEPS, all Hopper's; step ms, peak
+     GiB), and one f32 step of efficientdet-test with both heads at 128 x
+     128, card against CPU (SEG_F32_RTOL, the state under
+     _cls_state_check); (B) cli/main_det --hparams=qat=true on D0 b16 for
+     QAT_STEPS steps with the knob on, then the same run without QAT (in
+     turns: step ms, peak; K6 launches counted as in 7), fake_quant of
+     D0's seeded kernels card against CPU bit for bit, and one f32 QAT
+     step of efficientdet-test card against CPU (QAT_F32_RTOL); (C)
+     cli/main_cls on V2-S at its first stage (168 x 168, b V2S_BATCH)
+     with model.bn_type=gn, GN_STEPS steps with the knob on in a child
+     process (28 K6 launches a step, all Hopper's), its step ms beside
+     phase 9's BatchNorm stage 0; (D) lm-flops1e19 (b8, T 2048, flash
+     attention) SEARCH_LM_STEPS steps with
+     program_to_optimizer(LION_PROGRAM) and as many with lion(lr, 0.9,
+     0.99) from one tree on the same batches (losses and parameters
+     bit-equal; K1 2 x n_layers and K2 n_layers a step, all Hopper's),
+     then regularized_evolution from MOMENTUM_PROGRAM on a regression on
+     the card (the JAX test's margin; evaluations, cache hits, abstract
+     rejections printed).
 
 Every kernel time is the mean over calls of CUDA events around one call,
 after an L2 flush and a sleep kernel that keeps the card busy while the
@@ -235,7 +260,8 @@ one cannot be compiled or run, the reason is printed and library_ms is
 null.
 
 Prints a {"kernels": [...]} JSON line (K4's launches: those of phases 10,
-12 and 5b's runs; K1, K2 and K3a-c: phase 5's runs and 5b's), then the
+12 and 5b's runs; K1, K2 and K3a-c: phase 5's runs and 5b's, K1 and K2
+also 13's; K6: phases 7, 9 and 13), then the
 card line, and last {"ok": true, "device":
 {...}}. Imports no jax.
 """
@@ -3924,19 +3950,20 @@ print("CLS_STAGES " + json.dumps(marks))
 
 
 def _cls_train_run(workdir, knob: bool, steps: int, per_step: int,
-                   stage_sizes):
+                   stage_sizes, hparams="", label="V2-S"):
   """(b) cli/main_cls trains V2-S as a subprocess for `steps` steps over
   its 4 progressive stages, the K6 knob set in the child, its launch count
   and peak memory read at each stage's start (a wrapper of
   runners.make_cls_preprocess) and at the end. Checks the loss (finite,
   falling within each stage after the first) and the launches (per_step a
-  step, all Hopper, with the knob; none without). Returns ([(size, step
-  ms, img/s, peak GiB, launches)] per stage, the losses)."""
+  step, all Hopper, with the knob; none without). `hparams` (",k=v,...")
+  follows the batch size in --hparam_str. Returns ([(size, step ms, img/s,
+  peak GiB, launches)] per stage, the losses)."""
   import numpy as np
   shutil.rmtree(workdir, ignore_errors=True)
   flags = ["--model_name=efficientnetv2-s", f"--model_dir={workdir}",
            f"--train_steps={steps}", "--log_every=1", "--device=cuda",
-           f"--hparam_str=train.batch_size={V2S_BATCH}"]
+           f"--hparam_str=train.batch_size={V2S_BATCH}{hparams}"]
   root = os.path.dirname(os.path.abspath(__file__))
   t0 = time.perf_counter()
   proc = subprocess.run([sys.executable, "-c", _CLS_CHILD,
@@ -3984,7 +4011,7 @@ def _cls_train_run(workdir, knob: bool, steps: int, per_step: int,
     step_ms = float(np.median(secs[2:])) * 1e3
     peak = marks[i + 1]["peak"] / 2**30
     out.append((size, step_ms, V2S_BATCH / step_ms * 1e3, peak, launches))
-    print(f"V2-S train b{V2S_BATCH} stage {i} {size}x{size} bf16, K6 knob "
+    print(f"{label} train b{V2S_BATCH} stage {i} {size}x{size} bf16, K6 knob "
           f"{'on' if knob else 'off'}: step {step_ms:.1f} ms (median of the "
           f"stage's steps 3-{per_stage}), {V2S_BATCH / step_ms * 1e3:.1f} "
           f"img/s, peak memory {peak:.2f} GiB, K6 launches {launches} "
@@ -3993,7 +4020,7 @@ def _cls_train_run(workdir, knob: bool, steps: int, per_step: int,
     if launches != expected or sm90 != expected:
       raise AssertionError(f"stage {i}: {launches} K6 launches ({sm90} "
                            f"Hopper), expected {expected}")
-  print(f"V2-S, {steps} steps in {wall:.1f} s (the child's start and model "
+  print(f"{label}, {steps} steps in {wall:.1f} s (the child's start and model "
         f"build included); loss by stage, first step -> mean of the last 3: "
         + ", ".join(f"{stage[0]:.4f} -> {np.mean(stage[-3:]):.4f}"
                     for stage in (losses[i * per_stage:(i + 1) * per_stage]
@@ -4021,7 +4048,7 @@ def _cls_knob_losses_check(on, off):
                          "the run with it off")
 
 
-def _cls_state_check(name, new, ref_new, ref_old, limit=None):
+def _cls_state_check(name, new, ref_new, ref_old, limit=None, what="V2-S"):
   """Leaves after one f32 step, card against CPU: the largest max|diff|
   within `limit`, by default CLS_STATE_SHARE of the largest change the
   step made to these leaves on the CPU."""
@@ -4034,7 +4061,7 @@ def _cls_state_check(name, new, ref_new, ref_old, limit=None):
   print(f"  {name}: {len(diff)} leaves, largest change {step:.3e}, largest "
         f"max|card - CPU| {diff[worst]:.3e} at {worst} (limit {limit:.3e})")
   if diff[worst] > limit:
-    raise AssertionError(f"V2-S f32 step 1: the card's {name} disagree "
+    raise AssertionError(f"{what} f32 step 1: the card's {name} disagree "
                          "with the CPU's")
 
 
@@ -4316,7 +4343,7 @@ def cls_phase(dev, workdir):
   """Classification: (a) inference, (b) V2-S training through main_cls
   with the K6 knob on and off, (c) the step-1 checks, (d) mixing, (e) the
   preprocess card vs CPU, (f) eval with the EMA. Returns the knob-on run's
-  K6 launches and the knob-off run's stage-0 step ms."""
+  K6 launches and the knob-off and knob-on runs' stage-0 step ms."""
   import torch
   from automl_tpu_torch.models.efficientnet import EfficientNet
   from automl_tpu_torch.train import runners
@@ -4346,7 +4373,7 @@ def cls_phase(dev, workdir):
   _cls_eval_check(dev, os.path.join(workdir, "ckpt"))
   torch.cuda.empty_cache()
   print(f"classification phase: {time.perf_counter() - t0:.1f} s")
-  return sum(r[4] for r in on), off[0][1]
+  return sum(r[4] for r in on), off[0][1], on[0][1]
 
 
 # ---------------------------------------------------------------------------
@@ -4668,6 +4695,455 @@ def data_phase(dev, root, d0_synthetic_ms=None, v2s_synthetic_ms=None):
 
 
 
+# ---------------------------------------------------------------------------
+# 13. Segmentation, QAT, GroupNorm and the optimizer search
+# (seg_qat_search_phase).
+# ---------------------------------------------------------------------------
+
+SEG_STEPS = 20
+QAT_STEPS = 20
+GN_STEPS = 5
+SEARCH_LM_STEPS = 10
+SEARCH_LM_LR = 1e-4
+# f32 step 1 on efficientdet-test at 128 x 128 (b4; at its own 64 the
+# level-7 maps are 1 x 1 and a train-mode BN there normalises two numbers),
+# card (TF32 off) against the CPU from one seeded tree, batch and set of
+# drop_connect masks. Segmentation (both heads): the loss within
+# SEG_F32_RTOL, the params after one momentum step within CLS_STATE_SHARE
+# of the step's largest change (_cls_state_check). QAT (detection): the
+# loss terms within QAT_F32_RTOL: fake-quant rounds each activation to its
+# tensor's int8 grid, so a last-bit difference of a conv moves an element
+# across a rounding boundary, a whole quantization step. Measured on the
+# H100: the seg loss 1.2e-7 apart, the state 6e-8 against limits of 1e-5;
+# the QAT loss terms equal.
+SEG_F32_RTOL = 1e-4
+SEG_F32_LR = 0.08
+QAT_F32_RTOL = 1e-3
+
+
+def _seg_batch(dev, b, size, classes, seed=3):
+  """A synthetic segmentation batch, drawn on the host (the same on every
+  device): a mask at the head's stride 4 of `classes` classes in blocks of
+  4 x 4 mask pixels (each block's class drawn), its first two rows and 5%
+  of its pixels void (-1); the image the block's class as a brightness
+  offset plus unit noise, so the mask can be learnt from it."""
+  import torch
+  g = torch.Generator().manual_seed(seed)
+  h = size // 4
+  mask = torch.randint(0, classes, (b, h // 4, h // 4), generator=g)
+  mask = mask.repeat_interleave(4, 1).repeat_interleave(4, 2)
+  level = (mask.float() - (classes - 1) / 2).repeat_interleave(
+      4, 1).repeat_interleave(4, 2)
+  image = level[:, None] + torch.randn(b, 3, size, size, generator=g)
+  void = torch.rand(b, h, h, generator=g) < 0.05
+  mask = torch.where(void, -1, mask)
+  mask[:, :2] = -1
+  return {"image": image.to(dev).contiguous(
+      memory_format=torch.channels_last), "mask": mask.to(dev)}
+
+
+def _seg_step1(dev, cfg):
+  """(loss, grads) of segmentation step 1 of D0 (bf16) with the K6 knob
+  off and on, from one model and batch, the drop_connect masks from one
+  seed."""
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.ops import depthwise as dw
+  from automl_tpu_torch.train import runners, train_lib
+  precision.set_policy("mixed_bfloat16")
+  model = runners.seeded_detection_model(cfg, 0, dev)
+  params = convert.model_state(model)
+  batch = _seg_batch(dev, D0_BATCH, cfg.image_size, cfg.seg_num_classes)
+  loss_and_grads = train_lib.make_seg_loss_and_grads(model, cfg)
+  gen = torch.Generator(device=dev)
+  out = {}
+  for knob in (False, True):
+    dw.enable_pallas_filter_grad(knob)
+    try:
+      loss, aux, grads, _ = loss_and_grads(params, batch, gen.manual_seed(8))
+      torch.cuda.synchronize()
+    finally:
+      dw.enable_pallas_filter_grad(False)
+    print(f"D0 seg step 1, K6 knob {'on' if knob else 'off'}: loss "
+          f"{float(loss):.6f}, pixel_acc {float(aux['pixel_acc']):.4f}")
+    out[knob] = (float(loss), grads)
+  k6_leaves = sorted(
+      f"{name}.kernel" for name, m in model.named_modules()
+      if type(m).__name__ == "DepthwiseConv2D" and m.strides == (1, 1))
+  return out, k6_leaves
+
+
+def _seg_train(dev, cfg, per_step):
+  """SEG_STEPS make_seg_train_step steps of D0 (bf16, b16, momentum SGD at
+  the detection schedule, EMA) on one batch with the knob on: the loss
+  falls, pixel_acc rises, K6 launches per_step a step, all Hopper. Returns
+  (launches, step ms, peak GiB)."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.ops import depthwise as dw
+  from automl_tpu_torch.train import runners, schedules, train_lib
+  precision.set_policy("mixed_bfloat16")
+  model = runners.seeded_detection_model(cfg, 0, dev)
+  state, tx = runners.detection_state(model, cfg, schedules.detection_lr(
+      cfg, SEG_STEPS))
+  step_fn = train_lib.make_seg_train_step(model, tx, cfg)
+  batch = _seg_batch(dev, D0_BATCH, cfg.image_size, cfg.seg_num_classes)
+  gen = torch.Generator(device=dev)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  dw.depthwise_filter_grad.launches = 0
+  dw.depthwise_filter_grad.launches_sm90 = 0
+  dw.enable_pallas_filter_grad(True)
+  metrics = []
+  try:
+    for step in range(SEG_STEPS):
+      if step == 4:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+      state, m = step_fn(state, batch, gen.manual_seed(
+          runners.step_seed(0, step)))
+      metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (SEG_STEPS - 4) * 1e3
+  finally:
+    dw.enable_pallas_filter_grad(False)
+  launches = dw.depthwise_filter_grad.launches
+  sm90 = dw.depthwise_filter_grad.launches_sm90
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  losses = [float(m["loss"]) for m in metrics]
+  acc = [float(m["pixel_acc"]) for m in metrics]
+  print(f"D0 seg losses: {' '.join(f'{x:.4f}' for x in losses)}")
+  print(f"D0 seg pixel_acc: {' '.join(f'{x:.3f}' for x in acc)}")
+  expected = per_step * SEG_STEPS
+  print(f"D0 seg train b{D0_BATCH} {cfg.image_size}x{cfg.image_size} bf16, "
+        f"K6 knob on: step {step_ms:.1f} ms (mean of steps 5-{SEG_STEPS}), "
+        f"{D0_BATCH / step_ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB; "
+        f"loss {losses[0]:.4f} -> {np.mean(losses[-5:]):.4f}, pixel_acc "
+        f"{acc[0]:.3f} -> {np.mean(acc[-5:]):.3f} (mean of the last 5); K6 "
+        f"launches {launches}, {sm90} Hopper (expected {expected}: "
+        f"{per_step} a step)")
+  if not all(math.isfinite(x) for x in losses):
+    raise AssertionError("D0 seg: loss not finite")
+  if not (np.mean(losses[-5:]) < losses[0] and np.mean(acc[-5:]) > acc[0]):
+    raise AssertionError("D0 seg: the loss did not fall or pixel_acc did not "
+                         "rise")
+  if launches != expected or sm90 != expected:
+    raise AssertionError("D0 seg: the run did not go through K6 as expected")
+  del model, state, step_fn, metrics
+  torch.cuda.empty_cache()
+  return launches, step_ms, peak
+
+
+def _small_det_config(heads=("object_detection",)):
+  """efficientdet-test at 128 x 128 (see SEG_F32_RTOL) with `heads`."""
+  from automl_tpu_torch.configs.efficientdet_configs import (
+      get_efficientdet_config)
+  cfg = get_efficientdet_config("efficientdet-test")
+  cfg.override(dict(image_size=128, heads=list(heads)))
+  return cfg
+
+
+def _seg_card_vs_cpu(dev):
+  """One f32 make_seg_train_step step of efficientdet-test with both heads
+  (the seg logits are the last output) on the card and on the CPU from one
+  seeded tree, batch and drop_connect masks (a CPU generator feeds both):
+  the loss within SEG_F32_RTOL, the params, BN statistics and EMA under
+  _cls_state_check."""
+  import torch
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.train import optimizers, runners, train_lib
+  cfg = _small_det_config(("object_detection", "segmentation"))
+  precision.set_policy("float32")
+  snap = lambda d: {k: v.detach().clone().cpu() for k, v in d.items()}
+  res = {}
+  try:
+    for where in (str(dev), "cpu"):
+      m = runners.seeded_detection_model(cfg, 0, where)
+      tx = optimizers.masked_for_params(optimizers.build_optimizer(
+          "momentum", SEG_F32_LR, momentum=0.9))
+      step = train_lib.make_seg_train_step(m, tx, cfg)
+      state = train_lib.create_train_state(m, tx)
+      old = snap(state.params)
+      state, metrics = step(state, _seg_batch(where, 4, 128, 3),
+                            torch.Generator().manual_seed(9))
+      res[where] = ({k: float(v) for k, v in metrics.items()},
+                    snap(state.params), old, snap(state.ema_params))
+  finally:
+    precision.set_policy("mixed_bfloat16")
+  card, cpu = res[str(dev)], res["cpu"]
+  rel = abs(card[0]["loss"] - cpu[0]["loss"]) / abs(cpu[0]["loss"])
+  print(f"efficientdet-test (both heads, 128x128, b4) f32 seg step 1: loss "
+        f"{card[0]['loss']:.7f} on the card, {cpu[0]['loss']:.7f} on the "
+        f"CPU (rel. diff {rel:.3e}, limit {SEG_F32_RTOL}); pixel_acc "
+        f"{card[0]['pixel_acc']:.5f} vs {cpu[0]['pixel_acc']:.5f}")
+  stats = [k for k in cpu[1] if optimizers.is_batch_stat(k)]
+  params = [k for k in cpu[1] if k not in stats]
+  for what, i in (("", 1), ("EMA of the ", 3)):
+    for name, keys in (("params", params), ("BN statistics", stats)):
+      _cls_state_check(what + name, {k: card[i][k] for k in keys},
+                       {k: cpu[i][k] for k in keys}, cpu[2],
+                       what="efficientdet-test seg")
+  if rel > SEG_F32_RTOL:
+    raise AssertionError("the f32 seg step on the card disagrees with the "
+                         "CPU")
+
+
+def _fake_quant_check(dev):
+  """quant.fake_quant (8 bits, per output channel) of every kernel of D0's
+  seeded tree on the card against the CPU: bit-equal."""
+  import torch
+  from automl_tpu_torch.nn import quant
+  from automl_tpu_torch.train import runners
+  model = runners.seeded_detection_model(_det_config(), 0, "cpu")
+  kernels = {k: v for k, v in model.state_dict().items()
+             if k.endswith(".kernel")}
+  equal = sum(bool(torch.equal(quant.fake_quant(v, 8, axis=0),
+                               quant.fake_quant(v.to(dev), 8, axis=0).cpu()))
+              for v in kernels.values())
+  n = sum(v.numel() for v in kernels.values())
+  print(f"fake_quant of D0's {len(kernels)} seeded kernels ({n} weights), "
+        f"card vs CPU: {equal} of {len(kernels)} bit-equal")
+  if equal != len(kernels):
+    raise AssertionError("fake_quant on the card differs from the CPU's")
+
+
+def _qat_card_vs_cpu(dev):
+  """One f32 make_det_train_step step of efficientdet-test under QAT on
+  the card and on the CPU from one seeded tree, one batch (preprocessed on
+  the host) and one set of drop_connect masks: the loss terms within
+  QAT_F32_RTOL."""
+  import torch
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.nn import precision, quant
+  from automl_tpu_torch.train import optimizers, runners, train_lib
+  cfg = _small_det_config()
+  raw = pipeline.SyntheticDetection(4, 128, cfg.max_instances_per_image,
+                                    cfg.num_classes).batch
+  batch = runners.make_preprocess(cfg)(
+      {k: torch.from_numpy(v) for k, v in raw.items()},
+      torch.Generator().manual_seed(7))
+  precision.set_policy("float32")
+  res = {}
+  try:
+    with quant.qat_scope():
+      for where in (str(dev), "cpu"):
+        m = runners.seeded_detection_model(cfg, 0, where)
+        tx = optimizers.masked_for_params(optimizers.build_optimizer(
+            "momentum", 0.08, momentum=0.9))
+        step = train_lib.make_det_train_step(m, tx, cfg)
+        state = train_lib.create_train_state(m, tx)
+        _, metrics = step(state, {k: v.to(where) for k, v in batch.items()},
+                          torch.Generator().manual_seed(9))
+        res[where] = {k: float(v) for k, v in metrics.items()}
+  finally:
+    precision.set_policy("mixed_bfloat16")
+  rels = {k: abs(res[str(dev)][k] - res["cpu"][k]) / max(abs(res["cpu"][k]),
+                                                           1e-12)
+          for k in ("loss", "det_loss", "cls_loss", "box_loss")}
+  print(f"efficientdet-test (128x128, b4) f32 QAT step 1, card vs CPU: "
+        + ", ".join(f"{k} {res[str(dev)][k]:.7f} vs {res['cpu'][k]:.7f} "
+                    f"(rel. {rels[k]:.3e})" for k in rels)
+        + f"; limit {QAT_F32_RTOL}")
+  if max(rels.values()) > QAT_F32_RTOL:
+    raise AssertionError("the f32 QAT step on the card disagrees with the "
+                         "CPU")
+
+
+def _search_lm(dev):
+  """(D) lm-flops1e19 (b8, T 2048, flash attention, full remat) trained
+  SEARCH_LM_STEPS steps with program_to_optimizer(LION_PROGRAM) and as many
+  with lion(lr, b1=0.9, b2=0.99), each from the same seeded tree on the
+  same batches: the losses and the final parameters bit-equal (the same
+  f32 products summed in the same pairs). Returns {kernel: launches} of
+  both runs."""
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.ops import attention as fa
+  from automl_tpu_torch.search.program import (LION_PROGRAM, Program,
+                                               program_to_optimizer)
+  from automl_tpu_torch.train import lm_trainer
+  from automl_tpu_torch.train.optimizers import lion
+  counters = {"K1 sm90": "launches_fwd_sm90", "K2 sm90": "launches_bwd_sm90",
+              "K5a sm90": "launches_dq_sm90", "K5b sm90": "launches_dkv_sm90",
+              "K1": "launches_fwd", "K2": "launches_bwd",
+              "K5a": "launches_dq", "K5b": "launches_dkv"}
+  cfg = lm_lib.get_lm_config("lm-flops1e19")
+  cfg.override("use_flash_attention=true")
+  tree = convert.numpy_init(cfg, 0)
+  data = iter(lm_trainer.SyntheticLMData(8, cfg.seq_len, cfg.vocab_size))
+  batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+             for _ in range(SEARCH_LM_STEPS)]
+  runs, total = {}, dict.fromkeys(counters, 0)
+  for label, tx in (
+      ("program", program_to_optimizer(Program(LION_PROGRAM, ("g", "m", "w")),
+                                       SEARCH_LM_LR)),
+      ("lion", lion(SEARCH_LM_LR, b1=0.9, b2=0.99))):
+    model = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev),
+                                    tree)
+    state = lm_trainer.init_train_state(model, tx)
+    step = lm_trainer.make_lm_train_step(model, tx)
+    for attr in counters.values():
+      setattr(fa.flash_attention, attr, 0)
+    losses = []
+    for i, batch in enumerate(batches):
+      if i == 1:   # after the first step's warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+      state, logs = step(state, batch)
+      losses.append(logs["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
+    launches = {k: getattr(fa.flash_attention, a) for k, a in
+                counters.items()}
+    for k in total:
+      total[k] += launches[k]
+    runs[label] = ([float(x) for x in losses],
+                   {k: p.detach().clone() for k, p in state.params.items()})
+    print(f"lm-flops1e19 b8 T{cfg.seq_len}, {label} Lion (lr "
+          f"{SEARCH_LM_LR:g}): step {step_ms:.1f} ms (mean of steps "
+          f"2-{SEARCH_LM_STEPS}); losses "
+          f"{' '.join(f'{x:.5f}' for x in runs[label][0])}; launches "
+          f"{launches}")
+    n = cfg.n_layers * SEARCH_LM_STEPS
+    want = dict.fromkeys(counters, 0)
+    want.update({"K1": 2 * n, "K1 sm90": 2 * n, "K2": n, "K2 sm90": n})
+    if launches != want:
+      raise AssertionError(f"{label} run: launches {launches}, expected "
+                           f"{want}")
+    del model, state, step
+    torch.cuda.empty_cache()
+  (l_p, w_p), (l_l, w_l) = runs["program"], runs["lion"]
+  equal = sum(bool(torch.equal(w_p[k], w_l[k])) for k in w_l)
+  worst = max(float((w_p[k] - w_l[k]).abs().max()) for k in w_l)
+  print(f"program Lion vs lion: losses {'bit-equal' if l_p == l_l else 'differ'}"
+        f" (largest rel. diff {max(abs(a - b) / abs(b) for a, b in zip(l_p, l_l)):.3e}); "
+        f"{equal} of {len(w_l)} parameter leaves bit-equal after "
+        f"{SEARCH_LM_STEPS} steps, largest max|diff| {worst:.3e}. Must be "
+        "bit-equal.")
+  if l_p != l_l or equal != len(w_l):
+    raise AssertionError("program_to_optimizer(LION_PROGRAM) does not "
+                         "reproduce lion on the card")
+  return total
+
+
+def _search_evolution(dev):
+  """regularized_evolution from MOMENTUM_PROGRAM on a linear regression
+  whose tensors live on the card (tests/test_search.py's flow: 15 cycles,
+  population 8, seed 1, each evaluation 30 steps at lr 0.05), the abstract
+  gate on meta tensors of the card tensors' shapes: the best fitness no
+  worse than the seed's (the JAX test's margin) and finite."""
+  import torch
+  from automl_tpu_torch.search import evolution
+  from automl_tpu_torch.search.program import (MOMENTUM_PROGRAM, Program,
+                                               program_to_optimizer)
+  g = torch.Generator().manual_seed(0)
+  x = torch.randn(64, 4, generator=g).to(dev)
+  y = x @ torch.tensor([1.0, -2.0, 0.5, 3.0], device=dev)
+
+  def evaluate(prog):
+    tx = program_to_optimizer(prog, learning_rate=0.05)
+    w = torch.zeros(4, device=dev)
+    state = tx.init(w)
+    loss = float("inf")
+    for _ in range(30):
+      r = x @ w - y
+      loss, grad = torch.mean(r * r), 2.0 / x.shape[0] * (x.T @ r)
+      up, state = tx.update(grad, state, w)
+      w = w + up
+    return float(loss)
+
+  t0 = time.perf_counter()
+  seed = Program(MOMENTUM_PROGRAM, inputs=("g", "m", "w"))
+  base = evaluate(seed)
+  spec = torch.empty(4, device=dev)
+  best, best_fit, stats = evolution.regularized_evolution(
+      seed, evaluate, cycles=15, population_size=8, seed=1,
+      abstract_inputs=dict(g=spec, m=spec, w=spec))
+  print(f"evolution on the card: seed fitness {base:.6g}, best {best_fit:.6g} "
+        f"({stats['evaluations']} evaluations, {stats['cache_hits']} cache "
+        f"hits, {stats['rejected_abstract']} abstract rejections, "
+        f"{stats['failed_evaluations']} failed; "
+        f"{time.perf_counter() - t0:.1f} s); best program: "
+        f"{' | '.join(str(best).splitlines())}")
+  if not (best_fit <= base and math.isfinite(best_fit)):
+    raise AssertionError("the evolution did not improve on its seed")
+
+
+def seg_qat_search_phase(dev, workdir, v2s_bn_ms):
+  """(A) D0 segmentation, (B) D0 QAT through main_det, (C) V2-S with
+  GroupNorm through main_cls, (D) the optimizer search on the LM and on a
+  regression. Returns {"K6": launches of (A)-(C), and (D)'s flash
+  launches}."""
+  import torch
+  from automl_tpu_torch.models import efficientdet
+  from automl_tpu_torch.models.efficientnet import EfficientNet
+  from automl_tpu_torch.nn import quant
+  from automl_tpu_torch.train import runners
+  t_phase = time.perf_counter()
+  # (A)
+  t = time.perf_counter()
+  cfg = _det_config(heads=["segmentation"])
+  out, k6_leaves = _seg_step1(dev, cfg)
+  _det_step1_check(out, k6_leaves, "D0 seg")
+  del out
+  torch.cuda.empty_cache()
+  per_step = efficientdet.filter_grad_calls_per_step(
+      efficientdet.EfficientDet(cfg, device="meta"))
+  seg_launches, _, _ = _seg_train(dev, cfg, per_step)
+  _seg_card_vs_cpu(dev)
+  print(f"(A) segmentation: {time.perf_counter() - t:.1f} s")
+  # (B)
+  t = time.perf_counter()
+  det_per_step = efficientdet.filter_grad_calls_per_step(
+      efficientdet.EfficientDet(_det_config(), device="meta"))
+  flags = ["--mode=train", "--model_name=efficientdet-d0", "--use_fake_data",
+           "--log_every=1", "--device=cuda"]
+  hp = f"--hparams=mixed_precision=true,batch_size={D0_BATCH}"
+  qat_dir, plain_dir = workdir + "_qat", workdir + "_plain"
+  try:
+    qat = _det_train_run(qat_dir, flags + [f"--model_dir={qat_dir}",
+                                           hp + ",qat=true"], QAT_STEPS, True,
+                         det_per_step)
+    if not quant.qat_enabled():
+      raise AssertionError("main_det --hparams=qat=true left QAT off")
+    plain = _det_train_run(plain_dir, flags + [f"--model_dir={plain_dir}", hp],
+                           QAT_STEPS, True, det_per_step)
+  finally:
+    quant.disable_qat()
+  print(f"D0 b{D0_BATCH} step ms with QAT vs without (in turns, one call): "
+        f"{qat[1]:.1f} vs {plain[1]:.1f} ({qat[1] / plain[1]:.2f}x); peak "
+        f"{qat[3]:.2f} vs {plain[3]:.2f} GiB")
+  _fake_quant_check(dev)
+  _qat_card_vs_cpu(dev)
+  print(f"(B) QAT: {time.perf_counter() - t:.1f} s")
+  # (C)
+  t = time.perf_counter()
+  ccfg = _cls_config()
+  size, ram, mix, cut = runners._progressive_stage_params(ccfg, 0, 4)
+  gn_per_step = sum(_stride1_depthwise_maps(
+      EfficientNet(ccfg.model, device="meta"), size).values())
+  gn, _ = _cls_train_run(
+      workdir + "_gn", True, GN_STEPS, gn_per_step, [size],
+      hparams=(f",model.bn_type=gn,train.stages=1,train.isize={size},"
+               f"data.ram={ram},data.mixup_alpha={mix},"
+               f"data.cutmix_alpha={cut}"), label="V2-S GroupNorm")
+  print(f"V2-S {size}x{size} b{V2S_BATCH}, K6 knob on: step {gn[0][1]:.1f} ms "
+        f"with GroupNorm vs {v2s_bn_ms:.1f} with BatchNorm (phase 9's stage "
+        f"0, one call); peak {gn[0][3]:.2f} GiB")
+  print(f"(C) GroupNorm: {time.perf_counter() - t:.1f} s")
+  # (D)
+  t = time.perf_counter()
+  flash = _search_lm(dev)
+  _search_evolution(dev)
+  print(f"(D) search: {time.perf_counter() - t:.1f} s")
+  print(f"segmentation / QAT / GroupNorm / search phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+  return dict(flash, K6=seg_launches + qat[0] + plain[0] + gn[0][4])
+
+
 def _entry(name, source, replaces, launches, r):
   return {"name": name, "route": "cuda", "source": source,
           "replaces": replaces, "launches": launches,
@@ -4774,6 +5250,9 @@ def main() -> int:
   det_dir = os.path.join(build, "chip_smoke_det")
   cls_dir = os.path.join(build, "chip_smoke_cls")
   m6_dir = os.path.join(build, "chip_smoke_lm_m6")
+  sqs_dir = os.path.join(build, "chip_smoke_sqs")
+  for d in (sqs_dir + "_qat", sqs_dir + "_plain", sqs_dir + "_gn"):
+    shutil.rmtree(d, ignore_errors=True)
   for d in (workdir, workdir + "_fused", workdir + "_split", m6_dir, det_dir,
             det_dir + "_off", os.path.join(build, "chip_smoke_infer"),
             os.path.join(build, "chip_smoke_serve"),
@@ -4787,9 +5266,10 @@ def main() -> int:
                   os.path.join(build, "chip_smoke_infer"))
   driver_phase(dev, os.path.join(det_dir + "_off", "ckpt"),
                os.path.join(build, "chip_smoke_serve"), card)
-  cls_k6_launches, v2s_synthetic_ms = cls_phase(dev, cls_dir)
+  cls_k6_launches, v2s_synthetic_ms, v2s_on_ms = cls_phase(dev, cls_dir)
   data_phase(dev, os.path.join(build, "chip_smoke_data"), d0_synthetic_ms,
              v2s_synthetic_ms)
+  sqs = seg_qat_search_phase(dev, sqs_dir, v2s_on_ms)
   k4_launches = serving_phase(dev)
   k4_launches += lm_serving_phase(dev, os.path.join(build,
                                                     "chip_smoke_lm_serving"))
@@ -4804,10 +5284,12 @@ def main() -> int:
              k4["decode T=1"]),
       _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:82",
-             runs["unfused"]["K1 sm90"] + m6["K1 sm90"], flash["fwd"]),
+             runs["unfused"]["K1 sm90"] + m6["K1 sm90"] + sqs["K1 sm90"],
+             flash["fwd"]),
       _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:320",
-             runs["unfused"]["K2 sm90"] + m6["K2 sm90"], flash["bwd"]),
+             runs["unfused"]["K2 sm90"] + m6["K2 sm90"] + sqs["K2 sm90"],
+             flash["bwd"]),
       _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:240", runs["split"]["K5a sm90"],
              flash["dq"]),
@@ -4825,7 +5307,8 @@ def main() -> int:
              runs["fused"]["K3c sm90"] + m6["K3c sm90"], k3["dw"]),
       _entry("depthwise_filter_grad",
              "automl_tpu_torch/csrc/depthwise_sm90.cu",
-             "automl_tpu/ops/depthwise.py:37", k6_launches + cls_k6_launches,
+             "automl_tpu/ops/depthwise.py:37",
+             k6_launches + cls_k6_launches + sqs["K6"],
              k6["[16,32,256,256] k3"]),
   ]}))
   print(card)

@@ -546,9 +546,7 @@ def test_infer_cls_bm_and_infer_match_jax(tmp_path, capsys):
                              [p for _, p in want["top5"]], atol=1e-4)
 
 
-CLS_REFUSED = {
-    "--mesh_shape=1,2": "M10", "--num_processes=2": "M10",
-    "--hparam_str=train.qat=true": "M11"}
+CLS_REFUSED = {"--mesh_shape=1,2": "M10", "--num_processes=2": "M10"}
 
 
 @pytest.mark.parametrize("flag", list(CLS_REFUSED))

@@ -1467,3 +1467,128 @@ def test_serving_export_round_trip_on_card(dev, tmp_path):
       assert torch.equal(g, w)
   finally:
     precision.set_policy("mixed_bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# Segmentation and QAT (M3 / M11): step 1 at f32, card against CPU.
+# ---------------------------------------------------------------------------
+
+
+def _seg_batch(device, b, size, classes=3, seed=3):
+  """Drawn on the host, the same on every device: a stride-4 mask of
+  4 x 4-pixel class blocks, two void rows and 5% void pixels; the image
+  the block's class as a brightness offset plus unit noise."""
+  g = torch.Generator().manual_seed(seed)
+  h = size // 4
+  mask = torch.randint(0, classes, (b, h // 4, h // 4), generator=g)
+  mask = mask.repeat_interleave(4, 1).repeat_interleave(4, 2)
+  level = (mask.float() - (classes - 1) / 2).repeat_interleave(
+      4, 1).repeat_interleave(4, 2)
+  image = level[:, None] + torch.randn(b, 3, size, size, generator=g)
+  mask = torch.where(torch.rand(b, h, h, generator=g) < 0.05, -1, mask)
+  mask[:, :2] = -1
+  return {"image": image.to(device).contiguous(
+      memory_format=torch.channels_last), "mask": mask.to(device)}
+
+
+def _small_det(heads):
+  from automl_tpu_torch.configs.efficientdet_configs import (
+      get_efficientdet_config)
+  cfg = get_efficientdet_config("efficientdet-test")
+  cfg.override(dict(image_size=128, heads=list(heads)))
+  return cfg
+
+
+def _max_diff_share(card, cpu, old):
+  """The largest max|card - CPU| over the leaves, over the largest change
+  the step made to them on the CPU."""
+  diff = max(float((card[k].cpu().double() - cpu[k].double()).abs().max())
+             for k in cpu)
+  step = max(float((cpu[k].double() - old[k].double()).abs().max())
+             for k in cpu)
+  return diff / step
+
+
+@pytest.mark.cuda
+def test_seg_step1_on_card_matches_cpu(dev, f32_card):
+  """One f32 make_seg_train_step step of efficientdet-test with both heads
+  at 128 x 128, b4 (momentum SGD, EMA), on the card and on the CPU from
+  one seeded tree, batch and set of drop_connect masks: the loss within
+  1e-4 relative, pixel_acc within 1%, the params within 1e-3 of the
+  step's largest change."""
+  from automl_tpu_torch.nn import precision
+  from automl_tpu_torch.train import optimizers, runners, train_lib
+  cfg = _small_det(("object_detection", "segmentation"))
+  precision.set_policy("float32")
+  res = {}
+  for where in (dev, "cpu"):
+    m = runners.seeded_detection_model(cfg, 0, where)
+    tx = optimizers.masked_for_params(optimizers.build_optimizer(
+        "momentum", 0.08, momentum=0.9))
+    state = train_lib.create_train_state(m, tx)
+    old = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+    state, metrics = train_lib.make_seg_train_step(m, tx, cfg)(
+        state, _seg_batch(where, 4, 128), torch.Generator().manual_seed(9))
+    res[str(where)] = ({k: float(v) for k, v in metrics.items()},
+                       {k: v.detach().cpu() for k, v in state.params.items()},
+                       old)
+  (card, p_card, _), (cpu, p_cpu, old) = res[str(dev)], res["cpu"]
+  assert abs(card["loss"] - cpu["loss"]) <= 1e-4 * abs(cpu["loss"])
+  assert abs(card["pixel_acc"] - cpu["pixel_acc"]) <= 1e-2
+  assert _max_diff_share(p_card, p_cpu, old) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_qat_step1_on_card_matches_cpu(dev, f32_card):
+  """One f32 make_det_train_step step of efficientdet-test (128 x 128, b4)
+  under QAT on the card and on the CPU, one seeded tree, one batch
+  preprocessed on the host, one set of drop_connect masks: the loss terms
+  within 1e-3 relative (fake-quant rounds activations to their int8 grid,
+  so a last-bit difference of a conv can move an element a whole
+  quantization step; measured by chip_smoke.py on the H100: equal)."""
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.nn import precision, quant
+  from automl_tpu_torch.train import optimizers, runners, train_lib
+  cfg = _small_det(("object_detection",))
+  raw = pipeline.SyntheticDetection(4, 128, cfg.max_instances_per_image,
+                                    cfg.num_classes).batch
+  batch = runners.make_preprocess(cfg)(
+      {k: torch.from_numpy(v) for k, v in raw.items()},
+      torch.Generator().manual_seed(7))
+  precision.set_policy("float32")
+  res = {}
+  with quant.qat_scope():
+    for where in (dev, "cpu"):
+      m = runners.seeded_detection_model(cfg, 0, where)
+      tx = optimizers.masked_for_params(optimizers.build_optimizer(
+          "momentum", 0.08, momentum=0.9))
+      state = train_lib.create_train_state(m, tx)
+      _, metrics = train_lib.make_det_train_step(m, tx, cfg)(
+          state, {k: v.to(where) for k, v in batch.items()},
+          torch.Generator().manual_seed(9))
+      res[str(where)] = {k: float(v) for k, v in metrics.items()}
+  assert not quant.qat_enabled()
+  for k in ("loss", "det_loss", "cls_loss", "box_loss"):
+    assert abs(res[str(dev)][k] - res["cpu"][k]) <= 1e-3 * abs(
+        res["cpu"][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis", [((64, 32, 3, 3), 0), ((96, 1, 5, 5), 0),
+                                        ((10, 1280), 0), ((8, 64, 17, 23), None)],
+                         ids=["conv", "depthwise", "dense", "activation"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fake_quant_on_card_matches_cpu(dev, shape, axis, dtype):
+  """quant.fake_quant (8 and 4 bits; per output channel for kernels, per
+  tensor for activations; one all-zero slice) on the card equals the
+  CPU's bit for bit: elementwise after one max."""
+  from automl_tpu_torch.nn import quant
+  x = torch.randn(shape, generator=torch.Generator().manual_seed(1)) * 3
+  x[0] = 0.0
+  x = x.to(dtype)
+  for bits in (8, 4):
+    want = quant.fake_quant(x, bits, axis)
+    got = quant.fake_quant(x.to(dev), bits, axis)
+    assert got.dtype == dtype
+    assert torch.equal(got.cpu(), want)
