@@ -19,8 +19,18 @@ Examples:
 
 --tokenizer takes 'byte' or the path of a SentencePiece .model.
 
-Not ported yet: restoring an orbax checkpoint (it needs jax; ROADMAP M9)
-and sharded serving (--serve_mode, --mesh_model; ROADMAP M10).
+Sharded serving: --serve_mode=tp (heads: the head-leading KV cache and the
+decode kernel on each rank's heads) or sp (the cache sharded over the
+sequence, the kernel's partials merged), over a mesh (1, world / m, m) of
+the world's processes with m = --mesh_model (0: all of them). Run one
+process per card under torchrun (parallel/distributed.py initialize reads
+its environment); one process is a mesh of one. The weights stay whole on
+every rank. Only rank 0 prints.
+
+  torchrun --nproc_per_node=2 -m automl_tpu_torch.cli.generate_lm \
+    --config_name=lm-flops1e19 --serve_mode=tp --mesh_model=2 --prompt=hi
+
+Not ported yet: restoring an orbax checkpoint (it needs jax; ROADMAP M9).
 """
 
 from __future__ import annotations
@@ -93,17 +103,21 @@ def parse_args(argv=None):
                       "prompt, its K/V computed once (prefix caching)")
   p.add_argument("--serve_mode", choices=["none", "tp", "sp"],
                  default="none",
-                 help="sharded serving: not ported yet (ROADMAP M10)")
+                 help="sharded serving over a 'model'-axis mesh: tp = heads "
+                      "sharded (serve_tp), sp = the KV cache sharded over "
+                      "the sequence (serve_sp). Pair with --mesh_model.")
   p.add_argument("--mesh_model", type=int, default=0,
-                 help="'model' mesh axis for --serve_mode: not ported yet "
-                      "(ROADMAP M10)")
+                 help="'model' mesh-axis size for --serve_mode "
+                      "(0 = every process)")
   return p.parse_args(argv)
 
 
 def load_model(model_dir=None, config_name=None, seed: int = 0,
-               device="cuda"):
+               device="cuda", serve_mode: str = "none", mesh=None):
   """(config, model) from a model_dir, or a named config with weights drawn
-  from `seed`; either way the JAX-layout tree goes through convert."""
+  from `seed`; either way the JAX-layout tree goes through convert.
+  serve_mode "tp" / "sp" sets serve_tp / serve_sp; mesh puts the model on
+  a mesh (its weights replicated)."""
   if model_dir:
     config = Config({}).update(
         os.path.join(model_dir, "experiment_config.yaml"))
@@ -111,17 +125,39 @@ def load_model(model_dir=None, config_name=None, seed: int = 0,
   else:
     config = lm_lib.get_lm_config(config_name)
     tree = convert.numpy_init(config, seed)
-  model = lm_lib.TransformerLM(config, device=torch.device(device))
+  if serve_mode != "none":
+    config.override({f"serve_{serve_mode}": True}, allow_new_keys=True)
+  model = lm_lib.TransformerLM(config, device=torch.device(device),
+                               mesh=mesh)
   convert.load_jax_params(model, tree)
   return config, model
 
 
+def serving_mesh(args, config):
+  """The mesh (1, world / m, m) of --serve_mode, m = --mesh_model (0: the
+  world), or None without --serve_mode. Refuses, as JAX does, a serve_tp
+  whose heads do not split over m and an m that does not divide the
+  world."""
+  if args.serve_mode == "none":
+    return None
+  from automl_tpu_torch.parallel import distributed, create_mesh
+  distributed.initialize()
+  world = distributed.process_count()
+  m = args.mesh_model or world
+  if args.serve_mode == "tp" and (config.n_heads % m or
+                                  config.n_kv_heads % m):
+    raise ValueError(
+        f"serve_tp: n_heads ({config.n_heads}) and n_kv_heads "
+        f"({config.n_kv_heads}) must be divisible by mesh axis 'model' "
+        f"size {m}")
+  if world % m:
+    raise ValueError(f"--mesh_model {m} does not divide the {world} "
+                     "available devices")
+  return create_mesh((1, world // m, m), device=torch.device(args.device).type)
+
+
 def _check_flags(args):
-  """The flags that do not compose, and those not ported yet."""
-  if args.serve_mode != "none" or args.mesh_model:
-    raise NotImplementedError(
-        "sharded serving (--serve_mode, --mesh_model) is not ported to "
-        "automl_tpu_torch yet: ROADMAP M10")
+  """The flags that do not compose."""
   if args.num_beams > 1 and (args.serve_slots or args.draft_model_dir
                              or args.stop or args.logprobs):
     raise ValueError("--num_beams > 1 runs standalone beam search; it does "
@@ -133,8 +169,16 @@ def _check_flags(args):
                      "whole chunks); drop one or the other")
 
 
-def _serving_model(model_dir, config_name, args):
-  config, model = load_model(model_dir, config_name, args.seed, args.device)
+def _serving_model(model_dir, config_name, args, serve_mode="none"):
+  if serve_mode == "none":
+    config, model = load_model(model_dir, config_name, args.seed, args.device)
+  else:
+    config = (Config({}).update(os.path.join(model_dir,
+                                             "experiment_config.yaml"))
+              if model_dir else lm_lib.get_lm_config(config_name))
+    mesh = serving_mesh(args, config)
+    config, model = load_model(model_dir, config_name, args.seed,
+                               args.device, serve_mode, mesh)
   if args.int8:
     lm_lib.quantize_lm_params(model)
   return config, lm_lib.cast_lm_params_for_serving(model)
@@ -145,10 +189,13 @@ def main(argv=None):
   _check_flags(args)
   tok = (lm_pipeline.ByteTokenizer() if args.tokenizer == "byte"
          else lm_pipeline.SentencePieceModel(args.tokenizer))
-  config, model = _serving_model(args.model_dir, args.config_name, args)
+  config, model = _serving_model(args.model_dir, args.config_name, args,
+                                 args.serve_mode)
   draft = (_serving_model(args.draft_model_dir, None, args)[1]
            if args.draft_model_dir else None)
   eos_id = lm_pipeline.EOS_ID if args.stop_at_eos else None
+  from automl_tpu_torch.parallel.distributed import process_index
+  say = print if process_index() == 0 else (lambda *a, **k: None)
   prompts = ([args.prompt] if args.prompt is not None
              else [ln.rstrip("\n") for ln in sys.stdin if ln.strip()])
   stops = [tok.encode(t) for t in args.stop] if args.stop else None
@@ -165,9 +212,9 @@ def main(argv=None):
     for text, res in zip(prompts, server.serve(reqs, shared_prefix=prefix)):
       completion = tok.decode(res.tokens)
       outputs.append(completion)
-      print(f"=== {text!r}\n{completion}")
+      say(f"=== {text!r}\n{completion}")
       if args.logprobs:
-        print("logprobs:", [round(v, 4) for v in res.logprobs])
+        say("logprobs:", [round(v, 4) for v in res.logprobs])
     return outputs
   for i, text in enumerate(prompts):
     ids = tok.encode(text)
@@ -205,9 +252,9 @@ def main(argv=None):
           break
     completion = tok.decode(new_ids)
     outputs.append(completion)
-    print(f"=== {text!r}\n{completion}")
+    say(f"=== {text!r}\n{completion}")
     if lps is not None:
-      print("logprobs:", [round(float(v), 4) for v in lps[0].tolist()])
+      say("logprobs:", [round(float(v), 4) for v in lps[0].tolist()])
   return outputs
 
 

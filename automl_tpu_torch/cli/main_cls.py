@@ -28,7 +28,7 @@ head's fc, its EMA shadows with train.ft_init_ema (the default).
 
 Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
 Not ported yet, and refused with their ROADMAP item: --mesh_shape and the
-multi-process flags (M10).
+multi-process flags (M10, second half).
 --compilation_cache_dir sets XLA's compile cache and has no meaning in
 eager PyTorch; it is accepted and ignored.
 """
@@ -68,9 +68,9 @@ def parse_args(argv=None):
   p.add_argument("--ft_init_ckpt", default=None,
                  help="a TF checkpoint to finetune from (head excluded)")
   p.add_argument("--train_steps", type=int, default=0)
-  p.add_argument("--mesh_shape", default=None, help="not ported (M10)")
+  p.add_argument("--mesh_shape", default=None, help="not ported (M10, second half)")
   p.add_argument("--coordinator_address", default=None,
-                 help="not ported (M10)")
+                 help="not ported (M10, second half)")
   p.add_argument("--num_processes", type=int, default=None)
   p.add_argument("--process_id", type=int, default=None)
   p.add_argument("--compilation_cache_dir", default=None,
@@ -84,9 +84,9 @@ def parse_args(argv=None):
 
 def _refuse_unported(args):
   unported = [
-      (args.mesh_shape, "--mesh_shape", "M10"),
+      (args.mesh_shape, "--mesh_shape", "M10, second half"),
       (args.coordinator_address or args.num_processes or args.process_id,
-       "multi-process training", "M10"),
+       "multi-process training", "M10, second half"),
   ]
   for on, what, item in unported:
     if on:

@@ -30,7 +30,7 @@ has them).
 
 Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
 Not ported yet, and refused with their ROADMAP item: --mesh_shape and the
-multi-process flags (M10).
+multi-process flags (M10, second half).
 --compilation_cache_dir sets XLA's compile cache and has no meaning in
 eager PyTorch; it is accepted and ignored.
 """
@@ -72,7 +72,7 @@ def parse_args(argv=None):
                  help="eval mode: evaluate each new checkpoint until this "
                       "many seconds pass with no new one; 0 = the latest "
                       "once")
-  p.add_argument("--mesh_shape", default=None, help="not ported (M10)")
+  p.add_argument("--mesh_shape", default=None, help="not ported (M10, second half)")
   p.add_argument("--init_backbone_ckpt", default=None,
                  help="a TF EfficientNet checkpoint for the backbone")
   p.add_argument("--profile", action="store_true",
@@ -83,7 +83,7 @@ def parse_args(argv=None):
                       "the latest checkpoint; a nonzero exit propagates; "
                       "train_and_eval adds an eval child per epoch)")
   p.add_argument("--coordinator_address", default=None,
-                 help="not ported (M10)")
+                 help="not ported (M10, second half)")
   p.add_argument("--num_processes", type=int, default=None)
   p.add_argument("--process_id", type=int, default=None)
   p.add_argument("--compilation_cache_dir", default=None,
@@ -97,9 +97,9 @@ def parse_args(argv=None):
 
 def _refuse_unported(args):
   unported = [
-      (args.mesh_shape, "--mesh_shape", "M10"),
+      (args.mesh_shape, "--mesh_shape", "M10, second half"),
       (args.coordinator_address or args.num_processes or args.process_id,
-       "multi-process training", "M10"),
+       "multi-process training", "M10, second half"),
   ]
   for on, what, item in unported:
     if on:

@@ -1,4 +1,5 @@
-"""LM training CLI on one device (automl_tpu/cli/main_lm.py's flags).
+"""LM training CLI on one device or a mesh (automl_tpu/cli/main_lm.py's
+flags).
 
 Examples:
   python -m automl_tpu_torch.cli.main_lm --model_dir=/tmp/lm \\
@@ -11,11 +12,20 @@ Examples:
     --config_name=lm-test --device=cpu --prefix_lm --tokenizer=spm.model \
     --train_file=train.tsv --valid_file=valid.tsv --train_steps=8
 
-Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
-Left out: --compilation_cache_dir, which sets XLA's compile cache and has
-no meaning in eager PyTorch. Not ported yet, and refused with their ROADMAP
-item: --mesh_shape, --dcn_mesh_shape, --sharding_config sp / fsdp and the
-multi-process flags (M10).
+On a mesh: --mesh_shape=r,d,m (one process per point: run it under
+torchrun, or give --coordinator_address / --num_processes / --process_id
+to each process), --dcn_mesh_shape folded into it, and
+--sharding_config=gspmd|dp|sp|fsdp (sp turns use_ring_attention on, as in
+JAX):
+
+  torchrun --nproc_per_node=2 -m automl_tpu_torch.cli.main_lm \
+    --model_dir=/tmp/lm-dp --config_name=lm-flops1e19 --mesh_shape=1,2,1 \
+    --sharding_config=gspmd --experiment_config=use_flash_attention=true
+
+Added here: --device (cuda, cuda:N or cpu; default cuda; a CPU mesh runs
+on gloo, a CUDA one on NCCL) and --log_every. Left out:
+--compilation_cache_dir, which sets XLA's compile cache and has no meaning
+in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -33,12 +43,18 @@ def parse_args(argv=None):
                  help="override string onto lm_defaults()")
   p.add_argument("--sharding_config", default="gspmd",
                  choices=["gspmd", "dp", "sp", "fsdp"],
-                 help="gspmd / dp: one device holds everything; sp and fsdp "
-                      "are not ported (ROADMAP M10)")
-  p.add_argument("--mesh_shape", default=None, help="not ported (M10)")
-  p.add_argument("--dcn_mesh_shape", default=None, help="not ported (M10)")
+                 help="the PartitionSpecs of the parameters and activations "
+                      "on the mesh (sp: sequence-parallel, with ring "
+                      "attention)")
+  p.add_argument("--mesh_shape", default=None,
+                 help="replica,data,model (one -1 takes the rest of the "
+                      "world); default: no mesh")
+  p.add_argument("--dcn_mesh_shape", default=None,
+                 help="DCN factors folded into --mesh_shape's axes")
   p.add_argument("--coordinator_address", default=None,
-                 help="not ported (M10)")
+                 help="host:port (or a file:// URL) of the rendezvous of a "
+                      "multi-process run; default: the JAX_* or torchrun "
+                      "environment")
   p.add_argument("--num_processes", type=int, default=None)
   p.add_argument("--process_id", type=int, default=None)
   p.add_argument("--train_steps", type=int, default=None,
@@ -76,24 +92,13 @@ def parse_args(argv=None):
   return p.parse_args(argv)
 
 
-def _refuse_unported(args):
-  unported = [
-      (args.mesh_shape, "--mesh_shape", "M10"),
-      (args.dcn_mesh_shape, "--dcn_mesh_shape", "M10"),
-      (args.sharding_config in ("sp", "fsdp"),
-       f"--sharding_config={args.sharding_config}", "M10"),
-      (args.coordinator_address or args.num_processes or args.process_id,
-       "multi-process training", "M10"),
-  ]
-  for on, what, item in unported:
-    if on:
-      raise NotImplementedError(
-          f"{what} is not ported to automl_tpu_torch yet: ROADMAP {item}")
-
-
 def main(argv=None):
   args = parse_args(argv)
-  _refuse_unported(args)
+  import torch
+  from automl_tpu_torch.parallel import distributed
+  distributed.initialize(
+      args.coordinator_address, args.num_processes, args.process_id,
+      backend="nccl" if torch.device(args.device).type == "cuda" else "gloo")
   from automl_tpu_torch.data.lm_pipeline import (ByteTokenizer,
                                                  PackedLMLoader,
                                                  PrefixLMLoader,
@@ -115,6 +120,14 @@ def main(argv=None):
     v = getattr(args, flag)
     if v is not None:
       config[key] = v
+  sharding = {"gspmd": lm_lib.ShardingConfig,
+              "dp": lm_lib.ShardingConfig.data_parallel,
+              "sp": lm_lib.ShardingConfig.sequence_parallel,
+              "fsdp": lm_lib.ShardingConfig.fsdp}[args.sharding_config]()
+  if args.sharding_config == "sp":
+    config.use_ring_attention = True
+  shape = lambda flag: (tuple(int(x) for x in flag.split(",")) if flag
+                        else None)
   data_iter = None
   eval_iter = None
   if args.train_file:
@@ -129,15 +142,18 @@ def main(argv=None):
       eval_iter = loader(args.valid_file, config.batch_size, config.seq_len,
                          tokenizer=tok, repeat=False)
   logs = lm_trainer.run_lm(
-      config, args.model_dir, config.num_train_steps, data_iter=data_iter,
+      config, args.model_dir, config.num_train_steps, sharding=sharding,
+      mesh_shape=shape(args.mesh_shape),
+      dcn_mesh_shape=shape(args.dcn_mesh_shape), data_iter=data_iter,
       log_every=args.log_every, learning_rate=config.learning_rate,
       lr_schedule=config.lr_schedule, warmup_steps=config.warmup_steps,
       eval_iter=eval_iter, eval_every=config.eval_every,
       eval_steps=config.eval_steps, ckpt_every=args.ckpt_every,
       deep_diagnostics=args.deep_diagnostics,
       optimizer=config.optimizer, seed=args.seed, device=args.device)
-  print({k: round(v, 4) for k, v in logs.items()
-         if not k.startswith("diag/")})
+  if distributed.process_index() == 0:
+    print({k: round(v, 4) for k, v in logs.items()
+           if not k.startswith("diag/")})
   return logs
 
 

@@ -19,7 +19,9 @@ slicing off its layer and renaming `a/b/c` to `a.b.c`:
 `blocks/attn/wq[i]` <-> `blocks.{i}.attn.wq`.
 
 A tree is given as numpy arrays (np.asarray of each JAX leaf), or read from
-a `params.npz` whose keys are the tree's paths joined with `/`.
+a `params.npz` whose keys are the tree's paths joined with `/`. A model on
+a mesh (DTensor parameters) takes each full leaf cut to its rank's part;
+full_state gathers such a model's parameters back to full tensors.
 
 A training state carries over the same way (lion_state_from_jax /
 lion_state_to_jax): the step, the parameters, and the Lion momentum, a tree
@@ -148,8 +150,31 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
       setattr(owner, attr, QuantizedWeight(
           torch.empty_like(state[key], device=weight.device),
           torch.empty_like(scale, device=weight.device)))
-  model.load_state_dict(state, strict=True)
+  if getattr(model, "mesh", None) is None:
+    model.load_state_dict(state, strict=True)
+    return model
+  from torch.distributed.tensor import DTensor, distribute_tensor
+  params = dict(model.named_parameters())
+  if set(params) != set(state):
+    raise ValueError("tree does not match the model's parameters: "
+                     f"{sorted(set(params) ^ set(state))}")
+  with torch.no_grad():
+    for k, p in params.items():
+      if isinstance(p, DTensor):
+        part = distribute_tensor(state[k].to(p.device_mesh.device_type),
+                                 p.device_mesh, p.placements,
+                                 src_data_rank=None).to_local()
+        p.to_local().copy_(part)
+      else:
+        p.copy_(state[k])
   return model
+
+
+def full_state(model: torch.nn.Module) -> dict:
+  """{name: full tensor} of a model's parameters (a DTensor gathered)."""
+  from torch.distributed.tensor import DTensor
+  return {k: p.full_tensor() if isinstance(p, DTensor) else p
+          for k, p in model.named_parameters()}
 
 
 def numpy_init(cfg: Config, seed: int = 0) -> dict:

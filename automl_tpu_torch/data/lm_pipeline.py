@@ -5,8 +5,8 @@ pack_documents and PackedLMLoader, the prefix-LM packing (pack_prefix_lm,
 PrefixLMLoader), the SentencePiece reader (SentencePieceModel, which parses
 the ModelProto itself: no protobuf or sentencepiece import) and the chat
 loss masks. sentencepiece_model_proto writes a unigram ModelProto from
-pieces made in code. Not ported yet: select_local_batch (multi-process
-input, ROADMAP M10).
+pieces made in code. select_local_batch cuts a process's rows out of a
+global batch (multi-process input).
 """
 
 from __future__ import annotations
@@ -544,6 +544,30 @@ def sentencepiece_model_proto(pieces, normalizer_name: str = "identity",
 # ---------------------------------------------------------------------------
 # Chat loss masks.
 # ---------------------------------------------------------------------------
+
+
+def select_local_batch(batch: dict, process_index: int | None = None,
+                       num_processes: int | None = None) -> dict:
+  """Each array's leading (global-batch) dim cut to this process's share:
+  rows [i * B / n, (i + 1) * B / n). i and n default to the process's
+  rank and the world size; a mesh trainer passes its coordinate on the data
+  axes (parallel/distributed.py batch_coordinate)."""
+  if process_index is None or num_processes is None:
+    from automl_tpu_torch.parallel.distributed import (process_count,
+                                                       process_index as pi)
+    process_index = pi() if process_index is None else process_index
+    num_processes = (process_count() if num_processes is None
+                     else num_processes)
+
+  def pick(a):
+    b = a.shape[0]
+    if b % num_processes:
+      raise ValueError(f"global batch {b} does not split over "
+                       f"{num_processes} processes")
+    local = b // num_processes
+    return a[process_index * local:(process_index + 1) * local]
+
+  return {k: pick(np.asarray(v)) for k, v in batch.items()}
 
 
 def chat_loss_mask(token_ids: np.ndarray, mask_start_id: int,

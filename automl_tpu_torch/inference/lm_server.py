@@ -39,6 +39,16 @@ config with the flag set, so neither the caller's model nor its config
 changes. JAX rebuilds the model only to turn the kernel off, so its True
 cannot turn on a kernel that the config turned off; the port's can
 (ROADMAP Queue 3).
+
+Sharded serving (a model on a mesh, models/lm.py): serve_tp and serve_sp
+decode through the kernel whatever use_decode_kernel says, as in JAX.
+serve_tp's head-leading cache ([n_kv, B, hd, S], this rank's heads) takes
+the same prefix-template copies and slot writes along its batch dim 1.
+serve_sp rounds S up to a multiple of the 'model' axis; on an axis above
+1 each rank holds its own keys of the cache, so a prompt prefills straight
+into its slot's rows (one chunk of its bucket's length, through the
+chunked-prefill path) rather than through a group cache whose keys would
+sit on other ranks, and a shared prefix is prefilled with each prompt.
 """
 
 from __future__ import annotations
@@ -80,7 +90,9 @@ def _serving_model(model, use_decode_kernel: bool):
   memo = {id(p): nn.Parameter(p.data, requires_grad=p.requires_grad)
           for p in model.parameters()}
   served = copy.deepcopy(model, memo)
-  served.cfg.update(dict(use_decode_kernel=bool(use_decode_kernel)))
+  sharded = served.cfg.get("serve_tp") or served.cfg.get("serve_sp")
+  served.cfg.update(dict(use_decode_kernel=bool(use_decode_kernel
+                                                or sharded)))
   return served
 
 
@@ -101,6 +113,12 @@ class LMServer:
     self.model = model
     self.device = model.device
     self.B, self.S = int(max_batch), int(max_seq_len)
+    par = getattr(model, "par", None)
+    if getattr(model, "cfg", None) is not None:
+      self.S = model.cache_len(self.S)   # serve_sp: a shard multiple
+    # serve_sp with its keys split across ranks: prefill into the slots.
+    self._sp_split = bool(par is not None and par.model > 1
+                          and model.cfg.get("serve_sp"))
     self.want_logprobs = bool(want_logprobs)
     self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
     self.eos_id = eos_id
@@ -129,7 +147,14 @@ class LMServer:
     P, span, dev = prefix_len, prefix_len + bucket, self.device
     pos = (P + torch.arange(bucket, device=dev)).expand(group, bucket)
     kv_pos = torch.arange(span, device=dev).expand(group, span)
-    if P:
+    if P and tpl[0]["k"].ndim == 4:      # serve_tp: [n_kv, 1, hd, P]
+      tmp = tuple(
+          {"k": torch.cat([t["k"].expand(-1, group, -1, -1), t["k"].new_zeros(
+              (t["k"].shape[0], group, t["k"].shape[2], bucket))], dim=-1),
+           "v": torch.cat([t["v"].expand(-1, group, -1, -1), t["v"].new_zeros(
+              (t["v"].shape[0], group, bucket, t["v"].shape[3]))], dim=2)}
+          for t in tpl)
+    elif P:
       tmp = tuple(
           {"k": torch.cat([t["k"].repeat(group, 1, 1), t["k"].new_zeros(
               (group * t["k"].shape[0], t["k"].shape[1], bucket))], dim=-1),
@@ -145,6 +170,10 @@ class LMServer:
         continue
       n = P + true_len
       for big, t in zip(cache, tmp):
+        if big["k"].ndim == 4:            # serve_tp: slot = batch column
+          big["k"][:, slot, :, :n] = t["k"][:, g, :, :n]
+          big["v"][:, slot, :n] = t["v"][:, g, :n]
+          continue
         nkv = t["k"].shape[0] // group
         big["k"][slot * nkv:(slot + 1) * nkv, :, :n] = \
             t["k"][g * nkv:(g + 1) * nkv, :, :n]
@@ -175,6 +204,10 @@ class LMServer:
     write = torch.where(pos < true_end, pos, self.S)
     views = []
     for big in cache:
+      if big["k"].ndim == 4:              # serve_tp: slot = batch column
+        views.append({"k": big["k"][:, slot:slot + 1],
+                      "v": big["v"][:, slot:slot + 1]})
+        continue
       nkv = big["k"].shape[0] // self.B
       rows = slice(slot * nkv, (slot + 1) * nkv)
       views.append({"k": big["k"][rows], "v": big["v"][rows]})
@@ -270,9 +303,10 @@ class LMServer:
     if shared_prefix is not None:
       pfx = [int(t) for t in shared_prefix]
       tpl_p = len(pfx)
-      tpl, _ = self._template(torch.tensor([pfx], dtype=torch.int64,
-                                           device=dev))
-      self.timeline.append({"kind": "prefix", "len": tpl_p})
+      if not self._sp_split:
+        tpl, _ = self._template(torch.tensor([pfx], dtype=torch.int64,
+                                             device=dev))
+        self.timeline.append({"kind": "prefix", "len": tpl_p})
     eff_prompts = {}  # ridx -> prefix + own prompt
 
     def finalize(ridx):
@@ -327,7 +361,7 @@ class LMServer:
         ridx, req = queue.popleft()
         prompt = [int(t) for t in req.prompt]
         lp = len(prompt)
-        if tpl is not None and lp < 1:
+        if pfx is not None and lp < 1:
           raise ValueError(
               f"request {ridx}: shared_prefix serving needs at least one "
               "own prompt token per request")
@@ -336,9 +370,17 @@ class LMServer:
               f"request {ridx}: prefix ({tpl_p}) + prompt ({lp}) + "
               f"max_new_tokens ({req.max_new_tokens}) exceeds "
               f"max_seq_len ({S})")
+        if self._sp_split:
+          # The prefix (if any) prefills with the prompt, in one chunk.
+          full = (pfx or []) + prompt
+          if pfx is not None:
+            eff_prompts[ridx] = full
+          pending[b] = {"ridx": ridx, "req": req, "prompt": full,
+                        "start": 0, "chunk": self._bucket(len(full))}
+          continue
         if self.prefill_chunk and lp > self.prefill_chunk and tpl is None:
           pending[b] = {"ridx": ridx, "req": req, "prompt": prompt,
-                        "start": 0}
+                        "start": 0, "chunk": self.prefill_chunk}
           continue
         admits.setdefault(self._bucket(lp), []).append((b, ridx, req, prompt))
       for bucket in sorted(admits):
@@ -364,7 +406,7 @@ class LMServer:
       # behind a long prompt for more than one chunk.
       for b in sorted(pending):
         st = pending[b]
-        c = self.prefill_chunk
+        c = st["chunk"]
         lp, start = len(st["prompt"]), st["start"]
         piece = np.zeros((1, c), np.int64)
         n = min(c, lp - start)

@@ -23,6 +23,21 @@ module in the parameter's place, {qvalue, scale} as in the JAX tree. The
 module holds one TransformerBlock per layer where the JAX tree stacks them
 on a leading [L] axis.
 
+On a mesh (TransformerLM(cfg, sharding, mesh=...), parallel/mesh.py) the
+parameters are DTensors in the placements of the ShardingConfig's
+PartitionSpecs, gathered to full tensors where a layer uses them (their
+gradients summed over the ranks that split the tokens and cut back to the
+placements: parallel/comm.py gather_param). A rank's activations are its
+batch rows (the 'replica' x 'data' coordinate), and with ring attention
+active its chunk of the sequence on 'model'. Where the attention weights
+put heads on 'model', each rank attends with its own heads and the heads
+are gathered after; the rest of a block runs alike on the ranks of that
+axis. Serving shards the KV cache over heads (serve_tp: the head-leading
+cache and K4 head-major on each rank's heads) or over the sequence
+(serve_sp: K4's partials on each rank's keys, merged across the axis).
+Without a mesh, or with a 'model' axis of 1, each branch is the one-device
+path, as in JAX.
+
 Options of the JAX model that this package has not ported yet raise
 NotImplementedError naming their ROADMAP item.
 """
@@ -30,6 +45,7 @@ NotImplementedError naming their ROADMAP item.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -46,6 +62,10 @@ from automl_tpu_torch.models.beam import _top_k
 from automl_tpu_torch.ops import attention as attention_lib
 from automl_tpu_torch.ops import decode_attention as decode_attention_lib
 from automl_tpu_torch.ops import xent as xent_lib
+from automl_tpu_torch.ops import ring_attention as ring_lib
+from automl_tpu_torch.parallel import comm
+from automl_tpu_torch.parallel import mesh as mesh_lib
+from automl_tpu_torch.parallel.mesh import P
 
 ATTN_LOGIT_CAP = 50.0
 FINAL_LOGIT_CAP = 30.0
@@ -170,10 +190,7 @@ def get_lm_config(name: str = "") -> Config:
 # Options of the JAX model not ported yet, with the ROADMAP item that ports
 # each. A config that turns one on is refused rather than run another way.
 _UNPORTED = (
-    ("use_ring_attention", "M10 (ring attention)"),
-    ("use_pipeline", "M10 (pipeline parallelism)"),
-    ("serve_tp", "M10 (tensor-parallel serving, decode_attention_tp)"),
-    ("serve_sp", "M10 (sequence-parallel serving, decode_attention_sp)"),
+    ("use_pipeline", "M10, second half (GPipe pipeline parallelism)"),
 )
 
 
@@ -182,6 +199,129 @@ def _check_ported(cfg: Config):
     if cfg.get(key):
       raise NotImplementedError(
           f"{key} is not ported to automl_tpu_torch yet: ROADMAP {item}")
+  if cfg.get("serve_sp") and cfg.get("serve_tp"):
+    raise ValueError("serve_sp and serve_tp are mutually exclusive "
+                     "(shard the cache over heads OR sequence, not both)")
+
+
+# ---------------------------------------------------------------------------
+# Sharding.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+  """PartitionSpecs over the mesh axes ('replica', 'data', 'model'), JAX's
+  ShardingConfig: the default is its GSPMD layout; data_parallel,
+  sequence_parallel (pair with use_ring_attention) and fsdp (weights over
+  'data') are its other layouts."""
+  embed: P = P("model", "data")
+  attn_qkv: P = P("data", "model", None)     # [d, heads, head_dim]
+  attn_o: P = P("data", "model", None)
+  ffn0: P = P("data", "model")
+  ffn1: P = P("model", "data")
+  norm_scale: P = P()
+  activation: P = P(("replica", "data"), None, "model")
+  logits: P = P(("replica", "data"), None, "model")
+  cache: P = P(("replica", "data"), None, "model", None)
+
+  @classmethod
+  def data_parallel(cls):
+    none = P()
+    act = P(("replica", "data"), None, None)
+    return cls(embed=none, attn_qkv=none, attn_o=none, ffn0=none, ffn1=none,
+               norm_scale=none, activation=act, logits=act,
+               cache=P(("replica", "data"), None, None, None))
+
+  @classmethod
+  def sequence_parallel(cls):
+    none = P()
+    act = P(("replica", "data"), "model", None)
+    return cls(embed=none, attn_qkv=none, attn_o=none, ffn0=none, ffn1=none,
+               norm_scale=none, activation=act, logits=act,
+               cache=P(("replica", "data"), "model", None, None))
+
+  @classmethod
+  def fsdp(cls):
+    act = P(("replica", "data"), None, None)
+    return cls(embed=P("data", None),
+               attn_qkv=P("data", None, None),
+               attn_o=P("data", None, None),
+               ffn0=P("data", None),
+               ffn1=P("data", None),
+               norm_scale=P(),
+               activation=act, logits=act,
+               cache=P(("replica", "data"), None, None, None))
+
+
+def param_spec(name: str, sh: ShardingConfig, moe: bool = False) -> P:
+  """The PartitionSpec of a parameter (its name in named_parameters), as
+  the JAX model constrains the leaf at use: MoE experts over 'model' (JAX's
+  expert_spec); the router, per-dim scale and unembed unconstrained, and an
+  int8 weight's qvalue and scale replicated."""
+  parts = name.split(".")
+  leaf = parts[-1]
+  if leaf == "qvalue" or (leaf == "scale" and not parts[-2].endswith("norm")):
+    return P()
+  if leaf == "embed":
+    return sh.embed
+  if "attn" in parts:
+    return {"wq": sh.attn_qkv, "wk": sh.attn_qkv, "wv": sh.attn_qkv,
+            "wo": sh.attn_o, "wqkv": P(None, *sh.attn_qkv),
+            "wkv": P(None, *sh.attn_qkv)}.get(leaf, P())
+  if "ffn" in parts and leaf in ("w0", "wg", "w1"):
+    if moe:
+      return P("model", None, None)
+    return sh.ffn1 if leaf == "w1" else sh.ffn0
+  if leaf == "scale":
+    return sh.norm_scale
+  return P()
+
+
+class _Mesh:
+  """What the layers of a model on a mesh need to know of it: the mesh,
+  the token axes (those that split the tokens, over which gradients are
+  summed), whether ring attention splits the sequence on 'model', and
+  whether each rank of 'model' attends with its own heads."""
+
+  def __init__(self, mesh, sh: ShardingConfig, cfg: Config):
+    self.mesh = mesh
+    self.model = mesh_lib.axis_size(mesh, "model")
+    self.ring = bool(cfg.get("use_ring_attention")) and self.model > 1
+    self.token_axes = tuple(
+        a for a in ("replica", "data") + (("model",) if self.ring else ())
+        if mesh_lib.axis_size(mesh, a) > 1)
+    self.heads = (self.model > 1 and len(sh.attn_qkv) > 1
+                  and sh.attn_qkv[1] == "model")
+    self.rank = mesh.get_local_rank("model")
+
+  def __deepcopy__(self, memo):
+    return self      # a serving copy of the model shares the mesh
+
+
+def _w(p, par: Optional[_Mesh]):
+  """A parameter as the full tensor a layer multiplies by (gather_param on
+  a mesh; the parameter itself otherwise)."""
+  return comm.gather_param(p, par.token_axes) if par is not None else p
+
+
+def _head_parallel(fn, par: Optional[_Mesh], q, k, v, *rest):
+  """fn(q, k, v, *rest) -> [B, T, N, H]; on a mesh whose 'model' ranks
+  split the heads, each rank runs fn on its own q heads and kv heads and
+  the heads are gathered after (the gradients of q, k and v summed across
+  the axis, as each rank's covers its own heads)."""
+  if par is None or not par.heads:
+    return fn(q, k, v, *rest)
+  m, r = par.model, par.rank
+  n, n_kv = q.shape[2], k.shape[2]
+  if n % m or n_kv % m:
+    raise ValueError(f"n_heads ({n}) and n_kv_heads ({n_kv}) must be "
+                     f"divisible by mesh axis 'model' size {m}")
+  q, k, v = (comm.copy_to_axis(x, par.mesh, "model") for x in (q, k, v))
+  out = fn(q[:, :, r * n // m:(r + 1) * n // m],
+           k[:, :, r * n_kv // m:(r + 1) * n_kv // m],
+           v[:, :, r * n_kv // m:(r + 1) * n_kv // m], *rest)
+  return comm.gather_dim(out, par.mesh, "model", 2)
 
 
 # ---------------------------------------------------------------------------
@@ -239,15 +379,16 @@ class QuantizedWeight(nn.Module):
     self.scale = nn.Parameter(scale, requires_grad=False)
 
 
-def _maybe_dequant(w, dtype):
+def _maybe_dequant(w, dtype, par: Optional[_Mesh] = None):
   """The weight in `dtype`: qvalue * scale, each cast first, for an int8
-  weight (as JAX's _maybe_dequant), else w cast."""
+  weight (as JAX's _maybe_dequant), else w cast; on a mesh, gathered."""
   if isinstance(w, QuantizedWeight):
-    return w.qvalue.to(dtype) * w.scale.to(dtype)
-  return w.to(dtype)
+    return _w(w.qvalue, par).to(dtype) * _w(w.scale, par).to(dtype)
+  return _w(w, par).to(dtype)
 
 
-def _row_writes(cache_index, t: int, s_len: int, n_kv: int):
+def _row_writes(cache_index, t: int, s_len: int, n_kv: int,
+                head_major: bool = False):
   """Where a per-row cache write lands, without a host sync: (at, src, live)
   for the rank-3 cache's B * n_kv rows.
 
@@ -260,7 +401,8 @@ def _row_writes(cache_index, t: int, s_len: int, n_kv: int):
   (the same bits twice), and a row with no valid token writes position 0's
   own old value back. at [R, T] is each write's position, src [R, T] the
   token whose value it writes, live [R, 1, 1] whether the row has a valid
-  token (else the value is position 0's)."""
+  token (else the value is position 0's). head_major: the rows are
+  r = h*B + b (serve_tp's head-leading cache), else r = b*n_kv + h."""
   if cache_index.ndim == 1:
     pos = cache_index[:, None] + torch.arange(t, device=cache_index.device)
   else:
@@ -271,16 +413,21 @@ def _row_writes(cache_index, t: int, s_len: int, n_kv: int):
   src = torch.where(valid, torch.arange(t, device=pos.device), first)
   live = valid.any(dim=1, keepdim=True)
   at = torch.where(live, pos.gather(1, src), 0)
-  rows = lambda x: x.repeat_interleave(n_kv, dim=0)
+  if head_major:
+    rows = lambda x: x.repeat(n_kv, 1)
+  else:
+    rows = lambda x: x.repeat_interleave(n_kv, dim=0)
   return rows(at), rows(src), rows(live)[:, :, None]
 
 
-def _write_cache(kc, vc, k, v, cache_index):
+def _write_cache(kc, vc, k, v, cache_index, head_major: bool = False):
   """Writes k, v [B, T, n_kv, hd] into the rank-3 cache in place: at one
-  offset (an int), or per row (_row_writes' triple)."""
+  offset (an int), or per row (_row_writes' triple). head_major: rows
+  r = h*B + b, else r = b*n_kv + h."""
   b, t, n_kv, hd = k.shape
-  kr = k.permute(0, 2, 3, 1).reshape(b * n_kv, hd, t).to(kc.dtype)
-  vr = v.permute(0, 2, 1, 3).reshape(b * n_kv, t, hd).to(vc.dtype)
+  order = (2, 0) if head_major else (0, 2)
+  kr = k.permute(*order, 3, 1).reshape(b * n_kv, hd, t).to(kc.dtype)
+  vr = v.permute(*order, 1, 3).reshape(b * n_kv, t, hd).to(vc.dtype)
   if isinstance(cache_index, int):
     kc[:, :, cache_index:cache_index + t] = kr
     vc[:, cache_index:cache_index + t] = vr
@@ -303,9 +450,10 @@ def _write_cache(kc, vc, k, v, cache_index):
 class Attention(nn.Module):
   """Multi-head attention with GQA, RoPE, soft cap and the rank-3 KV cache."""
 
-  def __init__(self, cfg: Config, device=None):
+  def __init__(self, cfg: Config, device=None, par=None):
     super().__init__()
     self.cfg = cfg
+    self.par = par
     self.n_heads = cfg.n_heads
     self.n_kv = cfg.n_kv_heads
     self.head_dim = cfg.head_dim
@@ -325,16 +473,15 @@ class Attention(nn.Module):
       self.per_dim_scale = _param((hd,), torch.float32, device)
 
   def _qkv(self, x, adt):
+    w = lambda p: _maybe_dequant(p, adt, self.par)
     if hasattr(self, "wqkv"):
-      return torch.einsum("btd,cdnh->cbtnh", x,
-                          _maybe_dequant(self.wqkv, adt)).unbind(0)
-    q = torch.einsum("btd,dnh->btnh", x, _maybe_dequant(self.wq, adt))
+      return torch.einsum("btd,cdnh->cbtnh", x, w(self.wqkv)).unbind(0)
+    q = torch.einsum("btd,dnh->btnh", x, w(self.wq))
     if hasattr(self, "wkv"):
-      k, v = torch.einsum("btd,cdnh->cbtnh", x,
-                          _maybe_dequant(self.wkv, adt)).unbind(0)
+      k, v = torch.einsum("btd,cdnh->cbtnh", x, w(self.wkv)).unbind(0)
     else:
-      k = torch.einsum("btd,dnh->btnh", x, _maybe_dequant(self.wk, adt))
-      v = torch.einsum("btd,dnh->btnh", x, _maybe_dequant(self.wv, adt))
+      k = torch.einsum("btd,dnh->btnh", x, w(self.wk))
+      v = torch.einsum("btd,dnh->btnh", x, w(self.wv))
     return q, k, v
 
   def forward(self, x, positions, mask, cache=None, cache_index=None,
@@ -345,10 +492,10 @@ class Attention(nn.Module):
     written in place at cache_index: an int (every row at that offset), or
     _row_writes' triple for per-row positions (TransformerLM.forward makes
     it once for every layer). Returns (out [B, T, D], cache)."""
-    cfg = self.cfg
+    cfg, par = self.cfg, self.par
     adt = _dtype(cfg.activation_dtype)
     x = x.to(adt)
-    wo = _maybe_dequant(self.wo, adt)
+    wo = _maybe_dequant(self.wo, adt, par)
     q, k, v = self._qkv(x, adt)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -358,38 +505,54 @@ class Attention(nn.Module):
       r_softplus_0 = 1.442695041
       pds = torch.tensor(r_softplus_0 / math.sqrt(self.head_dim), dtype=adt)
       pds = pds.float() * torch.logaddexp(
-          self.per_dim_scale.float(), torch.zeros((), device=x.device))
+          _w(self.per_dim_scale, par).float(),
+          torch.zeros((), device=x.device))
       q = (q.float() * pds).to(adt)
     else:
       q = q * (self.head_dim ** -0.5)
+    project = lambda out: torch.einsum("bqnh,dnh->bqd", out.to(adt), wo)
 
     if cache is None:
       if mask is None and cfg.get("use_window_chunk") and \
           cfg.get("window_chunk_size"):
         # The two-chunk local attention, before the flash branch as in JAX:
         # with both options on, the chunk path runs.
-        kk, vv = self._repeat_kv(k), self._repeat_kv(v)
-        out = chunked_local_attn(q, kk, vv, positions,
-                                 int(cfg.window_chunk_size),
-                                 cfg.attn_logit_cap or 0.0,
-                                 segment_ids=segment_ids)
-        return torch.einsum("bqnh,dnh->bqd", out.to(adt), wo), None
+        def chunk(q, k, v):
+          return chunked_local_attn(q, self._repeat_kv(k), self._repeat_kv(v),
+                                    positions, int(cfg.window_chunk_size),
+                                    cfg.attn_logit_cap or 0.0,
+                                    segment_ids=segment_ids)
+        return project(_head_parallel(chunk, par, q, k, v)), None
+      if mask is None and par is not None and par.ring:
+        # Ring attention over the sequence chunks on 'model' (x holds this
+        # rank's chunk); a 'model' axis of 1 falls through, as in JAX.
+        out = ring_lib.ring_attention(
+            q, self._repeat_kv(k), self._repeat_kv(v), segment_ids,
+            mesh=par.mesh, axis_name="model", causal=True,
+            window=cfg.window_size, sm_scale=1.0,
+            logit_cap=cfg.attn_logit_cap or 0.0)
+        return project(out), None
       if mask is None:
         # TransformerLM passes mask=None exactly when a fused path
         # should mask by itself (JAX: uses_fused_mask).
-        out = attention_lib.flash_attention(
-            q, k, v, causal=True, window=cfg.window_size,
-            logit_cap=cfg.attn_logit_cap or 0.0, sm_scale=1.0,
-            segment_ids=segment_ids,
-            bwd_fused=bool(cfg.get("flash_bwd_fused", False)))
+        def flash(q, k, v):
+          return attention_lib.flash_attention(
+              q, k, v, causal=True, window=cfg.window_size,
+              logit_cap=cfg.attn_logit_cap or 0.0, sm_scale=1.0,
+              segment_ids=segment_ids,
+              bwd_fused=bool(cfg.get("flash_bwd_fused", False)))
+        out = _head_parallel(flash, par, q, k, v)
         if cfg.get("use_remat") and cfg.get("remat_policy") == "dots_attn":
           # JAX names the output checkpoint_name(out, "attn_out") for this
           # policy; here the name costs a copy, so it is made only where the
           # policy saves it.
           out = checkpoint_name(out, "attn_out")
-        return torch.einsum("bqnh,dnh->bqd", out.to(adt), wo), None
-      return self._dense(q, k, v, mask, wo, adt), None
+        return project(out), None
+      return project(_head_parallel(
+          lambda q, k, v: self._dense(q, k, v, mask, adt), par, q, k, v)), None
 
+    if cfg.get("serve_tp"):
+      return project(self._decode_tp(q, k, v, mask, cache, cache_index)), cache
     b, t = x.shape[0], x.shape[1]
     kc, vc = cache["k"], cache["v"]
     s_len = kc.shape[-1]
@@ -398,12 +561,27 @@ class Attention(nn.Module):
     # Written in place: the JAX model returns a new cache, the port keeps
     # one copy of it on the device.
     _write_cache(kc, vc, k, v, cache_index)
+    if cfg.get("serve_sp"):
+      # Sequence-parallel serving: this rank's keys of the cache (the
+      # writes above were cut to them: TransformerLM.forward).
+      if not cfg.get("use_decode_kernel", True):
+        raise ValueError("serve_sp requires use_decode_kernel=True")
+      cap = cfg.attn_logit_cap or 0.0
+      if par is not None and par.model > 1:
+        out = decode_attention_lib.decode_attention_sp(
+            q, kc, vc, mask.contiguous(), par.mesh, n_kv_heads=self.n_kv,
+            logit_cap=cap, local=True)
+      else:   # one shard is the whole sequence
+        out = decode_attention_lib.decode_attention(
+            q, kc, vc, mask.contiguous(), n_kv_heads=self.n_kv,
+            logit_cap=cap)
+      return project(out), cache
     if cfg.get("use_decode_kernel", True) and \
         s_len >= int(cfg.get("decode_kernel_min_s", 768) or 0):
       out = decode_attention_lib.decode_attention(
           q, kc, vc, mask.contiguous(), n_kv_heads=self.n_kv,
           logit_cap=cfg.attn_logit_cap or 0.0)
-      return torch.einsum("bqnh,dnh->bqd", out.to(adt), wo), cache
+      return project(out), cache
 
     # Plain rank-3 batched dots below the gate (masked with -1e9, as the
     # JAX model's dots path; the kernel masks with -1e30).
@@ -423,6 +601,40 @@ class Attention(nn.Module):
     out = out.reshape(b, self.n_heads, t, self.head_dim).permute(0, 2, 1, 3)
     return torch.einsum("bqnh,dnh->bqd", out, wo), cache
 
+  def _decode_tp(self, q, k, v, mask, cache, cache_index):
+    """Tensor-parallel serving: the head-leading cache k [n_kv, B, hd, S],
+    v [n_kv, B, S, hd] (this rank's n_kv / m heads on a mesh), written in
+    place, then K4 head-major on the rank's heads (decode_attention_tp)."""
+    cfg, par = self.cfg, self.par
+    if not cfg.get("use_decode_kernel", True):
+      raise ValueError("serve_tp requires use_decode_kernel=True")
+    kc, vc = cache["k"], cache["v"]
+    n_kv_l, b = kc.shape[0], kc.shape[1]
+    m = par.model if par is not None else 1
+    if m > 1:     # init_cache made this rank's heads: n_kv_l = n_kv / m
+      k = k[:, :, par.rank * n_kv_l:(par.rank + 1) * n_kv_l]
+      v = v[:, :, par.rank * n_kv_l:(par.rank + 1) * n_kv_l]
+    # The rank-3 head-major view the kernel reads; a slot's view of the
+    # cache (LMServer's chunked prefill) is strided: written through a
+    # copy, copied back.
+    whole = kc.is_contiguous() and vc.is_contiguous()
+    k3 = kc.contiguous().view(n_kv_l * b, self.head_dim, kc.shape[-1])
+    v3 = vc.contiguous().view(n_kv_l * b, vc.shape[2], self.head_dim)
+    if not isinstance(cache_index, tuple):
+      cache_index = int(cache_index)
+    _write_cache(k3, v3, k, v, cache_index, head_major=True)
+    if not whole:
+      kc.copy_(k3.view(kc.shape))
+      vc.copy_(v3.view(vc.shape))
+    cap = self.cfg.attn_logit_cap or 0.0
+    if m > 1:
+      return decode_attention_lib.decode_attention_tp(
+          q, k3.view(kc.shape), v3.view(vc.shape), mask.contiguous(),
+          par.mesh, n_kv_heads=self.n_kv, logit_cap=cap, local=True)
+    return decode_attention_lib.decode_attention(
+        q, k3, v3, mask.contiguous(), n_kv_heads=self.n_kv, logit_cap=cap,
+        layout="head_major")
+
   def _cap(self, logits):
     cap = self.cfg.attn_logit_cap
     if cap:
@@ -431,18 +643,16 @@ class Attention(nn.Module):
 
   def _repeat_kv(self, x):
     """[B, T, n_kv, hd] -> [B, T, n, hd] (GQA: each kv head repeated)."""
-    if self.n_kv == self.n_heads:
-      return x
-    return x.repeat_interleave(self.n_heads // self.n_kv, dim=2)
+    rep = self.n_heads // self.n_kv
+    return x if rep == 1 else x.repeat_interleave(rep, dim=2)
 
-  def _dense(self, q, k, v, mask, wo, adt):
+  def _dense(self, q, k, v, mask, adt):
     """The no-cache path: dense softmax attention over [B, T, T]."""
     k, v = self._repeat_kv(k), self._repeat_kv(v)
     logits = self._cap(torch.einsum("bqnh,bknh->bnqk", q, k.to(q.dtype)))
     logits = logits.masked_fill(~mask[:, None], -1e9)
     probs = torch.softmax(logits, dim=-1).to(adt)
-    out = torch.einsum("bnqk,bknh->bqnh", probs, v.to(adt))
-    return torch.einsum("bqnh,dnh->bqd", out, wo)
+    return torch.einsum("bnqk,bknh->bqnh", probs, v.to(adt))
 
 
 def chunked_local_attn(q, k, v, positions, window_chunk_size: int,
@@ -500,23 +710,25 @@ def chunked_local_attn(q, k, v, positions, window_chunk_size: int,
 class RMSNorm(nn.Module):
   """normed(x) * (1 + scale), in f32, eps 1e-6."""
 
-  def __init__(self, dim: int, device=None):
+  def __init__(self, dim: int, device=None, par=None):
     super().__init__()
+    self.par = par
     self.scale = _param((dim,), torch.float32, device)
 
   def forward(self, x):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + 1e-6)
-    return (normed * (1.0 + self.scale)).to(x.dtype)
+    return (normed * (1.0 + _w(self.scale, self.par))).to(x.dtype)
 
 
 class FFN(nn.Module):
   """Gated FFN: (silu(x wg) * x w0) w1; ungated: silu(x w0) w1."""
 
-  def __init__(self, cfg: Config, device=None):
+  def __init__(self, cfg: Config, device=None, par=None):
     super().__init__()
     self.cfg = cfg
+    self.par = par
     d = cfg.model_dim
     hidden = cfg.expand_factor * d
     dt = _dtype(cfg.param_dtype)
@@ -528,12 +740,13 @@ class FFN(nn.Module):
   def forward(self, x):
     adt = _dtype(self.cfg.activation_dtype)
     x = x.to(adt)
-    h = x @ _maybe_dequant(self.w0, adt)
+    w = lambda p: _maybe_dequant(p, adt, self.par)
+    h = x @ w(self.w0)
     if self.cfg.use_gated_ffn:
-      h = F.silu(x @ _maybe_dequant(self.wg, adt)) * h
+      h = F.silu(x @ w(self.wg)) * h
     else:
       h = F.silu(h)
-    return h @ _maybe_dequant(self.w1, adt)
+    return h @ w(self.w1)
 
 
 class MoEFFN(nn.Module):
@@ -557,9 +770,10 @@ class MoEFFN(nn.Module):
   expert, the gated sum of the k slots in f32, cast to the activation
   dtype."""
 
-  def __init__(self, cfg: Config, device=None):
+  def __init__(self, cfg: Config, device=None, par=None):
     super().__init__()
     self.cfg = cfg
+    self.par = par
     d = cfg.model_dim
     hidden = cfg.expand_factor * d
     e = self.num_experts = int(cfg.moe_num_experts)
@@ -585,7 +799,7 @@ class MoEFFN(nn.Module):
     [B, T, D]."""
     xf = x.reshape(-1, x.shape[-1])
     with _full_f32_matmul():
-      logits = xf.float() @ self.router.float()
+      logits = xf.float() @ _w(self.router, self.par).float()
     probs = torch.softmax(logits, dim=-1)
     gates, idx = _top_k(probs, self.top_k)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -627,12 +841,13 @@ class MoEFFN(nn.Module):
     x_slots = torch.cat([x_slots, x_slots.new_zeros(1, d)])
     expert_in = x_slots[src].reshape(groups, e, capacity, d)
     expert_in = expert_in.transpose(0, 1).reshape(e, groups * capacity, d)
-    h = torch.bmm(expert_in, _maybe_dequant(self.w0, adt))
+    w = lambda p: _maybe_dequant(p, adt, self.par)
+    h = torch.bmm(expert_in, w(self.w0))
     if self.cfg.use_gated_ffn:
-      h = F.silu(torch.bmm(expert_in, _maybe_dequant(self.wg, adt))) * h
+      h = F.silu(torch.bmm(expert_in, w(self.wg))) * h
     else:
       h = F.silu(h)
-    out_e = torch.bmm(h, _maybe_dequant(self.w1, adt))   # [E, G*C, D]
+    out_e = torch.bmm(h, w(self.w1))   # [E, G*C, D]
     out_e = out_e.reshape(e, groups, capacity, d).transpose(0, 1)
     out_e = torch.cat([out_e.reshape(n_rows, d).float(),
                        out_e.new_zeros(1, d, dtype=torch.float32)])
@@ -643,16 +858,16 @@ class MoEFFN(nn.Module):
 
 class TransformerBlock(nn.Module):
 
-  def __init__(self, cfg: Config, device=None):
+  def __init__(self, cfg: Config, device=None, par=None):
     super().__init__()
     d = cfg.model_dim
-    self.attn = Attention(cfg, device)
+    self.attn = Attention(cfg, device, par)
     self.is_moe = bool(cfg.get("moe_num_experts"))
-    self.ffn = MoEFFN(cfg, device) if self.is_moe else FFN(cfg, device)
-    self.pre_attn_norm = RMSNorm(d, device)
-    self.pre_ffn_norm = RMSNorm(d, device)
-    self.post_attn_norm = RMSNorm(d, device) if cfg.use_post_ln else None
-    self.post_ffn_norm = RMSNorm(d, device) if cfg.use_post_ln else None
+    self.ffn = (MoEFFN if self.is_moe else FFN)(cfg, device, par)
+    self.pre_attn_norm = RMSNorm(d, device, par)
+    self.pre_ffn_norm = RMSNorm(d, device, par)
+    self.post_attn_norm = RMSNorm(d, device, par) if cfg.use_post_ln else None
+    self.post_ffn_norm = RMSNorm(d, device, par) if cfg.use_post_ln else None
 
   def forward(self, x, positions, mask, cache=None, cache_index=None,
               segment_ids=None):
@@ -749,23 +964,60 @@ class TransformerLM(nn.Module):
   """forward(tokens, ...) -> (logits, cache).
 
   Parameters are allocated empty; load them from a JAX-layout tree with
-  convert.load_jax_params."""
+  convert.load_jax_params. With a mesh (parallel/mesh.py create_mesh) each
+  parameter is a DTensor in the placements of its PartitionSpec under
+  `sharding` (default: the data-parallel layout, JAX's default without a
+  mesh; param_spec), on the mesh's device."""
 
-  def __init__(self, cfg: Config, device=None):
+  def __init__(self, cfg: Config, sharding: Optional[ShardingConfig] = None,
+               device=None, mesh=None):
     super().__init__()
     _check_ported(cfg)
     self.cfg = cfg
+    self.sh = sharding or ShardingConfig.data_parallel()
+    self.mesh = mesh
+    par = self.par = _Mesh(mesh, self.sh, cfg) if mesh is not None else None
+    if par is not None:
+      device = torch.device(mesh.device_type, torch.cuda.current_device()
+                            if mesh.device_type == "cuda" else None)
+      if cfg.get("moe_num_experts") and (par.model > 1 or par.token_axes):
+        raise NotImplementedError(
+            "MoE on a mesh that splits the tokens or whose 'model' axis is "
+            "above 1 is expert parallelism (with its dp x EP routing "
+            "groups): not ported to automl_tpu_torch yet: ROADMAP M10, "
+            "second half")
     dt = _dtype(cfg.param_dtype)
     self.embed = _param((cfg.vocab_size, cfg.model_dim), dt, device)
-    self.blocks = nn.ModuleList(TransformerBlock(cfg, device)
+    self.blocks = nn.ModuleList(TransformerBlock(cfg, device, par)
                                 for _ in range(cfg.n_layers))
-    self.final_norm = RMSNorm(cfg.model_dim, device)
+    self.final_norm = RMSNorm(cfg.model_dim, device, par)
     if not cfg.tie_embeddings:
       self.unembed = _param((cfg.model_dim, cfg.vocab_size), dt, device)
+    if mesh is not None:
+      self._place()
+
+  def _place(self):
+    """Every parameter -> a DTensor in its PartitionSpec's placements."""
+    moe = bool(self.cfg.get("moe_num_experts"))
+    for name, p in list(self.named_parameters()):
+      owner_name, _, attr = name.rpartition(".")
+      owner = self.get_submodule(owner_name) if owner_name else self
+      spec = param_spec(name, self.sh, moe)
+      setattr(owner, attr, nn.Parameter(
+          mesh_lib.distribute(p.data, self.mesh, spec),
+          requires_grad=p.requires_grad))
+
+  def param_placements(self) -> dict:
+    """{name: PartitionSpec} of every parameter (P() without a mesh)."""
+    from torch.distributed.tensor import DTensor
+    return {name: (mesh_lib.pspec_of(self.mesh, p.placements, p.ndim)
+                   if isinstance(p, DTensor) else P())
+            for name, p in self.named_parameters()}
 
   @property
   def device(self) -> torch.device:
-    return self.final_norm.scale.device
+    scale = self.final_norm.scale
+    return scale.to_local().device if self.mesh is not None else scale.device
 
   def forward(self, tokens, positions=None, segment_ids=None, cache=None,
               cache_index=None, kv_positions=None, causal_attention=None,
@@ -779,24 +1031,44 @@ class TransformerLM(nn.Module):
     final-normed hidden states [B, T, D] in place of the logits; with
     return_aux, a third value: the layers' summed MoE load-balance loss
     (0 for dense FFNs, and with a cache, as in JAX)."""
-    cfg = self.cfg
+    cfg, par = self.cfg, self.par
     adt = _dtype(cfg.activation_dtype)
     b, t = tokens.shape
+    # With ring attention on a 'model' axis above 1 (and no cache), tokens
+    # are this rank's chunk of the sequence: positions are global.
+    ring = par is not None and par.ring and cache is None
     if positions is None:
-      positions = torch.arange(t, device=tokens.device).expand(b, t)
+      start = par.rank * t if ring else 0
+      positions = (start + torch.arange(t, device=tokens.device)).expand(b, t)
     if kv_positions is None:
       kv_positions = positions
+    if ring and causal_attention is not None:
+      raise NotImplementedError(
+          "prefix-LM masks under ring attention (the mask spans the whole "
+          "sequence) are not ported to automl_tpu_torch yet: ROADMAP M10, "
+          "second half")
+    if cache is not None and par is not None and par.ring and \
+        not cfg.get("ring_decode_fallback") and not cfg.get("serve_sp"):
+      raise NotImplementedError(
+          "use_ring_attention with a KV cache: set serve_sp=True for "
+          "sequence-parallel decode (the cache IS sequence-sharded over "
+          "'model' and per-shard softmax partials are merged — "
+          "ops/decode_attention.py decode_attention_sp). Alternatives: "
+          "decode on a data-parallel mesh (model axis = 1), or set "
+          "ring_decode_fallback=True to accept dense-attention decode "
+          "with a replicated cache.")
     if isinstance(self.embed, QuantizedWeight):
       # int8: the rows are gathered first and only they are dequantised.
-      x = (self.embed.qvalue[tokens].to(adt) * self.embed.scale.to(adt)
-           ) * (cfg.model_dim ** 0.5)
+      x = (_w(self.embed.qvalue, par)[tokens].to(adt)
+           * _w(self.embed.scale, par).to(adt)) * (cfg.model_dim ** 0.5)
     else:
-      x = F.embedding(tokens, self.embed).to(adt) * (cfg.model_dim ** 0.5)
-    # The flash kernel and the chunked local attention mask by themselves
-    # (causal, window, segments); a prefix-LM mask or a cache takes the
-    # materialised mask (JAX: uses_fused_mask).
+      x = F.embedding(tokens, _w(self.embed, par)).to(adt) * (
+          cfg.model_dim ** 0.5)
+    # The flash kernel, the ring and the chunked local attention mask by
+    # themselves (causal, window, segments); a prefix-LM mask or a cache
+    # takes the materialised mask (JAX: uses_fused_mask).
     uses_fused_mask = causal_attention is None and cache is None and bool(
-        cfg.get("use_flash_attention")
+        ring or cfg.get("use_flash_attention")
         or (cfg.get("use_window_chunk") and cfg.get("window_chunk_size")))
     mask = None if uses_fused_mask else causal_mask(
         positions, kv_positions, cfg.window_size, segment_ids, segment_ids,
@@ -810,11 +1082,8 @@ class TransformerLM(nn.Module):
     if remat and (policy := _remat_policy(cfg)) is not None:
       remat_kw["context_fn"] = functools.partial(
           torch.utils.checkpoint.create_selective_checkpoint_contexts, policy)
-    if (cache is not None and torch.is_tensor(cache_index)
-        and cache_index.ndim >= 1):
-      # Where each row's tokens land: once for every layer.
-      cache_index = _row_writes(cache_index, t, cache[0]["k"].shape[-1],
-                                cfg.n_kv_heads)
+    if cache is not None:
+      mask, cache_index = self._cache_writes(mask, cache, cache_index, t)
     new_caches = []
     aux = None
     for i, block in enumerate(self.blocks):
@@ -839,18 +1108,65 @@ class TransformerLM(nn.Module):
       aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return out, new_cache, aux
 
+  def _cache_writes(self, mask, cache, cache_index, t: int):
+    """(mask, cache_index) as the layers take them: the per-row writes of a
+    tensor cache_index made once for every layer (_row_writes), in the
+    cache's row order; under serve_sp on a mesh, the mask cut to this
+    rank's keys and every write shifted to them (a write to another rank's
+    key is dropped)."""
+    cfg, par = self.cfg, self.par
+    k0 = cache[0]["k"]
+    s_len, n_kv, head_major = k0.shape[-1], cfg.n_kv_heads, False
+    if cfg.get("serve_tp"):
+      n_kv, head_major = k0.shape[0], True
+    if cfg.get("serve_sp") and par is not None and par.model > 1:
+      start = par.rank * s_len
+      mask = mask[..., start:start + s_len]
+      b = mask.shape[0]
+      if not torch.is_tensor(cache_index):
+        cache_index = torch.full((b,), int(cache_index),
+                                 device=mask.device)
+      cache_index = cache_index - start
+    if torch.is_tensor(cache_index) and cache_index.ndim >= 1:
+      cache_index = _row_writes(cache_index, t, s_len, n_kv, head_major)
+    return mask, cache_index
+
   def init_cache(self, batch_size: int, max_len: int):
-    """Per-layer KV cache tuple of {k: [B*n_kv, hd, S], v: [B*n_kv, S, hd]}
-    in the activation dtype, row r = b*n_kv + head."""
-    cfg = self.cfg
+    """Per-layer KV cache tuple in the activation dtype: {k: [B*n_kv, hd,
+    S], v: [B*n_kv, S, hd]}, row r = b*n_kv + head. serve_tp: the
+    head-leading {k: [n_kv, B, hd, S], v: [n_kv, B, S, hd]}, on a mesh this
+    rank's n_kv / m heads ('model' of size m); serve_sp on a mesh: this
+    rank's S / m keys (max_len a multiple of m, as greedy_generate and
+    LMServer allocate it)."""
+    cfg, par = self.cfg, self.par
     dt = _dtype(cfg.activation_dtype)
-    rows = batch_size * cfg.n_kv_heads
-    return tuple(
-        {"k": torch.zeros((rows, cfg.head_dim, max_len), dtype=dt,
-                          device=self.device),
-         "v": torch.zeros((rows, max_len, cfg.head_dim), dtype=dt,
-                          device=self.device)}
-        for _ in range(cfg.n_layers))
+    m = par.model if par is not None else 1
+    hd, n_kv = cfg.head_dim, cfg.n_kv_heads
+    if cfg.get("serve_tp"):
+      if n_kv % m or cfg.n_heads % m:
+        raise ValueError(
+            f"serve_tp: n_heads ({cfg.n_heads}) and n_kv_heads ({n_kv}) "
+            f"must be divisible by mesh axis 'model' size {m}")
+      shapes = ((n_kv // m, batch_size, hd, max_len),
+                (n_kv // m, batch_size, max_len, hd))
+    else:
+      if cfg.get("serve_sp") and max_len % m:
+        raise ValueError(f"serve_sp: the cache length {max_len} is not a "
+                         f"multiple of mesh axis 'model' size {m}")
+      s_len = max_len // m if cfg.get("serve_sp") else max_len
+      rows = batch_size * n_kv
+      shapes = ((rows, hd, s_len), (rows, s_len, hd))
+    return tuple({"k": torch.zeros(shapes[0], dtype=dt, device=self.device),
+                  "v": torch.zeros(shapes[1], dtype=dt, device=self.device)}
+                 for _ in range(cfg.n_layers))
+
+  def cache_len(self, total: int) -> int:
+    """The cache length to allocate for `total` positions: under serve_sp
+    on a mesh, rounded up to a multiple of the 'model' axis, so that the
+    sharded cache never needs padding (the extra keys lie in the future
+    and stay masked)."""
+    m = self.par.model if self.par is not None else 1
+    return -(-total // m) * m if self.cfg.get("serve_sp") else total
 
 
 def cast_lm_params_for_serving(model: TransformerLM) -> TransformerLM:
@@ -887,7 +1203,8 @@ def quantize_lm_params(model: TransformerLM, min_size: int = 1 << 12):
     if (isinstance(owner, QuantizedWeight) or attr == "router"
         or p.ndim < 2 or p.numel() < min_size):
       continue
-    w = p.detach().float()
+    # On a mesh the int8 weight is whole on every rank (replicated).
+    w = (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().float()
     scale = (w.abs().amax(dim=tuple(range(w.ndim - 1)), keepdim=True)
              / 127.0).clamp_min(1e-8)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
@@ -943,7 +1260,8 @@ def _unembed_weight(model: TransformerLM, dtype):
   """The unembedding ([V, d] embed when tied, else [d, V] unembed): an int8
   one dequantised to `dtype`, a float one as it is."""
   w = model.embed if model.cfg.tie_embeddings else model.unembed
-  return _maybe_dequant(w, dtype) if isinstance(w, QuantizedWeight) else w
+  return (_maybe_dequant(w, dtype, model.par)
+          if isinstance(w, QuantizedWeight) else _w(w, model.par))
 
 
 def unembed_logits(model: TransformerLM, x):
@@ -1021,7 +1339,8 @@ def lm_loss_fused_pallas(model: TransformerLM, x, targets, loss_weights=None):
   cfg = model.cfg
   tied = bool(cfg.tie_embeddings)
   return xent_lib.fused_softmax_xent(
-      x, model.embed if tied else model.unembed, targets, loss_weights,
+      x, _w(model.embed if tied else model.unembed, model.par), targets,
+      loss_weights,
       tied=tied, logit_cap=float(cfg.final_logit_cap or 0.0),
       block_m=int(cfg.get("loss_block_m", 1024) or 1024),
       block_v=int(cfg.get("loss_block_v", 1024) or 1024))
@@ -1142,8 +1461,9 @@ def greedy_generate(model: TransformerLM, prompt_tokens, max_new_tokens: int,
   device = prompt_tokens.device
   stops = (_pack_stops(stop_sequences, device) if stop_sequences else None)
   early_exit = eos_id is not None or stops is not None
-  cache = model.init_cache(b, total)
-  kv_pos = torch.arange(total, device=device).expand(b, total)
+  s_alloc = model.cache_len(total)
+  cache = model.init_cache(b, s_alloc)
+  kv_pos = torch.arange(s_alloc, device=device).expand(b, s_alloc)
   logits, cache = model(prompt_tokens,
                         positions=torch.arange(t0, device=device).expand(b, t0),
                         cache=cache, cache_index=0, kv_positions=kv_pos)

@@ -379,7 +379,7 @@ def apply_bn_updates(updates: dict) -> None:
 def build_norm(channels: int, norm_type: str = "bn", momentum=0.99,
                epsilon=1e-3, gamma_init_value: float = 1.0, device=None):
   """Norm selector: "bn" / "syncbn" / "tpu_bn" -> BatchNorm (one device:
-  the grouped cross-replica moments are ROADMAP M10); "gn" -> GroupNorm
+  the grouped cross-replica moments are ROADMAP M10, second half); "gn" -> GroupNorm
   (8 groups; momentum and gamma_init_value unused, as in JAX)."""
   if norm_type in ("bn", "syncbn", "tpu_bn"):
     return BatchNorm(channels, momentum, epsilon, gamma_init_value,

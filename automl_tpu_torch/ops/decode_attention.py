@@ -346,3 +346,111 @@ def decode_attention(q, k_cache, v_cache, mask, *, n_kv_heads: int,
 decode_attention.launches = 0
 decode_attention.launches_sm90 = 0
 decode_attention.launches_simt = 0
+
+
+# ---------------------------------------------------------------------------
+# Sharded decode attention (JAX's decode_attention_tp / _sp): the kernel on
+# each rank's shard of the cache, around it the collectives of the 'model'
+# axis. A CUDA shard launches the kernel or raises, as decode_attention.
+# ---------------------------------------------------------------------------
+
+
+def merge_partials(out, m, l, reduce_max, reduce_sum):
+  """Merges online-softmax partials of disjoint key sets:
+  m* = max_i m_i, w_i = l_i exp(m_i - m*),
+  out = sum_i w_i out_i / max(sum_i w_i, 1e-30), in out's dtype.
+
+  out [..., H] and m, l [...] are one shard's (or a stack of shards');
+  reduce_max / reduce_sum reduce a tensor over the shards: all-reduces
+  across ranks, or reductions over a stacked dim (keepdim). A shard with
+  no live key has l = 0 and weighs nothing; where no shard has one, the
+  result is 0."""
+  m_star = reduce_max(m)
+  w = l * torch.exp(m - m_star)
+  num = reduce_sum(w[..., None] * out.float())
+  den = reduce_sum(w)
+  return (num / torch.clamp(den[..., None], min=1e-30)).to(out.dtype)
+
+
+def _is_dtensor(x) -> bool:
+  from torch.distributed.tensor import DTensor
+  return isinstance(x, DTensor)
+
+
+def _local_part(x):
+  return x.to_local() if _is_dtensor(x) else x
+
+
+def decode_attention_tp(q, k_cache, v_cache, mask, mesh, *, n_kv_heads: int,
+                        logit_cap: float = 0.0, axis: str = "model",
+                        local: bool = False):
+  """Tensor-parallel decode attention: heads sharded over a mesh axis.
+
+  q: [B, T, N, H], the same on every rank. k_cache [n_kv, B, H, S] and
+  v_cache [n_kv, B, S, H]: the head-leading cache (TransformerLM.init_cache
+  with serve_tp), dim 0 over `axis`: with local=True (or DTensors) this
+  rank's shard of n_kv / m heads, else the whole cache, of which the rank
+  takes its heads. mask [B, T, S], the same on every rank. Each rank runs
+  the kernel in its head-major layout (row r = h*B + b) on its own heads,
+  and the heads are gathered across the axis: no key moves between ranks.
+  Returns [B, T, N, H] on every rank. Requires n_heads % m == 0 and
+  n_kv % m == 0 (m the axis's size), as in JAX."""
+  from automl_tpu_torch.parallel import comm
+  b, t, n, h = q.shape
+  ax = mesh.mesh_dim_names.index(axis)
+  m, r = mesh.size(ax), mesh.get_local_rank(axis)
+  if n % m or n_kv_heads % m:
+    raise ValueError(
+        f"serve_tp: n_heads ({n}) and n_kv_heads ({n_kv_heads}) must be "
+        f"divisible by mesh axis '{axis}' size {m}")
+  nkv_l, n_l = n_kv_heads // m, n // m
+  k_l, v_l = _local_part(k_cache), _local_part(v_cache)
+  if not local and not _is_dtensor(k_cache):
+    k_l, v_l = k_l[r * nkv_l:(r + 1) * nkv_l], v_l[r * nkv_l:(r + 1) * nkv_l]
+  q_l = q[:, :, r * n_l:(r + 1) * n_l]
+  out = decode_attention(
+      q_l, k_l.reshape(nkv_l * b, h, k_l.shape[-1]),
+      v_l.reshape(nkv_l * b, v_l.shape[2], h), mask, n_kv_heads=nkv_l,
+      logit_cap=logit_cap, layout="head_major")
+  if m == 1:
+    return out
+  return comm._all_gather(out, mesh, axis, dim=2)
+
+
+def decode_attention_sp(q, k_cache, v_cache, mask, mesh, *, n_kv_heads: int,
+                        logit_cap: float = 0.0, axis: str = "model",
+                        local: bool = False):
+  """Sequence-parallel decode attention: the cache sharded over S.
+
+  q [B, T, N, H], the same on every rank. k_cache [B*n_kv, H, S], v_cache
+  [B*n_kv, S, H] and mask [B, T, S], S over `axis`: with local=True (or
+  DTensors) this rank's S / m keys, else the whole arrays, padded to a
+  multiple of m with masked keys and cut to the rank's slice. Each rank
+  runs the kernel with return_stats on its keys; merge_partials combines
+  the shards with all-reduces (max, then sums). A shard with no live key
+  weighs nothing; with none anywhere the output is 0, not NaN. Returns
+  [B, T, N, H] on every rank."""
+  from automl_tpu_torch.parallel import comm
+  ax = mesh.mesh_dim_names.index(axis)
+  m, r = mesh.size(ax), mesh.get_local_rank(axis)
+  k_l, v_l, mask_l = (_local_part(x) for x in (k_cache, v_cache, mask))
+  if not local and not _is_dtensor(k_cache):
+    s = k_l.shape[-1]
+    s_pad = -(-s // m) * m
+    if s_pad != s:
+      k_l = torch.nn.functional.pad(k_l, (0, s_pad - s))
+      v_l = torch.nn.functional.pad(v_l, (0, 0, 0, s_pad - s))
+      mask_l = torch.nn.functional.pad(mask_l, (0, s_pad - s))
+    s_l = s_pad // m
+    k_l = k_l[..., r * s_l:(r + 1) * s_l].contiguous()
+    v_l = v_l[:, r * s_l:(r + 1) * s_l].contiguous()
+    mask_l = mask_l[..., r * s_l:(r + 1) * s_l].contiguous()
+  out, mx, l = decode_attention(q, k_l, v_l, mask_l, n_kv_heads=n_kv_heads,
+                                logit_cap=logit_cap, return_stats=True)
+
+  def reduce(op):
+    return lambda x: comm.all_reduce(x.contiguous().clone(), mesh, (axis,),
+                                     op)
+
+  return merge_partials(out, mx, l, reduce(torch.distributed.ReduceOp.MAX),
+                        reduce(torch.distributed.ReduceOp.SUM))

@@ -12,6 +12,11 @@ checkpoint by an eval objective. saved_params reads the parameters (or
 their EMA) of one step for inference. The JAX package's orbax checkpoints
 are OCDBT stores of zarr chunks, which need tensorstore: they are refused
 (refuse_orbax, ROADMAP M9's orbax item).
+
+On a mesh (the LM trainer's), state_for_save gathers the full tensors on
+every rank, rank 0 alone writes the same state.pt as a one-process run,
+and every rank waits at a barrier; restore cuts the full tensors to each
+rank's parts. So a checkpoint resumes on any mesh shape, or on none.
 """
 
 from __future__ import annotations
@@ -22,8 +27,59 @@ import time
 from typing import Iterator, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _FILE = "state.pt"
+
+
+def _rank() -> int:
+  return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier():
+  if dist.is_initialized() and dist.get_world_size() > 1:
+    dist.barrier()
+
+
+def map_named(tree, params: dict, fn):
+  """tree with fn(leaf, params[name]) at each tensor under a dict key that
+  names a parameter (an optimizer state's per-parameter leaves); every
+  other leaf as it is."""
+  if isinstance(tree, dict):
+    return {k: (fn(v, params[k]) if torch.is_tensor(v) and k in params
+                else map_named(v, params, fn)) for k, v in tree.items()}
+  if isinstance(tree, (tuple, list)):
+    return type(tree)(map_named(v, params, fn) for v in tree)
+  return tree
+
+
+def _full(local, p):
+  """The full tensor of `local`, placed as DTensor parameter p."""
+  if isinstance(local, DTensor):
+    return local.full_tensor()
+  return DTensor.from_local(local, p.device_mesh, p.placements,
+                            shape=p.shape, stride=p.stride(),
+                            run_check=False).full_tensor()
+
+
+def _part(full, p):
+  """This rank's part of a full tensor, placed as DTensor parameter p."""
+  return distribute_tensor(full.to(p.device_mesh.device_type),
+                           p.device_mesh, p.placements,
+                           src_data_rank=None).to_local()
+
+
+def state_for_save(state):
+  """What trainers pass to CheckpointManager.save: the state as it is, or,
+  where its params are DTensors, with the full tensors gathered (the
+  params, and each per-parameter optimizer leaf as its parameter)."""
+  params = state.params
+  if not any(isinstance(p, DTensor) for p in params.values()):
+    return state
+  return state._replace(
+      params={k: p.full_tensor() for k, p in params.items()},
+      opt_state=map_named(state.opt_state, params, _full))
 
 
 def _to(tree, device):
@@ -57,7 +113,11 @@ class CheckpointManager:
     """Writes every field of a NamedTuple training state (step, params,
     opt_state, ...). Returns False (and writes nothing) for a step already
     saved."""
+    if _rank() != 0:         # rank 0 writes; every rank waits for it
+      _barrier()
+      return True
     if step in self.all_steps():
+      _barrier()
       return False
     d = os.path.join(self.directory, str(step))
     tmp = d + ".tmp"
@@ -68,13 +128,15 @@ class CheckpointManager:
     os.replace(tmp, d)
     for old in self.all_steps()[:-self.max_to_keep]:
       shutil.rmtree(os.path.join(self.directory, str(old)))
+    _barrier()
     return True
 
   def restore(self, state_template, step: Optional[int] = None):
     """The saved state as state_template's type: its params are copied into
-    the template's tensors in place (the model's parameters and buffers),
-    every other field goes to their device. None when there is no
-    checkpoint."""
+    the template's tensors in place (the model's parameters and buffers;
+    a DTensor takes its part of the saved tensor), every other field goes
+    to their device (a per-parameter optimizer leaf of a DTensor parameter
+    as the parameter's part). None when there is no checkpoint."""
     step = self.latest_step() if step is None else step
     if step is None:
       return None
@@ -84,7 +146,19 @@ class CheckpointManager:
     if set(saved["params"]) != set(params):
       raise ValueError("checkpoint parameters do not match the model's: "
                        f"{sorted(set(saved['params']) ^ set(params))}")
-    device = next(iter(params.values())).device
+    first = next(iter(params.values()))
+    if isinstance(first, DTensor):
+      device = first.to_local().device
+      with torch.no_grad():
+        for k, p in params.items():
+          p.to_local().copy_(_part(saved["params"][k], p))
+      rest = {f: _to(map_named(
+          saved[f], params,
+          lambda v, p: _part(v, p) if isinstance(p, DTensor) else v), device)
+              for f in state_template._fields if f not in ("step", "params")}
+      return state_template._replace(step=saved["step"], params=params,
+                                     **rest)
+    device = first.device
     with torch.no_grad():
       for k, p in params.items():
         p.copy_(saved["params"][k])

@@ -54,7 +54,7 @@ run_classification (train.qat, train.qat_bits) set the process-wide QAT
 mode both ways at entry, as JAX does, so a run never inherits it and its
 in-training evals run under it.
 
-Not ported yet, refused naming its ROADMAP item: meshes (M10).
+Not ported yet, refused naming its ROADMAP item: meshes (M10, second half).
 """
 
 from __future__ import annotations
@@ -82,7 +82,8 @@ from automl_tpu_torch.train.metrics import MetricsWriter
 def _refuse_unported(mesh_shape):
   if mesh_shape:
     raise NotImplementedError(
-        "a device mesh is not ported to automl_tpu_torch yet: ROADMAP M10")
+        "a detection / classification device mesh is not ported to "
+        "automl_tpu_torch yet: ROADMAP M10, second half")
 
 
 def set_qat_mode(on, bits) -> None:
@@ -332,12 +333,12 @@ def evaluate_classification(model, params, config, eval_iter, eval_steps: int,
   Each batch: {'image' [B, H, W, 3] canvases, 'label' one-hot or ids (or
   'label_ids')}; cls_eval_preprocess at eval.isize with the augname's
   normalization and the model run on the model's device, the metrics on
-  the host. A multi-process eval (mesh) is ROADMAP M10."""
+  the host. A multi-process eval (mesh) is ROADMAP M10, second half."""
   from automl_tpu_torch.eval.classification import MultiLabelEvaluator
   if mesh is not None:
     raise NotImplementedError(
         "multi-process eval is not ported to automl_tpu_torch yet: ROADMAP "
-        "M10")
+        "M10, second half")
   isize = int(config.eval.isize or resolve_train_size(config))
   norm, _ = preprocessing.norm_for_augname(config.data.get("augname"))
   multiclass = bool(config.data.get("multiclass"))
@@ -599,12 +600,12 @@ def evaluate_detection(model, params, config, eval_iter, eval_steps: int,
   With vis_dir set, [detections | ground truth] PNGs of the first
   vis_samples images of the first batch go there as eval_image_<i>.png
   (_write_eval_images). mesh (a multi-process run) is not ported yet
-  (ROADMAP M10) and refused."""
+  (ROADMAP M10, second half) and refused."""
   from automl_tpu_torch.eval.coco_metric import COCOEvaluator
   if mesh is not None:
     raise NotImplementedError(
         "multi-process eval is not ported to automl_tpu_torch yet: ROADMAP "
-        "M10")
+        "M10, second half")
   device = next(model.parameters()).device
   evaluator = COCOEvaluator(per_class=per_class, label_map=None)
   mean = torch.tensor(config.mean_rgb, dtype=torch.float32, device=device)

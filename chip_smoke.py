@@ -86,10 +86,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      kernels': (A) the default LM (lm_defaults: D 2,048, 24 layers, V
      32,000, flash attention, Lion) at b8 T2048: step 1 fused "pallas"
      against unfused "bfloat16_vjp" and "scan" against f32 (phase 5's
-     limits), 30 steps with the fused loss at its config's Lion lr 1e-3
-     (the loss need not fall) and 30 at M6_LOW_LR (it must), then the
-     largest batch of 8 x 2^n that fits (out of memory caught) for 5
-     steps; (B) MoE at
+     limits), M6_DEFAULT_STEPS steps with the fused loss at its config's
+     Lion lr 1e-3 (the loss need not fall) and as many at M6_LOW_LR (it
+     must), then the largest batch of 8 x 2^n that fits (out of memory
+     caught) for M6_PROBE_STEPS steps; (B) MoE at
      lm-flops1e19's width (8 experts, top-2, capacity 1.25, groups of
      4096, aux 0.01, the fused loss): step 1 with E = 1 against the dense
      FFN and with groups of 4096 against 2048 at a capacity where nothing
@@ -243,6 +243,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      then regularized_evolution from MOMENTUM_PROGRAM on a regression on
      the card (the JAX test's margin; evaluations, cache hits, abstract
      rejections printed).
+  14. the parallel layer, first half (M10; m10_phase, last): (A) NCCL at a
+     world of one (init_process_group on a file:// store) and
+     create_mesh((1, 1, 1)) on the card, an all-reduce over 'model', the
+     NCCL version on a "host:" line; (B) lm-flops1e19 (seeded, norm scales
+     drawn, cast) with serve_tp on the mesh (the head-leading cache, K4
+     head-major) against the batch-major model: prefill logits (bit-equal
+     expected), greedy b8 512 + 512 tokens equal (else phase 12's
+     teacher-forced limits), n_layers x 512 K4 launches a run, all
+     Hopper's, prefill ms and decode ms a step in turns, and LMServer at
+     phase 12's settings on M10_SERVE_REQUESTS requests with the same
+     tokens as the batch-major K4 server; (C) K4 at each shard's shapes
+     against the unsharded call (BF16_TOL): serve_tp's head-major rows of
+     n_kv / m heads for m 2, 4, 8 and serve_sp's return_stats on S / m keys
+     merged by merge_partials, m 2 and 4, at decode (the 4th shard of 4
+     fully masked) and a T 512 prefill, all Hopper's, and one shard's time
+     beside the unsharded call's; (D) step 1 of lm-flops1e19 (flash) on
+     the mesh under gspmd and sp against no mesh (M10_STEP1_LIMITS; sp on
+     a 'model' axis of 1 takes the flash path: K1 2 x n_layers, K2
+     n_layers), then cli/main_lm --mesh_shape=1,1,1 --sharding_config=gspmd
+     and without a mesh, M10_TRAIN_STEPS steps each at b8 T2048 (K1 / K2
+     counts equal, step ms and peak GiB, the losses against each other,
+     the mesh run's rank-0 checkpoint read back).
 
 Every kernel time is the mean over calls of CUDA events around one call,
 after an L2 flush and a sleep kernel that keeps the card busy while the
@@ -260,8 +282,9 @@ one cannot be compiled or run, the reason is printed and library_ms is
 null.
 
 Prints a {"kernels": [...]} JSON line (K4's launches: those of phases 10,
-12 and 5b's runs; K1, K2 and K3a-c: phase 5's runs and 5b's, K1 and K2
-also 13's; K6: phases 7, 9 and 13), then the
+12, 5b's and 14's serve_tp runs; K1, K2 and K3a-c: phase 5's runs and
+5b's, K1 and K2 also 13's and 14's mesh run; K6: phases 7, 9 and 13), then
+the
 card line, and last {"ok": true, "device":
 {...}}. Imports no jax.
 """
@@ -1583,6 +1606,11 @@ M6_FLAGSHIP = ("model_dim=1024,n_layers=12,n_heads=8,n_kv_heads=8,"
 # The first batch size the default LM's probe tries (then up while it
 # fits, or down until it does): the prediction of PERF.md section 6.
 M6_PROBE_BATCH = 64
+# Steps of the default LM's two runs (lr 1e-3 and M6_LOW_LR) and of each
+# batch probe: 30 and 5 before phase 14 existed, cut to make room for it
+# in the script's time (the default LM's step is ~0.89 s, b64's ~6.3 s).
+M6_DEFAULT_STEPS = 20
+M6_PROBE_STEPS = 3
 # The default LM's second 30-step run: a tenth of its config's Lion lr,
 # where the loss must fall (at 1e-3 it does not; PERF.md section 6).
 M6_LOW_LR = 1e-4
@@ -1703,7 +1731,7 @@ def _moe_records():
 def _m6_default_lm(dev, trees, workdir, cfg, batch, steps):
   """(A): the default LM: step-1 checks, `steps` steps at its config's lr
   and `steps` at M6_LOW_LR, then the largest batch of 8 * 2^n that fits
-  for 5 steps. Returns {kernel: launches} of the steps run."""
+  for M6_PROBE_STEPS steps. Returns {kernel: launches} of the steps run."""
   import gc
   import torch
   from automl_tpu_torch import convert
@@ -1746,11 +1774,11 @@ def _m6_default_lm(dev, trees, workdir, cfg, batch, steps):
 
   d = os.path.join(workdir, f"b{batch}")
   # The config's own Lion lr 1e-3 (warmup 3) does not bring the loss down
-  # in 30 steps at these widths: the gradient norm grows from step 4 on,
+  # in 20-30 steps at these widths: the gradient norm grows from step 4 on,
   # in the JAX package's step as in this one (PERF.md section 6;
   # tests/test_torch_lm_train.py::test_default_lm_widths_lion_matches_jax).
   # So the losses of the reported run must be finite, and are printed, but
-  # need not fall; the same 30 steps at M6_LOW_LR must bring it down.
+  # need not fall; as many steps at M6_LOW_LR must bring it down.
   launches = _train_run(
       d, common + [f"--model_dir={d}", f"--batch_size={batch}"], steps,
       "the default LM, fused loss, full remat, K2", expected(steps),
@@ -1771,8 +1799,9 @@ def _m6_default_lm(dev, trees, workdir, cfg, batch, steps):
     d = os.path.join(workdir, f"b{b}")
     try:
       got = _train_run(
-          d, common + [f"--model_dir={d}", f"--batch_size={b}"], 5,
-          f"the default LM at b{b}, 5 steps", expected(5),
+          d, common + [f"--model_dir={d}", f"--batch_size={b}"],
+          M6_PROBE_STEPS, f"the default LM at b{b}, {M6_PROBE_STEPS} steps",
+          expected(M6_PROBE_STEPS),
           _step_flops(cfg, b, t, fused=True), cfg=cfg, batch=b, falls=False)
     except torch.OutOfMemoryError as e:
       print(f"  b{b}: out of memory ({str(e).splitlines()[0][:120]})")
@@ -1949,7 +1978,7 @@ def lm_training_m6_phase(dev, workdir, trees):
     t = time.perf_counter()
     cfg = cfgs["default"][0]
     add(_m6_default_lm(dev, trees, os.path.join(workdir, "default"), cfg,
-                       8, 30))
+                       8, M6_DEFAULT_STEPS))
     trees.drop(cfg)
     print(f"(A) {time.perf_counter() - t:.1f} s")
 
@@ -5144,6 +5173,356 @@ def seg_qat_search_phase(dev, workdir, v2s_bn_ms):
   return dict(flash, K6=seg_launches + qat[0] + plain[0] + gn[0][4])
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer, first half (M10): the mesh and NCCL at a world of one,
+# sharded LM serving around K4, K4 at each shard's shapes, LM training on a
+# mesh.
+# ---------------------------------------------------------------------------
+
+# Requests of (B)'s LMServer runs (phase 12's settings, fewer requests).
+M10_SERVE_REQUESTS = 8
+M10_TRAIN_STEPS = 10
+# Step 1 on a mesh of one against no mesh: phase 5's tightest limits (the
+# chunked loss against the f32 one).
+M10_STEP1_LIMITS = (1e-5, 5e-5, 0.99995)
+
+
+def _m10_k4_shards(dev, flush):
+  """(C): K4 at each shard's shapes against the unsharded call of the same
+  cache (BF16_TOL): serve_tp's head-major rows of n_kv / m heads for m 2,
+  4 and 8, and serve_sp's return_stats on S / m keys merged by
+  merge_partials over the stacked shards, m 2 and 4; decode (T 1 after a
+  512-token prompt: the 4th shard of 4 fully masked) and prefill (T 512,
+  causal). Returns the largest error."""
+  import torch
+  from automl_tpu_torch.ops import decode_attention as da
+  gen = torch.Generator(device=dev).manual_seed(18)
+  b, n, n_kv, h, s = 8, 8, 8, 128, 1024
+  kern = da.decode_attention
+  worst = 0.0
+  _k4_reset()
+  calls = 0
+  for t in (1, 512):
+    q, kc, vc, _ = _kernel_inputs(dev, gen, b, t, n, n_kv, h, s,
+                                  torch.bfloat16)
+    pos = torch.arange(512 - (t == 512) * 512, 512 + (t == 1), device=dev)
+    mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None])
+    mask = mask[None].expand(b, t, s).contiguous()
+    full = kern(q, kc, vc, mask, n_kv_heads=n_kv, logit_cap=50.0)
+    calls += 1
+    for m in (2, 4, 8):
+      nkv_l = n_kv // m
+      parts = []
+      for r in range(m):
+        heads = slice(r * nkv_l, (r + 1) * nkv_l)
+        k_l = kc.view(b, n_kv, h, s)[:, heads].transpose(0, 1).reshape(
+            nkv_l * b, h, s).contiguous()
+        v_l = vc.view(b, n_kv, s, h)[:, heads].transpose(0, 1).reshape(
+            nkv_l * b, s, h).contiguous()
+        parts.append(kern(q[:, :, heads].contiguous(), k_l, v_l, mask,
+                          n_kv_heads=nkv_l, logit_cap=50.0,
+                          layout="head_major"))
+        calls += 1
+      worst = max(worst, _compare(f"tp m {m}, T {t}: {nkv_l} kv head(s) a "
+                                  "rank, head-major", torch.cat(parts, 2),
+                                  full, **BF16_TOL))
+    for m in (2, 4):
+      sl = s // m
+      stats = []
+      for r in range(m):
+        keys = slice(r * sl, (r + 1) * sl)
+        stats.append(kern(q, kc[..., keys].contiguous(),
+                          vc[:, keys].contiguous(),
+                          mask[..., keys].contiguous(), n_kv_heads=n_kv,
+                          logit_cap=50.0, return_stats=True))
+        calls += 1
+      dead = [r for r, (_, _, l) in enumerate(stats) if not bool(l.any())]
+      merged = da.merge_partials(
+          *(torch.stack(x) for x in zip(*stats)),
+          lambda x: x.amax(0, keepdim=True),
+          lambda x: x.sum(0, keepdim=True))[0]
+      worst = max(worst, _compare(
+          f"sp m {m}, T {t}: {sl} keys a rank, merged (fully masked "
+          f"shards, l = 0: {dead})", merged, full, **BF16_TOL))
+      if t == 1 and m == 4 and dead != [3]:
+        raise AssertionError(f"sp m 4: the 4th shard should be the only "
+                             f"fully masked one, got {dead}")
+  _k4_expect("(C)", calls)
+  # One shard's call beside the unsharded decode (T 1).
+  q, kc, vc, _ = _kernel_inputs(dev, gen, b, 1, n, n_kv, h, s, torch.bfloat16)
+  mask = (torch.arange(s, device=dev) <= 512)[None, None].expand(
+      b, 1, s).contiguous()
+  k1 = kc.view(b, n_kv, h, s)[:, :1].transpose(0, 1).reshape(b, h, s) \
+      .contiguous()
+  v1 = vc.view(b, n_kv, s, h)[:, :1].transpose(0, 1).reshape(b, s, h) \
+      .contiguous()
+  fns = {"unsharded": lambda: kern(q, kc, vc, mask, n_kv_heads=n_kv,
+                                   logit_cap=50.0),
+         "tp m 8 (1 kv head)": lambda: kern(
+             q[:, :, :1].contiguous(), k1, v1, mask, n_kv_heads=1,
+             logit_cap=50.0, layout="head_major"),
+         "sp m 4 (256 keys, return_stats)": lambda: kern(
+             q, kc[..., :256].contiguous(), vc[:, :256].contiguous(),
+             mask[..., :256].contiguous(), n_kv_heads=n_kv, logit_cap=50.0,
+             return_stats=True)}
+  times = {k: _time_ms(f, 100, flush) for k, f in fns.items()}
+  times_b = {k: _time_ms(f, 100, flush) for k, f in reversed(fns.items())}
+  print("  K4 decode T 1, S 1024, b8: " + ", ".join(
+      f"{k} {times[k]:.4f}, {times_b[k]:.4f} ms" for k in fns)
+      + " (in turns, L2 flushed)")
+  return worst
+
+
+def _m10_serving(dev, mesh, flush):
+  """(B): serve_tp (the head-leading cache, K4 head-major) against the
+  batch-major model on one seeded lm-flops1e19; returns the K4 launches of
+  the serve_tp runs."""
+  import copy
+  import numpy as np
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm as lm_lib
+
+  cfg = lm_lib.get_lm_config("lm-flops1e19")
+  tree = _lm_tree(cfg, 0)
+  tcfg = copy.deepcopy(cfg)
+  tcfg.override(dict(serve_tp=True))
+  bm = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev), tree)
+  tp = convert.load_jax_params(
+      lm_lib.TransformerLM(tcfg, device=dev, mesh=mesh), tree)
+  del tree
+  lm_lib.cast_lm_params_for_serving(bm)
+  lm_lib.cast_lm_params_for_serving(tp)
+  n_layers, v = cfg.n_layers, cfg.vocab_size
+  batch, t0, new = 8, 512, 512
+  total = t0 + new
+  rng = np.random.default_rng(1)
+  prompt = torch.from_numpy(rng.integers(3, v, (batch, t0))).to(dev)
+  kv_pos = torch.arange(total, device=dev).expand(batch, total)
+  pos = kv_pos[:, :t0]
+  cache_shape = tuple(tp.init_cache(1, 8)[0]["k"].shape)
+  print(f"(B) serve_tp: the head-leading cache (k of one layer at b1, S 8: "
+        f"{cache_shape}), K4 head-major, against the batch-major model; "
+        f"lm-flops1e19, norm scales drawn N(0, {LM_NORM_SIGMA}^2), b{batch}, "
+        f"{t0} + {new} tokens")
+
+  def prefill(model):
+    @torch.inference_mode()
+    def run():
+      cache = model.init_cache(batch, total)
+      return model(prompt, positions=pos, cache=cache, cache_index=0,
+                   kv_positions=kv_pos)[0]
+    return run
+
+  lt, lb = prefill(tp)(), prefill(bm)()
+  print(f"  prefill logits, serve_tp vs batch-major: bit-equal "
+        f"{torch.equal(lt, lb)}, max|diff| {float((lt - lb).abs().max()):.3e}")
+  if not bool(torch.isfinite(lt).all()):
+    raise AssertionError("(B) serve_tp prefill logits not finite")
+  del lt, lb
+  pre = [_time_ms(prefill(m), 3) for m in (tp, bm, bm, tp)]
+  print(f"  prefill b{batch} x {t0} (cache {total}): serve_tp {pre[0]:.2f}, "
+        f"{pre[3]:.2f} ms; batch-major {pre[1]:.2f}, {pre[2]:.2f} ms "
+        f"(in turns)")
+  pre_tp, pre_bm = (pre[0] + pre[3]) / 2, (pre[1] + pre[2]) / 2
+
+  lm_lib.greedy_generate(tp, prompt, 4)          # warm the decode shapes
+  lm_lib.greedy_generate(bm, prompt, 4)
+  out, ms = {}, {"tp": [], "bm": []}
+  launches = 0
+  for name in ("tp", "bm", "bm", "tp"):
+    model = tp if name == "tp" else bm
+    torch.cuda.synchronize()
+    _k4_reset()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    tokens = lm_lib.greedy_generate(model, prompt, new)
+    end.record()
+    end.synchronize()
+    ms[name].append(start.elapsed_time(end))
+    n = _k4_expect(f"greedy, {name}", n_layers * new)
+    if name == "tp" and "tp" not in out:
+      launches += n
+    out.setdefault(name, tokens)
+  for name, pre_ms in (("tp", pre_tp), ("bm", pre_bm)):
+    print(f"  generate {name}: " + ", ".join(
+        f"{x:.1f} ms (decode {(x - pre_ms) / (new - 1):.3f} ms/step)"
+        for x in ms[name]))
+  same = out["tp"][:, t0:] == out["bm"][:, t0:]
+  parts = [int(r.cumprod(0).sum()) for r in same.int()]
+  print(f"  generated tokens equal to the batch-major run: "
+        f"{int(same.sum())} of {same.numel()}; equal prefix per row "
+        f"{parts} (of {new})")
+  if not bool(same.all()):
+    print(f"  the runs part at decode step(s) {[p for p in parts if p < new]}"
+          ": teacher-forced check of the serve_tp tokens")
+    _teacher_forced(bm, "(B) greedy serve_tp", [
+        (prompt[i].tolist(), out["tp"][i, t0:].tolist())
+        for i in range(batch)])
+
+  # One LMServer run each at phase 12's settings.
+  lens = rng.integers(16, 701, M10_SERVE_REQUESTS)
+  lens[:2] = rng.integers(257, 701, 2)
+  requests = [(rng.integers(3, v, int(n)).tolist(),
+               int(min(rng.integers(16, 301), 1024 - n))) for n in lens]
+  _serve("warm-up, serve_tp", tp, [(requests[0][0], 9)])
+  _serve("warm-up, batch-major", bm, [(requests[0][0], 9)],
+         use_decode_kernel=True)
+  _k4_reset()
+  res_tp, srv, _, _, _, _ = _serve("serve_tp server", tp, requests)
+  kinds = [e["kind"] for e in srv.timeline]
+  # serve_tp decodes through K4 at any length: the grouped prefills too.
+  launches += _k4_expect("(B) serve_tp server", n_layers * (
+      srv.burst * kinds.count("burst") + kinds.count("chunk")
+      + kinds.count("prefill")))
+  res_bm, _, _, _, _, _ = _serve("batch-major K4 server", bm, requests,
+                                 use_decode_kernel=True)
+  equal = sum(a.tokens == b.tokens for a, b in zip(res_tp, res_bm))
+  print(f"  server tokens equal to the batch-major server's: {equal} of "
+        f"{len(requests)} requests; equal prefix "
+        f"{[_equal_prefix(a.tokens, b.tokens) for a, b in zip(res_tp, res_bm)]}")
+  if equal != len(requests):
+    _teacher_forced(bm, "(B) serve_tp server", [
+        (p, r.tokens) for (p, _), r in zip(requests, res_tp)])
+  del bm, tp
+  torch.cuda.empty_cache()
+  return launches
+
+
+def _m10_training(dev, mesh, workdir):
+  """(D): lm-flops1e19 step 1 and 10 steps through main_lm on the mesh of
+  one (gspmd) against no mesh; sp on the same mesh takes the flash path.
+  Returns {kernel: launches} of the mesh run."""
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.ops import attention as fa
+  from automl_tpu_torch.train import lm_trainer
+
+  batch = 8
+  cfg = lm_lib.get_lm_config("lm-flops1e19")
+  cfg.override("use_flash_attention=true")
+  tree = convert.numpy_init(cfg, 0)
+  first = next(iter(lm_trainer.SyntheticLMData(batch, cfg.seq_len,
+                                               cfg.vocab_size)))
+  first = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+  results = {}
+  for label, sharding, ring, on_mesh in (
+      ("no mesh", None, False, False),
+      ("mesh gspmd", lm_lib.ShardingConfig(), False, True),
+      ("mesh sp", lm_lib.ShardingConfig.sequence_parallel(), True, True)):
+    c = lm_lib.get_lm_config("lm-flops1e19")
+    c.override(dict(use_flash_attention=True, use_ring_attention=ring))
+    model = convert.load_jax_params(lm_lib.TransformerLM(
+        c, sharding, device=dev, mesh=mesh if on_mesh else None), tree)
+    fa.flash_attention.launches_fwd_sm90 = 0
+    fa.flash_attention.launches_bwd_sm90 = 0
+    loss, grads = lm_trainer.lm_loss_and_grads(model, first)
+    grads = {k: g.to_local() if hasattr(g, "to_local") else g
+             for k, g in grads.items()}
+    k1, k2 = (fa.flash_attention.launches_fwd_sm90,
+              fa.flash_attention.launches_bwd_sm90)
+    print(f"  step 1, {label}: loss {float(loss):.6f}; K1 {k1}, K2 {k2} "
+          f"Hopper launches (expected {2 * cfg.n_layers}, {cfg.n_layers})")
+    if (k1, k2) != (2 * cfg.n_layers, cfg.n_layers):
+      raise AssertionError(f"(D) {label}: step 1 did not take the flash "
+                           "path")
+    results[label] = (float(loss), grads)
+    del model
+  del tree, first
+  for label in ("mesh gspmd", "mesh sp"):
+    _step1_check(results, label, "no mesh", M10_STEP1_LIMITS,
+                 "Phase 5's tightest limits; one rank: expected bit-equal.")
+  del results
+  torch.cuda.empty_cache()
+
+  steps = M10_TRAIN_STEPS
+  common = ["--config_name=lm-flops1e19", f"--batch_size={batch}",
+            "--warmup_steps=3", "--log_every=1", "--device=cuda",
+            "--experiment_config=use_flash_attention=true"]
+  n = cfg.n_layers * steps
+  expected = dict.fromkeys(("K1", "K1 sm90", "K2", "K2 sm90", "K5a",
+                            "K5a sm90", "K5b", "K5b sm90", "K3a", "K3a sm90",
+                            "K3b", "K3b sm90", "K3c", "K3c sm90"), 0)
+  expected.update({"K1": 2 * n, "K1 sm90": 2 * n, "K2": n, "K2 sm90": n})
+  flops = _step_flops(cfg, batch, cfg.seq_len)
+  mesh_dir, plain_dir = workdir + "_mesh", workdir + "_plain"
+  runs = {}
+  runs["mesh"] = _train_run(
+      mesh_dir, common + [f"--model_dir={mesh_dir}", "--mesh_shape=1,1,1",
+                          "--sharding_config=gspmd"], steps,
+      "mesh (1, 1, 1), gspmd", expected, flops, falls=False)
+  saved = torch.load(os.path.join(mesh_dir, "ckpt", str(steps), "state.pt"),
+                     map_location="cpu", weights_only=True)
+  print(f"  the mesh run's checkpoint: step {saved['step']}, "
+        f"{len(saved['params'])} full parameter tensors (rank 0's state.pt)")
+  del saved
+  with _NoCheckpoints():
+    runs["plain"] = _train_run(
+        plain_dir, common + [f"--model_dir={plain_dir}"], steps, "no mesh",
+        expected, flops, falls=False)
+  losses = {}
+  for name, d in (("mesh", mesh_dir), ("plain", plain_dir)):
+    recs = [json.loads(l) for l in open(os.path.join(d, "metrics.jsonl"))]
+    losses[name] = [r["loss"] for r in recs if "loss" in r]
+  d1 = abs(losses["mesh"][0] - losses["plain"][0])
+  equal = sum(a == b for a, b in zip(losses["mesh"], losses["plain"]))
+  print(f"  main_lm losses, mesh vs no mesh: step 1 |dloss| {d1:.3e} (limit "
+        f"{M10_STEP1_LIMITS[0]}), {equal} of {steps} steps equal")
+  if d1 > M10_STEP1_LIMITS[0]:
+    raise AssertionError("(D) step 1 of the mesh run disagrees")
+  return runs["mesh"]
+
+
+def m10_phase(dev, workdir):
+  """M10's first half on the card (A)-(D); returns {kernel: launches} of
+  its main-path runs (K4: the serve_tp runs; K1 / K2: the mesh training
+  run), each counted from 0 just before the run."""
+  import torch
+  import torch.distributed as dist
+  from automl_tpu_torch.parallel import create_mesh
+
+  t_phase = time.perf_counter()
+  os.makedirs(workdir, exist_ok=True)
+  store = os.path.abspath(os.path.join(workdir, "nccl_store"))
+  if os.path.exists(store):
+    os.remove(store)
+  # (A) NCCL at a world of one; the mesh (1, 1, 1) on the card.
+  dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                          world_size=1)
+  try:
+    mesh = create_mesh((1, 1, 1), device="cuda")
+    one = torch.ones(4, device=dev)
+    dist.all_reduce(one, group=mesh.get_group("model"))
+    torch.cuda.synchronize()
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    print(f"host: NCCL {nccl}; process group backend "
+          f"{dist.get_backend()}, world {dist.get_world_size()}; mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+          f"{mesh.device_type}; an all-reduce over 'model' gives "
+          f"{one.tolist()}")
+    if one.tolist() != [1.0] * 4:
+      raise AssertionError("(A) the NCCL all-reduce of a world of one")
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    t = time.perf_counter()
+    k4 = _m10_serving(dev, mesh, flush_buf.zero_)
+    print(f"(B) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    print("(C) K4 at each shard's shapes against the unsharded call")
+    err = _m10_k4_shards(dev, flush_buf.zero_)
+    print(f"(C) largest error {err:.3e}; {time.perf_counter() - t:.1f} s")
+    del flush_buf
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    print("(D) training on the mesh (1, 1, 1) against no mesh")
+    runs = _m10_training(dev, mesh, workdir)
+    print(f"(D) {time.perf_counter() - t:.1f} s")
+  finally:
+    dist.destroy_process_group()
+  print(f"M10 phase: {time.perf_counter() - t_phase:.1f} s")
+  return dict(runs, K4=k4)
+
+
 def _entry(name, source, replaces, launches, r):
   return {"name": name, "route": "cuda", "source": source,
           "replaces": replaces, "launches": launches,
@@ -5257,7 +5636,10 @@ def main() -> int:
             det_dir + "_off", os.path.join(build, "chip_smoke_infer"),
             os.path.join(build, "chip_smoke_serve"),
             os.path.join(build, "chip_smoke_lm_serving"),
-            cls_dir, cls_dir + "_off", cls_dir + "_mix"):
+            cls_dir, cls_dir + "_off", cls_dir + "_mix",
+            os.path.join(build, "chip_smoke_m10"),
+            os.path.join(build, "chip_smoke_m10_mesh"),
+            os.path.join(build, "chip_smoke_m10_plain")):
     shutil.rmtree(d, ignore_errors=True)
   runs = training_phase(dev, workdir)
   m6 = lm_training_m6_phase(dev, m6_dir, trees)
@@ -5274,6 +5656,8 @@ def main() -> int:
   k4_launches += lm_serving_phase(dev, os.path.join(build,
                                                     "chip_smoke_lm_serving"))
   k4_launches += m6["K4 sm90"]
+  m10 = m10_phase(dev, os.path.join(build, "chip_smoke_m10"))
+  k4_launches += m10["K4"]
   for label in ("prefill T=512", "verify T=5", "chunk T=256"):
     print(f"K4 {label}: {json.dumps(k4[label])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -5284,12 +5668,12 @@ def main() -> int:
              k4["decode T=1"]),
       _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:82",
-             runs["unfused"]["K1 sm90"] + m6["K1 sm90"] + sqs["K1 sm90"],
-             flash["fwd"]),
+             runs["unfused"]["K1 sm90"] + m6["K1 sm90"] + sqs["K1 sm90"]
+             + m10["K1 sm90"], flash["fwd"]),
       _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:320",
-             runs["unfused"]["K2 sm90"] + m6["K2 sm90"] + sqs["K2 sm90"],
-             flash["bwd"]),
+             runs["unfused"]["K2 sm90"] + m6["K2 sm90"] + sqs["K2 sm90"]
+             + m10["K2 sm90"], flash["bwd"]),
       _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:240", runs["split"]["K5a sm90"],
              flash["dq"]),

@@ -231,6 +231,70 @@ def test_decode_attention_sm90_at_m7_shapes(dev, case):
   assert torch.equal(got, da.decode_attention(q, kc, vc, mask, **kw))
 
 
+def _causal_inputs(dev, t, dtype, b=4, n=8, n_kv=4, h=128, s=1024):
+  """K4 inputs whose queries sit at positions 512 - t + 1 .. 512 of an S
+  1024 cache (a decode step after a 512-token prompt, or its prefill): the
+  keys past 512 are masked."""
+  q, kc, vc, _ = _inputs(dev, b, t, n, n_kv, h, s, dtype, seed=18)
+  pos = torch.arange(513 - t, 513, device=dev)
+  mask = torch.arange(s, device=dev)[None, :] <= pos[:, None]
+  return q, kc, vc, mask[None].expand(b, t, s).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("t", [1, 512], ids=["decode", "prefill"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_attention_tp_shards_match_unsharded(dev, m, t, dtype):
+  """serve_tp's shards: K4 on each rank's n_kv / m kv heads in head-major
+  rows (and their q heads, GQA 8/4) equals the unsharded call's heads."""
+  q, kc, vc, mask = _causal_inputs(dev, t, dtype)
+  b, _, n, h = q.shape
+  n_kv, s = kc.shape[0] // b, kc.shape[-1]
+  want = da.decode_attention(q, kc, vc, mask, n_kv_heads=n_kv,
+                             logit_cap=50.0)
+  nkv_l, n_l = n_kv // m, n // m
+  for r in range(m):
+    heads = slice(r * nkv_l, (r + 1) * nkv_l)
+    k_l = kc.view(b, n_kv, h, s)[:, heads].transpose(0, 1).reshape(
+        nkv_l * b, h, s).contiguous()
+    v_l = vc.view(b, n_kv, s, h)[:, heads].transpose(0, 1).reshape(
+        nkv_l * b, s, h).contiguous()
+    got = da.decode_attention(q[:, :, r * n_l:(r + 1) * n_l].contiguous(),
+                              k_l, v_l, mask, n_kv_heads=nkv_l,
+                              logit_cap=50.0, layout="head_major")
+    _close(got, want[:, :, r * n_l:(r + 1) * n_l], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("t", [1, 512], ids=["decode", "prefill"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_attention_sp_shards_merge_to_unsharded(dev, m, t, dtype):
+  """serve_sp's shards: K4 with return_stats on each rank's S / m keys,
+  merged by merge_partials over the stacked shards, equals the unsharded
+  call; a shard past the queries' positions is fully masked and reports
+  l = 0."""
+  q, kc, vc, mask = _causal_inputs(dev, t, dtype)
+  n_kv, s = kc.shape[0] // q.shape[0], kc.shape[-1]
+  want = da.decode_attention(q, kc, vc, mask, n_kv_heads=n_kv,
+                             logit_cap=50.0)
+  sl = s // m
+  stats = [da.decode_attention(
+      q, kc[..., r * sl:(r + 1) * sl].contiguous(),
+      vc[:, r * sl:(r + 1) * sl].contiguous(),
+      mask[..., r * sl:(r + 1) * sl].contiguous(), n_kv_heads=n_kv,
+      logit_cap=50.0, return_stats=True) for r in range(m)]
+  for r, (_, _, l) in enumerate(stats):
+    assert bool(l.any()) == (r * sl <= 512), r
+  got = da.merge_partials(*(torch.stack(x) for x in zip(*stats)),
+                          lambda x: x.amax(0, keepdim=True),
+                          lambda x: x.sum(0, keepdim=True))[0]
+  _close(got, want, dtype)
+
+
 @pytest.mark.cuda
 def test_lm_server_burst_on_card_syncs_nothing_and_runs_k4(dev):
   """LMServer on the card with use_decode_kernel=True (a small bf16 model,

@@ -391,13 +391,35 @@ def test_generate_cli_smoke(tmp_path, capsys):
   assert len(out) == 1
 
 
-@pytest.mark.parametrize("option", [
-    "serve_tp=True", "serve_sp=True", "use_ring_attention=True"])
-def test_unported_options_raise(option):
-  _, tcfg = _cfgs(**SMALL)
+@pytest.mark.parametrize("option,error,match", [
+    ("use_pipeline=True", NotImplementedError, "M10, second half"),
+    ("serve_tp=True,serve_sp=True", ValueError, "mutually exclusive"),
+    ("serve_tp=True,use_decode_kernel=False", ValueError,
+     "serve_tp requires use_decode_kernel"),
+], ids=["use_pipeline", "serve_tp_with_serve_sp", "serve_tp_no_kernel"])
+def test_unported_options_raise(option, error, match):
+  """What stays refused (pipeline parallelism: M10's second half) and the
+  refusals JAX makes: serve_tp with serve_sp when the model is built,
+  serve_tp without the decode kernel at the first cached forward."""
+  jcfg, tcfg = _cfgs(**SMALL)
   tcfg.override(option)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    tlm.TransformerLM(tcfg, device="meta")
+  jcfg.override(option)
+
+  def run_torch():
+    model = convert.load_jax_params(tlm.TransformerLM(tcfg), _tree(tcfg))
+    model(torch.zeros((1, 2), dtype=torch.int64), cache=model.init_cache(1, 8),
+          cache_index=0)
+
+  with pytest.raises(error, match=match):
+    run_torch()
+  if error is ValueError:     # JAX's own refusal, in its words
+    def run_jax():
+      model = jlm.TransformerLM(jcfg)
+      params = jax.tree_util.tree_map(jnp.asarray, _tree(tcfg))
+      model(params, jnp.zeros((1, 2), jnp.int32),
+            cache=model.init_cache(1, 8), cache_index=0)
+    with pytest.raises(error, match=match):
+      run_jax()
 
 
 # --- per-row cache_index (continuous batching) -------------------------------
@@ -641,8 +663,11 @@ def test_generate_cli_beam_draft_server_and_int8(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--serve_mode=tp"], NotImplementedError, "M10"),
-    (["--mesh_model=4"], NotImplementedError, "M10"),
+    (["--serve_mode=tp", "--mesh_model=3"], ValueError,
+     r"serve_tp: n_heads \(4\) and n_kv_heads \(4\) must be divisible by "
+     r"mesh axis 'model' size 3"),
+    (["--serve_mode=sp", "--mesh_model=2"], ValueError,
+     "--mesh_model 2 does not divide the 1 available devices"),
     (["--tokenizer=/nonexistent/spm.model"], FileNotFoundError,
      "spm.model"),
     (["--num_beams=2", "--serve_slots=2"], ValueError, "num_beams"),

@@ -6,8 +6,8 @@ tree made with numpy from a seed, and serve the same requests: greedy
 tokens must be equal, log-probs within 1e-4 (f32 through two layers, in
 another summation order). JAX matmuls run at "highest" precision
 (tests/conftest.py). The JAX server's own cases (tests/test_lm_server.py)
-hold it to its greedy_generate; the two sharded ones (serve_sp, serve_tp)
-wait for ROADMAP M10.
+hold it to its greedy_generate; the sharded servers (serve_tp on two gloo
+ranks against JAX's on two devices) are in tests/test_torch_lm_sharded.py.
 """
 
 import jax

@@ -475,7 +475,8 @@ def test_eval_step_matches_jax():
 def test_main_lm_cpu_trains_logs_and_resumes(tmp_path, capsys):
   """main_lm --device=cpu on lm-test with flash attention: 12 steps with a
   falling loss (mean of the last 4 below the first 4), metrics.jsonl with
-  one line per step, params.txt, a checkpoint; then a run to 14 steps
+  one line per step, params_sharding.txt, a checkpoint; then a run to 14
+  steps
   resumes from step 12."""
   args = [f"--model_dir={tmp_path}", "--config_name=lm-test",
           "--experiment_config=use_flash_attention=true",
@@ -489,7 +490,7 @@ def test_main_lm_cpu_trains_logs_and_resumes(tmp_path, capsys):
   losses = [r["loss"] for r in recs]
   assert np.all(np.isfinite(losses))
   assert np.mean(losses[-4:]) < np.mean(losses[:4])
-  assert "total_params ::" in (tmp_path / "params.txt").read_text()
+  assert "total_params ::" in (tmp_path / "params_sharding.txt").read_text()
   assert tckpt.CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 12
 
   tcli.main(args + ["--train_steps=14"])
@@ -577,14 +578,23 @@ def test_checkpoint_manager_keeps_newest_and_restores(tmp_path):
   mngr.wait_until_finished()
 
 
-def test_unported_training_options_raise():
+def test_unported_training_options_raise(tmp_path):
+  """use_pipeline stays refused (M10's second half) through the CLI and
+  run_lm; a mesh that does not cover the world (one process here), or a
+  multi-process flag without its rendezvous, is refused before anything
+  starts."""
   _, tcfg = _cfgs()
-  for flags in (["--mesh_shape=1,2"], ["--sharding_config=fsdp"],
-                ["--num_processes=2"]):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-      tcli.main(["--model_dir=/nonexistent", "--device=cpu", *flags])
-  with pytest.raises(NotImplementedError, match="M10"):
-    ttrain.run_lm(tcfg, "/nonexistent", 1, mesh_shape=(1, 2))
+  base = ["--config_name=lm-test", "--device=cpu", "--train_steps=1"]
+  with pytest.raises(NotImplementedError, match="M10, second half"):
+    tcli.main([f"--model_dir={tmp_path}/cli", *base,
+               "--experiment_config=use_pipeline=true"])
+  tcfg.override("use_pipeline=true")
+  with pytest.raises(NotImplementedError, match="M10, second half"):
+    ttrain.run_lm(tcfg, str(tmp_path / "run"), 1, device="cpu")
+  with pytest.raises(ValueError, match="the world has 1"):
+    tcli.main([f"--model_dir={tmp_path}/mesh", *base, "--mesh_shape=1,2,1"])
+  with pytest.raises(ValueError, match="coordinator address"):
+    tcli.main([f"--model_dir={tmp_path}/mp", *base, "--num_processes=2"])
 
 
 def _fused_models(fused, seed, **kw):
