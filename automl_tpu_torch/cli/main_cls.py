@@ -27,8 +27,10 @@ checkpoint (read without TF, ckpt/tf_compat.py): every weight but the
 head's fc, its EMA shadows with train.ft_init_ema (the default).
 
 Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
-Not ported yet, and refused with their ROADMAP item: --mesh_shape and the
-multi-process flags (M10, second half).
+On a mesh: --mesh_shape=r,d,m (one process per point: torchrun, or the
+multi-process flags); each process reads batch_size / (r x d) rows of
+every batch, and the ranks of 'model' compute the same rows
+(train/runners.py).
 --compilation_cache_dir sets XLA's compile cache and has no meaning in
 eager PyTorch; it is accepted and ignored.
 """
@@ -68,9 +70,12 @@ def parse_args(argv=None):
   p.add_argument("--ft_init_ckpt", default=None,
                  help="a TF checkpoint to finetune from (head excluded)")
   p.add_argument("--train_steps", type=int, default=0)
-  p.add_argument("--mesh_shape", default=None, help="not ported (M10, second half)")
+  p.add_argument("--mesh_shape", default=None,
+                 help="replica,data,model over the world's processes; "
+                      "default: no mesh")
   p.add_argument("--coordinator_address", default=None,
-                 help="not ported (M10, second half)")
+                 help="host:port or file:// rendezvous of a multi-process "
+                      "run (default: torchrun's environment)")
   p.add_argument("--num_processes", type=int, default=None)
   p.add_argument("--process_id", type=int, default=None)
   p.add_argument("--compilation_cache_dir", default=None,
@@ -80,18 +85,6 @@ def parse_args(argv=None):
   p.add_argument("--log_every", type=int, default=50,
                  help="steps between metrics.jsonl lines")
   return p.parse_args(argv)
-
-
-def _refuse_unported(args):
-  unported = [
-      (args.mesh_shape, "--mesh_shape", "M10, second half"),
-      (args.coordinator_address or args.num_processes or args.process_id,
-       "multi-process training", "M10, second half"),
-  ]
-  for on, what, item in unported:
-    if on:
-      raise NotImplementedError(
-          f"{what} is not ported to automl_tpu_torch yet: ROADMAP {item}")
 
 
 def _eval_mode(args, config, eval_iter, eval_steps, device):
@@ -133,14 +126,16 @@ def _eval_mode(args, config, eval_iter, eval_steps, device):
 
 def main(argv=None):
   args = parse_args(argv)
-  _refuse_unported(args)
   import glob
 
   import torch
+  from automl_tpu_torch.cli.main_det import _shard_files, init_mesh
   from automl_tpu_torch.configs.effnet_configs import get_model_config
   from automl_tpu_torch.data import datasets as ds_lib
   from automl_tpu_torch.data import native_loader, pipeline
   from automl_tpu_torch.train import runners
+
+  mesh_shape, row, rows = init_mesh(args)
 
   config = get_model_config(args.model_name)
   if args.dataset:
@@ -154,6 +149,7 @@ def main(argv=None):
     config.data.data_dir = args.data_dir
   device = torch.device(args.device)
   batch_size = int(config.train.batch_size)
+  local_batch = runners._local_rows(batch_size, rows)
   spec = ds_lib.DATASETS.get(config.data.ds_name)
   num_images = spec.splits["train"].num_images if spec else 1_281_167
   steps_per_epoch = max(num_images // batch_size, 1)
@@ -165,18 +161,18 @@ def main(argv=None):
   canvas = int(runners.resolve_train_size(config) * 1.15) // 2 * 2
   if args.train_file_pattern and config.data.ds_name != "null":
     if args.native_loader:
-      from automl_tpu_torch.cli.main_det import _shard_files
-      files = _shard_files(sorted(glob.glob(args.train_file_pattern)), 0, 1)
+      files = _shard_files(sorted(glob.glob(args.train_file_pattern)), row,
+                           rows)
       host = native_loader.NativeParallelClassificationLoader(
-          files, batch_size, canvas, config.data.num_classes,
+          files, local_batch, canvas, config.data.num_classes,
           num_workers=args.native_workers)
     else:
       host = pipeline.ImageNetTFRecordLoader(
-          args.train_file_pattern, is_training=True, batch_size=batch_size,
+          args.train_file_pattern, is_training=True, batch_size=local_batch,
           canvas_size=canvas, num_classes=config.data.num_classes,
-          seed=args.seed)
+          shard_index=row, num_shards=rows, seed=args.seed)
   elif args.data_dir and spec is not None:
-    host = ds_lib.build_dataset(config, "train", batch_size,
+    host = ds_lib.build_dataset(config, "train", local_batch,
                                 canvas_size=canvas, seed=args.seed)
 
   eval_iter, eval_steps = None, 0
@@ -220,7 +216,8 @@ def main(argv=None):
       data_iter = iter(host)
   try:
     metrics = runners.run_classification(
-        config, args.model_dir, train_steps, data_iter=data_iter,
+        config, args.model_dir, train_steps, mesh_shape=mesh_shape,
+        data_iter=data_iter,
         eval_iter=eval_iter, eval_steps=eval_steps,
         eval_every=args.eval_every, seed=args.seed,
         log_every=args.log_every, device=args.device)

@@ -1,5 +1,5 @@
-"""EfficientDet train / eval CLI on one device (automl_tpu/cli/main_det.py's
-flags).
+"""EfficientDet train / eval CLI on one device or a mesh
+(automl_tpu/cli/main_det.py's flags).
 
 Examples:
   python -m automl_tpu_torch.cli.main_det --mode=train \\
@@ -28,9 +28,17 @@ model_dir/profile/ (JAX writes an xprof trace).
 checkpoint (read without TF, ckpt/tf_compat.py; its EMA shadows where it
 has them).
 
+On a mesh: --mesh_shape=r,d,m (one process per point: run it under
+torchrun, or give --coordinator_address / --num_processes / --process_id
+to each process); each process reads batch_size / (r x d) rows of every
+batch (its share of the files with --native_loader, the TF-free reader's
+shard otherwise), and a 'model' axis above 1 splits image H
+(train/runners.py). On the card, one process per GPU:
+  torchrun --nproc_per_node=1 -m automl_tpu_torch.cli.main_det \
+    --model_name=efficientdet-d0 --model_dir=/tmp/d0-mesh --use_fake_data \
+    --mesh_shape=1,1,1 --train_steps=10
+
 Added here: --device (cuda, cuda:N or cpu; default cuda) and --log_every.
-Not ported yet, and refused with their ROADMAP item: --mesh_shape and the
-multi-process flags (M10, second half).
 --compilation_cache_dir sets XLA's compile cache and has no meaning in
 eager PyTorch; it is accepted and ignored.
 """
@@ -72,7 +80,9 @@ def parse_args(argv=None):
                  help="eval mode: evaluate each new checkpoint until this "
                       "many seconds pass with no new one; 0 = the latest "
                       "once")
-  p.add_argument("--mesh_shape", default=None, help="not ported (M10, second half)")
+  p.add_argument("--mesh_shape", default=None,
+                 help="replica,data,model over the world's processes; "
+                      "default: no mesh")
   p.add_argument("--init_backbone_ckpt", default=None,
                  help="a TF EfficientNet checkpoint for the backbone")
   p.add_argument("--profile", action="store_true",
@@ -83,7 +93,8 @@ def parse_args(argv=None):
                       "the latest checkpoint; a nonzero exit propagates; "
                       "train_and_eval adds an eval child per epoch)")
   p.add_argument("--coordinator_address", default=None,
-                 help="not ported (M10, second half)")
+                 help="host:port or file:// rendezvous of a multi-process "
+                      "run (default: torchrun's environment)")
   p.add_argument("--num_processes", type=int, default=None)
   p.add_argument("--process_id", type=int, default=None)
   p.add_argument("--compilation_cache_dir", default=None,
@@ -95,16 +106,24 @@ def parse_args(argv=None):
   return p.parse_args(argv)
 
 
-def _refuse_unported(args):
-  unported = [
-      (args.mesh_shape, "--mesh_shape", "M10, second half"),
-      (args.coordinator_address or args.num_processes or args.process_id,
-       "multi-process training", "M10, second half"),
-  ]
-  for on, what, item in unported:
-    if on:
-      raise NotImplementedError(
-          f"{what} is not ported to automl_tpu_torch yet: ROADMAP {item}")
+def init_mesh(args):
+  """(mesh shape or None, this process's row coordinate, rows of the
+  mesh): brings the world up (the multi-process flags, else torchrun's
+  environment) and places this process on the mesh's data axes (the
+  ranks of 'model' share their rows)."""
+  import torch
+  from automl_tpu_torch.parallel import distributed
+  from automl_tpu_torch.parallel import mesh as mesh_lib
+  distributed.initialize(
+      args.coordinator_address, args.num_processes, args.process_id,
+      backend="nccl" if torch.device(args.device).type == "cuda" else "gloo")
+  if not args.mesh_shape:
+    return None, 0, 1
+  shape = mesh_lib.mesh_shape_for(
+      tuple(int(x) for x in args.mesh_shape.split(",")),
+      mesh_lib.world_size())
+  return (shape, distributed.process_index() // shape[-1],
+          mesh_lib.world_size() // shape[-1])
 
 
 def _shard_files(files, proc_id, n_proc):
@@ -216,17 +235,20 @@ def _eval_mode(args, config, eval_iter, eval_steps, device):
 
 def main(argv=None):
   args = parse_args(argv)
-  _refuse_unported(args)
   if args.run_epoch_in_child_process:
+    if args.mesh_shape or args.num_processes:
+      raise ValueError("--run_epoch_in_child_process runs one process")
     return _run_epochs_in_children(args)
   import torch
   from automl_tpu_torch.data import native_loader, pipeline
   from automl_tpu_torch.ops import anchors
   from automl_tpu_torch.train import runners
 
+  mesh_shape, row, rows = init_mesh(args)
   config = _config(args)
   device = torch.device(args.device)
   batch_size = int(config.batch_size)
+  local_batch = runners._local_rows(batch_size, rows)
   train_steps = _train_steps(args, config)
   size = anchors.parse_image_size(config.image_size)
 
@@ -237,8 +259,9 @@ def main(argv=None):
   if args.mode in ("eval", "train_and_eval") and args.val_file_pattern:
     def eval_iter():  # a fresh iterator per eval pass
       return iter(pipeline.DetectionTFRecordLoader(
-          args.val_file_pattern, is_training=False, batch_size=batch_size,
-          canvas_size=size[0], max_instances=config.max_instances_per_image))
+          args.val_file_pattern, is_training=False, batch_size=local_batch,
+          canvas_size=size[0], max_instances=config.max_instances_per_image,
+          shard_index=row, num_shards=rows))
     eval_steps = max(args.eval_samples // batch_size, 1)
 
   if args.mode == "eval":
@@ -249,18 +272,19 @@ def main(argv=None):
   train_iter = prefetcher = None
   if args.train_file_pattern and not args.use_fake_data:
     if args.native_loader:
-      files = _shard_files(sorted(glob.glob(args.train_file_pattern)), 0, 1)
+      files = _shard_files(sorted(glob.glob(args.train_file_pattern)), row,
+                           rows)
       host = native_loader.NativeParallelDetectionLoader(
-          files, batch_size, size[0],
+          files, local_batch, size[0],
           max_instances=config.max_instances_per_image,
           skip_crowd=config.skip_crowd_during_training,
           num_workers=args.native_workers)
     else:
       host = pipeline.DetectionTFRecordLoader(
-          args.train_file_pattern, is_training=True, batch_size=batch_size,
+          args.train_file_pattern, is_training=True, batch_size=local_batch,
           canvas_size=size[0], max_instances=config.max_instances_per_image,
           skip_crowd_during_training=config.skip_crowd_during_training,
-          seed=args.seed)
+          shard_index=row, num_shards=rows, seed=args.seed)
     if device.type == "cuda":
       prefetcher = pipeline.DevicePrefetcher(iter(host), device)
       train_iter = iter(prefetcher)
@@ -268,7 +292,8 @@ def main(argv=None):
       train_iter = iter(host)
   try:
     metrics = runners.run_detection(
-        config, args.model_dir, train_steps, data_iter=train_iter,
+        config, args.model_dir, train_steps, mesh_shape=mesh_shape,
+        data_iter=train_iter,
         eval_iter=eval_iter, eval_steps=eval_steps,
         eval_every=eval_every if args.mode == "train_and_eval" else 0,
         log_every=args.log_every, init_backbone_ckpt=args.init_backbone_ckpt,

@@ -114,9 +114,9 @@ def torch_to_jax_tree(state: dict) -> dict:
   for name, value in state.items():
     arr = value.detach().cpu().numpy()
     parts = name.split(".")
-    if parts[0] == "blocks":
+    if parts[0] == "blocks" and parts[1].isdigit():
       per_layer.setdefault("/".join(parts[2:]), {})[int(parts[1])] = arr
-    else:
+    else:                         # a stacked block leaf keeps its [L, ...]
       top["/".join(parts)] = arr
   for path, layers in per_layer.items():
     top["blocks/" + path] = np.stack([layers[i] for i in sorted(layers)])
@@ -150,11 +150,14 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
       setattr(owner, attr, QuantizedWeight(
           torch.empty_like(state[key], device=weight.device),
           torch.empty_like(scale, device=weight.device)))
+  params = dict(model.named_parameters())
+  if getattr(model, "stacked", False):     # a pipeline model's [L, ...]
+    from automl_tpu_torch.models.lm import stacked_layers
+    state = stacked_layers(state)
   if getattr(model, "mesh", None) is None:
     model.load_state_dict(state, strict=True)
     return model
   from torch.distributed.tensor import DTensor, distribute_tensor
-  params = dict(model.named_parameters())
   if set(params) != set(state):
     raise ValueError("tree does not match the model's parameters: "
                      f"{sorted(set(params) ^ set(state))}")

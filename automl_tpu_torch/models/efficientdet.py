@@ -12,7 +12,9 @@ conv_stack.<i>, class-bn-3.<i>); convert.py stacks and unstacks.
 forward(images [B, 3, H, W], train, generator) -> (class outputs, box
 outputs): per-level lists [B, A*num_classes, H_l, W_l] / [B, A*4, H_l, W_l]
 in the compute dtype; flatten_predictions gives the flat anchor-ordered
-[B, total_anchors, c] form. config.heads picks the heads, as in JAX:
+[B, total_anchors, c] form. On a spatial mesh (parallel/spatial.py) each
+map is this rank's band of rows, or whole where a level is too short to
+split, and the outputs likewise. config.heads picks the heads, as in JAX:
 ["segmentation"] alone returns the bare segmentation logits [B,
 seg_num_classes, H / 4, W / 4] (SegmentationHead), both heads (class, box,
 seg).
@@ -45,8 +47,17 @@ def head_dense_kernel_init(rng, shape):
   return (0.01 * rng.standard_normal(shape)).astype(np.float32)
 
 
+def global_hw(vm, x) -> tuple:
+  """(h, w) of the whole map of which x is this rank's part (x's own off a
+  spatial mesh vm: parallel/spatial.py)."""
+  h = vm.global_h(x) if vm is not None else x.shape[2]
+  return h, x.shape[3]
+
+
 class ResampleFeatureMap(tnn.Module):
   """1x1-conv channel match (+BN) and max-pool down / nearest up-sampling."""
+
+  vm = None    # parallel/spatial.py attach
 
   def __init__(self, in_channels: int, target_num_channels: int,
                apply_bn: bool = False, conv_after_downsample: bool = False,
@@ -70,20 +81,20 @@ class ResampleFeatureMap(tnn.Module):
     return x
 
   def forward(self, x, target_hw, train=False):
-    h, w = x.shape[2], x.shape[3]
+    h, w = global_hw(self.vm, x)
     th, tw = target_hw
     if h > th and w > tw:
       if not self.conv_after_downsample:
         x = self._maybe_1x1(x, train)
       stride_h = (h - 1) // th + 1
       pool = L.max_pool if self.pooling_type == "max" else L.avg_pool
-      x = pool(x, stride_h + 1, stride_h)
+      x = pool(x, stride_h + 1, stride_h, vm=self.vm)
       if self.conv_after_downsample:
         x = self._maybe_1x1(x, train)
     elif h <= th and w <= tw:
       x = self._maybe_1x1(x, train)
       if h < th or w < tw:
-        x = L.resize_nearest(x, (th, tw))
+        x = L.resize_nearest(x, (th, tw), vm=self.vm)
     else:
       raise ValueError(f"Incompatible resample {h}x{w} -> {th}x{tw}")
     return x
@@ -118,6 +129,8 @@ class OpAfterCombine(tnn.Module):
 class FNode(tnn.Module):
   """One BiFPN fusion node: resample the inputs, weighted-fuse, conv-bn."""
 
+  vm = None    # parallel/spatial.py attach
+
   def __init__(self, feat_level: int, inputs_offsets: list[int],
                input_channels: list[int], config: Config,
                weight_method: str, device=None):
@@ -145,7 +158,11 @@ class FNode(tnn.Module):
                                           device=device))
 
   def _fuse(self, nodes):
-    """sum_i w_i * node_i, the weights in the nodes' dtype."""
+    """sum_i w_i * node_i, the weights in the nodes' dtype. On a spatial
+    mesh, whole maps meeting bands are cut to this rank's rows first."""
+    vm = self.vm
+    if vm is not None and any(vm.is_band(n) for n in nodes):
+      nodes = [vm.to_band(n) for n in nodes]
     dtype = nodes[0].dtype
     method = self.weight_method
     if method == "sum":
@@ -368,6 +385,8 @@ class EfficientDet(tnn.Module):
   """Backbone -> resample P6..Pmax -> BiFPN cells -> class/box heads and
   / or the segmentation head."""
 
+  vm = None    # parallel/spatial.py attach (the runners', train_lib's)
+
   def __init__(self, config: Config, device=None):
     super().__init__()
     self.config = config
@@ -417,9 +436,9 @@ class EfficientDet(tnn.Module):
                               generator=generator)
     feats = [endpoints[f"reduction_{l}"] for l in range(config.min_level, 6)]
     for layer in self.resample_layers:
-      h, w = feats[-1].shape[2], feats[-1].shape[3]
+      h, w = global_hw(self.vm, feats[-1])
       feats.append(layer(feats[-1], ((h + 1) // 2, (w + 1) // 2), train))
-    feat_hw = {level: (f.shape[2], f.shape[3]) for level, f in
+    feat_hw = {level: global_hw(self.vm, f) for level, f in
                zip(range(config.min_level, config.max_level + 1), feats)}
     feats = self.fpn_cells(feats, feat_hw, train)
     # Outputs stay in the compute dtype; the loss upcasts.

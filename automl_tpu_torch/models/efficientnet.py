@@ -271,6 +271,8 @@ class EfficientNet(tnn.Module):
   'stem', 'features' and 'reduction_1'..'reduction_5' (stride 2..32 maps).
   """
 
+  vm = None    # parallel/spatial.py attach (the runners', train_lib's)
+
   def __init__(self, mcfg: Config, device=None):
     super().__init__()
     self.cfg = mcfg

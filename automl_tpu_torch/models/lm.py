@@ -35,11 +35,18 @@ are gathered after; the rest of a block runs alike on the ranks of that
 axis. Serving shards the KV cache over heads (serve_tp: the head-leading
 cache and K4 head-major on each rank's heads) or over the sequence
 (serve_sp: K4's partials on each rank's keys, merged across the axis).
+A prefix-LM mask under ring attention takes the dense path: each rank
+attends its own query rows against the keys and values gathered along the
+sequence (JAX's GSPMD gathers them likewise). MoE experts are split over
+'model' (expert parallelism): each rank runs its experts on its tokens'
+slots and the parts are summed across the axis; the routing groups, each
+slot's position within its expert and the load-balance loss are those of
+the global batch. With use_pipeline on a 'model' axis above 1 the layers
+are stacked [L, ...] (JAX's use_scan layout) and split over 'model' on the
+layer axis: each rank runs its stage's layers in the GPipe schedule
+(parallel/pipeline.py), each microbatch on its own (its own MoE routing).
 Without a mesh, or with a 'model' axis of 1, each branch is the one-device
 path, as in JAX.
-
-Options of the JAX model that this package has not ported yet raise
-NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,7 +71,9 @@ from automl_tpu_torch.ops import decode_attention as decode_attention_lib
 from automl_tpu_torch.ops import xent as xent_lib
 from automl_tpu_torch.ops import ring_attention as ring_lib
 from automl_tpu_torch.parallel import comm
+from automl_tpu_torch.parallel import distributed as dist_lib
 from automl_tpu_torch.parallel import mesh as mesh_lib
+from automl_tpu_torch.parallel import pipeline as pipeline_lib
 from automl_tpu_torch.parallel.mesh import P
 
 ATTN_LOGIT_CAP = 50.0
@@ -187,18 +196,7 @@ def get_lm_config(name: str = "") -> Config:
   return cfg
 
 
-# Options of the JAX model not ported yet, with the ROADMAP item that ports
-# each. A config that turns one on is refused rather than run another way.
-_UNPORTED = (
-    ("use_pipeline", "M10, second half (GPipe pipeline parallelism)"),
-)
-
-
-def _check_ported(cfg: Config):
-  for key, item in _UNPORTED:
-    if cfg.get(key):
-      raise NotImplementedError(
-          f"{key} is not ported to automl_tpu_torch yet: ROADMAP {item}")
+def _check_config(cfg: Config):
   if cfg.get("serve_sp") and cfg.get("serve_tp"):
     raise ValueError("serve_sp and serve_tp are mutually exclusive "
                      "(shard the cache over heads OR sequence, not both)")
@@ -294,6 +292,17 @@ class _Mesh:
     self.heads = (self.model > 1 and len(sh.attn_qkv) > 1
                   and sh.attn_qkv[1] == "model")
     self.rank = mesh.get_local_rank("model")
+    self.pipeline = bool(cfg.get("use_pipeline")) and self.model > 1
+    if self.pipeline and self.ring:
+      raise ValueError("use_pipeline and use_ring_attention both take mesh "
+                       "axis 'model' (stages, sequence chunks)")
+    if self.pipeline and not cfg.get("use_scan", True):
+      raise ValueError("use_pipeline needs the stacked (use_scan) "
+                       "parameter layout")
+    if self.pipeline and cfg.n_layers % self.model:
+      raise ValueError(f"use_pipeline: n_layers ({cfg.n_layers}) must be "
+                       f"divisible by the {self.model} stages on mesh axis "
+                       "'model'")
 
   def __deepcopy__(self, memo):
     return self      # a serving copy of the model shares the mesh
@@ -548,6 +557,12 @@ class Attention(nn.Module):
           # policy saves it.
           out = checkpoint_name(out, "attn_out")
         return project(out), None
+      if par is not None and par.ring:
+        # A materialised mask (prefix-LM) under ring attention: this rank's
+        # query rows against the keys and values of the whole sequence
+        # (their gradients summed over the ranks, then cut to the chunk).
+        k, v = (comm.copy_to_axis(comm.gather_dim(z, par.mesh, "model", 1),
+                                  par.mesh, "model") for z in (k, v))
       return project(_head_parallel(
           lambda q, k, v: self._dense(q, k, v, mask, adt), par, q, k, v)), None
 
@@ -768,7 +783,14 @@ class MoEFFN(nn.Module):
   has one non-zero term, so the values are the same: the expert input in
   the activation dtype, silu(x wg) * (x w0) (or silu(x w0)) then w1 per
   expert, the gated sum of the k slots in f32, cast to the activation
-  dtype."""
+  dtype.
+
+  On a mesh the routing is the global batch's (_global_slots: groups,
+  capacity and positions over every rank's tokens) and aux the product of
+  the two global means; where the ranks of 'model' hold the same tokens,
+  each runs its E / m experts (JAX's expert_spec P('model', None, None))
+  on the slots routed to them and the slots' outputs are summed across
+  the axis (each from one rank) before the gates."""
 
   def __init__(self, cfg: Config, device=None, par=None):
     super().__init__()
@@ -805,54 +827,155 @@ class MoEFFN(nn.Module):
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     return gates, idx, probs
 
-  def slots(self, idx, g_size: int, capacity: int):
-    """Where each of the S * k (token, choice) slots goes: its flat
-    (group, expert, position) index, or groups * E * capacity (a spare
-    row) where it is dropped; and whether it is kept. [S * k] each."""
+  def slots(self, idx, g_size: int, capacity: int, off: int = 0,
+            earlier=None):
+    """Where each of the S * k (token, choice) slots of idx ([S, k] or
+    [B, T, k]) goes: its flat (group, expert, position) index, or groups *
+    E * capacity (a spare row) where it is dropped; and whether it is kept.
+    [S * k] each.
+
+    The tokens are a contiguous run of the global batch from its off-th
+    token; groups count from the first one the run falls in. A slot's
+    position counts the same expert's slots before it in its group: the
+    run's own, then earlier(counts), the slots of the global tokens before
+    the run in the same groups ([groups, E], from the run's own [groups,
+    E] counts; none without)."""
     e, k = self.num_experts, self.top_k
-    flat_e = idx.reshape(-1, g_size * k)                       # [G, Sg*k]
+    flat_e = idx.reshape(-1)
+    s = flat_e.shape[0] // k
+    first = off // g_size
+    groups = (off + s - 1) // g_size - first + 1
+    lg = (off + torch.arange(s * k, device=idx.device) // k) // g_size - first
     onehot = F.one_hot(flat_e, e)
-    pos = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(-1)
+    counts = torch.zeros((groups, e), dtype=onehot.dtype,
+                         device=idx.device).index_add_(0, lg, onehot)
+    # The same expert's earlier slots of the run within the group.
+    before = (torch.cumsum(onehot, 0) - onehot
+              - (torch.cumsum(counts, 0) - counts)[lg])
+    if earlier is not None:
+      before = before + earlier(counts)[lg]
+    pos = (before * onehot).sum(-1)
     keep = pos < capacity
-    group = torch.arange(flat_e.shape[0], device=idx.device)[:, None]
-    dest = (group * e + flat_e) * capacity + pos
-    spare = flat_e.shape[0] * e * capacity
-    return torch.where(keep, dest, spare).reshape(-1), keep.reshape(-1)
+    dest = torch.where(keep, (lg * e + flat_e) * capacity + pos,
+                       groups * e * capacity)
+    return dest, keep
+
+  def _global_slots(self, idx):
+    """(dest, keep, groups, capacity) of this rank's B * T * k slots
+    within the routing of the global batch (slots; groups counts the groups
+    the rank's tokens span).
+
+    On a mesh the group size and the capacity follow from the global token
+    count, and a group may span ranks. This rank's rows (with ring
+    attention gathered whole over 'model' first) are a contiguous run of
+    the global order, so the earlier ranks' slots in its groups are an
+    exclusive prefix over the data ranks of the per-group per-expert counts
+    (one all-gather of [groups, E]). Without a mesh the rows are the whole
+    batch."""
+    par, k, e = self.par, self.top_k, self.num_experts
+    b, t = idx.shape[:2]
+    rows, row, n_rows, earlier = idx, 0, 1, None
+    if par is not None:
+      if par.ring:
+        rows = comm.all_gather_dims(idx, par.mesh, (("model", 1),))
+      row, n_rows = dist_lib.batch_coordinate(par.mesh)
+    s_rows = b * rows.shape[1]
+    g_size, capacity = self.routing(s_rows * n_rows)
+    off = row * s_rows
+    first = off // g_size
+    groups = (off + s_rows - 1) // g_size - first + 1
+    if par is not None:
+      def earlier(counts):
+        mine = counts.new_zeros((s_rows * n_rows // g_size, e))
+        mine[first:first + groups] = counts
+        everyone = comm.all_gather_dims(mine[None], par.mesh,
+                                        (("data", 0), ("replica", 0)))
+        return everyone[:row].sum(0)[first:first + groups]
+    dest, keep = self.slots(rows, g_size, capacity, off, earlier)
+    if par is not None and par.ring:   # this rank's chunk of each row
+      tg, dev = rows.shape[1], idx.device
+      sel = ((torch.arange(b, device=dev)[:, None] * tg + par.rank * t
+              + torch.arange(t, device=dev)[None, :]).reshape(-1, 1) * k
+             + torch.arange(k, device=dev)).reshape(-1)
+      dest, keep = dest[sel], keep[sel]
+    return dest, keep, groups, capacity
+
+  def _expert_w(self, p, adt, e0: int, n: int):
+    """Experts [e0, e0 + n) of an expert weight in the activation dtype:
+    on a mesh this rank's part (its gradient summed over the token axes),
+    gathered whole where ring attention splits the tokens over 'model' (or
+    an int8 weight is whole), cut to the range where it holds every
+    expert."""
+    par = self.par
+    if par is None or par.ring or isinstance(p, QuantizedWeight):
+      w = _maybe_dequant(p, adt, par)
+    else:
+      w = comm.local_param(p, par.token_axes).to(adt)
+    return w if w.shape[0] == n else w[e0:e0 + n]
 
   def forward(self, x):
     adt = _dtype(self.cfg.activation_dtype)
-    e, k = self.num_experts, self.top_k
+    e, k, par = self.num_experts, self.top_k, self.par
     b, t, d = x.shape
     s = b * t
     gates, idx, probs = self.route(x)
-    top1 = F.one_hot(idx[:, 0], e).float()
-    aux = e * torch.sum(top1.mean(0) * probs.mean(0))
+    top1_mean = F.one_hot(idx[:, 0], e).float().mean(0)
+    probs_mean = probs.mean(0)
+    tok = par.token_axes if par is not None else ()
+    if tok:
+      # The aux of the global tokens: a product of two global means (its
+      # value on every rank; a trainer counts this rank's share).
+      top1_mean = comm.mean_over(top1_mean, par.mesh, tok)
+      probs_mean = comm.mean_over(probs_mean, par.mesh, tok)
+    aux = e * torch.sum(top1_mean * probs_mean)
 
-    g_size, capacity = self.routing(s)
-    groups = s // g_size
-    dest, keep = self.slots(idx, g_size, capacity)
-    n_rows = groups * e * capacity
+    dest, keep, groups, capacity = self._global_slots(idx.reshape(b, t, k))
+    # Expert parallelism, on any mesh: where the ranks of 'model' hold the
+    # same tokens, each runs its E / m experts (all E at m = 1) on the
+    # slots routed to them. With ring attention the tokens split 'model'
+    # already: each rank gathers the experts whole.
+    ep = par is not None and not par.ring
+    m = par.model if ep else 1
+    if e % m:
+      raise ValueError(f"moe_num_experts ({e}) must be divisible by mesh "
+                       f"axis 'model' size {m}")
+    el = e // m
+    e0 = par.rank * el if ep else 0
+    if ep:
+      cap_e = e * capacity
+      grp, rem = dest // cap_e, dest % cap_e
+      ex, pos = rem // capacity, rem % capacity
+      mine = keep & (ex >= e0) & (ex < e0 + el)
+      dest = torch.where(mine, (grp * el + ex - e0) * capacity + pos,
+                         groups * el * capacity)
+      xe = comm.copy_to_axis(x, par.mesh, "model")
+    else:
+      xe = x
+    n_rows = groups * el * capacity
     # The slot each (group, expert, position) row takes its input from; the
     # spare slot index s * k (a zero row) where no slot lands.
     z = torch.arange(s * k, device=x.device)
     src = torch.full((n_rows + 1,), s * k, dtype=torch.long,
                      device=x.device).scatter_(0, dest, z)[:n_rows]
-    x_slots = x.reshape(s, d).to(adt).repeat_interleave(k, dim=0)
+    x_slots = xe.reshape(s, d).to(adt).repeat_interleave(k, dim=0)
     x_slots = torch.cat([x_slots, x_slots.new_zeros(1, d)])
-    expert_in = x_slots[src].reshape(groups, e, capacity, d)
-    expert_in = expert_in.transpose(0, 1).reshape(e, groups * capacity, d)
-    w = lambda p: _maybe_dequant(p, adt, self.par)
+    expert_in = x_slots[src].reshape(groups, el, capacity, d)
+    expert_in = expert_in.transpose(0, 1).reshape(el, groups * capacity, d)
+    w = lambda p: self._expert_w(p, adt, e0, el)
     h = torch.bmm(expert_in, w(self.w0))
     if self.cfg.use_gated_ffn:
       h = F.silu(torch.bmm(expert_in, w(self.wg))) * h
     else:
       h = F.silu(h)
-    out_e = torch.bmm(h, w(self.w1))   # [E, G*C, D]
-    out_e = out_e.reshape(e, groups, capacity, d).transpose(0, 1)
+    out_e = torch.bmm(h, w(self.w1))   # [E_l, G*C, D]
+    out_e = out_e.reshape(el, groups, capacity, d).transpose(0, 1)
     out_e = torch.cat([out_e.reshape(n_rows, d).float(),
                        out_e.new_zeros(1, d, dtype=torch.float32)])
-    gate_flat = gates.reshape(-1) * keep.float()
-    out = out_e[dest] * gate_flat[:, None]                # [S*k, D] f32
+    out_slots = out_e[dest]                               # [S*k, D] f32
+    if ep:
+      # Each slot's value comes from one rank (zeros on the others).
+      out_slots = comm.reduce_from_axis(out_slots, par.mesh, "model")
+    out = out_slots * (gates.reshape(-1) * keep.float())[:, None]
     return out.reshape(s, k, d).sum(1).reshape(b, t, d).to(adt), aux
 
 
@@ -960,6 +1083,51 @@ def _remat_policy(cfg):
 # ---------------------------------------------------------------------------
 
 
+def _stacked(block: nn.Module, n: int) -> nn.Module:
+  """`block` with each parameter replaced by a stacked [n, ...] one (JAX's
+  use_scan layout)."""
+  for name, p in list(block.named_parameters()):
+    owner_name, _, attr = name.rpartition(".")
+    owner = block.get_submodule(owner_name) if owner_name else block
+    setattr(owner, attr, nn.Parameter(torch.empty(
+        (n,) + tuple(p.shape), dtype=p.dtype, device=p.device)))
+  return block
+
+
+def _call_with(module, params, *args):
+  return torch.func.functional_call(module, params, args)
+
+
+def per_layer(named: dict) -> dict:
+  """{name: tensor} of a pipeline model (stacked blocks.<leaf> [L, ...])
+  in the per-layer names of every other layout (blocks.<i>.<leaf>), which
+  checkpoints keep; other entries as they are."""
+  out = {}
+  for k, v in named.items():
+    parts = k.split(".")
+    if parts[0] == "blocks" and not parts[1].isdigit():
+      out.update((f"blocks.{i}.{'.'.join(parts[1:])}", v[i])
+                 for i in range(v.shape[0]))
+    else:
+      out[k] = v
+  return out
+
+
+def stacked_layers(named: dict) -> dict:
+  """The inverse of per_layer: blocks.<i>.<leaf> entries -> one stacked
+  blocks.<leaf> [L, ...] each."""
+  out, layers = {}, {}
+  for k, v in named.items():
+    parts = k.split(".")
+    if parts[0] == "blocks" and parts[1].isdigit():
+      layers.setdefault(".".join(parts[2:]), {})[int(parts[1])] = v
+    else:
+      out[k] = v
+  for leaf, per in layers.items():
+    out["blocks." + leaf] = torch.stack([per[i] for i in sorted(per)])
+  return out
+
+
 class TransformerLM(nn.Module):
   """forward(tokens, ...) -> (logits, cache).
 
@@ -972,24 +1140,27 @@ class TransformerLM(nn.Module):
   def __init__(self, cfg: Config, sharding: Optional[ShardingConfig] = None,
                device=None, mesh=None):
     super().__init__()
-    _check_ported(cfg)
+    _check_config(cfg)
     self.cfg = cfg
     self.sh = sharding or ShardingConfig.data_parallel()
     self.mesh = mesh
     par = self.par = _Mesh(mesh, self.sh, cfg) if mesh is not None else None
+    # GPipe's layout: the layers' parameters stacked [L, ...] and split over
+    # the stages (checkpoints keep the per-layer names: per_layer).
+    self.stacked = par is not None and par.pipeline
     if par is not None:
       device = torch.device(mesh.device_type, torch.cuda.current_device()
                             if mesh.device_type == "cuda" else None)
-      if cfg.get("moe_num_experts") and (par.model > 1 or par.token_axes):
-        raise NotImplementedError(
-            "MoE on a mesh that splits the tokens or whose 'model' axis is "
-            "above 1 is expert parallelism (with its dp x EP routing "
-            "groups): not ported to automl_tpu_torch yet: ROADMAP M10, "
-            "second half")
     dt = _dtype(cfg.param_dtype)
     self.embed = _param((cfg.vocab_size, cfg.model_dim), dt, device)
-    self.blocks = nn.ModuleList(TransformerBlock(cfg, device, par)
-                                for _ in range(cfg.n_layers))
+    if self.stacked:
+      # The stages' layers: one block (one-device semantics inside a stage,
+      # as in JAX's shard_map) whose parameters stack the layers [L, ...].
+      self.blocks = _stacked(TransformerBlock(cfg, device, None),
+                             cfg.n_layers)
+    else:
+      self.blocks = nn.ModuleList(TransformerBlock(cfg, device, par)
+                                  for _ in range(cfg.n_layers))
     self.final_norm = RMSNorm(cfg.model_dim, device, par)
     if not cfg.tie_embeddings:
       self.unembed = _param((cfg.model_dim, cfg.vocab_size), dt, device)
@@ -1002,7 +1173,8 @@ class TransformerLM(nn.Module):
     for name, p in list(self.named_parameters()):
       owner_name, _, attr = name.rpartition(".")
       owner = self.get_submodule(owner_name) if owner_name else self
-      spec = param_spec(name, self.sh, moe)
+      spec = (P("model") if self.stacked and name.startswith("blocks.")
+              else param_spec(name, self.sh, moe))
       setattr(owner, attr, nn.Parameter(
           mesh_lib.distribute(p.data, self.mesh, spec),
           requires_grad=p.requires_grad))
@@ -1042,11 +1214,6 @@ class TransformerLM(nn.Module):
       positions = (start + torch.arange(t, device=tokens.device)).expand(b, t)
     if kv_positions is None:
       kv_positions = positions
-    if ring and causal_attention is not None:
-      raise NotImplementedError(
-          "prefix-LM masks under ring attention (the mask spans the whole "
-          "sequence) are not ported to automl_tpu_torch yet: ROADMAP M10, "
-          "second half")
     if cache is not None and par is not None and par.ring and \
         not cfg.get("ring_decode_fallback") and not cfg.get("serve_sp"):
       raise NotImplementedError(
@@ -1070,9 +1237,18 @@ class TransformerLM(nn.Module):
     uses_fused_mask = causal_attention is None and cache is None and bool(
         ring or cfg.get("use_flash_attention")
         or (cfg.get("use_window_chunk") and cfg.get("window_chunk_size")))
+    seg_k, prefix_k = segment_ids, causal_attention
+    if ring and not uses_fused_mask:
+      # The mask's columns span the whole sequence (Attention gathers the
+      # keys along it); its rows are this rank's queries.
+      def gather(z):
+        return None if z is None else comm.all_gather_dims(
+            z, par.mesh, (("model", 1),))
+      kv_positions, seg_k, prefix_k = (gather(z) for z in (
+          kv_positions, segment_ids, causal_attention))
     mask = None if uses_fused_mask else causal_mask(
-        positions, kv_positions, cfg.window_size, segment_ids, segment_ids,
-        prefix_q=causal_attention, prefix_k=causal_attention)
+        positions, kv_positions, cfg.window_size, segment_ids, seg_k,
+        prefix_q=causal_attention, prefix_k=prefix_k)
     # Each block's forward runs again in the backward, but for what the
     # remat policy saves ("full": nothing, as jax.checkpoint with no policy).
     # The JAX model remats only its scanned layers, hence use_scan.
@@ -1086,19 +1262,44 @@ class TransformerLM(nn.Module):
       mask, cache_index = self._cache_writes(mask, cache, cache_index, t)
     new_caches = []
     aux = None
-    for i, block in enumerate(self.blocks):
+    is_moe = bool(cfg.get("moe_num_experts"))
+    if par is not None and par.pipeline and cache is None:
+      # GPipe over the stages on 'model': this rank's layers, the extras
+      # cut per microbatch (each routes its MoE tokens on its own).
+      stacked = {k: comm.local_param(p, par.token_axes)
+                 for k, p in self.blocks.named_parameters()}
+      n_local = next(iter(stacked.values())).shape[0]
+      layers = [{k: v[j] for k, v in stacked.items()} for j in range(n_local)]
+
+      def block_fn(layer, h, extras):
+        outs = torch.func.functional_call(
+            self.blocks, layer, (h, extras[0], extras[1], None, None,
+                                 extras[2]))
+        return outs[0], (outs[2] if is_moe else h.new_zeros(
+            (), dtype=torch.float32))
       if remat:
-        # An MoE block's aux comes out of the checkpoint with its output.
-        outs = torch.utils.checkpoint.checkpoint(
-            block, x, positions, mask, None, None, segment_ids,
-            use_reentrant=False, **remat_kw)
-      else:
-        outs = block(x, positions, mask, None if cache is None else cache[i],
-                     cache_index, segment_ids)
-      x, nc = outs[:2]
-      if block.is_moe and cache is None:
-        aux = outs[2] if aux is None else aux + outs[2]
-      new_caches.append(nc)
+        fn = block_fn
+        block_fn = lambda layer, h, extras: torch.utils.checkpoint.checkpoint(
+            fn, layer, h, extras, use_reentrant=False, **remat_kw)
+      x, pipe_aux = pipeline_lib.pipeline_blocks_sharded(
+          x, layers, (positions, mask, segment_ids), block_fn, par.mesh,
+          num_microbatches=int(cfg.get("pipeline_microbatches", 4)))
+      aux = pipe_aux if is_moe else None
+    else:
+      for i, block in enumerate(self._layers()):
+        if remat:
+          # An MoE block's aux comes out of the checkpoint with its output.
+          outs = torch.utils.checkpoint.checkpoint(
+              block, x, positions, mask, None, None, segment_ids,
+              use_reentrant=False, **remat_kw)
+        else:
+          outs = block(x, positions, mask,
+                       None if cache is None else cache[i], cache_index,
+                       segment_ids)
+        x, nc = outs[:2]
+        if is_moe and cache is None:
+          aux = outs[2] if aux is None else aux + outs[2]
+        new_caches.append(nc)
     new_cache = tuple(new_caches) if cache is not None else None
     x = self.final_norm(x)
     out = x if return_hidden else unembed_logits(self, x)
@@ -1107,6 +1308,18 @@ class TransformerLM(nn.Module):
     if aux is None:
       aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return out, new_cache, aux
+
+  def _layers(self):
+    """The layers as callables: the blocks; for the stacked stage layers of
+    a pipeline model (a KV cache's pass), each layer's slice of the
+    gathered stacks."""
+    if not self.stacked:
+      return list(self.blocks)
+    full = {k: comm.gather_param(p, self.par.token_axes)
+            for k, p in self.blocks.named_parameters()}
+    return [functools.partial(_call_with, self.blocks,
+                              {k: v[i] for k, v in full.items()})
+            for i in range(self.cfg.n_layers)]
 
   def _cache_writes(self, mask, cache, cache_index, t: int):
     """(mask, cache_index) as the layers take them: the per-row writes of a

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from automl_tpu_torch.nn import quant
 from automl_tpu_torch.nn.precision import get_policy
 from automl_tpu_torch.ops import depthwise
+from automl_tpu_torch.parallel import comm, spatial
 
 # ---------------------------------------------------------------------------
 # Activations.
@@ -128,7 +129,10 @@ def _bias(b, like):
 
 class Conv2D(tnn.Module):
   """NCHW conv, OIHW kernel, TF SAME padding by default (explicit pads,
-  asymmetric at stride 2)."""
+  asymmetric at stride 2); on a band of a spatially split map (vm:
+  parallel/spatial.py attach), with its halo rows."""
+
+  vm = None
 
   def __init__(self, in_ch: int, out_ch: int, kernel_size=3, strides=1,
                padding="SAME", use_bias=False, groups: int = 1,
@@ -153,15 +157,17 @@ class Conv2D(tnn.Module):
     kh, kw = self.kernel_size
     return (kh, kw, self.in_ch // self.groups, self.out_ch)
 
-  def _conv(self, x, kernel):
-    return depthwise.conv2d_same(x, kernel, self.strides, self.padding,
+  def _conv(self, x, kernel, padding):
+    return depthwise.conv2d_same(x, kernel, self.strides, padding,
                                  self.groups)
 
   def forward(self, x):
     policy = get_policy()
     x = policy.cast_to_compute(x)
     kernel = quant.maybe_quant_kernel(self.kernel).to(policy.compute_dtype)
-    y = self._conv(x, kernel)
+    x, padding = spatial.same_window(self.vm, x, self.kernel_size,
+                                     self.strides, self.padding)
+    y = self._conv(x, kernel, padding)
     if self.bias is not None:
       y = y + _bias(self.bias, y)
     return quant.maybe_quant_activation(y)
@@ -180,10 +186,10 @@ class DepthwiseConv2D(Conv2D):
                      use_bias, groups=channels,
                      kernel_init=depthwise_kernel_init, device=device)
 
-  def _conv(self, x, kernel):
+  def _conv(self, x, kernel, padding):
     if not depthwise.pallas_filter_grad_enabled():
-      return super()._conv(x, kernel)
-    return depthwise.depthwise_conv(x, kernel, self.strides, self.padding)
+      return super()._conv(x, kernel, padding)
+    return depthwise.depthwise_conv(x, kernel, self.strides, padding)
 
 
 class SeparableConv2D(tnn.Module):
@@ -290,15 +296,28 @@ class BatchNorm(tnn.Module):
   m * old + (1 - m) * batch as `pending_update` (not written to the
   buffers: see the module docstring). The normalize is folded, in the
   compute dtype: x * inv + (beta - mean * inv), inv = rsqrt(var + eps) *
-  gamma computed in f32 (automl_tpu/nn/layers.py:326-346)."""
+  gamma computed in f32 (automl_tpu/nn/layers.py:326-346).
+
+  Cross-replica moments: with `axis_name` (a mesh axis of `mesh`) the
+  mean and the mean of squares are averaged over the ranks of that axis;
+  with `group_size` as well, the [n, C] pair is all-gathered and each rank
+  averages its group's slice (JAX's axis_name / group_size under
+  shard_map). Without them, a vision mesh (vm: parallel/spatial.py
+  attach) averages them over every axis that holds a distinct part of the
+  batch or the map, as GSPMD's global moments."""
+
+  vm = None
 
   def __init__(self, channels: int, momentum=0.99, epsilon=1e-3,
-               gamma_init_value: float = 1.0, device=None):
+               gamma_init_value: float = 1.0, device=None,
+               axis_name: str | None = None, group_size: int | None = None,
+               mesh=None):
     super().__init__()
     self.channels = channels
     self.momentum = momentum
     self.epsilon = epsilon
     self.gamma_init_value = gamma_init_value
+    self.axis_name, self.group_size, self.mesh = axis_name, group_size, mesh
     self.gamma = tnn.Parameter(torch.full((channels,), float(gamma_init_value),
                                           device=device))
     self.beta = tnn.Parameter(torch.zeros((channels,), device=device))
@@ -310,10 +329,7 @@ class BatchNorm(tnn.Module):
 
   def forward(self, x, train: bool = False):
     if train:
-      xf = x.float()
-      dims = (0,) + tuple(range(2, x.ndim))
-      mean = xf.mean(dims)
-      var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+      mean, var = self._moments(x)
       m = self.momentum
       with torch.no_grad():
         self.pending_update = (m * self.moving_mean + (1 - m) * mean.detach(),
@@ -326,6 +342,28 @@ class BatchNorm(tnn.Module):
     y = x * _bias(inv, x) + _bias(offset, x)
     return get_policy().cast_to_compute(y)
 
+  def _moments(self, x):
+    xf = x.float()
+    dims = (0,) + tuple(range(2, x.ndim))
+    mean, mean_sq = xf.mean(dims), (xf * xf).mean(dims)
+    if self.axis_name is not None:
+      if self.group_size is not None:
+        # Each rank's loss meets every group member's moments: the
+        # gathered pair's gradient is summed over the axis, then cut.
+        pair = comm.copy_to_axis(comm.gather_dim(
+            torch.stack([mean, mean_sq])[None], self.mesh, self.axis_name,
+            0), self.mesh, self.axis_name)
+        start = (self.mesh.get_local_rank(self.axis_name) // self.group_size
+                 * self.group_size)
+        mean, mean_sq = pair[start:start + self.group_size].mean(0)
+      else:
+        mean, mean_sq = comm.mean_over(torch.stack([mean, mean_sq]),
+                                       self.mesh, (self.axis_name,))
+    elif self.vm is not None:
+      mean, mean_sq = comm.mean_over(torch.stack([mean, mean_sq]),
+                                     self.vm.mesh, self.vm.stat_axes(x))
+    return mean, torch.clamp(mean_sq - mean * mean, min=0.0)
+
 
 class GroupNorm(tnn.Module):
   """GroupNorm over (H, W, the channels of a group), contiguous groups of
@@ -333,6 +371,8 @@ class GroupNorm(tnn.Module):
   squared deviations (jnp.var's order, not F.group_norm's); gamma and beta
   f32; the output in the compute dtype. No moving statistics: `train` is
   ignored (automl_tpu/nn/layers.py:349-373)."""
+
+  vm = None    # parallel/spatial.py attach
 
   def __init__(self, channels: int, groups: int = 8, epsilon=1e-3,
                device=None):
@@ -350,8 +390,12 @@ class GroupNorm(tnn.Module):
                        f"{g} groups")
     # NHWC view (free for channels_last), groups on the last axis.
     xg = x.float().permute(0, 2, 3, 1).reshape(b, h, w, g, c // g)
-    mean = xg.mean((1, 2, 4), keepdim=True)
-    var = (xg - mean).square().mean((1, 2, 4), keepdim=True)
+    # On a band of a spatially split map, the moments of the whole map.
+    vm = self.vm
+    over = (lambda v: comm.mean_over(v, vm.mesh, ("model",))) if (
+        vm is not None and vm.is_band(x)) else (lambda v: v)
+    mean = over(xg.mean((1, 2, 4), keepdim=True))
+    var = over((xg - mean).square().mean((1, 2, 4), keepdim=True))
     xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
     y = xg.reshape(b, h, w, c) * self.gamma + self.beta
     return get_policy().cast_to_compute(y.permute(0, 3, 1, 2))
@@ -378,9 +422,10 @@ def apply_bn_updates(updates: dict) -> None:
 
 def build_norm(channels: int, norm_type: str = "bn", momentum=0.99,
                epsilon=1e-3, gamma_init_value: float = 1.0, device=None):
-  """Norm selector: "bn" / "syncbn" / "tpu_bn" -> BatchNorm (one device:
-  the grouped cross-replica moments are ROADMAP M10, second half); "gn" -> GroupNorm
-  (8 groups; momentum and gamma_init_value unused, as in JAX)."""
+  """Norm selector: "bn" / "syncbn" / "tpu_bn" -> BatchNorm (on a vision
+  mesh its moments are global; BatchNorm's axis_name / group_size give
+  grouped cross-replica moments); "gn" -> GroupNorm (8 groups; momentum
+  and gamma_init_value unused, as in JAX)."""
   if norm_type in ("bn", "syncbn", "tpu_bn"):
     return BatchNorm(channels, momentum, epsilon, gamma_init_value,
                      device=device)
@@ -434,6 +479,8 @@ def dropout(x, train: bool, rate: float, generator=None):
 class SqueezeExcite(tnn.Module):
   """Global pool -> reduce 1x1 -> act -> expand 1x1 -> sigmoid gate."""
 
+  vm = None    # parallel/spatial.py attach
+
   def __init__(self, channels: int, reduced_ch: int, act="swish",
                device=None):
     super().__init__()
@@ -442,7 +489,7 @@ class SqueezeExcite(tnn.Module):
     self.act = activation_fn(act)
 
   def forward(self, x):
-    pooled = x.mean((2, 3), keepdim=True)
+    pooled = spatial.spatial_mean(self.vm, x)
     gate = torch.sigmoid(self.expand(self.act(self.reduce(pooled))))
     return x * gate
 
@@ -452,36 +499,59 @@ class SqueezeExcite(tnn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _same_pool_pads(x, window, strides):
+def _pool_pads(x, window, strides, padding, fill, vm):
+  """(x, F.pad pads) of a pool; on a band of a spatially split map (vm),
+  the band with its halo rows (fill past the image) and the W pads."""
+  x, padding = spatial.same_window(vm, x, (window, window),
+                                   (strides, strides), padding, fill)
+  if padding == "VALID":
+    return x, None
   (pt, pb), (pl, pr) = depthwise.conv_pads(
-      x.shape[2:], (window, window), (strides, strides), "SAME")
-  return (pl, pr, pt, pb)
+      x.shape[2:], (window, window), (strides, strides), padding)
+  return x, (pl, pr, pt, pb)
 
 
-def max_pool(x, window: int, strides: int, padding="SAME"):
-  """Max pool; SAME pads with -inf (lax.reduce_window's init)."""
-  if padding == "SAME":
-    x = F.pad(x, _same_pool_pads(x, window, strides), value=float("-inf"))
+def max_pool(x, window: int, strides: int, padding="SAME", vm=None):
+  """Max pool; SAME pads with -inf (lax.reduce_window's init). vm: the
+  VisionMesh of a spatially split map, if any."""
+  x, pads = _pool_pads(x, window, strides, padding, float("-inf"), vm)
+  if pads is not None:
+    x = F.pad(x, pads, value=float("-inf"))
   return F.max_pool2d(x, window, strides)
 
 
-def avg_pool(x, window: int, strides: int, padding="SAME"):
-  """Average pool; the SAME padding does not count in the divisor."""
+def avg_pool(x, window: int, strides: int, padding="SAME", vm=None):
+  """Average pool; the SAME padding does not count in the divisor (on a
+  band, the neighbours' halo rows do)."""
   ones = torch.ones_like(x[:1, :1])
-  if padding == "SAME":
-    pads = _same_pool_pads(x, window, strides)
+  band = x.shape[2]
+  x, pads = _pool_pads(x, window, strides, padding, 0.0, vm)
+  if x.shape[2] != band:
+    ones = (torch.ones_like(x[:1, :1]) if x.shape[2] == band * vm.m
+            else _pool_pads(ones, window, strides, padding, 0.0, vm)[0])
+  if pads is not None:
     x, ones = F.pad(x, pads), F.pad(ones, pads)
   summed = F.avg_pool2d(x, window, strides, divisor_override=1)
   counts = F.avg_pool2d(ones, window, strides, divisor_override=1)
   return summed / counts
 
 
-def resize_nearest(x, target_hw: Sequence[int]):
+def resize_nearest(x, target_hw: Sequence[int], vm=None):
   """Nearest-neighbour upsample (BiFPN top-down path): integer factors
   repeat rows and columns, as jnp.repeat; others sample the nearest source
-  pixel centre (jax.image.resize 'nearest')."""
+  pixel centre (jax.image.resize 'nearest'). vm: the VisionMesh of a
+  spatially split map, if any."""
   h, w = x.shape[2], x.shape[3]
   th, tw = target_hw
+  if vm is not None and vm.is_band(x):
+    # target_hw is the whole map's: a band repeats to a band where the
+    # factors are integers, else it is gathered whole first.
+    hg = h * vm.m
+    if th % hg == 0 and tw % w == 0:
+      return x.repeat_interleave(th // hg, dim=2).repeat_interleave(
+          tw // w, dim=3)
+    x = vm.to_whole(x)
+    h = hg
   if (th, tw) == (h, w):
     return x
   if th % h == 0 and tw % w == 0:

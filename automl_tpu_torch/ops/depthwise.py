@@ -63,7 +63,10 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
 
 
 def conv_pads(x_hw, k_hw, strides, padding):
-  """((top, bottom), (left, right)) pads of a SAME or VALID conv."""
+  """((top, bottom), (left, right)) pads of a SAME or VALID conv (explicit
+  pads pass through)."""
+  if isinstance(padding, tuple):
+    return padding
   if padding == "SAME":
     return tuple(_same_pads(s, k, st) for s, k, st in zip(x_hw, k_hw, strides))
   if padding == "VALID":
@@ -82,7 +85,8 @@ def _pad_for_conv(x, pads):
 
 def conv2d_same(x, kernel, strides=(1, 1), padding="SAME", groups=1):
   """F.conv2d (NCHW, OIHW kernel) with TF SAME or VALID padding, the SAME
-  pads computed by _same_pads (torch's padding="same" refuses stride 2)."""
+  pads computed by _same_pads (torch's padding="same" refuses stride 2),
+  or explicit ((top, bottom), (left, right)) pads."""
   pads = conv_pads(x.shape[2:], kernel.shape[2:], strides, padding)
   xp, conv_pad = _pad_for_conv(x, pads)
   return F.conv2d(xp, kernel, None, strides, conv_pad, 1, groups)
@@ -374,8 +378,16 @@ class _DepthwiseConv(torch.autograd.Function):
     ctx.strides, ctx.padding = strides, padding
     # The one place the knob is read for this conv: a knob flipped before
     # the backward does not change which path it takes.
-    ctx.use_k6 = (_ENABLED and padding == "SAME" and strides == (1, 1)
-                  and kernel.shape[2] == kernel.shape[3])
+    # Rows with their halo (explicit pads, VALID in H, SAME in W: a band of
+    # a spatially split map) take K6 too: the SAME filter gradient of the
+    # haloed rows against dy padded by k // 2 zero rows is the rows'
+    # VALID-in-H gradient.
+    ctx.use_k6 = (_ENABLED and strides == (1, 1)
+                  and kernel.shape[2] == kernel.shape[3]
+                  and (padding == "SAME" or (
+                      isinstance(padding, tuple) and padding[0] == (0, 0)
+                      and padding[1] == _same_pads(x.shape[3],
+                                                   kernel.shape[3], 1))))
     return _dw_forward(x, kernel, strides, padding)
 
   @staticmethod
@@ -395,6 +407,8 @@ class _DepthwiseConv(torch.autograd.Function):
       dxp = dxp[:, :, pt:pt + x.shape[2], pl:pl + x.shape[3]]
     if use_k6:
       cl = torch.channels_last
+      if isinstance(padding, tuple):
+        dy = F.pad(dy, (0, 0, k // 2, k // 2))
       dw = depthwise_filter_grad(x.contiguous(memory_format=cl),
                                  dy.contiguous(memory_format=cl), k
                                  ).to(kernel.dtype)
@@ -403,5 +417,6 @@ class _DepthwiseConv(torch.autograd.Function):
 
 def depthwise_conv(x, kernel, strides=(1, 1), padding="SAME"):
   """SAME/VALID depthwise conv (NCHW, kernel [C, 1, kh, kw]) whose filter
-  gradient is K6 when the knob is on (see the module's docstring)."""
+  gradient is K6 when the knob is on (see the module's docstring);
+  padding may also be explicit pads."""
   return _DepthwiseConv.apply(x, kernel, tuple(strides), padding)

@@ -11,9 +11,17 @@ tensors, gloo for CPU tensors).
     the axis backward, then an all-gather forward and this rank's slice of
     the gradient backward (the conjugate operators of tensor-parallel
     layers);
+  * reduce_from_axis: the other half of copy_to_axis's pair, around a
+    region whose ranks each compute a part of a sum (their experts): a sum
+    across the axis forward, the gradient as it is backward;
+  * mean_over: a value each rank computes from its own tokens (or rows,
+    or band) -> the mean over the ranks, whose backward is the mean of
+    the ranks' gradients;
   * gather_param: a DTensor parameter -> its full tensor, whose gradient
     is summed over the axes that split the tokens (each rank's loss covers
-    its own tokens) and cut back to the parameter's placements.
+    its own tokens) and cut back to the parameter's placements;
+    local_param: the same for the rank's own part (experts, a pipeline
+    stage's layers).
 """
 
 from __future__ import annotations
@@ -60,6 +68,60 @@ def all_reduce(x, mesh, axes, op=dist.ReduceOp.SUM):
     if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
       dist.all_reduce(x, op=op, group=mesh.get_group(a))
   return x
+
+
+def all_gather_dims(x, mesh, axes_dims):
+  """x gathered over each (axis, dim) in turn, in rank order (no
+  gradient): the global layout of a value each rank holds a part of."""
+  for a, d in axes_dims:
+    if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
+      x = _all_gather(x, mesh, a, d)
+  return x
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, mesh, axis):
+    return all_reduce(x.contiguous().clone(), mesh, (axis,))
+
+  @staticmethod
+  def backward(ctx, g):
+    return g, None, None
+
+
+def reduce_from_axis(x, mesh, axis: str):
+  """The sum of x across `axis`; the gradient as it is (each rank's part
+  of the sum meets the same gradient)."""
+  return _ReduceFromAxis.apply(x, mesh, axis)
+
+
+class _MeanOver(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, mesh, axes, n):
+    ctx.args = (mesh, axes, n)
+    return all_reduce(x.contiguous().clone(), mesh, axes) / n
+
+  @staticmethod
+  def backward(ctx, g):
+    mesh, axes, n = ctx.args
+    return all_reduce(g.contiguous().clone(), mesh, axes) / n, None, None, \
+        None
+
+
+def mean_over(x, mesh, axes):
+  """The mean of x over the ranks of `axes` (x itself for none); the
+  gradient the mean of the ranks' gradients (each rank's loss covers its
+  own part)."""
+  axes = tuple(a for a in axes
+               if mesh.size(mesh.mesh_dim_names.index(a)) > 1)
+  if not axes:
+    return x
+  n = 1
+  for a in axes:
+    n *= mesh.size(mesh.mesh_dim_names.index(a))
+  return _MeanOver.apply(x, mesh, axes, n)
 
 
 class _CopyToAxis(torch.autograd.Function):
@@ -122,6 +184,32 @@ class _GatherParam(torch.autograd.Function):
     mesh, placements, token_axes = ctx.args
     g = all_reduce(g.contiguous().clone(), mesh, token_axes)
     return distribute_tensor(g, mesh, placements, src_data_rank=None), None
+
+
+class _LocalParam(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, p, token_axes):
+    ctx.args = (p.device_mesh, p.placements, tuple(p.shape), p.stride(),
+                token_axes)
+    return p.to_local().detach().view_as(p.to_local())
+
+  @staticmethod
+  def backward(ctx, g):
+    mesh, placements, shape, stride, token_axes = ctx.args
+    g = all_reduce(g.contiguous().clone(), mesh, token_axes)
+    return DTensor.from_local(g, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride), None
+
+
+def local_param(p, token_axes=()):
+  """This rank's part of a DTensor parameter, its gradient summed over
+  token_axes (anything else is returned as it is)."""
+  if not isinstance(p, DTensor):
+    return p
+  if not torch.is_grad_enabled() or not p.requires_grad:
+    return p.to_local()
+  return _LocalParam.apply(p, tuple(token_axes))
 
 
 def _whole(p) -> bool:

@@ -87,6 +87,12 @@ def process_count() -> int:
   return world_size()
 
 
+def barrier() -> None:
+  """Waits for every process (nothing in a world of one)."""
+  if dist.is_initialized() and dist.get_world_size() > 1:
+    dist.barrier()
+
+
 def batch_coordinate(mesh=None, axes=("replica", "data")) -> tuple:
   """(index, count) of this process on the mesh's data axes: which slice of
   the global batch it holds. Without a mesh, (rank, world)."""

@@ -16,7 +16,10 @@ are OCDBT stores of zarr chunks, which need tensorstore: they are refused
 On a mesh (the LM trainer's), state_for_save gathers the full tensors on
 every rank, rank 0 alone writes the same state.pt as a one-process run,
 and every rank waits at a barrier; restore cuts the full tensors to each
-rank's parts. So a checkpoint resumes on any mesh shape, or on none.
+rank's parts. So a checkpoint resumes on any mesh shape, or on none. A
+model whose parameters take other names on some meshes (the LM's GPipe
+layout, which stacks its layers) saves and restores through a renaming
+(`names`) to the names it has everywhere else.
 """
 
 from __future__ import annotations
@@ -70,16 +73,36 @@ def _part(full, p):
                            src_data_rank=None).to_local()
 
 
-def state_for_save(state):
+def _renamed(tree, params, names):
+  """tree with names({name: leaf}) in place of each dict's leaves that
+  name a parameter of `params` (the params, an optimizer state's
+  per-parameter leaves); everything else as it is."""
+  if isinstance(tree, dict):
+    named = {k: v for k, v in tree.items()
+             if k in params and torch.is_tensor(v)}
+    rest = {k: _renamed(v, params, names) for k, v in tree.items()
+            if k not in named}
+    return {**names(named), **rest} if named else rest
+  if isinstance(tree, (tuple, list)):
+    return type(tree)(_renamed(v, params, names) for v in tree)
+  return tree
+
+
+def state_for_save(state, names=None):
   """What trainers pass to CheckpointManager.save: the state as it is, or,
   where its params are DTensors, with the full tensors gathered (the
-  params, and each per-parameter optimizer leaf as its parameter)."""
+  params, and each per-parameter optimizer leaf as its parameter). names:
+  {name: tensor} -> the same in the checkpoint's names, for every
+  parameter-keyed dict of the state."""
   params = state.params
-  if not any(isinstance(p, DTensor) for p in params.values()):
+  if any(isinstance(p, DTensor) for p in params.values()):
+    state = state._replace(
+        params={k: p.full_tensor() for k, p in params.items()},
+        opt_state=map_named(state.opt_state, params, _full))
+  if names is None:
     return state
-  return state._replace(
-      params={k: p.full_tensor() for k, p in params.items()},
-      opt_state=map_named(state.opt_state, params, _full))
+  return state._replace(**{f: _renamed(getattr(state, f), params, names)
+                           for f in state._fields if f != "step"})
 
 
 def _to(tree, device):
@@ -131,17 +154,22 @@ class CheckpointManager:
     _barrier()
     return True
 
-  def restore(self, state_template, step: Optional[int] = None):
+  def restore(self, state_template, step: Optional[int] = None, names=None):
     """The saved state as state_template's type: its params are copied into
     the template's tensors in place (the model's parameters and buffers;
     a DTensor takes its part of the saved tensor), every other field goes
     to their device (a per-parameter optimizer leaf of a DTensor parameter
-    as the parameter's part). None when there is no checkpoint."""
+    as the parameter's part). names: {name: tensor} in the checkpoint's
+    names -> the template's (state_for_save's inverse). None when there is
+    no checkpoint."""
     step = self.latest_step() if step is None else step
     if step is None:
       return None
     saved = torch.load(os.path.join(self.directory, str(step), _FILE),
                        map_location="cpu", weights_only=True)
+    if names is not None:
+      saved = {f: v if f == "step" else _renamed(v, saved["params"], names)
+               for f, v in saved.items()}
     params = state_template.params
     if set(saved["params"]) != set(params):
       raise ValueError("checkpoint parameters do not match the model's: "

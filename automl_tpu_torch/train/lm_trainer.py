@@ -46,7 +46,7 @@ from automl_tpu_torch.train import schedules
 from automl_tpu_torch.train.optimizers import global_norm
 from automl_tpu_torch.train.checkpoint import (CheckpointManager,
                                                map_named, state_for_save)
-from automl_tpu_torch.train.metrics import MetricsWriter
+from automl_tpu_torch.train.metrics import MetricsWriter, NoWriter
 
 
 class LMTrainState(NamedTuple):
@@ -180,7 +180,20 @@ def _loss(model: lm_lib.TransformerLM, inputs, targets, weights, segment_ids,
   else:
     loss = lm_lib.lm_loss_fused(model, out, targets, weights,
                                 int(cfg.get("loss_chunk_size", 256)))
-  return _global_mean(model, loss, targets, weights) + aux_w * aux
+  return _global_mean(model, loss, targets, weights) + aux_w * _share(
+      model, aux)
+
+
+def _share(model, value):
+  """This rank's share of a value every rank of the token axes holds
+  alike (the MoE aux: a global one), so that the shares sum to it."""
+  par = model.par
+  if par is None or not par.token_axes:
+    return value
+  n = 1
+  for a in par.token_axes:
+    n *= par.mesh.size(par.mesh.mesh_dim_names.index(a))
+  return value / n
 
 
 def lm_loss_and_grads(model: lm_lib.TransformerLM, batch: dict):
@@ -321,15 +334,16 @@ def write_sharding_artifact(model: lm_lib.TransformerLM, path: str) -> None:
   stacks the layers (use_scan), and each leaf's PartitionSpec (from its
   DTensor placements; P() without a mesh)."""
   stacked = bool(model.cfg.get("use_scan", True))
+  pipe = model.stacked
   n_layers = int(model.cfg.n_layers)
   specs = model.param_placements()
   leaves = {}
   for name, p in model.named_parameters():
-    key = _jax_path(name, stacked)
+    key = tuple(name.split(".")) if pipe else _jax_path(name, stacked)
     if key in leaves:
       continue
     shape, spec = tuple(p.shape), specs[name]
-    if stacked and key[0] == "blocks":
+    if stacked and key[0] == "blocks" and not pipe:
       shape, spec = (n_layers,) + shape, (None,) + tuple(spec)
     spec = list(spec)
     while spec and spec[-1] is None:      # as JAX prints a leaf's spec
@@ -346,15 +360,6 @@ def write_sharding_artifact(model: lm_lib.TransformerLM, path: str) -> None:
   with open(path, "w") as f:
     f.write("\n".join(lines) + "\n")
 
-
-class _NoWriter:
-  """The metrics writer of a rank other than 0: writes nothing."""
-
-  def write(self, step, scalars):
-    pass
-
-  def close(self):
-    pass
 
 
 def run_lm(config, model_dir: str, train_steps: int,
@@ -400,7 +405,10 @@ def run_lm(config, model_dir: str, train_steps: int,
   tx = opt_lib.build_optimizer(optimizer, lr_fn)
   state = init_train_state(model, tx)
   mngr = CheckpointManager(os.path.join(model_dir, "ckpt"))
-  restored = mngr.restore(state)
+  # A pipeline model's checkpoint in the per-layer names of every layout.
+  save_names = lm_lib.per_layer if model.stacked else None
+  restored = mngr.restore(
+      state, names=lm_lib.stacked_layers if model.stacked else None)
   if restored is not None:
     state = restored
   if writer_rank:
@@ -410,7 +418,7 @@ def run_lm(config, model_dir: str, train_steps: int,
       model, tx, weight_decay=config.get("weight_decay", 0.0), lr_fn=lr_fn,
       diagnostics=deep_diagnostics)
   eval_fn = make_lm_eval_step(model)
-  writer = MetricsWriter(model_dir) if writer_rank else _NoWriter()
+  writer = MetricsWriter(model_dir) if writer_rank else NoWriter()
 
   it = data_iter if data_iter is not None else iter(
       SyntheticLMData(config.get("batch_size", 8), config.seq_len,
@@ -450,7 +458,7 @@ def run_lm(config, model_dir: str, train_steps: int,
     state, logs = step_fn(state, batch)
     step += 1
     if ckpt_every and step % ckpt_every == 0:
-      mngr.save(step, state_for_save(state))
+      mngr.save(step, state_for_save(state, save_names))
     if step % log_every == 0 or step == train_steps:
       l = {k: float(v) for k, v in logs.items()}   # waits for the step
       now = time.perf_counter()
@@ -468,7 +476,7 @@ def run_lm(config, model_dir: str, train_steps: int,
         step % eval_every == 0 or step == train_steps):
       logs = dict(logs)
       logs["validation_loss"] = run_validation(step)
-  mngr.save(step, state_for_save(state))
+  mngr.save(step, state_for_save(state, save_names))
   mngr.wait_until_finished()
   writer.close()
   return {k: float(v) for k, v in logs.items()}

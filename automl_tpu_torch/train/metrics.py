@@ -13,6 +13,16 @@ import time
 from typing import Optional
 
 
+class NoWriter:
+  """The metrics writer of a rank other than 0: writes nothing."""
+
+  def write(self, step, scalars):
+    pass
+
+  def close(self):
+    pass
+
+
 class MetricsWriter:
   """write(step, {name: scalar}) -> one line of model_dir/metrics.jsonl."""
 

@@ -54,7 +54,16 @@ run_classification (train.qat, train.qat_bits) set the process-wide QAT
 mode both ways at entry, as JAX does, so a run never inherits it and its
 in-training evals run under it.
 
-Not ported yet, refused naming its ROADMAP item: meshes (M10, second half).
+Meshes (mesh_shape, JAX's runners on a mesh): one process per device, the
+state replicated, each process feeding batch_size / (replica x data) rows
+of every global batch (the ranks of 'model' the same rows), the train steps
+under a VisionMesh (parallel/spatial.py): gradients summed over the data
+axes, and, for detection on a 'model' axis above 1, image H split over
+'model' (spatial partitioning). Rank 0 writes config.yaml, the metrics,
+the checkpoints and the eval images; the others wait for it. The evals
+take the mesh: each process predicts its rows, and the predictions are
+gathered over the data axes, so every process computes the same global
+metric; without it, a run of more than one process is refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -73,17 +82,58 @@ from automl_tpu_torch.models.efficientnet import EfficientNet
 from automl_tpu_torch.nn import precision, quant
 from automl_tpu_torch.ops import anchors as anchors_lib
 from automl_tpu_torch.ops import postprocess
+from automl_tpu_torch.parallel import comm
+from automl_tpu_torch.parallel import distributed as dist_lib
+from automl_tpu_torch.parallel import spatial as spatial_lib
+from automl_tpu_torch.parallel.mesh import axis_size, create_mesh
 from automl_tpu_torch.train import optimizers as opt_lib
 from automl_tpu_torch.train import schedules, train_lib
 from automl_tpu_torch.train.checkpoint import CheckpointManager, archive_ckpt
-from automl_tpu_torch.train.metrics import MetricsWriter
+from automl_tpu_torch.train.metrics import MetricsWriter, NoWriter
 
 
-def _refuse_unported(mesh_shape):
-  if mesh_shape:
-    raise NotImplementedError(
-        "a detection / classification device mesh is not ported to "
-        "automl_tpu_torch yet: ROADMAP M10, second half")
+
+def _run_mesh(mesh_shape, device, image_hw=None):
+  """(mesh, VisionMesh, device, (row coordinate, rows' count), writes) of
+  a run: without mesh_shape (None, None, device, (0, 1), True); with it,
+  the mesh over the world's processes, spatial where image_hw is given
+  and 'model' is above 1, and the mesh's device."""
+  if not mesh_shape:
+    return None, None, device, (0, 1), True
+  mesh = create_mesh(mesh_shape, device=device.type)
+  vm = spatial_lib.VisionMesh(
+      mesh, image_hw,
+      spatial=image_hw is not None and axis_size(mesh, "model") > 1)
+  if device.type == "cuda":
+    device = torch.device("cuda", torch.cuda.current_device())
+  return (mesh, vm, device, dist_lib.batch_coordinate(mesh),
+          dist_lib.process_index() == 0)
+
+
+def _local_rows(batch_size: int, count: int) -> int:
+  if batch_size % count:
+    raise ValueError(f"batch {batch_size} does not split over {count} "
+                     "rows of the mesh")
+  return batch_size // count
+
+
+def _multi_process_check(mesh):
+  if mesh is None and dist_lib.process_count() > 1:
+    raise ValueError(
+        "multi-process eval needs the training mesh (mesh=...) to assemble "
+        "local eval batches into global arrays against sharded params")
+
+
+def _gather_rows(x, mesh):
+  """Each process's rows of x (a tensor or numpy array) in the global
+  batch's order (over 'data', then 'replica'); x itself off a mesh."""
+  if mesh is None:
+    return x
+  t = x if torch.is_tensor(x) else torch.as_tensor(np.ascontiguousarray(x))
+  dev = (torch.device("cuda", torch.cuda.current_device())
+         if mesh.device_type == "cuda" else torch.device("cpu"))
+  out = comm.all_gather_dims(t.to(dev), mesh, (("data", 0), ("replica", 0)))
+  return out if torch.is_tensor(x) else out.cpu().numpy()
 
 
 def set_qat_mode(on, bits) -> None:
@@ -95,9 +145,10 @@ def set_qat_mode(on, bits) -> None:
     quant.disable_qat()
 
 
-def step_seed(seed: int, step: int) -> int:
-  """The seed of step `step`'s generator."""
-  return (seed + 1) * 1_000_003 + step
+def step_seed(seed: int, step: int, row: int = 0, rows: int = 1) -> int:
+  """The seed of step `step`'s generator (on a mesh, of the rows at
+  coordinate `row` of `rows`: the ranks of 'model' draw alike)."""
+  return ((seed + 1) * 1_000_003 + step) * rows + row
 
 
 def on_device(batch: dict, device) -> dict:
@@ -223,21 +274,26 @@ def run_classification(config, model_dir: str, train_steps: int,
   of held-out batches; with eval_steps set, an eval at the end of every
   progressive stage (or every eval_every steps). metrics.jsonl gets every
   log_every steps the step's metrics plus lr, secs_per_step and
-  examples_per_sec (host clock; each logged step waits for its loss)."""
-  _refuse_unported(mesh_shape)
-  device = torch.device(device)
+  examples_per_sec (host clock; each logged step waits for its loss).
+  mesh_shape: a mesh over the world's processes (see the module); each
+  process's data_iter yields its rows of each batch."""
+  mesh, vm, device, (row, rows), writes = _run_mesh(mesh_shape,
+                                                    torch.device(device))
   os.makedirs(model_dir, exist_ok=True)
-  config.save_to_yaml(os.path.join(model_dir, "config.yaml"))
+  if writes:
+    config.save_to_yaml(os.path.join(model_dir, "config.yaml"))
   precision.set_policy("mixed_bfloat16" if config.runtime.mixed_precision
                        else "float32")
   set_qat_mode(config.train.get("qat"), config.train.get("qat_bits", 8))
-  model = seeded_classification_model(config.model, seed, device)
+  model = spatial_lib.attach(
+      seeded_classification_model(config.model, seed, device), vm)
   ft_ckpt = config.train.get("ft_init_ckpt")
   if ft_ckpt:   # finetune: everything but the classifier's fc
     init_from_tf_checkpoint(
         model, ft_ckpt, use_ema=bool(config.train.get("ft_init_ema", True)),
         exclude_prefixes=(("head", "fc"),))
   batch_size = int(config.train.batch_size)
+  local_batch = _local_rows(batch_size, rows)
   steps_per_epoch = max(train_steps // max(config.train.epochs, 1), 1)
   lr_fn = schedules.warmup_lr(
       config.train.lr_sched, config.train.lr_base,
@@ -255,19 +311,22 @@ def run_classification(config, model_dir: str, train_steps: int,
   total_stages = max(int(config.train.stages or 0), 1)
   stage_steps = train_steps // total_stages
   generator = torch.Generator(device=device)
-  writer = MetricsWriter(model_dir)
+  writer = MetricsWriter(model_dir) if writes else NoWriter()
   objective_key = "auc_pr" if config.data.get("multiclass") else "top1"
 
   def run_eval(at_step):
     params = (state.ema_params if state.ema_params is not None
               else state.params)
     fresh = eval_iter() if callable(eval_iter) else eval_iter
-    em = evaluate_classification(model, params, config, fresh, eval_steps)
+    em = evaluate_classification(model, params, config, fresh, eval_steps,
+                                 mesh=mesh)
     writer.write(at_step, {f"eval/{k}": v for k, v in em.items()})
-    print(f"eval @ {at_step}: " +
-          " ".join(f"{k} {v:.4f}" for k, v in em.items()))
-    if em.get(objective_key, -1) >= 0:
+    if writes:
+      print(f"eval @ {at_step}: " +
+            " ".join(f"{k} {v:.4f}" for k, v in em.items()))
+    if writes and em.get(objective_key, -1) >= 0:
       archive_ckpt(model_dir, at_step, em[objective_key], mngr)
+    dist_lib.barrier()
     return em
 
   metrics, out_eval = {}, {}
@@ -285,16 +344,16 @@ def run_classification(config, model_dir: str, train_steps: int,
       it = data_iter
     elif config.data.get("multiclass"):
       it = iter(datasets.SyntheticMultiLabel(
-          batch_size, canvas, config.data.num_classes,
+          local_batch, canvas, config.data.num_classes,
           int(config.data.get("max_labels", 16))))
     else:
-      it = iter(pipeline.SyntheticClassification(batch_size, canvas,
+      it = iter(pipeline.SyntheticClassification(local_batch, canvas,
                                                  config.data.num_classes))
     stage_end = min((stage + 1) * stage_steps, train_steps)
     last_log = step
     while step < stage_end:
       batch = on_device(next(it), device)
-      generator.manual_seed(step_seed(seed, step))
+      generator.manual_seed(step_seed(seed, step, row, rows))
       state, metrics = step_fn(state, batch, generator)
       step += 1
       if step % log_every == 0 or step == stage_end:
@@ -306,8 +365,10 @@ def run_classification(config, model_dir: str, train_steps: int,
         m["examples_per_sec"] = batch_size * n_steps / max(now - prev_t, 1e-9)
         prev_t, last_log = now, step
         writer.write(step, m)
-        print(f"step {step} stage {stage} isize {isize} loss {m['loss']:.4f} "
-              f"top1 {m['top1']:.3f} ({m['examples_per_sec']:.1f} img/s)")
+        if writes:
+          print(f"step {step} stage {stage} isize {isize} loss "
+                f"{m['loss']:.4f} top1 {m['top1']:.3f} "
+                f"({m['examples_per_sec']:.1f} img/s)")
       if (eval_every and eval_iter is not None and eval_steps
           and step % eval_every == 0 and step < stage_end):
         mngr.save(step, state)
@@ -333,12 +394,11 @@ def evaluate_classification(model, params, config, eval_iter, eval_steps: int,
   Each batch: {'image' [B, H, W, 3] canvases, 'label' one-hot or ids (or
   'label_ids')}; cls_eval_preprocess at eval.isize with the augname's
   normalization and the model run on the model's device, the metrics on
-  the host. A multi-process eval (mesh) is ROADMAP M10, second half."""
+  the host. mesh (a run of several processes): each process feeds its rows
+  and the logits and labels are gathered, so every process computes the
+  same global metric."""
   from automl_tpu_torch.eval.classification import MultiLabelEvaluator
-  if mesh is not None:
-    raise NotImplementedError(
-        "multi-process eval is not ported to automl_tpu_torch yet: ROADMAP "
-        "M10, second half")
+  _multi_process_check(mesh)
   isize = int(config.eval.isize or resolve_train_size(config))
   norm, _ = preprocessing.norm_for_augname(config.data.get("augname"))
   multiclass = bool(config.data.get("multiclass"))
@@ -353,16 +413,16 @@ def evaluate_classification(model, params, config, eval_iter, eval_steps: int,
       except StopIteration:
         break  # a finite eval set smaller than eval_steps: a partial pass
       images = on_device({"image": batch["image"]}, device)["image"]
-      logits = model(preprocessing.cls_eval_preprocess(images, isize,
-                                                       norm=norm),
-                     train=False).float().cpu().numpy()
+      logits = _gather_rows(model(preprocessing.cls_eval_preprocess(
+          images, isize, norm=norm), train=False).float(), mesh).cpu().numpy()
       if multiclass:
-        ev.add_batch(logits, datasets.multihot_on_device(
-            _host(batch["label_ids"]), num_classes).numpy())
+        ev.add_batch(logits, _gather_rows(datasets.multihot_on_device(
+            _host(batch["label_ids"]), num_classes).numpy(), mesh))
         continue
       labels = _host(batch["label"])
       if labels.ndim > 1:  # one-hot -> ids
         labels = np.argmax(labels, -1)
+      labels = _gather_rows(labels, mesh)
       order = np.argsort(-logits, axis=-1)
       top1 += int((order[:, 0] == labels).sum())
       top5 += int((order[:, :5] == labels[:, None]).any(-1).sum())
@@ -494,15 +554,20 @@ def run_detection(config, model_dir: str, train_steps: int,
   model_dir/vis/step_<n>/). init_backbone_ckpt: a TF EfficientNet
   checkpoint (scope config.backbone_name) for the backbone's weights. profile: a torch.profiler trace of steps 10-14 (or
   from step 10 to the end, if that comes first) into
-  model_dir/profile/trace_steps_10-14.json."""
-  _refuse_unported(mesh_shape)
-  device = torch.device(device)
+  model_dir/profile/trace_steps_10-14.json. mesh_shape: a mesh over the
+  world's processes (see the module; image H over a 'model' axis above
+  1); each process's data_iter yields its rows of each batch."""
+  size = anchors_lib.parse_image_size(config.image_size)
+  mesh, vm, device, (row, rows), writes = _run_mesh(
+      mesh_shape, torch.device(device), image_hw=size)
   os.makedirs(model_dir, exist_ok=True)
-  config.save_to_yaml(os.path.join(model_dir, "config.yaml"))
+  if writes:
+    config.save_to_yaml(os.path.join(model_dir, "config.yaml"))
   precision.set_policy("mixed_bfloat16" if config.mixed_precision
                        else "float32")
   set_qat_mode(config.get("qat"), config.get("qat_bits", 8))
-  model = seeded_detection_model(config, seed, device)
+  model = spatial_lib.attach(seeded_detection_model(config, seed, device),
+                             vm)
   if init_backbone_ckpt:
     init_from_tf_checkpoint(model.backbone, init_backbone_ckpt,
                             use_ema=init_backbone_ema,
@@ -517,13 +582,12 @@ def run_detection(config, model_dir: str, train_steps: int,
     state = restored
   step_fn = train_lib.make_det_train_step(model, tx, config,
                                           preprocess_fn=make_preprocess(config))
-  size = anchors_lib.parse_image_size(config.image_size)
   it = data_iter if data_iter is not None else iter(
-      pipeline.SyntheticDetection(batch_size, size[0],
+      pipeline.SyntheticDetection(_local_rows(batch_size, rows), size[0],
                                   config.max_instances_per_image,
                                   config.num_classes))
   generator = torch.Generator(device=device)
-  writer = MetricsWriter(model_dir)
+  writer = MetricsWriter(model_dir) if writes else NoWriter()
   profiler = None
 
   def evaluate(vis_dir=None):
@@ -531,14 +595,14 @@ def run_detection(config, model_dir: str, train_steps: int,
     params = (state.ema_params if state.ema_params is not None
               else state.params)
     return evaluate_detection(model, params, config, fresh, eval_steps,
-                              vis_dir=vis_dir)
+                              vis_dir=vis_dir if writes else None, mesh=mesh)
 
   metrics = {}
   step = state.step
   prev_t = time.perf_counter()
   while step < train_steps:
     batch = on_device(next(it), device)
-    generator.manual_seed(step_seed(seed, step))
+    generator.manual_seed(step_seed(seed, step, row, rows))
     if profile and step == PROFILE_STEPS[0]:
       profiler = _start_profile(device)
     state, metrics = step_fn(state, batch, generator)
@@ -555,17 +619,20 @@ def run_detection(config, model_dir: str, train_steps: int,
       m["examples_per_sec"] = batch_size * n_steps / max(now - prev_t, 1e-9)
       prev_t = now
       writer.write(step, m)
-      print(f"step {step} loss {m['loss']:.4f} cls {m['cls_loss']:.4f} "
-            f"box {m['box_loss']:.5f} ({m['examples_per_sec']:.1f} img/s)")
+      if writes:
+        print(f"step {step} loss {m['loss']:.4f} cls {m['cls_loss']:.4f} "
+              f"box {m['box_loss']:.5f} ({m['examples_per_sec']:.1f} img/s)")
     if (eval_every and eval_iter is not None and eval_steps
         and (step % eval_every == 0 or step == train_steps)):
       mngr.save(step, state)
       em = evaluate(os.path.join(model_dir, "vis", f"step_{step}"))
       writer.write(step, {f"eval/{k}": v for k, v in em.items()})
-      print(f"eval @ {step}: AP {em.get('AP', -1):.4f} "
-            f"AP50 {em.get('AP50', -1):.4f}")
-      if em.get("AP", -1) >= 0:
+      if writes:
+        print(f"eval @ {step}: AP {em.get('AP', -1):.4f} "
+              f"AP50 {em.get('AP50', -1):.4f}")
+      if writes and em.get("AP", -1) >= 0:
         archive_ckpt(model_dir, step, em["AP"], mngr)
+      dist_lib.barrier()
   if profiler is not None:
     _stop_profile(profiler, model_dir, device)
   writer.close()
@@ -574,8 +641,9 @@ def run_detection(config, model_dir: str, train_steps: int,
   out = {k: float(v) for k, v in metrics.items()}
   if eval_iter is not None and eval_steps and not eval_every:
     out.update(evaluate())
-    if out.get("AP", -1) >= 0:
+    if writes and out.get("AP", -1) >= 0:
       archive_ckpt(model_dir, step, out["AP"], mngr)
+    dist_lib.barrier()
   return out
 
 
@@ -599,13 +667,14 @@ def evaluate_detection(model, params, config, eval_iter, eval_steps: int,
 
   With vis_dir set, [detections | ground truth] PNGs of the first
   vis_samples images of the first batch go there as eval_image_<i>.png
-  (_write_eval_images). mesh (a multi-process run) is not ported yet
-  (ROADMAP M10, second half) and refused."""
+  (_write_eval_images). mesh (a run of several processes): each process
+  feeds its rows; the detections, ground truth and image ids are gathered
+  over the data axes, so every process computes the same global metric
+  (synthetic ids follow the rows' coordinate)."""
   from automl_tpu_torch.eval.coco_metric import COCOEvaluator
-  if mesh is not None:
-    raise NotImplementedError(
-        "multi-process eval is not ported to automl_tpu_torch yet: ROADMAP "
-        "M10, second half")
+  _multi_process_check(mesh)
+  row, rows = (dist_lib.batch_coordinate(mesh) if mesh is not None
+               else (0, 1))
   device = next(model.parameters()).device
   evaluator = COCOEvaluator(per_class=per_class, label_map=None)
   mean = torch.tensor(config.mean_rgb, dtype=torch.float32, device=device)
@@ -627,7 +696,8 @@ def evaluate_detection(model, params, config, eval_iter, eval_steps: int,
             _host(batch["source_id"]).astype(np.float32).reshape(-1),
             (b,)).copy()
       else:
-        ids = np.arange(step * b, step * b + b, dtype=np.float32)
+        offset = (step * rows + row) * b
+        ids = np.arange(offset, offset + b, dtype=np.float32)
       # gt boxes are in canvas coordinates: scaled as the detections are
       if testdev_dir is not None and "gt_boxes" not in batch:
         gt_boxes = np.zeros((b, 0, 4), np.float32)
@@ -642,9 +712,11 @@ def evaluate_detection(model, params, config, eval_iter, eval_steps: int,
           torch.from_numpy(np.ascontiguousarray(scales)).to(device),
           torch.from_numpy(np.ascontiguousarray(ids)).to(device))
       dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
-      evaluator.add_batch_from_detections(dets, valid, gt_boxes, gt_classes)
       if vis_dir and step == 0:
         _write_eval_images(batch, dets, valid, vis_dir, vis_samples)
+      evaluator.add_batch_from_detections(
+          *(_gather_rows(a, mesh) for a in (dets, valid, gt_boxes,
+                                             gt_classes)))
   if testdev_dir is not None:
     # the reference returns [-1.] in test-dev mode
     return {"AP": -1.0,

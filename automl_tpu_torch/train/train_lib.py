@@ -29,6 +29,15 @@ moving statistics of the clean forward pass, then the EMA of everything
 TrainState.params is the model's own {name: tensor} (parameters and BN
 buffers, convert.model_state), updated in place: one copy of the weights
 on the card.
+
+On a vision mesh (the model's vm: parallel/spatial.py attach) the
+state is replicated and each rank takes its rows of the batch (and, on a
+spatial mesh, its band of each image): its loss is its share of the
+global loss (the classification mean divided by the data ranks; the
+detection sums over its anchors, over the global positives count), the
+gradients and the loss terms are summed over the data axes (and 'model'
+where the map is split), so the optimizer, the BN statistics and the EMA
+run alike on every rank.
 """
 
 from __future__ import annotations
@@ -44,7 +53,35 @@ from automl_tpu_torch.models.efficientdet import flatten_predictions
 from automl_tpu_torch.nn import layers as L
 from automl_tpu_torch.ops import anchors as anchors_lib
 from automl_tpu_torch.ops import losses as losses_lib
+from automl_tpu_torch.parallel import comm
 from automl_tpu_torch.train import optimizers as opt_lib
+
+
+def _sum_axes(vm) -> tuple:
+  """The axes a rank's loss share and gradients are summed over."""
+  return vm.batch_axes + (("model",) if vm.spatial else ())
+
+
+def _reduce(vm, tree: dict, axes) -> dict:
+  """{k: tensor} summed over `axes` (one all-reduce of the flat values)."""
+  if not axes or not tree:
+    return tree
+  keys = list(tree)
+  flat = torch.cat([tree[k].reshape(-1).float() for k in keys])
+  comm.all_reduce(flat, vm.mesh, axes)
+  out, i = {}, 0
+  for k in keys:
+    n = tree[k].numel()
+    out[k] = flat[i:i + n].view_as(tree[k]).to(tree[k].dtype)
+    i += n
+  return out
+
+
+def _n_ranks(vm, axes) -> int:
+  n = 1
+  for a in axes:
+    n *= vm.mesh.size(vm.mesh.mesh_dim_names.index(a))
+  return n
 
 
 class TrainState(NamedTuple):
@@ -146,16 +183,26 @@ def make_cls_train_step(model, tx, config, preprocess_fn=None):
                  if not opt_lib.is_batch_stat(k)}
     for p in trainable.values():
       p.grad = None
+    vm = getattr(model, "vm", None)
     logits = model(batch["image"], train=True, generator=generator)
     bn_updates = L.take_bn_updates(model)
     xent = losses_lib.cross_entropy(logits, batch["label"], label_smoothing,
                                     loss_type)
+    if vm is not None:     # this rank's share of the global mean
+      xent = xent / _n_ranks(vm, vm.batch_axes)
     xent.backward()
     grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
              for k, p in trainable.items()}
     for p in trainable.values():
       p.grad = None
     with torch.no_grad():
+      label = batch["label"]
+      top1 = (logits.argmax(-1) == label.argmax(-1)).float().mean()
+      if vm is not None:
+        grads = _reduce(vm, grads, vm.batch_axes)
+        red = _reduce(vm, {"xent": xent.detach(), "top1": top1},
+                      vm.batch_axes)
+        xent, top1 = red["xent"], red["top1"] / _n_ranks(vm, vm.batch_axes)
       l2 = add_l2(trainable, grads, weight_decay, l2_mask).to(xent.device)
       grads = opt_lib.clip_gradients(grads, gclip, per_var=False)
       updates, opt_state = tx.update(grads, state.opt_state, params)
@@ -166,11 +213,9 @@ def make_cls_train_step(model, tx, config, preprocess_fn=None):
       if ema_params is not None and ema_decay:
         ema_params = opt_lib.ema_update(ema_params, params, ema_decay,
                                         state.step)
-      label = batch["label"]
       metrics = {
           "loss": xent.detach() + l2, "xent": xent.detach(), "l2": l2,
-          "gnorm": opt_lib.global_norm(grads),
-          "top1": (logits.argmax(-1) == label.argmax(-1)).float().mean()}
+          "gnorm": opt_lib.global_norm(grads), "top1": top1}
     return TrainState(state.step + 1, params, opt_state, ema_params,
                       state.normalizer), metrics
 
@@ -298,11 +343,15 @@ def make_det_loss_and_grads(model, config):
   adv_step = config.get("adv_step_size", 0.01)
 
   def loss_and_grads(params, batch, moving_normalizer=None, generator=None):
+    vm = getattr(model, "vm", None)
     with torch.no_grad():
       cls_t, box_t, num_pos = labeler.label_anchors(batch["gt_boxes"],
                                                     batch["gt_classes"])
+      num_pos_sum = num_pos.sum()
+      if vm is not None:      # the global batch's positives
+        num_pos_sum = _reduce(vm, {"n": num_pos_sum}, vm.batch_axes)["n"]
     # Positives sum + 1, or its momentum-smoothed moving average.
-    normalizer = num_pos.sum() + 1.0
+    normalizer = num_pos_sum + 1.0
     if pos_momentum > 0:
       if moving_normalizer is None:
         raise ValueError("positives_momentum > 0 needs create_train_state("
@@ -311,11 +360,21 @@ def make_det_loss_and_grads(model, config):
           pos_momentum * moving_normalizer + (1.0 - pos_momentum) * normalizer)
 
     def det_loss_on(images):
+      if vm is not None and vm.spatial:
+        images = vm.split(images)
       cls_out, box_out = model(images, train=True, generator=generator)
+      ct, bt, boxes = cls_t, box_t, anchors.boxes
+      if vm is not None and vm.spatial:
+        # Each level's outputs and targets cut to this rank's rows (a
+        # whole level's too: its loss counts once over the ranks).
+        cls_out, box_out = ([vm.to_band(o) for o in outs]
+                            for outs in (cls_out, box_out))
+        idx = _band_anchors(vm, cls_out, anchors, cls_t.device)
+        ct, bt, boxes = cls_t[:, idx], box_t[:, idx], boxes[idx]
       return losses_lib.detection_loss(
           flatten_predictions(cls_out, num_classes),
-          flatten_predictions(box_out, 4), cls_t, box_t, num_pos, config,
-          anchor_boxes=anchors.boxes, normalizer=normalizer)
+          flatten_predictions(box_out, 4), ct, bt, num_pos, config,
+          anchor_boxes=boxes, normalizer=normalizer)
 
     trainable = {k: p for k, p in params.items()
                  if not opt_lib.is_batch_stat(k)}
@@ -345,6 +404,15 @@ def make_det_loss_and_grads(model, config):
     for p in trainable.values():
       p.grad = None
     with torch.no_grad():
+      if vm is not None:
+        axes = _sum_axes(vm)
+        grads = _reduce(vm, grads, axes)
+        terms = _reduce(vm, {"det": det_loss.detach(),
+                             "cls": cls_loss.detach(),
+                             "box": box_loss.detach(),
+                             "iou": iou_loss.detach()}, axes)
+        det_loss, cls_loss, box_loss, iou_loss = (
+            terms[k] for k in ("det", "cls", "box", "iou"))
       l2 = add_l2(trainable, grads, weight_decay)
     loss = det_loss + l2
     aux = {"det_loss": det_loss.detach(), "cls_loss": cls_loss.detach(),
@@ -354,6 +422,20 @@ def make_det_loss_and_grads(model, config):
     return loss.detach(), aux, grads, bn_updates
 
   return loss_and_grads
+
+
+def _band_anchors(vm, level_outputs, anchors, device):
+  """The flat anchor indices of this rank's rows of each level's outputs
+  (whole levels cut as VisionMesh.to_band cuts them)."""
+  parts, start = [], 0
+  for lvl in range(anchors.min_level, anchors.min_level + len(level_outputs)):
+    h, w = (anchors.feat_sizes[lvl][k] for k in ("height", "width"))
+    per_row = w * anchors.get_anchors_per_location()
+    lo, hi = vm.rows(h)
+    parts.append(torch.arange(start + lo * per_row, start + hi * per_row,
+                              device=device))
+    start += h * per_row
+  return torch.cat(parts)
 
 
 def make_det_train_step(model, tx, config, preprocess_fn=None):
@@ -389,8 +471,12 @@ def make_det_train_step(model, tx, config, preprocess_fn=None):
       if ema_params is not None and ema_decay:
         ema_params = opt_lib.ema_update(ema_params, params, ema_decay,
                                         state.step)
+      npos = aux["num_positives"].float().mean()
+      vm = getattr(model, "vm", None)
+      if vm is not None:
+        npos = comm.mean_over(npos, vm.mesh, vm.batch_axes)
       metrics = {"loss": loss, "gnorm": opt_lib.global_norm(grads),
-                 "num_positives": aux["num_positives"].mean()}
+                 "num_positives": npos}
       metrics.update({k: aux[k] for k in ("det_loss", "cls_loss", "box_loss",
                                           "box_iou_loss", "l2")})
     return TrainState(state.step + 1, params, opt_state, ema_params,

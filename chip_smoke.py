@@ -205,8 +205,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      16-700, budgets 16-300): K4 launches = n_layers x (8 x bursts +
      chunks), all Hopper's, the bursts under sync debug mode "error", every
      token teacher-forced (SERVE_TF_GAP, SERVE_TF_EXACT); (c) the default
-     server (the dots): no K4 launch; both servers in turns: useful
-     tokens/s, time to first token, a burst's device-busy share; (d) the
+     server (the dots): no K4 launch; useful tokens/s of both (one run
+     each: the repeated pair K4, dots was cut to make room for phase 15),
+     time to first token, a burst's device-busy share; (d) the
      prefix cache (a 128-token shared prefix), teacher-forced; (e)
      speculative b1 (507 + 256, k 4) with the target as its own draft and
      with lm-flops2e17: K4 launches = 16 + iterations x 8 x (k + 2),
@@ -251,9 +252,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      head-major) against the batch-major model: prefill logits (bit-equal
      expected), greedy b8 512 + 512 tokens equal (else phase 12's
      teacher-forced limits), n_layers x 512 K4 launches a run, all
-     Hopper's, prefill ms and decode ms a step in turns, and LMServer at
-     phase 12's settings on M10_SERVE_REQUESTS requests with the same
-     tokens as the batch-major K4 server; (C) K4 at each shard's shapes
+     Hopper's, prefill ms in turns and decode ms a step (a run each), and
+     LMServer at phase 12's settings on M10_SERVE_REQUESTS requests with
+     the same tokens as the batch-major K4 server; (C) K4 at each shard's shapes
      against the unsharded call (BF16_TOL): serve_tp's head-major rows of
      n_kv / m heads for m 2, 4, 8 and serve_sp's return_stats on S / m keys
      merged by merge_partials, m 2 and 4, at decode (the 4th shard of 4
@@ -265,6 +266,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and without a mesh, M10_TRAIN_STEPS steps each at b8 T2048 (K1 / K2
      counts equal, step ms and peak GiB, the losses against each other,
      the mesh run's rank-0 checkpoint read back).
+  15. the parallel layer, second half (M10; m10b_phase, last), NCCL at a
+     world of one: (A) parallel/pipeline.py::pipeline_blocks over
+     lm-flops1e19's blocks (weights drawn on the card, b8 T2048, flash
+     attention) at a stage count of 1 in M10B_MICRO microbatches against
+     the plain stack: step 1 within phase 5's loosest limits
+     (M10B_PIPE_LIMITS), K1 / K2 2 / 1 a layer and microbatch, all
+     Hopper's, step ms in turns; (B) phase 5b's MoE config cut to
+     M10B_MOE_LAYERS layers with its experts over 'model' on the mesh
+     (1, 1, 1) (the EP dispatch: global routing, the experts' remap, the
+     slots' sum over 'model', counted) against no mesh: step 1 bit-equal
+     (loss, every grad leaf, layer 0's kept slots), M10B_EP_STEPS Lion
+     steps with equal losses, and one step of the MoE blocks microbatched
+     through pipeline_blocks on the mesh bit-equal to the same without;
+     (C) cli/main_det --mesh_shape=1,1,1 (D0 b16 512, K6 knob on,
+     M10B_DET_STEPS steps) and the same run without a mesh: equal losses,
+     76 K6 launches a step, all Hopper's, rank 0's checkpoint read back;
+     cli/main_cls --mesh_shape=1,1,1 (V2-S 168, b256, knob on,
+     M10B_CLS_STEPS steps) and without, in two child processes at once
+     beside the D0 runs:
+     equal losses and K6 launches; evaluate_detection on D0 with the mesh
+     equal to without; (D) K6 on 2 and 4 H-bands of every stride-1
+     depthwise map of a D0 step, each band's rows with k // 2 halo rows
+     and dy padded by k // 2 zero rows, summed, against the whole map's
+     call and the plain version (K6_SHARE), all Hopper's, one band's time
+     beside the whole call's.
 
 Every kernel time is the mean over calls of CUDA events around one call,
 after an L2 flush and a sleep kernel that keeps the card busy while the
@@ -283,7 +309,8 @@ null.
 
 Prints a {"kernels": [...]} JSON line (K4's launches: those of phases 10,
 12, 5b's and 14's serve_tp runs; K1, K2 and K3a-c: phase 5's runs and
-5b's, K1 and K2 also 13's and 14's mesh run; K6: phases 7, 9 and 13), then
+5b's, K1 and K2 also 13's, 14's mesh run and 15's pipeline and EP steps;
+K6: phases 7, 9, 13 and 15's mesh runs), then
 the
 card line, and last {"ok": true, "device":
 {...}}. Imports no jax.
@@ -1707,8 +1734,8 @@ def _moe_records():
     finally:
       inside[0] = False
 
-  def rec_slots(self, idx, g, c):
-    dest, keep = slots(self, idx, g, c)
+  def rec_slots(self, *a, **k):
+    dest, keep = slots(self, *a, **k)
     if inside[0]:
       records["kept"].append(keep.float().mean().detach())
     return dest, keep
@@ -3655,7 +3682,7 @@ def lm_serving_phase(dev, workdir):
   print(f"  first-token / completion timeline index per request: "
         f"{[(srv.request_events[i]['first'], srv.request_events[i]['done']) for i in range(len(requests))]}")
 
-  # (c) the default server: the dots, no K4; then the two in turns.
+  # (c) the default server: the dots, no K4.
   print("(c) the default server (use_decode_kernel None: the dots)")
   _serve("warm-up", model, warm)
   _k4_reset()
@@ -3665,17 +3692,11 @@ def lm_serving_phase(dev, workdir):
   same = [_equal_prefix(a.tokens, b.tokens) for a, b in zip(res_k, res_d)]
   print(f"  tokens equal to (b)'s: {sum(a.tokens == b.tokens for a, b in zip(res_k, res_d))} "
         f"of {len(requests)} requests; equal prefix {same}")
-  _, _, _, tps_d2, _, _ = _serve("dots server, again", model, requests)
-  _k4_reset()
-  _, _, _, tps_k2, ttft_k2, _ = _serve("K4 server, again", model, requests,
-                                       use_decode_kernel=True)
-  launches += _k4_counts()[0]
   med = lambda xs: sorted(xs)[len(xs) // 2]
-  print(f"  in turns (K4, dots, dots, K4): useful tokens/s {tps_k1:.1f}, "
-        f"{tps_d1:.1f}, {tps_d2:.1f}, {tps_k2:.1f}; TTFT median K4 "
-        f"{med(ttft_k):.3f} / {med(ttft_k2):.3f} s, dots "
-        f"{med(ttft_d):.3f} s; completion median K4 {med(done_k):.3f} s, "
-        f"dots {med(done_d):.3f} s")
+  print(f"  K4 then dots: useful tokens/s {tps_k1:.1f}, {tps_d1:.1f}; TTFT "
+        f"median K4 {med(ttft_k):.3f} s, dots {med(ttft_d):.3f} s; "
+        f"completion median K4 {med(done_k):.3f} s, dots "
+        f"{med(done_d):.3f} s")
   from automl_tpu_torch.inference.lm_server import LMServer
   for label, flag in (("K4 burst", True), ("dots burst", None)):
     _burst_profile(label, LMServer(model, max_batch=8, max_seq_len=1024,
@@ -5330,7 +5351,9 @@ def _m10_serving(dev, mesh, flush):
   lm_lib.greedy_generate(bm, prompt, 4)
   out, ms = {}, {"tp": [], "bm": []}
   launches = 0
-  for name in ("tp", "bm", "bm", "tp"):
+  # One run each (a second pair, bm then tp, was cut to make room for
+  # phase 15).
+  for name in ("tp", "bm"):
     model = tp if name == "tp" else bm
     torch.cuda.synchronize()
     _k4_reset()
@@ -5523,6 +5546,522 @@ def m10_phase(dev, workdir):
   return dict(runs, K4=k4)
 
 
+# Phase 15 (the parallel layer, second half). The GPipe check's
+# microbatches (b8 in 4 of 2); the MoE model's depth, cut to 2 layers (the
+# widths are phase 5b's: d 1,024, 8 experts of 8,192, top-2) so that its
+# weights, drawn on the card, build in a moment; the EP run's Lion steps;
+# the D0 runs' steps on the mesh and off it; V2-S's steps.
+M10B_MICRO = 4
+M10B_MOE_LAYERS = 2
+M10B_EP_STEPS = 3
+M10B_DET_STEPS = 3
+M10B_CLS_STEPS = 3
+# GPipe against the plain stack at step 1: the microbatches' bf16 weight
+# gradients are summed over 4 backward passes, where the plain stack's come
+# from one matmul over the batch: phase 5's loosest step-1 limits (flash
+# against dense).
+M10B_PIPE_LIMITS = (1e-3, 1e-3, 0.9999)
+
+
+def _local(t):
+  return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _card_init(model, seed):
+  """Seeded weights drawn on the card with convert.numpy_init's scales
+  (other numbers): a normal over the fan-in of each weight, the norm
+  scales zero."""
+  import torch
+  gen = None
+  with torch.no_grad():
+    for name, p in model.named_parameters():
+      t = _local(p)
+      if gen is None:
+        gen = torch.Generator(device=t.device).manual_seed(seed)
+      leaf = name.split(".")[-1]
+      if t.ndim == 1 or leaf in ("scale", "per_dim_scale"):
+        t.zero_()
+        continue
+      if leaf in ("wq", "wk", "wv"):
+        fan = t.shape[-3]
+      elif leaf == "wo":
+        fan = t.shape[-2] * t.shape[-1]
+      elif leaf == "embed":
+        fan = t.shape[-1]
+      else:
+        fan = t.shape[-2]
+      t.copy_(torch.randn(t.shape, generator=gen, device=t.device)
+              * fan ** -0.5)
+
+
+def _copy_params(dst, src):
+  import torch
+  mine = dict(src.named_parameters())
+  with torch.no_grad():
+    for name, p in dst.named_parameters():
+      _local(p).copy_(mine[name])
+
+
+def _flash_counts():
+  from automl_tpu_torch.ops import attention as fa
+  f = fa.flash_attention
+  return {"K1": f.launches_fwd, "K1 sm90": f.launches_fwd_sm90,
+          "K2": f.launches_bwd, "K2 sm90": f.launches_bwd_sm90}
+
+
+def _flash_reset():
+  from automl_tpu_torch.ops import attention as fa
+  for k in ("launches_fwd", "launches_fwd_sm90", "launches_bwd",
+            "launches_bwd_sm90"):
+    setattr(fa.flash_attention, k, 0)
+
+
+def _pipe_loss_and_grads(model, batch, mesh, micro):
+  """(loss, {name: grad}) of the LM loss with the blocks run through
+  parallel/pipeline.py::pipeline_blocks over 'model' in `micro`
+  microbatches: TransformerLM.forward's embedding, positions, remat and
+  head around it (an MoE block's aux summed over the stages and averaged
+  over the microbatches, weighted as the trainer weights it)."""
+  import functools
+  import torch
+  import torch.nn.functional as F
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.parallel.pipeline import pipeline_blocks
+  cfg = model.cfg
+  params = dict(model.named_parameters())
+  for p in params.values():
+    p.grad = None
+  tokens = batch["tokens"]
+  inputs, targets = tokens[:, :-1], tokens[:, 1:]
+  b, t = inputs.shape
+  adt = lm_lib._dtype(cfg.activation_dtype)
+  positions = torch.arange(t, device=tokens.device).expand(b, t)
+  x = F.embedding(inputs, lm_lib._w(model.embed, model.par)).to(adt) * (
+      cfg.model_dim ** 0.5)
+  kw = {}
+  if (policy := lm_lib._remat_policy(cfg)) is not None:
+    kw["context_fn"] = functools.partial(
+        torch.utils.checkpoint.create_selective_checkpoint_contexts, policy)
+  moe = bool(cfg.get("moe_num_experts"))
+
+  def block_fn(block, h, extras):
+    outs = torch.utils.checkpoint.checkpoint(
+        block, h, extras[0], None, None, None, None, use_reentrant=False,
+        **kw)
+    return outs[0], (outs[2] if moe else h.new_zeros((), dtype=torch.float32))
+  x, aux = pipeline_blocks(x, list(model.blocks), (positions,), block_fn,
+                           mesh, "model", micro)
+  loss = lm_lib.lm_loss(lm_lib.unembed_logits(model, model.final_norm(x)),
+                        targets)
+  if moe:
+    loss = loss + float(cfg.get("moe_aux_loss_weight", 0.0) or 0.0) * aux
+  loss.backward()
+  grads = {k: p.grad for k, p in params.items()}
+  for p in params.values():
+    p.grad = None
+  return loss.detach(), grads
+
+
+def _lm_step_ms(fn, runs: int = 2) -> float:
+  import torch
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(runs):
+    fn()
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) / runs * 1e3
+
+
+def _m10b_pipeline(dev, mesh):
+  """(A): GPipe's schedule at a stage count of 1 over lm-flops1e19's blocks
+  (b8, T 2048, flash attention) in M10B_MICRO microbatches against the
+  plain stack; returns the pipeline run's {kernel: launches}."""
+  import torch
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.train import lm_trainer
+  cfg = lm_lib.get_lm_config("lm-flops1e19")
+  cfg.override(M6_FLASH)
+  model = lm_lib.TransformerLM(cfg, device=dev)
+  _card_init(model, 0)
+  batch = {k: torch.from_numpy(v).to(dev) for k, v in next(iter(
+      lm_trainer.SyntheticLMData(8, cfg.seq_len, cfg.vocab_size))).items()}
+  L, m = cfg.n_layers, M10B_MICRO
+  results, counts = {}, {}
+  for label, fn in (
+      ("plain", lambda: lm_trainer.lm_loss_and_grads(model, batch)),
+      ("pipeline", lambda: _pipe_loss_and_grads(model, batch, mesh, m))):
+    _flash_reset()
+    loss, grads = fn()
+    torch.cuda.synchronize()
+    counts[label] = _flash_counts()
+    results[label] = (float(loss), {k: g.float() for k, g in grads.items()})
+    print(f"  step 1, {label}: loss {float(loss):.6f}; K1 "
+          f"{counts[label]['K1']} ({counts[label]['K1 sm90']} Hopper), K2 "
+          f"{counts[label]['K2']} ({counts[label]['K2 sm90']} Hopper)")
+  for label, n in (("plain", 1), ("pipeline", m)):
+    c = counts[label]
+    if (c["K1"], c["K2"]) != (2 * L * n, L * n) or \
+        (c["K1 sm90"], c["K2 sm90"]) != (c["K1"], c["K2"]):
+      raise AssertionError(f"(A) {label}: expected {2 * L * n} K1 and "
+                           f"{L * n} K2 launches, all Hopper's")
+  print(f"  K1 / K2 a layer: 2 / 1 on the plain stack's b8, 2 / 1 on each "
+        f"of the pipeline's {m} microbatches of b{8 // m}")
+  _step1_check(results, "pipeline", "plain", M10B_PIPE_LIMITS,
+               "Phase 5's loosest step-1 limits (flash against dense).")
+  del results
+  torch.cuda.empty_cache()
+  plain = lambda: lm_trainer.lm_loss_and_grads(model, batch)
+  pipe = lambda: _pipe_loss_and_grads(model, batch, mesh, m)
+  turns = [_lm_step_ms(f) for f in (plain, pipe, pipe, plain)]
+  print(f"  step (forward + backward) ms in turns: plain "
+        f"{(turns[0] + turns[3]) / 2:.1f} ({turns[0]:.1f}, {turns[3]:.1f}), "
+        f"pipeline of {m} microbatches at 1 stage "
+        f"{(turns[1] + turns[2]) / 2:.1f} ({turns[1]:.1f}, {turns[2]:.1f})")
+  del model
+  torch.cuda.empty_cache()
+  return counts["pipeline"]
+
+
+def _m10b_ep(dev, mesh):
+  """(B): phase 5b's MoE config (depth M10B_MOE_LAYERS) through the expert
+  parallel path on the mesh (1, 1, 1) (the global routing's prefix over
+  the data ranks, the experts' remap to this rank's, the sum of the slots
+  over 'model') against no mesh; then one step with the blocks
+  microbatched through pipeline_blocks on each (dp x PP x EP at one rank),
+  also bit-equal. Returns the mesh runs' {kernel: launches}."""
+  import torch
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.train import lm_trainer
+  from automl_tpu_torch.train import optimizers as opt_lib
+  cfg = lm_lib.get_lm_config("lm-flops1e19")
+  cfg.override(f"{M6_FLASH},{M6_MOE},n_layers={M10B_MOE_LAYERS}")
+  plain = lm_lib.TransformerLM(cfg, device=dev)
+  _card_init(plain, 1)
+  meshed = lm_lib.TransformerLM(cfg, device=dev, mesh=mesh)
+  _copy_params(meshed, plain)
+  data = iter(lm_trainer.SyntheticLMData(8, cfg.seq_len, cfg.vocab_size))
+  batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+             for _ in range(M10B_EP_STEPS)]
+  # The EP dispatch's sum over 'model' runs once a MoE layer and forward
+  # pass (the remat's recompute included) on the mesh, never without.
+  comm, reduces = lm_lib.comm, [0]
+  orig_reduce = comm.reduce_from_axis
+
+  def count_reduce(*args):
+    reduces[0] += 1
+    return orig_reduce(*args)
+  comm.reduce_from_axis = count_reduce
+  kept = {}
+  for label, model in (("no mesh", plain), ("mesh", meshed)):
+    moe = model.blocks[0].ffn
+    orig = moe._global_slots
+
+    def spy(idx, orig=orig, label=label):
+      out = orig(idx)
+      kept.setdefault(label, out[1])
+      return out
+    moe._global_slots = spy
+  try:
+    _flash_reset()
+    loss_m, grads_m = lm_trainer.lm_loss_and_grads(meshed, batches[0])
+    counts = _flash_counts()
+    ep_reduces = reduces[0]
+    loss_p, grads_p = lm_trainer.lm_loss_and_grads(plain, batches[0])
+    plain_reduces = reduces[0] - ep_reduces
+  finally:
+    comm.reduce_from_axis = orig_reduce
+    for model in (plain, meshed):
+      del model.blocks[0].ffn._global_slots
+  equal = sum(bool(torch.equal(_local(grads_m[k]), grads_p[k]))
+              for k in grads_p)
+  same_keep = bool(torch.equal(kept["mesh"], kept["no mesh"]))
+  print(f"  step 1: loss {float(loss_m):.6f} on the mesh, {float(loss_p):.6f}"
+        f" without; {equal} of {len(grads_p)} grad leaves bit-equal; layer "
+        f"0's kept slots {int(kept['mesh'].sum())} of "
+        f"{kept['mesh'].numel()}, equal: {same_keep}; the EP sum over "
+        f"'model' ran {ep_reduces} times on the mesh, {plain_reduces} "
+        f"without")
+  if ep_reduces < M10B_MOE_LAYERS or plain_reduces:
+    raise AssertionError("(B) the mesh run did not take the expert "
+                         "parallel dispatch")
+  if not (float(loss_m) == float(loss_p) and equal == len(grads_p)
+          and same_keep):
+    raise AssertionError("(B) expert parallelism on one rank is not "
+                         "bit-equal to no mesh")
+  del grads_m, grads_p
+  losses = {}
+  for label, model in (("mesh", meshed), ("no mesh", plain)):
+    tx = opt_lib.build_optimizer("lion", 1e-4)
+    step = lm_trainer.make_lm_train_step(model, tx)
+    state = lm_trainer.init_train_state(model, tx)
+    if label == "mesh":
+      before = _flash_counts()
+    out = []
+    for b in batches:
+      state, logs = step(state, b)
+      out.append(float(logs["loss"]))
+    if label == "mesh":
+      after = _flash_counts()
+      counts = {k: counts[k] + after[k] - before[k] for k in counts}
+    losses[label] = out
+    del state
+  print(f"  {M10B_EP_STEPS} Lion steps, losses: mesh {losses['mesh']}, no "
+        f"mesh {losses['no mesh']}")
+  if losses["mesh"] != losses["no mesh"]:
+    raise AssertionError("(B) the EP run's losses differ from no mesh")
+  # dp x PP x EP at one rank: each microbatch routes its own 4,096 tokens,
+  # on the mesh through the EP dispatch.
+  _copy_params(meshed, plain)
+  before = _flash_counts()
+  loss_mm, grads_mm = _pipe_loss_and_grads(meshed, batches[0], mesh,
+                                           M10B_MICRO)
+  after = _flash_counts()
+  counts = {k: counts[k] + after[k] - before[k] for k in counts}
+  loss_mp, grads_mp = _pipe_loss_and_grads(plain, batches[0], mesh,
+                                           M10B_MICRO)
+  equal = sum(bool(torch.equal(_local(grads_mm[k]), grads_mp[k]))
+              for k in grads_mp)
+  print(f"  one step with the MoE blocks in {M10B_MICRO} microbatches "
+        f"through pipeline_blocks (each routes its 4,096 tokens on its "
+        f"own): loss {float(loss_mm):.6f} on the mesh, "
+        f"{float(loss_mp):.6f} without; {equal} of {len(grads_mp)} grad "
+        f"leaves bit-equal")
+  if not (float(loss_mm) == float(loss_mp) and equal == len(grads_mp)
+          and math.isfinite(float(loss_mm))):
+    raise AssertionError("(B) the microbatched MoE step on the mesh is not "
+                         "bit-equal to no mesh")
+  del plain, meshed, grads_mm, grads_mp
+  torch.cuda.empty_cache()
+  return counts
+
+
+def _m10b_det(workdir):
+  """(C) D0 b16 512 x 512 through cli/main_det with the K6 knob on,
+  M10B_DET_STEPS steps on the mesh (1, 1, 1) and as many without; returns
+  the mesh run's K6 launches."""
+  import torch
+  from automl_tpu_torch.cli import main_det
+  from automl_tpu_torch.ops import depthwise as dw
+  f = dw.depthwise_filter_grad
+  steps = M10B_DET_STEPS
+  flags = ["--mode=train", "--model_name=efficientdet-d0", "--use_fake_data",
+           f"--hparams=mixed_precision=true,batch_size={D0_BATCH}",
+           "--log_every=1", "--device=cuda", f"--train_steps={steps}"]
+  losses, launches = {}, {}
+  for label, extra in (("mesh", ["--mesh_shape=1,1,1"]), ("no mesh", [])):
+    d = workdir + ("_det_mesh" if extra else "_det_plain")
+    shutil.rmtree(d, ignore_errors=True)
+    dw.enable_pallas_filter_grad(True)
+    f.launches = f.launches_sm90 = 0
+    try:
+      main_det.main(flags + [f"--model_dir={d}"] + extra)
+    finally:
+      dw.enable_pallas_filter_grad(False)
+    launches[label] = (f.launches, f.launches_sm90)
+    recs = [json.loads(l) for l in open(os.path.join(d, "metrics.jsonl"))]
+    losses[label] = [r["loss"] for r in recs]
+  for label in ("mesh", "no mesh"):
+    print(f"  D0 losses, {label}: "
+          + " ".join(f"{x:.4f}" for x in losses[label]))
+  equal = sum(a == b for a, b in zip(losses["mesh"], losses["no mesh"]))
+  print(f"  {equal} of {steps} steps' losses equal; K6 launches on the mesh "
+        f"{launches['mesh'][0]} ({launches['mesh'][1]} Hopper), without "
+        f"{launches['no mesh'][0]} (expected 76 x {steps} each)")
+  if losses["mesh"] != losses["no mesh"] or not all(
+      math.isfinite(x) for x in losses["mesh"]):
+    raise AssertionError("(C) the D0 mesh run's losses differ")
+  for got in launches.values():
+    if got != (76 * steps, 76 * steps):
+      raise AssertionError("(C) the D0 runs did not go through the Hopper K6")
+  saved = torch.load(os.path.join(workdir + "_det_mesh", "ckpt", str(steps),
+                                  "state.pt"), map_location="cpu",
+                     weights_only=True)
+  print(f"  the mesh run's checkpoint: step {saved['step']}, "
+        f"{len(saved['params'])} tensors (rank 0's state.pt)")
+  if saved["step"] != steps:
+    raise AssertionError("(C) the mesh run's checkpoint")
+  return launches["mesh"][0]
+
+
+def _m10b_cls_start(workdir):
+  """(C) V2-S at 168 x 168, b256, K6 knob on, M10B_CLS_STEPS steps through
+  cli/main_cls on the mesh (1, 1, 1) and without, in two child processes
+  started at once (they run beside the D0 runs); returns {label: (model
+  dir, log path, process)}."""
+  flags = ["--model_name=efficientnetv2-s", f"--train_steps={M10B_CLS_STEPS}",
+           "--log_every=1", "--device=cuda",
+           f"--hparam_str=train.batch_size={V2S_BATCH},train.stages=0,"
+           "train.isize=168"]
+  root = os.path.dirname(os.path.abspath(__file__))
+  procs = {}
+  for label, extra in (("mesh", ["--mesh_shape=1,1,1"]), ("no mesh", [])):
+    d = workdir + ("_cls_mesh" if extra else "_cls_plain")
+    shutil.rmtree(d, ignore_errors=True)
+    log = d + ".log"
+    with open(log, "w") as f:
+      procs[label] = (d, log, subprocess.Popen(
+          [sys.executable, "-c", _CLS_CHILD, "on", *flags,
+           f"--model_dir={d}", *extra], cwd=root, stdout=f,
+          stderr=subprocess.STDOUT, text=True))
+  return procs
+
+
+def _m10b_cls_finish(procs):
+  """Waits for _m10b_cls_start's children and checks them: equal losses
+  and K6 launches, all Hopper's; returns the mesh run's K6 launches."""
+  losses, launches = {}, {}
+  for label, (d, log, proc) in procs.items():
+    proc.wait(timeout=600)
+    out = open(log).read()
+    if proc.returncode != 0:
+      print(out[-6000:])
+      raise AssertionError(f"(C) main_cls ({label}) exited "
+                           f"{proc.returncode}")
+    marks = json.loads(next(l for l in out.splitlines()
+                            if l.startswith("CLS_STAGES "))[11:])
+    launches[label] = (marks[-1]["launches"] - marks[0]["launches"],
+                       marks[-1]["sm90"] - marks[0]["sm90"])
+    recs = [json.loads(l) for l in open(os.path.join(d, "metrics.jsonl"))]
+    losses[label] = [r["loss"] for r in recs if "loss" in r]
+  print(f"  V2-S 168 b{V2S_BATCH} losses on the mesh {losses['mesh']}, "
+        f"without {losses['no mesh']}; K6 launches {launches['mesh']} on the "
+        f"mesh (all, Hopper), {launches['no mesh']} without")
+  if losses["mesh"] != losses["no mesh"] or len(losses["mesh"]) != \
+      M10B_CLS_STEPS:
+    raise AssertionError("(C) the V2-S mesh run's losses differ")
+  n, sm90 = launches["mesh"]
+  if n != launches["no mesh"][0] or n == 0 or n != sm90:
+    raise AssertionError("(C) the V2-S runs' K6 launches")
+  return n
+
+
+def _m10b_eval(dev, mesh):
+  """(C) evaluate_detection on D0 with the mesh against without it."""
+  import torch
+  from automl_tpu_torch.data import pipeline
+  from automl_tpu_torch.train import runners
+  cfg = _det_config()
+  model = runners.seeded_detection_model(cfg, 0, dev)
+  batches = [next(iter(pipeline.SyntheticDetection(8, 512, 10, 90, seed=s)))
+             for s in range(2)]
+  params = dict(model.state_dict(keep_vars=True))
+  got = {label: runners.evaluate_detection(model, params, cfg,
+                                           iter(batches), 2, mesh=m)
+         for label, m in (("mesh", mesh), ("no mesh", None))}
+  print(f"  evaluate_detection (D0, 2 batches of 8): AP {got['mesh']['AP']} "
+        f"on the mesh, {got['no mesh']['AP']} without; "
+        f"{len(got['mesh'])} metrics")
+  if got["mesh"] != got["no mesh"]:
+    raise AssertionError("(C) evaluate_detection with the mesh differs")
+  del model
+  torch.cuda.empty_cache()
+
+
+def _m10b_k6_bands(dev, flush):
+  """(D): K6 on the H-bands of every stride-1 depthwise map of a D0 step
+  (2 and 4 bands, each the band's rows with k // 2 halo rows, zeros past
+  the image, and dy padded by k // 2 zero rows), summed, against the
+  whole map's K6 call and the plain version (K6_SHARE); all Hopper's.
+  Returns the largest error."""
+  import torch
+  import torch.nn.functional as F
+  from automl_tpu_torch.ops import depthwise as dw
+  gen = torch.Generator(device=dev).manual_seed(5)
+  cl = torch.channels_last
+  f = dw.depthwise_filter_grad
+  kern, ref = dw.depthwise_filter_grad_kernel, \
+      dw.depthwise_filter_grad_reference
+  b, worst, timed = D0_BATCH, 0.0, False
+  for (c, h, w, k) in D0_K6_SHAPES:
+    x, dy = (torch.randn((b, c, h, w), generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=cl) for _ in range(2))
+    whole = kern(x, dy, k)
+    plain = ref(x, dy, k)
+    r = k // 2
+    xp = F.pad(x, (0, 0, r, r))
+    for m in (2, 4):
+      hb = h // m
+      if h % m or hb < r:
+        continue
+      bands = [(xp[:, :, i * hb:i * hb + hb + 2 * r].contiguous(
+          memory_format=cl), F.pad(dy[:, :, i * hb:(i + 1) * hb],
+                                   (0, 0, r, r)).contiguous(memory_format=cl))
+               for i in range(m)]
+      before = (f.launches, f.launches_sm90)
+      total = sum(kern(xb, dyb, k) for xb, dyb in bands)
+      if (f.launches - before[0], f.launches_sm90 - before[1]) != (m, m):
+        raise AssertionError("(D) a band's K6 did not go to the Hopper "
+                             "kernel")
+      label = f"[{b},{c},{h},{w}] k{k} in {m} bands of {hb} (+{2 * r})"
+      worst = max(worst, _compare_scaled(f"{label} vs the whole call", total,
+                                         whole, K6_SHARE),
+                  _compare_scaled(f"{label} vs plain", total, plain,
+                                  K6_SHARE))
+      if not timed and m == 4:
+        xb, dyb = bands[0]
+        t_band = _time_ms(lambda: kern(xb, dyb, k), 10, flush)
+        t_whole = _time_ms(lambda: kern(x, dy, k), 10, flush)
+        print(f"  {label}: one band's K6 {t_band:.4f} ms, the whole map's "
+              f"{t_whole:.4f} ms (L2 flushed before each call)")
+        timed = True
+    del x, dy, xp
+  torch.cuda.empty_cache()
+  return worst
+
+
+def m10b_phase(dev, workdir):
+  """M10's second half on the card (A)-(D) at a world of one (NCCL);
+  returns {kernel: launches} of its main-path runs, each counted from 0
+  just before the run: K1 / K2 of (A)'s pipeline step and (B)'s mesh
+  steps, K6 of (C)'s D0 and V2-S mesh runs."""
+  import torch
+  import torch.distributed as dist
+  from automl_tpu_torch.parallel import create_mesh
+
+  t_phase = time.perf_counter()
+  os.makedirs(workdir, exist_ok=True)
+  torch.cuda.set_device(dev)
+  mesh = create_mesh((1, 1, 1), device="cuda")
+  print(f"M10b: process group {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+  try:
+    t = time.perf_counter()
+    print(f"(A) GPipe over lm-flops1e19's blocks, 1 stage, {M10B_MICRO} "
+          "microbatches, against the plain stack")
+    pipe = _m10b_pipeline(dev, mesh)
+    print(f"(A) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    print(f"(B) MoE (8 experts, top-2, {M10B_MOE_LAYERS} layers) with its "
+          "experts over 'model' on the mesh (1, 1, 1) against no mesh")
+    ep = _m10b_ep(dev, mesh)
+    print(f"(B) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    print("(C) the detection and classification meshes")
+    cls_procs = _m10b_cls_start(workdir)
+    try:
+      k6_det = _m10b_det(workdir)
+      k6_cls = _m10b_cls_finish(cls_procs)
+    finally:
+      for _, _, proc in cls_procs.values():
+        if proc.poll() is None:
+          proc.kill()
+          proc.wait()
+    _m10b_eval(dev, mesh)
+    print(f"(C) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    print("(D) K6 on H-bands with their halos against the whole map")
+    err = _m10b_k6_bands(dev, flush_buf.zero_)
+    del flush_buf
+    print(f"(D) largest error {err:.3e}; {time.perf_counter() - t:.1f} s")
+  finally:
+    dist.destroy_process_group()
+  print(f"M10b phase: {time.perf_counter() - t_phase:.1f} s")
+  return {"K1 sm90": pipe["K1 sm90"] + ep["K1 sm90"],
+          "K2 sm90": pipe["K2 sm90"] + ep["K2 sm90"], "K6": k6_det + k6_cls}
+
+
 def _entry(name, source, replaces, launches, r):
   return {"name": name, "route": "cuda", "source": source,
           "replaces": replaces, "launches": launches,
@@ -5639,7 +6178,8 @@ def main() -> int:
             cls_dir, cls_dir + "_off", cls_dir + "_mix",
             os.path.join(build, "chip_smoke_m10"),
             os.path.join(build, "chip_smoke_m10_mesh"),
-            os.path.join(build, "chip_smoke_m10_plain")):
+            os.path.join(build, "chip_smoke_m10_plain"),
+            os.path.join(build, "chip_smoke_m10b")):
     shutil.rmtree(d, ignore_errors=True)
   runs = training_phase(dev, workdir)
   m6 = lm_training_m6_phase(dev, m6_dir, trees)
@@ -5658,6 +6198,7 @@ def main() -> int:
   k4_launches += m6["K4 sm90"]
   m10 = m10_phase(dev, os.path.join(build, "chip_smoke_m10"))
   k4_launches += m10["K4"]
+  m10b = m10b_phase(dev, os.path.join(build, "chip_smoke_m10b"))
   for label in ("prefill T=512", "verify T=5", "chunk T=256"):
     print(f"K4 {label}: {json.dumps(k4[label])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
@@ -5669,11 +6210,11 @@ def main() -> int:
       _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:82",
              runs["unfused"]["K1 sm90"] + m6["K1 sm90"] + sqs["K1 sm90"]
-             + m10["K1 sm90"], flash["fwd"]),
+             + m10["K1 sm90"] + m10b["K1 sm90"], flash["fwd"]),
       _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:320",
              runs["unfused"]["K2 sm90"] + m6["K2 sm90"] + sqs["K2 sm90"]
-             + m10["K2 sm90"], flash["bwd"]),
+             + m10["K2 sm90"] + m10b["K2 sm90"], flash["bwd"]),
       _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:240", runs["split"]["K5a sm90"],
              flash["dq"]),
@@ -5692,7 +6233,7 @@ def main() -> int:
       _entry("depthwise_filter_grad",
              "automl_tpu_torch/csrc/depthwise_sm90.cu",
              "automl_tpu/ops/depthwise.py:37",
-             k6_launches + cls_k6_launches + sqs["K6"],
+             k6_launches + cls_k6_launches + sqs["K6"] + m10b["K6"],
              k6["[16,32,256,256] k3"]),
   ]}))
   print(card)

@@ -546,20 +546,24 @@ def test_infer_cls_bm_and_infer_match_jax(tmp_path, capsys):
                              [p for _, p in want["top5"]], atol=1e-4)
 
 
-CLS_REFUSED = {"--mesh_shape=1,2": "M10", "--num_processes=2": "M10"}
+CLS_REFUSED = {"--mesh_shape=1,2": "does not name the axes",
+               "--num_processes=2": "coordinator address"}
 
 
 @pytest.mark.parametrize("flag", list(CLS_REFUSED))
 def test_cli_refusals_name_their_roadmap_items(flag, tmp_path):
-  with pytest.raises(NotImplementedError, match=f"ROADMAP {CLS_REFUSED[flag]}"):
+  """The mesh flags' refusals, before anything starts: a mesh shape
+  without one entry per axis (replica, data, model), and a multi-process
+  run without its rendezvous."""
+  with pytest.raises(ValueError, match=CLS_REFUSED[flag]):
     tmain.main(["--model_name=efficientnetv2-test", "--device=cpu",
                 f"--model_dir={tmp_path}", "--train_steps=1", flag])
 
 
-def test_data_dir_and_mesh_refused_in_code(tmp_path):
+def test_data_dir_and_mesh_refused_in_code(tmp_path, monkeypatch):
   cfg = tcfgs.get_model_config("efficientnetv2-test")
-  with pytest.raises(NotImplementedError, match="M10"):
-    trun.run_classification(cfg, str(tmp_path), 1, mesh_shape=(1, 2),
+  with pytest.raises(ValueError, match="the world has 1"):
+    trun.run_classification(cfg, str(tmp_path), 1, mesh_shape=(1, 2, 1),
                             device="cpu")
   # a data_dir reads the split's TFRecords there (none under /data)
   cfg.data.data_dir = "/data"
@@ -568,10 +572,13 @@ def test_data_dir_and_mesh_refused_in_code(tmp_path):
   assert loader.file_pattern.startswith("/data/")
   with pytest.raises(ValueError, match="no files match"):
     next(iter(loader))
+  # A run of several processes evaluates with its mesh, as JAX's does.
+  from automl_tpu_torch.parallel import distributed as tdist
   tm = teff.EfficientNet(cfg.model)
-  with pytest.raises(NotImplementedError, match="M10"):
+  monkeypatch.setattr(tdist, "process_count", lambda: 2)
+  with pytest.raises(ValueError, match="needs the training mesh"):
     trun.evaluate_classification(tm, convert.model_state(tm), cfg, iter(()),
-                                 1, mesh=object())
+                                 1)
 
 
 def test_registry_and_synthetic_data_match_jax():

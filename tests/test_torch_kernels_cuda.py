@@ -1656,3 +1656,143 @@ def test_fake_quant_on_card_matches_cpu(dev, shape, axis, dtype):
     got = quant.fake_quant(x.to(dev), bits, axis)
     assert got.dtype == dtype
     assert torch.equal(got.cpu(), want)
+
+
+# --- the parallel layer's second half (M10) at a world of one ---------------
+
+
+@pytest.fixture
+def mesh1(dev):
+  """The mesh (1, 1, 1) on the card (NCCL at a world of one), torn down
+  after the test."""
+  import torch.distributed as dist
+  from automl_tpu_torch.parallel import create_mesh
+  torch.cuda.set_device(dev)
+  fresh = not dist.is_initialized()
+  yield create_mesh((1, 1, 1), device="cuda")
+  if fresh and dist.is_initialized():
+    dist.destroy_process_group()
+
+
+def _small_lm(dev, seed, **kw):
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm as lm_lib
+  cfg = lm_lib.lm_defaults()
+  cfg.update(dict(dict(vocab_size=256, model_dim=128, n_layers=2, n_heads=2,
+                       n_kv_heads=2, head_dim=64, expand_factor=2,
+                       seq_len=128, use_flash_attention=True), **kw))
+  return cfg, convert.numpy_init(cfg, seed)
+
+
+def _flash_counts():
+  f = fa.flash_attention
+  return (f.launches_fwd, f.launches_fwd_sm90, f.launches_bwd,
+          f.launches_bwd_sm90)
+
+
+@pytest.mark.cuda
+def test_gpipe_on_card_matches_plain_stack(dev, mesh1):
+  """parallel/pipeline.py::pipeline_blocks over a small bf16 LM's blocks
+  at one stage in 4 microbatches (b2 each) against the plain stack: the
+  final-normed outputs within BF16_TOL; K1 / K2 1 / 1 a layer and
+  microbatch, all Hopper's."""
+  import torch.nn.functional as F
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.parallel.pipeline import pipeline_blocks
+  cfg, tree = _small_lm(dev, 0)
+  model = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev), tree)
+  gen = torch.Generator(device=dev).manual_seed(1)
+  tokens = torch.randint(0, 256, (8, 128), generator=gen, device=dev)
+  want = model(tokens, return_hidden=True)[0]
+  x = F.embedding(tokens, model.embed).to(torch.bfloat16) * 128 ** 0.5
+  pos = torch.arange(128, device=dev).expand(8, 128)
+  before = _flash_counts()
+  got, aux = pipeline_blocks(
+      x, list(model.blocks), (pos,),
+      lambda blk, h, e: (blk(h, e[0], None)[0],
+                         h.new_zeros((), dtype=torch.float32)),
+      mesh1, "model", 4)
+  got = model.final_norm(got)
+  (got.float().square().mean()).backward()
+  after = _flash_counts()
+  # 2 layers x 4 microbatches: K1 in the forward, K2 in the backward (no
+  # remat around the blocks here), all Hopper's.
+  assert [a - b for a, b in zip(after, before)] == [8, 8, 8, 8]
+  _close(got.detach(), want.detach(), torch.bfloat16)
+  assert float(aux) == 0.0
+
+
+@pytest.mark.cuda
+def test_moe_expert_parallel_on_card_bit_equal(dev, mesh1, monkeypatch):
+  """A small bf16 MoE LM (4 experts, top-2) with its experts over 'model'
+  on the mesh (1, 1, 1) against no mesh: the loss and every gradient leaf
+  bit-equal (one rank: the same kernels on the same rows), the mesh run
+  through the EP dispatch (its sum over 'model' once a layer); then the
+  blocks in 4 microbatches through pipeline_blocks (dp x PP x EP at one
+  rank), the final-normed outputs and the input's gradient bit-equal."""
+  import torch.nn.functional as F
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.parallel.pipeline import pipeline_blocks
+  from automl_tpu_torch.train import lm_trainer
+  cfg, tree = _small_lm(dev, 2, moe_num_experts=4, moe_top_k=2,
+                        moe_aux_loss_weight=0.01)
+  plain = convert.load_jax_params(lm_lib.TransformerLM(cfg, device=dev), tree)
+  meshed = convert.load_jax_params(
+      lm_lib.TransformerLM(cfg, device=dev, mesh=mesh1), tree)
+  gen = torch.Generator(device=dev).manual_seed(3)
+  batch = {"tokens": torch.randint(0, 256, (4, 129), generator=gen,
+                                   device=dev)}
+  calls, orig = [], lm_lib.comm.reduce_from_axis
+  monkeypatch.setattr(lm_lib.comm, "reduce_from_axis",
+                      lambda *a: calls.append(1) or orig(*a))
+  lp, gp = lm_trainer.lm_loss_and_grads(plain, batch)
+  assert not calls
+  lm_, gm = lm_trainer.lm_loss_and_grads(meshed, batch)
+  assert len(calls) >= cfg.n_layers
+  assert float(lp) == float(lm_)
+  for k in gp:
+    assert torch.equal(gm[k].to_local(), gp[k]), k
+  tokens = batch["tokens"][:, :-1]
+  pos = torch.arange(128, device=dev).expand(4, 128)
+  outs = []
+  for model in (plain, meshed):
+    x = (F.embedding(tokens, lm_lib._w(model.embed, model.par))
+         .to(torch.bfloat16) * 128 ** 0.5).detach().requires_grad_()
+    y, aux = pipeline_blocks(
+        x, list(model.blocks), (pos,),
+        lambda blk, h, e: tuple(blk(h, e[0], None)[::2]), mesh1, "model", 4)
+    y = model.final_norm(y)
+    (y.float().square().mean() + aux).backward()
+    outs.append((y.detach(), aux.detach(), x.grad))
+  for got, want in zip(outs[1], outs[0]):
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w,k", [(32, 64, 64, 3), (240, 32, 32, 5),
+                                     (64, 8, 8, 3)])
+@pytest.mark.parametrize("m", [2, 4])
+def test_depthwise_sm90_on_bands_sums_to_whole(dev, c, h, w, k, m):
+  """K6 on m H-bands of a map, each the band's rows with k // 2 halo rows
+  (zeros past the image) and dy padded by k // 2 zero rows, summed:
+  the whole map's K6 within K6's f32-sum tolerance; every call the Hopper
+  kernel's."""
+  import torch.nn.functional as F
+  gen = torch.Generator(device=dev).manual_seed(7)
+  cl = torch.channels_last
+  x, dy = (torch.randn((4, c, h, w), generator=gen, device=dev).to(
+      torch.bfloat16).contiguous(memory_format=cl) for _ in range(2))
+  whole = dwise.depthwise_filter_grad(x, dy, k)
+  r, hb = k // 2, h // m
+  xp = F.pad(x, (0, 0, r, r))
+  f = dwise.depthwise_filter_grad
+  before = f.launches_sm90
+  total = sum(dwise.depthwise_filter_grad(
+      xp[:, :, i * hb:i * hb + hb + 2 * r].contiguous(memory_format=cl),
+      F.pad(dy[:, :, i * hb:(i + 1) * hb], (0, 0, r, r)).contiguous(
+          memory_format=cl), k) for i in range(m))
+  assert f.launches_sm90 - before == m
+  scale = float(whole.abs().max())
+  torch.testing.assert_close(total, whole, atol=1e-5 * scale, rtol=1e-5)

@@ -392,32 +392,43 @@ def test_generate_cli_smoke(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("option,error,match", [
-    ("use_pipeline=True", NotImplementedError, "M10, second half"),
+    ("use_pipeline=True", None, None),
     ("serve_tp=True,serve_sp=True", ValueError, "mutually exclusive"),
     ("serve_tp=True,use_decode_kernel=False", ValueError,
      "serve_tp requires use_decode_kernel"),
 ], ids=["use_pipeline", "serve_tp_with_serve_sp", "serve_tp_no_kernel"])
 def test_unported_options_raise(option, error, match):
-  """What stays refused (pipeline parallelism: M10's second half) and the
-  refusals JAX makes: serve_tp with serve_sp when the model is built,
-  serve_tp without the decode kernel at the first cached forward."""
+  """The refusals JAX makes: serve_tp with serve_sp when the model is
+  built, serve_tp without the decode kernel at the first cached forward.
+  use_pipeline without a mesh (no 'model' axis to stage over) runs the
+  plain stack, as JAX's does: the logits within 1e-5 of JAX's."""
   jcfg, tcfg = _cfgs(**SMALL)
   tcfg.override(option)
   jcfg.override(option)
 
   def run_torch():
     model = convert.load_jax_params(tlm.TransformerLM(tcfg), _tree(tcfg))
-    model(torch.zeros((1, 2), dtype=torch.int64), cache=model.init_cache(1, 8),
-          cache_index=0)
+    return model(torch.zeros((1, 2), dtype=torch.int64),
+                 cache=model.init_cache(1, 8), cache_index=0)[0]
 
+  def run_jax():
+    model = jlm.TransformerLM(jcfg)
+    params = jax.tree_util.tree_map(jnp.asarray, _tree(tcfg))
+    return model(params, jnp.zeros((1, 2), jnp.int32),
+                 cache=model.init_cache(1, 8), cache_index=0)[0]
+
+  if error is None:
+    tokens = np.arange(6, dtype=np.int32).reshape(1, 6)
+    got = convert.load_jax_params(tlm.TransformerLM(tcfg), _tree(tcfg))(
+        torch.from_numpy(tokens).long())[0]
+    want = jlm.TransformerLM(jcfg)(
+        jax.tree_util.tree_map(jnp.asarray, _tree(tcfg)), jnp.asarray(tokens))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want[0]),
+                               atol=1e-5, rtol=1e-5)
+    return
   with pytest.raises(error, match=match):
     run_torch()
   if error is ValueError:     # JAX's own refusal, in its words
-    def run_jax():
-      model = jlm.TransformerLM(jcfg)
-      params = jax.tree_util.tree_map(jnp.asarray, _tree(tcfg))
-      model(params, jnp.zeros((1, 2), jnp.int32),
-            cache=model.init_cache(1, 8), cache_index=0)
     with pytest.raises(error, match=match):
       run_jax()
 

@@ -579,22 +579,28 @@ def test_checkpoint_manager_keeps_newest_and_restores(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
-  """use_pipeline stays refused (M10's second half) through the CLI and
-  run_lm; a mesh that does not cover the world (one process here), or a
-  multi-process flag without its rendezvous, is refused before anything
-  starts."""
+  """use_pipeline without a mesh trains the plain stack (no 'model' axis
+  to stage over, as in JAX) through the CLI and run_lm, and on a mesh
+  (1, 1, 1) as well; a mesh that does not cover the world (one process
+  here), or a multi-process flag without its rendezvous, is refused before
+  anything starts."""
   _, tcfg = _cfgs()
   base = ["--config_name=lm-test", "--device=cpu", "--train_steps=1"]
-  with pytest.raises(NotImplementedError, match="M10, second half"):
-    tcli.main([f"--model_dir={tmp_path}/cli", *base,
-               "--experiment_config=use_pipeline=true"])
+  out = tcli.main([f"--model_dir={tmp_path}/cli", *base,
+                   "--experiment_config=use_pipeline=true"])
   tcfg.override("use_pipeline=true")
-  with pytest.raises(NotImplementedError, match="M10, second half"):
-    ttrain.run_lm(tcfg, str(tmp_path / "run"), 1, device="cpu")
+  plain = ttrain.run_lm(tcfg, str(tmp_path / "run"), 1, device="cpu")
+  assert np.isfinite(out["loss"]) and np.isfinite(plain["loss"])
   with pytest.raises(ValueError, match="the world has 1"):
     tcli.main([f"--model_dir={tmp_path}/mesh", *base, "--mesh_shape=1,2,1"])
   with pytest.raises(ValueError, match="coordinator address"):
     tcli.main([f"--model_dir={tmp_path}/mp", *base, "--num_processes=2"])
+  try:
+    meshed = ttrain.run_lm(tcfg, str(tmp_path / "mesh1"), 1, device="cpu",
+                           mesh_shape=(1, 1, 1))
+  finally:
+    torch.distributed.destroy_process_group()
+  assert np.isfinite(meshed["loss"])
 
 
 def _fused_models(fused, seed, **kw):
