@@ -1,17 +1,23 @@
 """Text generation with the PyTorch LM (automl_tpu/cli/generate_lm.py).
 
-The model comes from a directory holding experiment_config.yaml and a
-params.npz of the JAX-layout parameter tree (keys joined with '/'), or from
-a named config with seeded random weights. One generate per prompt
-(greedy / sampled), or: length-penalised beam search (--num_beams),
-speculative decoding with a draft model directory (--draft_model_dir), the
+The model comes from a run directory that main_lm / run_lm wrote
+(experiment_config.yaml + ckpt/<step>/state.pt: the latest step, or the one
+--step names; only its params are read), from a directory holding
+experiment_config.yaml and a params.npz of the JAX-layout parameter tree
+(keys joined with '/'; no ckpt/, no steps), or from a named config with
+seeded random weights. A line before the output says which was read. One
+generate per prompt (greedy / sampled), or: length-penalised beam search
+(--num_beams), speculative decoding with a small draft model's directory
+(--draft_model_dir, read as --model_dir at its latest step), the
 continuous-batching server over every prompt at once (--serve_slots, with
 --prefill_chunk and a shared --system_prompt), each with int8 weights
-(--int8).
+(--int8, the draft's too).
 
 Examples:
+  python -m automl_tpu_torch.cli.main_lm --model_dir=/tmp/lm \
+    --config_name=lm-test --device=cpu --train_steps=8 --ckpt_every=4
   python -m automl_tpu_torch.cli.generate_lm --model_dir=/tmp/lm \
-    --prompt="Once upon a time" --max_new_tokens=128
+    --device=cpu --prompt="Once upon a time" --max_new_tokens=16 --step=4
   python -m automl_tpu_torch.cli.generate_lm --config_name=lm-test \
     --device=cpu --prompt="hi" --max_new_tokens=8 --temperature=0.8 --top_k=40
   printf 'a\nb\n' | python -m automl_tpu_torch.cli.generate_lm \
@@ -24,13 +30,15 @@ decode kernel on each rank's heads) or sp (the cache sharded over the
 sequence, the kernel's partials merged), over a mesh (1, world / m, m) of
 the world's processes with m = --mesh_model (0: all of them). Run one
 process per card under torchrun (parallel/distributed.py initialize reads
-its environment); one process is a mesh of one. The weights stay whole on
-every rank. Only rank 0 prints.
+its environment); one process is a mesh of one. The model is built on its
+mesh, then the weights are copied in (whole on every rank). Only rank 0
+prints.
 
   torchrun --nproc_per_node=2 -m automl_tpu_torch.cli.generate_lm \
     --config_name=lm-flops1e19 --serve_mode=tp --mesh_model=2 --prompt=hi
 
-Not ported yet: restoring an orbax checkpoint (it needs jax; ROADMAP M9).
+Not ported yet: restoring an orbax checkpoint of the JAX package (it needs
+tensorstore; ROADMAP M9): such a ckpt/ is refused.
 """
 
 from __future__ import annotations
@@ -48,16 +56,22 @@ from automl_tpu_torch.inference.lm_server import GenRequest, LMServer
 from automl_tpu_torch.models import lm as lm_lib
 from automl_tpu_torch.models.beam import beam_search_generate
 from automl_tpu_torch.models.speculative import speculative_generate
+from automl_tpu_torch.train import checkpoint
 
 
 def parse_args(argv=None):
   p = argparse.ArgumentParser(description=__doc__)
   src = p.add_mutually_exclusive_group(required=True)
   src.add_argument("--model_dir",
-                   help="directory with experiment_config.yaml + params.npz")
+                   help="run directory of main_lm / run_lm (experiment_"
+                        "config.yaml + ckpt/), or experiment_config.yaml + "
+                        "params.npz (a JAX-layout tree)")
   src.add_argument("--config_name",
                    help="named LM config (lm-test, lm-flops1e19, ...) with "
                         "seeded random weights")
+  p.add_argument("--step", type=int, default=None,
+                 help="checkpoint step of --model_dir's ckpt/ (default: "
+                      "the latest)")
   p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
   p.add_argument("--prompt", default=None,
                  help="prompt text; default: one prompt per stdin line")
@@ -80,10 +94,10 @@ def parse_args(argv=None):
   p.add_argument("--int8", action="store_true",
                  help="serve with int8 weights (quantize_lm_params)")
   p.add_argument("--draft_model_dir", default=None,
-                 help="directory of a small draft model (experiment_config."
-                      "yaml + params.npz, the same vocabulary): speculative "
-                      "decoding, token-exact against plain decoding at "
-                      "temperature 0")
+                 help="directory of a small draft model, read as "
+                      "--model_dir at its latest step (the same "
+                      "vocabulary): speculative decoding, token-exact "
+                      "against plain decoding at temperature 0")
   p.add_argument("--n_draft", type=int, default=4,
                  help="drafted tokens per speculative iteration")
   p.add_argument("--num_beams", type=int, default=1,
@@ -113,23 +127,46 @@ def parse_args(argv=None):
 
 
 def load_model(model_dir=None, config_name=None, seed: int = 0,
-               device="cuda", serve_mode: str = "none", mesh=None):
+               device="cuda", serve_mode: str = "none", mesh=None,
+               step=None):
   """(config, model) from a model_dir, or a named config with weights drawn
-  from `seed`; either way the JAX-layout tree goes through convert.
-  serve_mode "tp" / "sp" sets serve_tp / serve_sp; mesh puts the model on
-  a mesh (its weights replicated)."""
+  from `seed` (convert.numpy_init). A model_dir with ckpt/ is a run
+  directory: the params of checkpoint step `step` (default: the latest)
+  are copied into the model (checkpoint.restore_params); without ckpt/ its
+  params.npz is read (no steps: `step` raises a ValueError). serve_mode
+  "tp" / "sp" sets serve_tp / serve_sp; mesh puts the model on a mesh (its
+  weights replicated). Prints (rank 0) which weights were read."""
+  tree = None
   if model_dir:
     config = Config({}).update(
         os.path.join(model_dir, "experiment_config.yaml"))
-    tree = convert.load_npz(os.path.join(model_dir, "params.npz"))
+    ckpt = os.path.join(model_dir, "ckpt")
+    npz = os.path.join(model_dir, "params.npz")
+    if not os.path.isdir(ckpt) and os.path.exists(npz):
+      if step is not None:
+        raise ValueError(f"--step {step}: {model_dir} holds params.npz, "
+                         "which has no steps (a run directory of main_lm "
+                         "has ckpt/)")
+      tree = convert.load_npz(npz)
+      source = npz
   else:
     config = lm_lib.get_lm_config(config_name)
     tree = convert.numpy_init(config, seed)
+    source = f"{config_name}, weights drawn from seed {seed}"
   if serve_mode != "none":
     config.override({f"serve_{serve_mode}": True}, allow_new_keys=True)
   model = lm_lib.TransformerLM(config, device=torch.device(device),
                                mesh=mesh)
-  convert.load_jax_params(model, tree)
+  if tree is not None:
+    convert.load_jax_params(model, tree)
+  else:
+    step = checkpoint.restore_params(
+        ckpt, dict(model.named_parameters()), step,
+        names=lm_lib.stacked_layers if model.stacked else None)
+    source = f"{ckpt} at step {step}"
+  from automl_tpu_torch.parallel.distributed import process_index
+  if process_index() == 0:
+    print(f"generate_lm: weights of {source}")
   return config, model
 
 
@@ -163,22 +200,26 @@ def _check_flags(args):
     raise ValueError("--num_beams > 1 runs standalone beam search; it does "
                      "not compose with --serve_slots, --draft_model_dir, "
                      "--stop or --logprobs")
+  if args.step is not None and not args.model_dir:
+    raise ValueError("--step picks a checkpoint of --model_dir")
   if args.draft_model_dir and (args.stop or args.logprobs):
     raise ValueError("--stop/--logprobs are not supported with "
                      "--draft_model_dir (speculative decoding verifies "
                      "whole chunks); drop one or the other")
 
 
-def _serving_model(model_dir, config_name, args, serve_mode="none"):
+def _serving_model(model_dir, config_name, args, serve_mode="none",
+                   step=None):
   if serve_mode == "none":
-    config, model = load_model(model_dir, config_name, args.seed, args.device)
+    config, model = load_model(model_dir, config_name, args.seed,
+                               args.device, step=step)
   else:
     config = (Config({}).update(os.path.join(model_dir,
                                              "experiment_config.yaml"))
               if model_dir else lm_lib.get_lm_config(config_name))
     mesh = serving_mesh(args, config)
     config, model = load_model(model_dir, config_name, args.seed,
-                               args.device, serve_mode, mesh)
+                               args.device, serve_mode, mesh, step)
   if args.int8:
     lm_lib.quantize_lm_params(model)
   return config, lm_lib.cast_lm_params_for_serving(model)
@@ -190,7 +231,7 @@ def main(argv=None):
   tok = (lm_pipeline.ByteTokenizer() if args.tokenizer == "byte"
          else lm_pipeline.SentencePieceModel(args.tokenizer))
   config, model = _serving_model(args.model_dir, args.config_name, args,
-                                 args.serve_mode)
+                                 args.serve_mode, args.step)
   draft = (_serving_model(args.draft_model_dir, None, args)[1]
            if args.draft_model_dir else None)
   eos_id = lm_pipeline.EOS_ID if args.stop_at_eos else None

@@ -9,7 +9,8 @@ Saves are synchronous (written to <step>.tmp, then renamed), so
 wait_until_finished has nothing to wait for. watch_checkpoints follows a
 trainer's directory for a continuous eval. archive_ckpt keeps the best
 checkpoint by an eval objective. saved_params reads the parameters (or
-their EMA) of one step for inference. The JAX package's orbax checkpoints
+their EMA) of one step for inference; restore_params copies them into a
+model for serving. The JAX package's orbax checkpoints
 are OCDBT stores of zarr chunks, which need tensorstore: they are refused
 (refuse_orbax, ROADMAP M9's orbax item).
 
@@ -116,6 +117,27 @@ def _to(tree, device):
   return tree
 
 
+def _load(directory: str, step: int, mmap: bool = False) -> dict:
+  """The dict saved at `step` in `directory`, its tensors on the CPU (with
+  mmap, read from the file only where they are used)."""
+  return torch.load(os.path.join(directory, str(step), _FILE),
+                    map_location="cpu", weights_only=True, mmap=mmap)
+
+
+def _copy_params(params: dict, saved: dict) -> None:
+  """Copies saved {name: tensor} into params ({name: parameter}) in place;
+  a DTensor takes its part. ValueError when the names differ."""
+  if set(saved) != set(params):
+    raise ValueError("checkpoint parameters do not match the model's: "
+                     f"{sorted(set(saved) ^ set(params))}")
+  with torch.no_grad():
+    for k, p in params.items():
+      if isinstance(p, DTensor):
+        p.to_local().copy_(_part(saved[k], p))
+      else:
+        p.copy_(saved[k])
+
+
 class CheckpointManager:
   """save / restore / latest_step over <directory>/<step>/state.pt, keeping
   the newest max_to_keep steps."""
@@ -165,21 +187,15 @@ class CheckpointManager:
     step = self.latest_step() if step is None else step
     if step is None:
       return None
-    saved = torch.load(os.path.join(self.directory, str(step), _FILE),
-                       map_location="cpu", weights_only=True)
+    saved = _load(self.directory, step)
     if names is not None:
       saved = {f: v if f == "step" else _renamed(v, saved["params"], names)
                for f, v in saved.items()}
     params = state_template.params
-    if set(saved["params"]) != set(params):
-      raise ValueError("checkpoint parameters do not match the model's: "
-                       f"{sorted(set(saved['params']) ^ set(params))}")
+    _copy_params(params, saved["params"])
     first = next(iter(params.values()))
     if isinstance(first, DTensor):
       device = first.to_local().device
-      with torch.no_grad():
-        for k, p in params.items():
-          p.to_local().copy_(_part(saved["params"][k], p))
       rest = {f: _to(map_named(
           saved[f], params,
           lambda v, p: _part(v, p) if isinstance(p, DTensor) else v), device)
@@ -187,9 +203,6 @@ class CheckpointManager:
       return state_template._replace(step=saved["step"], params=params,
                                      **rest)
     device = first.device
-    with torch.no_grad():
-      for k, p in params.items():
-        p.copy_(saved["params"][k])
     rest = {f: _to(saved[f], device) for f in state_template._fields
             if f not in ("step", "params")}
     return state_template._replace(step=saved["step"], params=params, **rest)
@@ -212,22 +225,47 @@ def refuse_orbax(path: str) -> None:
         "not read it (ROADMAP M9, its orbax item, stays queued)")
 
 
+def _saved(directory: str, step: Optional[int], mmap: bool = False) -> dict:
+  """The dict saved at `step` (default: the latest) in a port checkpoint
+  directory. FileNotFoundError naming the directory where there is no such
+  step; an orbax directory of the JAX package is refused (refuse_orbax)."""
+  refuse_orbax(directory)
+  steps = all_checkpoint_steps(directory)
+  if step is None and steps:
+    step = steps[-1]
+  if step is None:
+    raise FileNotFoundError(f"no checkpoint under {directory}")
+  if step not in steps:
+    raise FileNotFoundError(f"no checkpoint of step {step} under "
+                            f"{directory} (steps {steps})")
+  return _load(directory, step, mmap)
+
+
 def saved_params(directory: str, step: Optional[int] = None,
                  use_ema: bool = False) -> dict:
   """{name: CPU tensor} of the params (with use_ema, the EMA when the
   checkpoint has one) of step `step` (default: the latest) of a port
   checkpoint directory. FileNotFoundError without a checkpoint; an orbax
   directory of the JAX package is refused (refuse_orbax)."""
-  refuse_orbax(directory)
-  mngr = CheckpointManager(directory)
-  step = mngr.latest_step() if step is None else step
-  if step is None:
-    raise FileNotFoundError(f"no checkpoint in {directory}")
-  saved = torch.load(os.path.join(mngr.directory, str(step), _FILE),
-                     map_location="cpu", weights_only=True)
+  saved = _saved(directory, step)
   if use_ema and saved.get("ema_params"):
     return saved["ema_params"]
   return saved["params"]
+
+
+def restore_params(directory: str, params: dict,
+                   step: Optional[int] = None, names=None) -> int:
+  """Copies the params of step `step` (default: the latest) of a port
+  checkpoint directory into `params` ({name: parameter}, a model's) in
+  place, a DTensor its part; the rest of the state (the optimizer's) is
+  not read. names: {name: tensor} in the checkpoint's names -> params'
+  (a pipeline model's lm.stacked_layers). Returns the step.
+  FileNotFoundError naming the directory without that step; an orbax
+  directory of the JAX package is refused (refuse_orbax)."""
+  saved = _saved(directory, step, mmap=True)
+  _copy_params(params, saved["params"] if names is None
+               else names(saved["params"]))
+  return saved["step"]
 
 
 # What restoring a checkpoint that vanished or was cut short raises: the

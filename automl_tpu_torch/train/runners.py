@@ -536,9 +536,10 @@ def _stop_profile(profiler, model_dir: str, device):
 def run_detection(config, model_dir: str, train_steps: int,
                   mesh_shape=None, data_iter=None, eval_iter=None,
                   eval_steps: int = 0, eval_every: int = 0,
-                  log_every: int = 50, init_backbone_ckpt=None,
-                  init_backbone_ema: bool = True, profile: bool = False,
-                  seed: int = 0, device="cuda") -> dict:
+                  log_every: int = 50, ckpt_every: int = 0,
+                  init_backbone_ckpt=None, init_backbone_ema: bool = True,
+                  profile: bool = False, seed: int = 0,
+                  device="cuda") -> dict:
   """Trains EfficientDet on one device, with optional COCO evals; returns
   the last metrics as floats (and the final eval's, when there is one).
   metrics.jsonl gets, every log_every steps, the step's metrics plus lr,
@@ -551,7 +552,9 @@ def run_detection(config, model_dir: str, train_steps: int,
   iterator (one eval at the end) or a zero-argument factory of fresh
   iterators (needed for eval_every > 0: an eval every eval_every steps and
   at the last step; each writes its eval images to
-  model_dir/vis/step_<n>/). init_backbone_ckpt: a TF EfficientNet
+  model_dir/vis/step_<n>/). ckpt_every: a checkpoint every ckpt_every
+  steps before the last (0: at the evals and the end only), from which a
+  rerun resumes. init_backbone_ckpt: a TF EfficientNet
   checkpoint (scope config.backbone_name) for the backbone's weights. profile: a torch.profiler trace of steps 10-14 (or
   from step 10 to the end, if that comes first) into
   model_dir/profile/trace_steps_10-14.json. mesh_shape: a mesh over the
@@ -610,6 +613,8 @@ def run_detection(config, model_dir: str, train_steps: int,
     if profiler is not None and step > PROFILE_STEPS[1]:
       _stop_profile(profiler, model_dir, device)
       profiler = None
+    if ckpt_every and step % ckpt_every == 0 and step < train_steps:
+      mngr.save(step, state)
     if step % log_every == 0 or step == train_steps:
       m = {k: float(v) for k, v in metrics.items()}   # waits for the step
       now = time.perf_counter()
