@@ -30,7 +30,9 @@ Subpackages:
                detection data and its preprocessing; the TF-free TFRecord
                readers and the native C++ loader
   ckpt      -- published TF checkpoints, read without TensorFlow
-               (tf_bundle) and mapped onto the models (tf_compat)
+               (tf_bundle) and mapped onto the models (tf_compat); the
+               JAX package's orbax run directories, read and written
+               without orbax or tensorstore (orbax, ocdbt, zstd)
   inference -- detection serving (ServingDriver / InferenceDriver, export
                with torch.export), drawing and label maps
   cli       -- main_lm, main_det, main_cls (training), generate_lm,

@@ -37,8 +37,9 @@ prints.
   torchrun --nproc_per_node=2 -m automl_tpu_torch.cli.generate_lm \
     --config_name=lm-flops1e19 --serve_mode=tp --mesh_model=2 --prompt=hi
 
-Not ported yet: restoring an orbax checkpoint of the JAX package (it needs
-tensorstore; ROADMAP M9): such a ckpt/ is refused.
+--model_dir and --draft_model_dir also take the JAX package's run
+directories (experiment_config.yaml and ckpt/<step>/ of orbax, read by
+ckpt/orbax.py without orbax or tensorstore).
 """
 
 from __future__ import annotations
@@ -131,8 +132,9 @@ def load_model(model_dir=None, config_name=None, seed: int = 0,
                step=None):
   """(config, model) from a model_dir, or a named config with weights drawn
   from `seed` (convert.numpy_init). A model_dir with ckpt/ is a run
-  directory: the params of checkpoint step `step` (default: the latest)
-  are copied into the model (checkpoint.restore_params); without ckpt/ its
+  directory of either package: the params of checkpoint step `step`
+  (default: the latest; a state.pt or JAX's orbax step) are copied into
+  the model (checkpoint.restore_params); without ckpt/ its
   params.npz is read (no steps: `step` raises a ValueError). serve_mode
   "tp" / "sp" sets serve_tp / serve_sp; mesh puts the model on a mesh (its
   weights replicated). Prints (rank 0) which weights were read."""

@@ -16,8 +16,9 @@ uint8 canvas of eval.isize + 32 plus the forward) at --batch_size: the
 best of 3 rounds of --bm_runs calls, CUDA events around each round (a
 host clock with a synchronise on the CPU). infer prints the top-5 classes
 and their softmax probabilities for --input_image (PIL, imported only
-here), from the port's checkpoint directory (--ckpt_path: the params of
-its latest step, or its EMA with --use_ema), or with --tf_ckpt from a
+here), from a checkpoint directory of either package (--ckpt_path: the
+params of its latest step, or its EMA with --use_ema; a JAX orbax
+directory is read by ckpt/orbax.py), or with --tf_ckpt from a
 published TF checkpoint (a prefix or directory, read without TF by
 ckpt/tf_compat.py; --use_ema prefers its EMA shadows), or, as the JAX
 CLI's key 0, run_classification's weights from seed 0. Added here:
@@ -29,8 +30,7 @@ partial batch kept) up to --eval_samples, or, for multi-label data
 eval/classification.py::MultiLabelEvaluator.
 export saves torch.export's program of predict at uint8 [batch_size,
 canvas, canvas, 3] as --export_dir/model.pt2 (JAX writes StableHLO,
-model.stablehlo). The JAX package's orbax directories are refused (they
-need tensorstore; ROADMAP M9's orbax item).
+model.stablehlo).
 """
 
 from __future__ import annotations
@@ -85,11 +85,13 @@ class Predict(torch.nn.Module):
 
 
 def load_params(model, ckpt_path: str, use_ema: bool = False) -> dict:
-  """The params (or EMA) of the latest step of a port checkpoint directory
-  (train/checkpoint.py's <ckpt_path>/<step>/state.pt), copied into the
-  model."""
+  """The params (or EMA) of the latest step of a checkpoint directory of
+  either package (train/checkpoint.py's <ckpt_path>/<step>/state.pt, or
+  the JAX package's orbax steps), copied into the model."""
+  from automl_tpu_torch import convert
   from automl_tpu_torch.train.checkpoint import saved_params
-  params = saved_params(ckpt_path, use_ema=use_ema)
+  params = saved_params(ckpt_path, use_ema=use_ema,
+                        keys=list(convert.model_state(model)))
   model.load_state_dict(params, strict=True)
   return params
 

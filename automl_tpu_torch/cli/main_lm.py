@@ -23,9 +23,12 @@ JAX):
     --sharding_config=gspmd --experiment_config=use_flash_attention=true
 
 Added here: --device (cuda, cuda:N or cpu; default cuda; a CPU mesh runs
-on gloo, a CUDA one on NCCL) and --log_every. Left out:
---compilation_cache_dir, which sets XLA's compile cache and has no meaning
-in eager PyTorch.
+on gloo, a CUDA one on NCCL) and --log_every.
+--compilation_cache_dir sets XLA's compile cache and has no meaning in
+eager PyTorch; it is accepted and ignored.
+
+--model_dir may be a run directory of the JAX package's main_lm: its
+latest orbax checkpoint is resumed and the run goes on there.
 """
 
 from __future__ import annotations
@@ -85,6 +88,8 @@ def parse_args(argv=None):
                  help="log global+per-param norm/rms of weights/grads/"
                       "updates")
   p.add_argument("--batch_size", type=int, default=None)
+  p.add_argument("--compilation_cache_dir", default=None,
+                 help="ignored (XLA's cache)")
   p.add_argument("--seed", type=int, default=0)
   p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
   p.add_argument("--log_every", type=int, default=20,

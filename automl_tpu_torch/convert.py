@@ -86,24 +86,31 @@ def unflatten_tree(flat: dict) -> dict:
   return tree
 
 
+def _tensor(value) -> torch.Tensor:
+  """A tensor of its own (a copy) of an array or a tensor."""
+  if torch.is_tensor(value):
+    return value.detach().clone()
+  return torch.from_numpy(np.array(value))
+
+
 def jax_to_torch_state(tree) -> dict:
-  """JAX-layout LM parameter tree -> state dict of TransformerLM."""
+  """JAX-layout LM parameter tree (leaves numpy arrays or tensors) ->
+  state dict of TransformerLM."""
   blocks = tree.get("blocks")
   state = {}
   for path, value in flatten_tree({k: v for k, v in tree.items()
                                    if k != "blocks"}).items():
-    state[path.replace("/", ".")] = torch.from_numpy(np.array(value))
+    state[path.replace("/", ".")] = _tensor(value)
   if isinstance(blocks, (list, tuple)):     # per-layer list
     for i, layer in enumerate(blocks):
       for path, value in flatten_tree(layer).items():
-        state[f"blocks.{i}.{path.replace('/', '.')}"] = torch.from_numpy(
-            np.array(value))
+        state[f"blocks.{i}.{path.replace('/', '.')}"] = _tensor(value)
   elif blocks is not None:                  # scan-stacked [L, ...]
     for path, value in flatten_tree(blocks).items():
-      value = np.asarray(value)
+      if not torch.is_tensor(value):
+        value = np.asarray(value)
       for i in range(value.shape[0]):
-        state[f"blocks.{i}.{path.replace('/', '.')}"] = torch.from_numpy(
-            np.array(value[i]))
+        state[f"blocks.{i}.{path.replace('/', '.')}"] = _tensor(value[i])
   return state
 
 
@@ -310,21 +317,23 @@ def _to_jax_layout(key: str, value: np.ndarray) -> np.ndarray:
 
 
 def det_jax_to_torch_state(tree, keys) -> dict:
-  """JAX-layout tree (nested dict of arrays) -> {port key: tensor} for the
-  given port state_dict keys (every one must be found)."""
+  """JAX-layout tree (nested dict of arrays or tensors) -> {port key:
+  tensor} for the given port state_dict keys (every one must be found)."""
   flat = flatten_tree(tree)
   state = {}
   for key in keys:
     path, idx = det_jax_path(key)
     if path not in flat:
       raise KeyError(f"{key}: no leaf {path!r} in the JAX tree")
-    value = np.asarray(flat[path])
+    value = flat[path]
+    bf16 = torch.is_tensor(value) and value.dtype == torch.bfloat16
+    value = np.asarray(value.view(torch.int16) if bf16 else value)
     if idx is not None:
       value = value[idx]
     # A copy: the port updates states in place (the EMA), and the tree's
     # arrays may be the caller's (or a JAX array's read-only buffer).
-    state[key] = torch.from_numpy(np.array(_to_port_layout(key, value),
-                                           order="C"))
+    t = torch.from_numpy(np.array(_to_port_layout(key, value), order="C"))
+    state[key] = t.view(torch.bfloat16) if bf16 else t
   used = {det_jax_path(k)[0] for k in keys}
   extra = sorted(set(flat) - used)
   if extra:

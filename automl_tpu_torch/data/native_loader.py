@@ -21,15 +21,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import pathlib
 import struct
 import subprocess
-import tempfile
 from typing import Iterator
 
 import numpy as np
+
+from automl_tpu_torch.ops import cuda_build
 
 SOURCE = (pathlib.Path(__file__).resolve().parent.parent / "csrc" / "host"
           / "tfrecord_jpeg.cc")
@@ -76,38 +76,14 @@ def _flags(which: str) -> list[str]:
                   f"-Wl,-rpath,{lib}", "-lnvjpeg", "-lcudart", "-lpthread"]
 
 
-def library_path(which: str | None = None) -> pathlib.Path:
-  """Where the host library builds to: the codec plus a hash of the source
-  and the flags."""
-  which = which or codec()
-  digest = hashlib.sha256(" ".join(_flags(which)).encode())
-  digest.update(SOURCE.read_bytes())
-  return BUILD_DIR / f"tfrecord_jpeg-{which}-{digest.hexdigest()[:16]}.so"
-
-
 def build_host(which: str | None = None) -> pathlib.Path:
   """Compiles csrc/host/tfrecord_jpeg.cc with g++ unless its library
   exists; returns the path. RuntimeError with the compiler's output when
   the build fails."""
   which = which or codec()
-  out = library_path(which)
-  if out.exists():
-    return out
-  BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-    tmp_out = os.path.join(tmp, out.name)
-    flags = _flags(which)
-    # the libraries after the source, as the linker wants them
-    libs = [f for f in flags if f.startswith("-l")]
-    cmd = ["g++", *[f for f in flags if not f.startswith("-l")],
-           str(SOURCE), *libs, "-o", tmp_out]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-      raise RuntimeError(
-          f"g++ failed ({proc.returncode}) for csrc/host/tfrecord_jpeg.cc "
-          f"with {which}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp_out, out)  # atomic: a concurrent build sees all or none
-  return out
+  return cuda_build.build_host_library(SOURCE, _flags(which),
+                                       f"tfrecord_jpeg-{which}",
+                                       f" with {which}", BUILD_DIR)
 
 
 @functools.cache

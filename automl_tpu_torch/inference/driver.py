@@ -15,9 +15,9 @@ device. Divergences from JAX, each tested in tests/test_torch_driver.py:
                 start from), not jax.random's numbers.
   benchmark     trace_filename gets a torch.profiler Chrome trace of one
                 call (JAX writes an xprof trace into its directory).
-  load          a checkpoint directory of the port's trainers
-                (train/checkpoint.py: the params of a step); an orbax
-                directory of the JAX package is refused.
+  load          a checkpoint directory of either package's trainers
+                (train/checkpoint.py: the params of a step; the JAX
+                package's orbax steps read by ckpt/orbax.py).
 
 Every entry point runs on `device` (default "cuda"): nothing falls back to
 the CPU unless the caller asks for it.
@@ -115,9 +115,12 @@ class ServingDriver:
 
   def load(self, ckpt_path: str, step: Optional[int] = None):
     """The params of step `step` (default: the latest) of a checkpoint
-    directory written by the port's trainers (model_dir/ckpt)."""
+    directory written by either package's trainers (model_dir/ckpt: the
+    port's state.pt, or JAX's orbax steps)."""
     from automl_tpu_torch.train.checkpoint import saved_params
-    self.model.load_state_dict(saved_params(ckpt_path, step), strict=True)
+    keys = list(convert.model_state(self.model))
+    self.model.load_state_dict(saved_params(ckpt_path, step, keys=keys),
+                               strict=True)
     return self._loaded()
 
   def load_tf(self, ckpt_path: str, use_ema: bool = True):

@@ -1,11 +1,13 @@
-"""Builds the package's CUDA sources into shared libraries and loads them.
+"""Builds the package's CUDA and host sources into shared libraries.
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled with nvcc for
 sm_90a into `build/automl_tpu_torch/<name>-<hash>.so` at the root of the
 checkout, keyed by a hash of the sources and the flags (macros a tool
 defines get a library of their own), at first use, and loaded with
-ctypes. Nothing here runs when the module is imported, so the
-package imports where there is no nvcc.
+ctypes. The host libraries of `csrc/host/` (build_host_library) are
+compiled with g++ into the same directory, keyed likewise. Nothing here
+runs when the module is imported, so the package imports where there is
+no nvcc.
 """
 
 from __future__ import annotations
@@ -71,6 +73,36 @@ def build(name: str, defines=()) -> pathlib.Path:
       raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
                          f"{proc.stdout}\n{proc.stderr}")
     (out.parent / (out.name + ".log")).write_text(proc.stdout + proc.stderr)
+    os.replace(tmp_out, out)  # atomic: a concurrent build sees all or none
+  return out
+
+
+def build_host_library(source: pathlib.Path, flags, stem: str, what: str = "",
+                       build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
+  """Compiles the C++ file `source` with g++ and `flags` into
+  build_dir/<stem>-<hash>.so, the hash of the source and the flags, unless
+  that library exists; returns its path. RuntimeError naming g++ and the
+  source (and `what`, where given) when g++ is missing or fails."""
+  digest = hashlib.sha256(" ".join(flags).encode())
+  digest.update(source.read_bytes())
+  out = build_dir / f"{stem}-{digest.hexdigest()[:16]}.so"
+  if out.exists():
+    return out
+  name = f"csrc/host/{source.name}{what}"
+  build_dir.mkdir(parents=True, exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+    tmp_out = os.path.join(tmp, out.name)
+    # the libraries after the source, as the linker wants them
+    libs = [f for f in flags if f.startswith("-l")]
+    cmd = ["g++", *[f for f in flags if not f.startswith("-l")],
+           str(source), *libs, "-o", tmp_out]
+    try:
+      proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    except FileNotFoundError as e:
+      raise RuntimeError(f"g++ not found: {name} cannot be built") from e
+    if proc.returncode != 0:
+      raise RuntimeError(f"g++ failed ({proc.returncode}) for {name}:\n"
+                         f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp_out, out)  # atomic: a concurrent build sees all or none
   return out
 

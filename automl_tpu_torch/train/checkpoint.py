@@ -10,9 +10,16 @@ wait_until_finished has nothing to wait for. watch_checkpoints follows a
 trainer's directory for a continuous eval. archive_ckpt keeps the best
 checkpoint by an eval objective. saved_params reads the parameters (or
 their EMA) of one step for inference; restore_params copies them into a
-model for serving. The JAX package's orbax checkpoints
-are OCDBT stores of zarr chunks, which need tensorstore: they are refused
-(refuse_orbax, ROADMAP M9's orbax item).
+model for serving.
+
+Each of these also reads the steps the JAX package's CheckpointManager
+wrote (orbax: <directory>/<step>/default/, an OCDBT store of zarr arrays,
+read by ckpt/orbax.py without orbax or tensorstore): the JAX tree becomes
+the port's state through convert.py's layouts (the LM's stacked blocks,
+the vision models' kernels), and the optimizer's state is matched to the
+template's field by field (optax's chain indices, masked states, empty
+states). A directory may hold steps of both packages: a JAX run resumed by
+the port goes on writing state.pt steps beside JAX's.
 
 On a mesh (the LM trainer's), state_for_save gathers the full tensors on
 every rank, rank 0 alone writes the same state.pt as a one-process run,
@@ -33,6 +40,9 @@ from typing import Iterator, Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
+
+from automl_tpu_torch import convert
+from automl_tpu_torch.ckpt import orbax
 
 _FILE = "state.pt"
 
@@ -124,6 +134,91 @@ def _load(directory: str, step: int, mmap: bool = False) -> dict:
                     map_location="cpu", weights_only=True, mmap=mmap)
 
 
+def _is_jax(directory: str, step: int) -> bool:
+  return orbax.is_orbax_step(os.path.join(directory, str(step)))
+
+
+def _no_none(tree):
+  """tree without its None leaves (optax's masked-out entries)."""
+  if isinstance(tree, dict):
+    return {k: _no_none(v) for k, v in tree.items() if v is not None}
+  if isinstance(tree, list):
+    return [_no_none(v) for v in tree if v is not None]
+  return tree
+
+
+def _jax_params(tree, keys=None) -> dict:
+  """{port name: tensor} of a JAX parameter tree: the LM's layout without
+  keys, else the vision models' for the given state_dict keys.
+  ValueError where the tree does not fit."""
+  if not isinstance(tree, dict):
+    raise ValueError(f"no JAX parameter tree (found {type(tree).__name__})")
+  try:
+    if keys is None:
+      return convert.jax_to_torch_state(tree)
+    return convert.det_jax_to_torch_state(_no_none(tree), list(keys))
+  except KeyError as e:
+    raise ValueError(f"the JAX tree does not fit the model: {e}") from e
+
+
+def _from_jax(tree: dict, template) -> dict:
+  """A JAX training state (orbax.read_step's tree) as the dict a state.pt
+  of template's type holds: per-parameter dicts (the params, the EMA,
+  each optimizer moment) in the port's names, the optimizer's state
+  matched to the template's (a JAX list for a tuple; optax.masked's
+  inner_state unwrapped; an empty state for {}), each tensor in the
+  template's dtype. ValueError naming the first path that does not fit."""
+  from automl_tpu_torch.train.lm_trainer import LMTrainState
+  lm = isinstance(template, LMTrainState)
+  names = set(template.params)
+
+  def walk(port, jax, path):
+    if (isinstance(jax, dict) and set(jax) == {"inner_state"}
+        and not (isinstance(port, dict) and "inner_state" in port)):
+      jax = jax["inner_state"]
+    if isinstance(port, (tuple, list)):
+      if not isinstance(jax, list) or len(jax) != len(port):
+        raise ValueError(f"{path}: the JAX state has {jax!r:.80}, the "
+                         f"port's {len(port)} entries")
+      return type(port)(walk(p, j, f"{path}/{i}")
+                        for i, (p, j) in enumerate(zip(port, jax)))
+    if isinstance(port, dict):
+      if not port:
+        return {}
+      if set(port) <= names and all(torch.is_tensor(v)
+                                    for v in port.values()):
+        got = _jax_params(jax, None if lm else port)
+        return {k: v.to(port[k].dtype) if k in port else v
+                for k, v in got.items()}
+      if not isinstance(jax, dict) or set(port) - set(jax):
+        raise ValueError(f"{path}: the JAX state has no "
+                         f"{sorted(set(port) - set(jax or {}))}")
+      return {k: walk(v, jax[k], f"{path}/{k}") for k, v in port.items()}
+    if port is None:
+      return None
+    if not torch.is_tensor(jax):
+      raise ValueError(f"{path}: the JAX state has {jax!r:.80}, not an array")
+    if isinstance(port, (int, float)):
+      return type(port)(jax.item())
+    return jax.to(port.dtype)
+
+  if not torch.is_tensor(tree.get("step")):
+    raise ValueError("the JAX state has no step")
+  out = {f: walk(getattr(template, f), tree.get(f), f)
+         for f in template._fields if f != "step"}
+  out["step"] = int(tree["step"].item())
+  return out
+
+
+def _read_state(directory: str, step: int, template) -> dict:
+  """The dict of step `step` for template's type: a state.pt, or a JAX
+  step converted (_from_jax)."""
+  if _is_jax(directory, step):
+    tree = orbax.read_step(os.path.join(directory, str(step)))
+    return _from_jax(tree, template)
+  return _load(directory, step)
+
+
 def _copy_params(params: dict, saved: dict) -> None:
   """Copies saved {name: tensor} into params ({name: parameter}) in place;
   a DTensor takes its part. ValueError when the names differ."""
@@ -187,7 +282,7 @@ class CheckpointManager:
     step = self.latest_step() if step is None else step
     if step is None:
       return None
-    saved = _load(self.directory, step)
+    saved = _read_state(self.directory, step, state_template)
     if names is not None:
       saved = {f: v if f == "step" else _renamed(v, saved["params"], names)
                for f, v in saved.items()}
@@ -211,25 +306,10 @@ class CheckpointManager:
     """Saves are synchronous: nothing to wait for."""
 
 
-def refuse_orbax(path: str) -> None:
-  """NotImplementedError when `path` is a checkpoint directory of the JAX
-  package (orbax: step directories holding _CHECKPOINT_METADATA or
-  default/)."""
-  if os.path.isdir(path) and any(
-      os.path.exists(os.path.join(path, d, "_CHECKPOINT_METADATA"))
-      or os.path.isdir(os.path.join(path, d, "default"))
-      for d in os.listdir(path)):
-    raise NotImplementedError(
-        f"{path} is an orbax checkpoint of the JAX package: its OCDBT "
-        "store of zarr chunks needs tensorstore, and automl_tpu_torch does "
-        "not read it (ROADMAP M9, its orbax item, stays queued)")
-
-
-def _saved(directory: str, step: Optional[int], mmap: bool = False) -> dict:
-  """The dict saved at `step` (default: the latest) in a port checkpoint
-  directory. FileNotFoundError naming the directory where there is no such
-  step; an orbax directory of the JAX package is refused (refuse_orbax)."""
-  refuse_orbax(directory)
+def _step_of(directory: str, step: Optional[int]) -> int:
+  """`step`, or the latest step, of a checkpoint directory of either
+  package. FileNotFoundError naming the directory where there is no such
+  step."""
   steps = all_checkpoint_steps(directory)
   if step is None and steps:
     step = steps[-1]
@@ -238,16 +318,30 @@ def _saved(directory: str, step: Optional[int], mmap: bool = False) -> dict:
   if step not in steps:
     raise FileNotFoundError(f"no checkpoint of step {step} under "
                             f"{directory} (steps {steps})")
-  return _load(directory, step, mmap)
+  return step
+
+
+def _jax_step(directory: str, step: int, fields) -> dict:
+  tree = orbax.read_step(os.path.join(directory, str(step)), only=fields)
+  if "step" in tree:
+    tree["step"] = int(tree["step"].item())
+  return tree
 
 
 def saved_params(directory: str, step: Optional[int] = None,
-                 use_ema: bool = False) -> dict:
+                 use_ema: bool = False, keys=None) -> dict:
   """{name: CPU tensor} of the params (with use_ema, the EMA when the
-  checkpoint has one) of step `step` (default: the latest) of a port
-  checkpoint directory. FileNotFoundError without a checkpoint; an orbax
-  directory of the JAX package is refused (refuse_orbax)."""
-  saved = _saved(directory, step)
+  checkpoint has one) of step `step` (default: the latest) of a checkpoint
+  directory of either package. keys: the model's state_dict keys, which a
+  JAX step of a vision model is converted to
+  (convert.det_jax_to_torch_state); without them a JAX step is read in the
+  LM's layout. FileNotFoundError without a checkpoint."""
+  step = _step_of(directory, step)
+  if _is_jax(directory, step):
+    tree = _jax_step(directory, step, ("params", "ema_params"))
+    ema = tree.get("ema_params")
+    return _jax_params(ema if use_ema and ema else tree.get("params"), keys)
+  saved = _load(directory, step)
   if use_ema and saved.get("ema_params"):
     return saved["ema_params"]
   return saved["params"]
@@ -255,14 +349,20 @@ def saved_params(directory: str, step: Optional[int] = None,
 
 def restore_params(directory: str, params: dict,
                    step: Optional[int] = None, names=None) -> int:
-  """Copies the params of step `step` (default: the latest) of a port
-  checkpoint directory into `params` ({name: parameter}, a model's) in
-  place, a DTensor its part; the rest of the state (the optimizer's) is
-  not read. names: {name: tensor} in the checkpoint's names -> params'
-  (a pipeline model's lm.stacked_layers). Returns the step.
-  FileNotFoundError naming the directory without that step; an orbax
-  directory of the JAX package is refused (refuse_orbax)."""
-  saved = _saved(directory, step, mmap=True)
+  """Copies the LM params of step `step` (default: the latest) of a
+  checkpoint directory of either package into `params` ({name:
+  parameter}, a model's) in place, a DTensor its part; the rest of the
+  state (the optimizer's) is not read. names: {name: tensor} in the
+  checkpoint's names -> params' (a pipeline model's lm.stacked_layers).
+  Returns the step. FileNotFoundError naming the directory without that
+  step."""
+  step = _step_of(directory, step)
+  if _is_jax(directory, step):
+    tree = _jax_step(directory, step, ("step", "params"))
+    saved = {"step": tree.get("step", step),
+             "params": _jax_params(tree.get("params"))}
+  else:
+    saved = _load(directory, step, mmap=True)
   _copy_params(params, saved["params"] if names is None
                else names(saved["params"]))
   return saved["step"]
@@ -270,18 +370,21 @@ def restore_params(directory: str, params: dict,
 
 # What restoring a checkpoint that vanished or was cut short raises: the
 # file gone (FileNotFoundError), a truncated archive (RuntimeError from
-# torch.load, EOFError) or parameters that do not match (ValueError).
+# torch.load, EOFError), parameters that do not match or a JAX step whose
+# files are gone or cut short (ValueError).
 RESTORE_ERRORS = (FileNotFoundError, RuntimeError, EOFError, ValueError)
 
 
 def all_checkpoint_steps(directory: str) -> list[int]:
-  """The sorted steps with a complete checkpoint on disk
-  (<directory>/<step>/state.pt; a save in progress is <step>.tmp)."""
+  """The sorted steps with a checkpoint on disk: <directory>/<step>/state.pt
+  (a save in progress is <step>.tmp) or a JAX step (orbax writes
+  <step>.orbax-checkpoint-tmp-<time> and renames it)."""
   if not os.path.isdir(directory):
     return []
   return sorted(int(name) for name in os.listdir(directory)
-                if name.isdigit() and os.path.exists(
-                    os.path.join(directory, name, _FILE)))
+                if name.isdigit() and (
+                    os.path.exists(os.path.join(directory, name, _FILE))
+                    or orbax.is_orbax_step(os.path.join(directory, name))))
 
 
 def watch_checkpoints(directory: str, timeout_secs: float = 3600.0,

@@ -34,7 +34,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      shapes (case 7): the speculative verify (b1, T 5, S 768) and a chunk
      prefill (b1, T 256 at offset 256, S 1024) checked and timed likewise,
      per-row masks with a parked row in both designs, the draft's verify,
-     causal T 507 prefill and T 1 steps at hd 32, and 64 beam rows checked;
+     causal T DRAFT_PROMPT prefill and T 1 steps at hd 32, and 64 beam rows
+     checked;
      the MoE model's generation in phase 5b (case 8): b8, S 576, the causal
      T 512 prefill and T 1 steps with keys 0-512 and 0-575, checked;
   3. K1 / K2 / K5a / K5b (flash-attention forward, fused backward and the
@@ -136,8 +137,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      scores within INFER_BOX_TOL / INFER_SCORE_TOL in every slot;
      gaussian, the same in the confident slots (score > INFER_CONFIDENT)
      up to the first near tie;
-     cli/bench_det (D0 b32 forward + postprocess, CUDA events) as a
-     subprocess at pre_nms_topk 2048, its JSON line printed;
+     cli/bench_det's main (D0 b32 forward + postprocess, CUDA events) at
+     pre_nms_topk 2048, its JSON line printed;
      entry() on the card (zeros [1, 512, 512, 3]); evaluate_detection on
      D0 b16 with the EMA params of the 20-step knob-off run, 2 synthetic
      batches, in COCO mode (every metric finite or -1; its vis_dir gets
@@ -151,7 +152,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      CPU (_detections_agree: the slots up to the first near tie, within
      INFER_BOX_TOL / INFER_SCORE_TOL); ServingDriver.benchmark at b1 and b8
      under mixed_bfloat16 (img/s, ms a call); the b1 export (torch.export,
-     serving.pt2) loaded back: its detections bit-equal to the eager
+     serving.pt2; made by a process of its own while phase 8 runs) loaded
+     back: its detections bit-equal to the eager
      serve's, and both timed in turns (ms a call); InferenceDriver.inference
      on a JPEG, the annotated image written (and as a PNG); infer_cls
      --runmode=export of EfficientNetV2-B0 b8 loaded back: its logits
@@ -163,10 +165,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      b32, and the card's f32 logits against the CPU's (B0 b8, V2-S b4; atol
      CLS_LOGIT_ATOL, top-5 equal; the bf16 top-1 agreement printed); (b)
      cli/main_cls trains V2-S (b V2S_BATCH, bf16, RMSProp, EMA, RandAugment)
-     in a child process over its 4 progressive stages (168 / 208 / 256 /
-     296, 10 steps each) with the K6 knob on and off: the loss finite and
-     falling within each stage after the first, 28 K6 launches a step, all
-     the Hopper kernel's, with the knob and none without, per stage step
+     over its 4 progressive stages (168 / 208 / 256 / 296, V2S_STAGE_STEPS
+     steps each) with the K6 knob on, then off, in one child process: the
+     loss
+     finite and falling within each stage after the first, 28 K6 launches
+     a step, all the Hopper kernel's, with the knob and none without, per
+     stage step
      ms, img/s and peak memory, and the two runs' losses within
      CLS_KNOB_RTOL of each other; (c) V2-S step 1 (b8, 168) knob on
      against off (DET_STEP1_LIMITS), and two f32 steps on the card against
@@ -177,22 +181,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      (PRE_ATOL, PRE_WARP_SHARE); (f) evaluate_classification at 384 with
      the EMA of the run's last checkpoint;
   10. serving slice: lm-flops1e19 (seeded random weights in the JAX layout
-     through the converter, cast for serving) generates 512 tokens greedily
+     through the converter, cast for serving) generates 256 tokens greedily
      after a 512-token prompt at batch 8, through generate_lm.load_model and
-     greedy_generate. The run must launch K4 exactly n_layers * 512 times,
+     greedy_generate. The run must launch K4 exactly n_layers * 256 times,
      every launch the Hopper kernels' (a counter per implementation); its
      prefill logits are held against the plain-attention path;
   11. real input files (run after 9, before 10): the host library
      csrc/host/tfrecord_jpeg.cc built with this machine's codec (nvJPEG
-     where there is no libjpeg); fixtures encoded here (512 COCO-like
-     JPEGs, 640 x 480 / 480 x 640 / 640 x 427 with 1-8 boxes, through
-     cli/create_coco_tfrecord into 8 shards; 1,024 ImageNet-like 500 x 375
-     in 8 shards; decode(encode(x)) above DATA_PSNR_DB; the boxes as read
-     equal the written ones x scale in float32); each reader's img/s alone
+     where there is no libjpeg); fixtures encoded here (DATA_DET_IMAGES
+     COCO-like JPEGs, 640 x 480 / 480 x 640 / 640 x 427 with 1-8 boxes,
+     through cli/create_coco_tfrecord into 8 shards; DATA_CLS_IMAGES
+     ImageNet-like 500 x 375 in 8 shards; decode(encode(x)) above
+     DATA_PSNR_DB; the boxes as read equal the written ones x scale in
+     float32); each reader's img/s alone
      (the TF-free detection reader at canvas 512 b16 and the native one at
      4 workers and at the CPU count; the ImageNet ones at V2-S's canvas
      b256 likewise); one batch through DevicePrefetcher equal to its
-     source; D0 b16 trained 20 steps through cli/main_det from files with
+     source; D0 b16 trained 10 steps through cli/main_det from files with
      each reader, step ms beside phase 7's synthetic-fed knob-off run; its
      --mode=eval (128 samples) against an in-process evaluate_detection
      over the same batches (metrics within 1e-4, and the --testdev_dir
@@ -203,19 +208,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      seeded, norm scales drawn (LM_NORM_SIGMA), cast for serving. (a) one decode step with a vector cache_index of
      equal entries bit-equal to the scalar one (logits and cache), a parked
      row's cache rows untouched, K4 on; (b) LMServer with K4 (max_batch 8,
-     cache 1024, burst 8, prefill_chunk 256) on 24 seeded requests (prompts
-     16-700, budgets 16-300): K4 launches = n_layers x (8 x bursts +
-     chunks), all Hopper's, the bursts under sync debug mode "error", every
+     cache 1024, burst 8, prefill_chunk 256) on LM_SERVE_REQUESTS seeded
+     requests (prompts 16-700, budgets 16-300): K4 launches = n_layers x
+     (8 x bursts + chunks), all Hopper's, the bursts under sync debug mode
+     "error", every
      token teacher-forced (SERVE_TF_GAP, SERVE_TF_EXACT); (c) the default
      server (the dots): no K4 launch; useful tokens/s of both (one run
      each: the repeated pair K4, dots was cut to make room for phase 15),
      time to first token, a burst's device-busy share; (d) the
      prefix cache (a 128-token shared prefix), teacher-forced; (e)
-     speculative b1 (507 + 256, k 4) with the target as its own draft: K4
+     speculative b1 (635 + 128, k 4) with the target as its own draft: K4
      launches = 16 + iterations x 8 x (k + 2), teacher-forced, accept
      rate, tokens/s against greedy_generate; (f)
-     beam b2 x 4 (512 + 256): num_beams=1 bit-equal to greedy_generate, 8 x
-     256 K4 launches, scores against teacher forcing (BEAM_SCORE_TOL); (g)
+     beam b2 x 4 (640 + 128): num_beams=1 bit-equal to greedy_generate, 8 x
+     128 K4 launches, scores against teacher forcing (BEAM_SCORE_TOL); (g)
      int8: weight bytes, teacher-forced; (h) use_combined_qkv's prefill
      logits against the separate weights; (i) cli/generate_lm on the run
      directory that cli/main_lm wrote in 5 (the fused run, at Lion lr
@@ -229,9 +235,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      steps, K2 8 x steps, K3a-c once a step, all Hopper's);
      generate_lm.load_model reads both run
      directories; each model's teacher-forced next-token accuracy on a
-     period-4 prompt; speculative b1 (507 + 256, k 4) on that prompt and on
-     README.md's bytes, as (e), beside greedy_generate; then the CLI with
-     both directories.
+     period-4 prompt; speculative b1 (k 4) on that prompt (PATTERN_PROMPT +
+     PATTERN_NEW) and on README.md's bytes (DRAFT_PROMPT + DRAFT_NEW), as
+     (e), beside greedy_generate (the
+     README prompt's accept rate strictly between 0 and 1); then the CLI
+     with both directories.
   13. segmentation, QAT, GroupNorm and the optimizer search (after 11,
      before 10; seg_qat_search_phase): (A) EfficientDet-D0 with
      heads=["segmentation"] (512 x 512, b16, bf16, seeded, a synthetic
@@ -263,8 +271,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      NCCL version on a "host:" line; (B) lm-flops1e19 (seeded, norm scales
      drawn, cast) with serve_tp on the mesh (the head-leading cache, K4
      head-major) against the batch-major model: prefill logits (bit-equal
-     expected), greedy b8 512 + 512 tokens equal (else phase 12's
-     teacher-forced limits), n_layers x 512 K4 launches a run, all
+     expected), greedy b8 512 + 256 tokens equal (else phase 12's
+     teacher-forced limits), n_layers x 256 K4 launches a run, all
      Hopper's, prefill ms in turns and decode ms a step (a run each), and
      LMServer at phase 12's settings on M10_SERVE_REQUESTS requests with
      the same tokens as the batch-major K4 server; (C) K4 at each shard's shapes
@@ -304,6 +312,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      and dy padded by k // 2 zero rows, summed, against the whole map's
      call and the plain version (K6_SHARE), all Hopper's, one band's time
      beside the whole call's.
+  16. the JAX package's orbax run directories (orbax_phase, last; ckpt/
+     orbax.py -> ckpt/ocdbt.py -> csrc/host/zstd.cc, built with g++ beside
+     the kernels): (a) the committed fixture tests/fixtures/jax_lm_test_run
+     (JAX's main_lm on lm-test, Lion, 3 steps): every leaf read equals its
+     digest in jax_lm_test_run_leaves.json, generate_lm on it decodes the
+     same tokens with K4 as with the plain attention, and its frames are
+     decoded ORBAX_DECODES times (MB/s); (b) phase 5's fused lm-flops1e19
+     state (f32 params and Lion's momentum) written by orbax.write_step as
+     a JAX run directory (bytes, write and read seconds, GB/s, read back
+     bit-equal): generate_lm greedy b8 512 + 512 from it equals the same
+     run from the state.pt, K4 all Hopper's; main_lm resumes 2 steps from
+     it (fused loss, K1 / K2 / K3a-c all Hopper's), the state that
+     CheckpointManager.restore reads from it (params, Lion's momentum, the
+     schedule's count) and both losses bit-equal to resuming from the
+     state.pt; the directories are deleted
+     after; (c) the 20-step D0 checkpoint written the same way:
+     ServingDriver.load of it serves b1 detections bit-equal to the
+     state.pt's.
 
 Every kernel time is the mean over calls of CUDA events around one call,
 after an L2 flush and a sleep kernel that keeps the card busy while the
@@ -321,9 +347,10 @@ one cannot be compiled or run, the reason is printed and library_ms is
 null.
 
 Prints a {"kernels": [...]} JSON line (K4's launches: those of phases 10,
-12, 5b's and 14's serve_tp runs; K1, K2 and K3a-c: phase 5's runs and
-5b's, K1 and K2 also 13's, 14's mesh run and 15's pipeline and EP steps;
-K6: phases 7, 9, 13 and 15's mesh runs), then
+12, 5b's and 14's serve_tp runs and 16 (b); K1, K2 and K3a-c: phase 5's
+runs and 5b's and 16 (b)'s resumes, K1 and K2 also 13's, 14's mesh run
+and 15's pipeline and EP steps; K6: phases 7, 9, 13 and 15's mesh runs),
+then
 the
 card line, and last {"ok": true, "device":
 {...}}. Imports no jax.
@@ -654,14 +681,15 @@ def k4_phase(dev, flush):
   m7 = (ki[None, :768] <= 502 + torch.arange(5, device=dev)[:, None])
   check("draft verify, T 5 hd 32", q7, kc7, vc7, m7[None].contiguous(),
         BF16_TOL, n_kv_heads=8, logit_cap=50.0)
-  # What the lm-flops2e17 draft itself runs in check (e): its causal T 507
-  # prefill (wgmma) and its T 1 steps (split-S), keys live up to ~767.
-  q7, kc7, vc7, _ = _kernel_inputs(dev, gen, 1, 507, 8, 8, 32, 768,
+  # What the lm-flops2e17 draft itself runs in phase 12 (j): its causal
+  # prefill of DRAFT_PROMPT tokens (wgmma) and its T 1 steps (split-S), keys
+  # live up to ~767.
+  q7, kc7, vc7, _ = _kernel_inputs(dev, gen, 1, DRAFT_PROMPT, 8, 8, 32, 768,
                                    torch.bfloat16)
-  m7 = (ki[None, :768] <= torch.arange(507, device=dev)[:, None])
-  check("draft prefill, T 507 hd 32, causal from 0", q7, kc7, vc7,
-        m7[None].contiguous(), BF16_TOL, n_kv_heads=8, logit_cap=50.0)
-  for last in (507, 760):
+  m7 = (ki[None, :768] <= torch.arange(DRAFT_PROMPT, device=dev)[:, None])
+  check(f"draft prefill, T {DRAFT_PROMPT} hd 32, causal from 0", q7, kc7,
+        vc7, m7[None].contiguous(), BF16_TOL, n_kv_heads=8, logit_cap=50.0)
+  for last in (DRAFT_PROMPT, 766):
     m7 = (ki[:768] <= last).expand(1, 1, 768).contiguous()
     check(f"draft step, T 1 hd 32, keys 0-{last}", q7[:, :1].contiguous(),
           kc7, vc7, m7, BF16_TOL, n_kv_heads=8, logit_cap=50.0)
@@ -1364,6 +1392,26 @@ TRAIN_KERNELS = ("K1", "K1 sm90", "K2", "K2 sm90", "K5a", "K5a sm90", "K5b",
                  "K3c sm90")
 
 
+def _train_counters():
+  """{kernel: (wrapper, its launch counter)} of TRAIN_KERNELS."""
+  from automl_tpu_torch.ops import attention as fa
+  from automl_tpu_torch.ops import xent
+  return {"K1": (fa.flash_attention, "launches_fwd"),
+          "K1 sm90": (fa.flash_attention, "launches_fwd_sm90"),
+          "K2": (fa.flash_attention, "launches_bwd"),
+          "K2 sm90": (fa.flash_attention, "launches_bwd_sm90"),
+          "K5a": (fa.flash_attention, "launches_dq"),
+          "K5a sm90": (fa.flash_attention, "launches_dq_sm90"),
+          "K5b": (fa.flash_attention, "launches_dkv"),
+          "K5b sm90": (fa.flash_attention, "launches_dkv_sm90"),
+          "K3a": (xent.fused_softmax_xent, "launches_fwd"),
+          "K3a sm90": (xent.fused_softmax_xent, "launches_fwd_sm90"),
+          "K3b": (xent.fused_softmax_xent, "launches_dx"),
+          "K3b sm90": (xent.fused_softmax_xent, "launches_dx_sm90"),
+          "K3c": (xent.fused_softmax_xent, "launches_dw"),
+          "K3c sm90": (xent.fused_softmax_xent, "launches_dw_sm90")}
+
+
 def _train_run(workdir, flags, steps, label, expected, flops, cfg=None,
                batch=8, falls=True):
   """cli/main_lm for `steps` steps with every launch count set to 0 just
@@ -1376,23 +1424,8 @@ def _train_run(workdir, flags, steps, label, expected, flops, cfg=None,
   import torch
   from automl_tpu_torch.cli import main_lm
   from automl_tpu_torch.models import lm as lm_lib
-  from automl_tpu_torch.ops import attention as fa
-  from automl_tpu_torch.ops import xent
 
-  counters = {"K1": (fa.flash_attention, "launches_fwd"),
-              "K1 sm90": (fa.flash_attention, "launches_fwd_sm90"),
-              "K2": (fa.flash_attention, "launches_bwd"),
-              "K2 sm90": (fa.flash_attention, "launches_bwd_sm90"),
-              "K5a": (fa.flash_attention, "launches_dq"),
-              "K5a sm90": (fa.flash_attention, "launches_dq_sm90"),
-              "K5b": (fa.flash_attention, "launches_dkv"),
-              "K5b sm90": (fa.flash_attention, "launches_dkv_sm90"),
-              "K3a": (xent.fused_softmax_xent, "launches_fwd"),
-              "K3a sm90": (xent.fused_softmax_xent, "launches_fwd_sm90"),
-              "K3b": (xent.fused_softmax_xent, "launches_dx"),
-              "K3b sm90": (xent.fused_softmax_xent, "launches_dx_sm90"),
-              "K3c": (xent.fused_softmax_xent, "launches_dw"),
-              "K3c sm90": (xent.fused_softmax_xent, "launches_dw_sm90")}
+  counters = _train_counters()
   cfg = cfg or lm_lib.get_lm_config("lm-flops1e19")
   torch.cuda.reset_peak_memory_stats()
   for fn, attr in counters.values():
@@ -1438,9 +1471,10 @@ def _train_run(workdir, flags, steps, label, expected, flops, cfg=None,
 
 
 FUSED_CKPT_EVERY = 15
-# Steps of phase 5's unfused and dots_flash runs (30 before phase 12 (j);
-# cut for the script's time: the step time is the median of steps 5 on).
-PHASE5_SHORT_STEPS = 10
+# Steps of phase 5's unfused and dots_flash runs (30 before phase 12 (j),
+# then 10; cut for the script's time: the step time is the median of
+# steps 5 on).
+PHASE5_SHORT_STEPS = 6
 # The fused run's Lion lr, a third of lm-flops1e19's 3e-3: phase 12 (j)'s
 # target. A step costs the same at any lr; at 1e-3 the draft that (j)
 # trains comes to agree with the target in part on README.md's bytes, at
@@ -1544,16 +1578,19 @@ def training_phase(dev, workdir):
       _step_flops(cfg, batch, t, fused=True))
   split_dir = workdir + "_split"
   # dots_flash saves K1's (out, lse): K1 once per layer and step. Every K5a
-  # and K5b launch is the Hopper kernel's.
-  runs["split"] = _train_run(
-      split_dir, common + [
-          f"--model_dir={split_dir}",
-          f"--experiment_config={split},remat_policy=dots_flash"], short,
-      "unfused loss, remat_policy dots_flash, K5a + K5b",
-      dict(none, **sm90(n_short, 0), **{"K5a": n_short, "K5a sm90": n_short,
-                                        "K5b": n_short,
-                                        "K5b sm90": n_short}),
-      _step_flops(cfg, batch, t, policy="dots_flash", split=True))
+  # and K5b launch is the Hopper kernel's. Nothing reads this run's
+  # checkpoint: it writes none (2.7 GB less on the disk).
+  with _NoCheckpoints():
+    runs["split"] = _train_run(
+        split_dir, common + [
+            f"--model_dir={split_dir}",
+            f"--experiment_config={split},remat_policy=dots_flash"], short,
+        "unfused loss, remat_policy dots_flash, K5a + K5b",
+        dict(none, **sm90(n_short, 0), **{"K5a": n_short,
+                                          "K5a sm90": n_short,
+                                          "K5b": n_short,
+                                          "K5b sm90": n_short}),
+        _step_flops(cfg, batch, t, policy="dots_flash", split=True))
   torch.cuda.empty_cache()
   return runs
 
@@ -1585,12 +1622,14 @@ _TREE_KEYS = ("param_dtype", "model_dim", "head_dim", "n_layers", "n_heads",
 
 class _Trees:
   """convert.numpy_init memoised by the config values it reads, for the
-  M6 phase: every run of a configuration, step-1 checks and main_lm runs
-  alike, trains from one seeded tree drawn once. numpy draws ~50M normals
-  a second on one core (the default LM's 1.7B take ~35 s), so prefetch()
-  draws the trees in threads (numpy's fill releases the GIL) while the
-  kernels build, and wait() waits for them before anything is timed.
-  Inside `with`, main_lm's convert.numpy_init is this lookup."""
+  whole run: every run of a configuration, step-1 checks, main_lm runs and
+  generate_lm's seeded models alike, starts from one seeded tree drawn
+  once (lm-flops1e19's seed 0 is drawn for some fifteen models). numpy
+  draws ~50M normals a second on one core (the default LM's 1.7B take ~35
+  s), so prefetch() draws the trees in threads (numpy's fill releases the
+  GIL) while the kernels build, and wait() waits for them before anything
+  is timed. Inside `with`, convert.numpy_init is this lookup. Every caller
+  copies the arrays (load_state_dict), none writes into them."""
 
   def __init__(self):
     from automl_tpu_torch import convert
@@ -1618,7 +1657,7 @@ class _Trees:
   def wait(self):
     t = time.perf_counter()
     concurrent.futures.wait(self._trees.values())
-    print(f"M6 trees: {len(self._trees)} drawn in "
+    print(f"seeded trees: {len(self._trees)} drawn in "
           f"{time.perf_counter() - self._t0:.1f} s from their start, waited "
           f"{time.perf_counter() - t:.1f} s for them")
 
@@ -2047,7 +2086,7 @@ def lm_training_m6_phase(dev, workdir, trees):
     return {"K3a": n, "K3a sm90": n, "K3b": n, "K3b sm90": n, "K3c": n,
             "K3c sm90": n}
 
-  with trees, _NoCheckpoints():
+  with _NoCheckpoints():
     # (A)
     t = time.perf_counter()
     cfg = cfgs["default"][0]
@@ -2168,7 +2207,7 @@ def lm_training_m6_phase(dev, workdir, trees):
         10, "prefix-LM from files, fused loss, full remat",
         dict(none, **k3(10)), _step_flops(cfg, 8, cfg.seq_len, fused=True),
         cfg=cfg))
-    trees.drop(cfg)
+    # lm-flops1e19's tree stays: the phases after this one start from it.
     print(f"(D) {time.perf_counter() - t:.1f} s")
 
     # (E)
@@ -2186,6 +2225,7 @@ def lm_training_m6_phase(dev, workdir, trees):
         "the flagship, unfused loss, dots_flash, K2",
         dict(none, **{"K1": n, "K1 sm90": n, "K2": n, "K2 sm90": n}),
         _step_flops(cfg, 8, cfg.seq_len, policy="dots_flash"), cfg=cfg))
+    trees.drop(cfg)
     print(f"(E) {time.perf_counter() - t:.1f} s")
   torch.cuda.empty_cache()
   print(f"M6 phase launches: {totals}")
@@ -2621,16 +2661,17 @@ def _infer_check(dev):
 
 
 def _bench_det(topk):
-  """cli/bench_det as a subprocess; returns its JSON line."""
-  out = subprocess.run(
-      [sys.executable, "-m", "automl_tpu_torch.cli.bench_det",
-       f"--pre_nms_topk={topk}"], capture_output=True, text=True,
-      timeout=600, check=False,
-      cwd=os.path.dirname(os.path.abspath(__file__)))
-  if out.returncode != 0:
-    raise AssertionError(f"bench_det failed ({out.returncode}): "
-                         f"{out.stderr[-2000:]}")
-  line = out.stdout.strip().splitlines()[-1]
+  """cli/bench_det.main in this process (a process of its own took ~8 s
+  more to start); returns its JSON line."""
+  import contextlib
+  import io
+  from automl_tpu_torch.cli import bench_det
+  printed = io.StringIO()
+  with contextlib.redirect_stdout(printed):
+    rc = bench_det.main([f"--pre_nms_topk={topk}"])
+  if rc != 0:
+    raise AssertionError(f"bench_det failed ({rc})")
+  line = printed.getvalue().strip().splitlines()[-1]
   print(f"bench_det --pre_nms_topk={topk}: {line}")
   return json.loads(line)
 
@@ -2776,7 +2817,9 @@ def _closed_loop(dev, steps=400):
     raise AssertionError("the closed loop did not reach AP50 > 0.5")
 
 
-DRIVER_BM_RUNS = 30
+# Calls a turn of phase 8b's timings (30 until the script outgrew its
+# time limit).
+DRIVER_BM_RUNS = 10
 
 
 def _driver_images(n, h, w, seed=21):
@@ -2824,15 +2867,62 @@ def _same_detections(name, got, want):
     raise AssertionError(f"{name}: the detections differ")
 
 
-def driver_phase(dev, ckpt_dir, workdir, card):
+# Phase 8b's D0 b1 export: ServingDriver.export in a process of its own.
+_EXPORT_CHILD = r"""
+import sys, time, torch
+from automl_tpu_torch.inference import driver
+d = driver.ServingDriver("efficientdet-d0", batch_size=1,
+                         device=torch.device("cuda:0")).load(sys.argv[1])
+t = time.perf_counter()
+d.export(sys.argv[2])
+print(f"EXPORT_S {time.perf_counter() - t:.3f}")
+"""
+
+
+def _start_export(ckpt_dir, workdir):
+  """ServingDriver.export of D0 b1 (mixed_bfloat16) from `ckpt_dir` into
+  workdir/export, started in a process of its own (torch.export traces on
+  the host for tens of seconds). Returns (the process, its log's path)."""
+  os.makedirs(workdir, exist_ok=True)
+  log_path = os.path.join(workdir, "export.log")
+  with open(log_path, "w") as log:
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _EXPORT_CHILD, ckpt_dir,
+         os.path.join(workdir, "export")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+        stderr=subprocess.STDOUT)
+  return proc, log_path
+
+
+def _finish_export(export):
+  """Waits for _start_export's process; returns its export's seconds."""
+  proc, log_path = export
+  rc = proc.wait(timeout=600)
+  with open(log_path) as f:
+    out = f.read()
+  if rc != 0:
+    print(out[-6000:])
+    raise AssertionError(f"the D0 export exited {rc}")
+  return float(next(line for line in out.splitlines()
+                    if line.startswith("EXPORT_S "))[len("EXPORT_S "):])
+
+
+def _stop_export(export):
+  proc, _ = export
+  if proc.poll() is None:
+    proc.kill()
+    proc.wait()
+
+
+def driver_phase(dev, ckpt_dir, workdir, card, export):
   """The detection serving API (inference/driver.py) on D0 with the
   20-step knob-off run's checkpoint: f32 serve of 2 non-square images on
   the card against the CPU; ServingDriver.benchmark at b1 and b8 under
-  mixed_bfloat16; the b1 export (torch.export) loaded back, its
-  detections equal to the eager serve's and its ms a call beside the
-  eager one's; InferenceDriver.inference on a JPEG; infer_cls
-  --runmode=export of V2-B0 b8, its logits equal to the eager
-  predict's."""
+  mixed_bfloat16; the b1 export (torch.export; `export`, _start_export's
+  process, made it while phase 8 ran) loaded back, its detections equal
+  to the eager serve's and its ms a call beside the eager one's;
+  InferenceDriver.inference on a JPEG; infer_cls --runmode=export of
+  V2-B0 b8, its logits equal to the eager predict's."""
   import numpy as np
   import torch
   from PIL import Image
@@ -2871,10 +2961,11 @@ def driver_phase(dev, ckpt_dir, workdir, card):
 
     d = driver.ServingDriver("efficientdet-d0", batch_size=1,
                              device=dev).load(ckpt_dir)
+    export_s = _finish_export(export)
     t = time.perf_counter()
-    d.export(os.path.join(workdir, "export"))
     program = driver.load_exported(os.path.join(workdir, "export"))
-    print(f"D0 b1 export (torch.export, mixed_bfloat16) and load: "
+    print(f"D0 b1 export (torch.export, mixed_bfloat16; in its own process "
+          f"while phase 8 ran): {export_s:.1f} s; load "
           f"{time.perf_counter() - t:.1f} s")
     h, w = json.load(open(os.path.join(workdir, "export",
                                        "config.json")))["image_size"]
@@ -3313,7 +3404,9 @@ def serving_phase(dev):
   from automl_tpu_torch.models import lm as lm_lib
   from automl_tpu_torch.ops import decode_attention as da
 
-  batch, t0, new = 8, 512, 512
+  # 256 new tokens (512 until the script outgrew its time limit): the cache
+  # of 768 is at decode_kernel_min_s, so every decode step takes K4.
+  batch, t0, new = 8, 512, 256
   t = time.perf_counter()
   cfg, model = generate_lm.load_model(config_name="lm-flops1e19", seed=0,
                                       device=dev)
@@ -3425,11 +3518,12 @@ def serving_phase(dev):
 SERVE_TF_GAP = 0.25
 SERVE_TF_EXACT = 0.99
 # |beam score - the teacher-forced, length-normalised sum of log-probs of
-# the returned sequence| (bf16 logits through 8 layers, 256 steps, f32
-# sums): measured 0.0322 on one H100 (b2 x 4 beams); the
+# the returned sequence| (bf16 logits through 8 layers, f32 sums):
+# measured 0.0322 on one H100 (b2 x 4 beams, 512 + 256 tokens); the
 # limit is three times that.
 BEAM_SCORE_TOL = 0.1
-LM_SERVE_REQUESTS = 24
+# Cut from 24, then 16, for the script's time.
+LM_SERVE_REQUESTS = 12
 # Requests of (b) also run alone through greedy_generate for the report
 # (b1 decodes at ~15 ms a token or more on the card's host: the first 8,
 # 1,549 tokens, took tens of seconds of the phase; teacher forcing checks
@@ -3455,6 +3549,19 @@ LM_NORM_SIGMA = 1.0
 DRAFT_STEPS = 150
 DRAFT_LR = 3e-4
 DRAFT_PROMPT_SEED = 20
+# (j)'s prompts and new tokens. The cache (prompt + new + k + 1 = 768) is
+# at decode_kernel_min_s, so every step of both models takes K4. At 256 new
+# tokens README.md's bytes accept in part (0.1931 on one H100, PERF.md
+# section 6); at 128 they accepted nothing, and (j) now fails on a rate of
+# 0 or 1 there, where the verify's partial-accept path would go unrun.
+DRAFT_PROMPT = 507
+DRAFT_NEW = 256
+# The pattern prompt's length and new tokens (DRAFT_PROMPT and DRAFT_NEW
+# until the script outgrew its time limit): the same cache of 768, a
+# quarter of the tokens; it accepts nothing (0.0 at 256 new tokens on one
+# H100) and checks no rate.
+PATTERN_PROMPT = 699
+PATTERN_NEW = 64
 README_PARAGRAPH = "A brand-new, TPU-first"
 
 
@@ -3634,11 +3741,14 @@ def _burst_profile(label, server):
         f"the wall time), K4 {k4 / steps / 1e3:.3f} ms/step")
 
 
-def _speculative(label, model, draft, prompt, new, k, ref, greedy_s):
+def _speculative(label, model, draft, prompt, new, k, ref, greedy_s,
+                 partial=False):
   """speculative_generate b1 (a warm-up, then timed with its stats): K4
   once a layer in each prefill, then in each iteration k + 1 draft steps
   and one verify (8 x (k + 2) for two 8-layer models); the output held to
-  greedy decoding by teacher forcing. Returns the K4 launches."""
+  greedy decoding by teacher forcing; with `partial`, an accept rate of 0
+  or 1 fails (the verify then never keeps part of a draft). Returns the
+  K4 launches."""
   import torch
   from automl_tpu_torch.models.speculative import speculative_generate
   t0 = prompt.shape[1]
@@ -3660,6 +3770,9 @@ def _speculative(label, model, draft, prompt, new, k, ref, greedy_s):
         f"prefix against greedy_generate "
         f"{_equal_prefix(gen, ref[0, t0:].tolist())} of {new}")
   _teacher_forced(model, label, [(prompt[0].tolist(), gen)])
+  if partial and not 0 < stats["accept_rate"] < 1:
+    raise AssertionError(f"{label}: accept rate {stats['accept_rate']}, so "
+                         f"the partial-accept path did not run")
   return launches
 
 
@@ -3740,7 +3853,8 @@ def lm_serving_phase(dev, workdir, target_run):
     raise AssertionError("(a) the vector cache_index disagrees")
   del cache, caches
 
-  # (b) LMServer with K4: 24 requests, prompts 16-700 (at least 4 chunked).
+  # (b) LMServer with K4: LM_SERVE_REQUESTS requests, prompts 16-700 (some
+  # chunked).
   lens = rng.integers(16, 701, LM_SERVE_REQUESTS)
   lens[:6] = rng.integers(257, 701, 6)
   rng.shuffle(lens)
@@ -3805,8 +3919,9 @@ def lm_serving_phase(dev, workdir, target_run):
   _teacher_forced(model, "(d)", [(prefix + p, r.tokens)
                                  for (p, _), r in zip(reqs_d, res_p)])
 
-  # (e) speculative decoding, b1: t0 507 + 256 new, k 4 (buf 768).
-  t0, new, k = 507, 256, 4
+  # (e) speculative decoding, b1: t0 635 + 128 new, k 4 (buf 768; 507 +
+  # 256 until the script outgrew its time limit).
+  t0, new, k = 635, 128, 4
   prompt = torch.from_numpy(rng.integers(3, v, (1, t0))).to(dev)
   print(f"(e) speculative decoding, b1, {t0} + {new} tokens, k {k}, K4 on")
   torch.cuda.synchronize()
@@ -3819,8 +3934,9 @@ def lm_serving_phase(dev, workdir, target_run):
   launches += _speculative("(e) self-draft", model, model, prompt, new, k,
                            ref, greedy_s)
 
-  # (f) beam search, b2 x 4 beams, 512 + 256.
-  t0, new = 512, 256
+  # (f) beam search, b2 x 4 beams, 640 + 128 (a cache of 768; 512 + 256
+  # until the script outgrew its time limit).
+  t0, new = 640, 128
   prompt = torch.from_numpy(rng.integers(3, v, (2, t0))).to(dev)
   print(f"(f) beam search, b2, {t0} + {new} tokens")
   one, _ = beam_search_generate(model, prompt, new, num_beams=1)
@@ -3852,7 +3968,7 @@ def lm_serving_phase(dev, workdir, target_run):
                          for p in m.parameters())
   print(f"(g) int8: weights {nbytes(int8) / 1e6:.1f} MB against "
         f"{nbytes(model) / 1e6:.1f} MB cast for serving (bf16, embed f32)")
-  t0, new = 512, 256
+  t0, new = 640, 128          # 512 + 256 until the script outgrew its limit
   prompt = torch.from_numpy(rng.integers(3, v, (4, t0))).to(dev)
   _k4_reset()
   out8 = lm_lib.greedy_generate(int8, prompt, new)
@@ -3926,12 +4042,13 @@ def lm_serving_phase(dev, workdir, target_run):
   # seed 0, b8 T2048), both directories read by the CLI's loader.
   draft_run = os.path.join(workdir, "draft_run")
   steps = DRAFT_STEPS
-  t0, new, k = 507, 256, 4
+  k = 4
   print(f"(j) main_lm trains lm-flops2e17 (the draft) for {steps} steps at "
         f"b8 T2048 on the target's stream, with the target's flags (Lion, "
         f"lr {DRAFT_LR:g}); then speculative decoding "
-        f"with it against lm-flops1e19 at step {latest}, b1, {t0} + {new} "
-        f"tokens, k {k}")
+        f"with it against lm-flops1e19 at step {latest}, b1, k {k}: "
+        f"{PATTERN_PROMPT} + {PATTERN_NEW} tokens of a pattern, "
+        f"{DRAFT_PROMPT} + {DRAFT_NEW} of README.md")
   # bf16, hd 32, D 256: every launch the Hopper kernels'; full remat runs
   # K1 twice a layer and step.
   nd = dcfg.n_layers * steps
@@ -3952,20 +4069,21 @@ def lm_serving_phase(dev, workdir, target_run):
   _, draft = generate_lm.load_model(model_dir=draft_run, device=dev)
   lm_lib.cast_lm_params_for_serving(target)
   lm_lib.cast_lm_params_for_serving(draft)
-  pattern = next(iter(SyntheticLMData(1, t0 - 1, v,
+  pattern = next(iter(SyntheticLMData(1, PATTERN_PROMPT - 1, v,
                                       seed=DRAFT_PROMPT_SEED)))["tokens"]
   with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "README.md")) as f:
     readme = f.read()
   text = lm_pipeline.ByteTokenizer().encode(
-      readme[readme.index(README_PARAGRAPH):])[:t0]
+      readme[readme.index(README_PARAGRAPH):])[:DRAFT_PROMPT]
   ids = pattern[0].tolist()
   print(f"  teacher-forced next-token accuracy on the pattern prompt (from "
         f"position 4, where the stream's rule fixes the token): target "
         f"{_next_token_share(target, ids):.4f}, draft "
         f"{_next_token_share(draft, ids):.4f}")
-  for name, ids in (("a 4-token pattern repeated", ids),
-                    ("README.md's bytes", text)):
+  for name, ids, new, partial in (
+      ("a 4-token pattern repeated", ids, PATTERN_NEW, False),
+      ("README.md's bytes", text, DRAFT_NEW, True)):
     prompt = torch.tensor([ids], device=dev)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -3975,7 +4093,7 @@ def lm_serving_phase(dev, workdir, target_run):
     print(f"  {name}, {len(ids)} tokens: greedy_generate b1 "
           f"{new / greedy_s:.1f} tokens/s ({greedy_s:.3f} s)")
     launches += _speculative(f"(j) trained draft, {name}", target, draft,
-                             prompt, new, k, ref, greedy_s)
+                             prompt, new, k, ref, greedy_s, partial)
   launches += _cli_run(
       "(j) cli", [f"--model_dir={target_run}", f"--draft_model_dir={draft_run}",
                   f"--prompt={texts[5]}", "--max_new_tokens=32"], None,
@@ -4037,7 +4155,9 @@ def _cli_run(label, argv, stdin, reads, want_n):
 # peaking at 56.68 GiB (this script's stage line, H100 80GB HBM3 at 700 W),
 # and no larger batch was tried.
 V2S_BATCH = 256
-V2S_STAGE_STEPS = 10
+# Steps a stage: cut from 10 for the script's time (the step time is the
+# median of a stage's steps 3 on).
+V2S_STAGE_STEPS = 6
 # The K6 knob-on and knob-off runs draw the same batches, crops, RandAugment
 # ops and masks from the same seeds; they differ only in the bf16 rounding
 # of the 28 depthwise filter gradients (f32 sums in other orders), from step
@@ -4149,11 +4269,10 @@ def _cls_infer_check(dev):
 
 
 _CLS_CHILD = r"""
-import json, sys, torch
+import json, sys, time, torch
 from automl_tpu_torch.cli import main_cls
 from automl_tpu_torch.ops import depthwise as dw
 from automl_tpu_torch.train import runners
-dw.enable_pallas_filter_grad(sys.argv[1] == "on")
 f = dw.depthwise_filter_grad
 marks = []
 def mark():
@@ -4166,43 +4285,74 @@ def at_each_stage(*a, **k):
   mark()
   return make(*a, **k)
 runners.make_cls_preprocess = at_each_stage
-f.launches = f.launches_sm90 = 0
-main_cls.main(sys.argv[2:])
-mark()
-print("CLS_STAGES " + json.dumps(marks))
+for knob, argv in json.loads(sys.argv[1]):
+  dw.enable_pallas_filter_grad(knob)
+  marks.clear()
+  f.launches = f.launches_sm90 = 0
+  t = time.perf_counter()
+  main_cls.main(argv)
+  mark()
+  print("CLS_RUN " + json.dumps(dict(marks=marks,
+                                     secs=time.perf_counter() - t)),
+        flush=True)
+  torch.cuda.empty_cache()
 """
 
 
-def _cls_train_run(workdir, knob: bool, steps: int, per_step: int,
-                   stage_sizes, hparams="", label="V2-S"):
-  """(b) cli/main_cls trains V2-S as a subprocess for `steps` steps over
-  its 4 progressive stages, the K6 knob set in the child, its launch count
-  and peak memory read at each stage's start (a wrapper of
-  runners.make_cls_preprocess) and at the end. Checks the loss (finite,
-  falling within each stage after the first) and the launches (per_step a
-  step, all Hopper, with the knob; none without). `hparams` (",k=v,...")
-  follows the batch size in --hparam_str. Returns ([(size, step ms, img/s,
-  peak GiB, launches)] per stage, the losses)."""
-  import numpy as np
-  shutil.rmtree(workdir, ignore_errors=True)
-  flags = ["--model_name=efficientnetv2-s", f"--model_dir={workdir}",
-           f"--train_steps={steps}", "--log_every=1", "--device=cuda",
-           f"--hparam_str=train.batch_size={V2S_BATCH}{hparams}"]
+def _cls_train_runs(runs, steps: int, per_step: int, stage_sizes,
+                    hparams="", label="V2-S"):
+  """(b) cli/main_cls trains V2-S for `steps` steps over its progressive
+  stages once for each (model_dir, K6 knob) of `runs`, one run after the
+  other in one child process (its start paid once), the knob set in the
+  child, its launch count and peak memory read at each stage's start (a
+  wrapper of runners.make_cls_preprocess) and at the end. Checks the loss
+  (finite, falling within each stage after the first) and the launches
+  (per_step a step, all Hopper, with the knob; none without). `hparams`
+  (",k=v,...") follows the batch size in --hparam_str. Returns, for each
+  run, ([(size, step ms, img/s, peak GiB, launches)] per stage, the
+  losses)."""
+  argvs = []
+  for workdir, knob in runs:
+    shutil.rmtree(workdir, ignore_errors=True)
+    argvs.append((knob, [
+        "--model_name=efficientnetv2-s", f"--model_dir={workdir}",
+        f"--train_steps={steps}", "--log_every=1", "--device=cuda",
+        f"--hparam_str=train.batch_size={V2S_BATCH}{hparams}"]))
   root = os.path.dirname(os.path.abspath(__file__))
   t0 = time.perf_counter()
   proc = subprocess.run([sys.executable, "-c", _CLS_CHILD,
-                         "on" if knob else "off", *flags], cwd=root,
-                        capture_output=True, text=True, timeout=600,
+                         json.dumps(argvs)], cwd=root,
+                        capture_output=True, text=True, timeout=900,
                         check=False)
   wall = time.perf_counter() - t0
-  for line in proc.stdout.splitlines():
-    if line.startswith("step ") and int(line.split()[1]) % 10 in (1, 0):
-      print(f"  {line}")
   if proc.returncode != 0:
     print(proc.stdout[-3000:], proc.stderr[-6000:])
-    raise AssertionError(f"main_cls (knob {knob}) exited {proc.returncode}")
-  marks = json.loads(next(l for l in proc.stdout.splitlines()
-                          if l.startswith("CLS_STAGES "))[11:])
+    raise AssertionError(f"main_cls ({runs}) exited {proc.returncode}")
+  # Each run's lines end at its CLS_RUN line.
+  outs, lines = [], []
+  for line in proc.stdout.splitlines():
+    if line.startswith("CLS_RUN "):
+      outs.append((lines, json.loads(line[len("CLS_RUN "):])))
+      lines = []
+    else:
+      lines.append(line)
+  if len(outs) != len(runs):
+    raise AssertionError(f"main_cls ran {len(outs)} of {len(runs)} runs")
+  print(f"{label}: {len(runs)} run(s) of {steps} steps in one child process "
+        f"in {wall:.1f} s (its start and the model builds included)")
+  return [_cls_run_check(workdir, knob, steps, per_step, stage_sizes, label,
+                         lines, run["marks"], run["secs"])
+          for (workdir, knob), (lines, run) in zip(runs, outs)]
+
+
+def _cls_run_check(workdir, knob, steps, per_step, stage_sizes, label,
+                   lines, marks, wall):
+  """One run of _cls_train_runs (`wall`: its seconds in the child): its
+  losses, stages and launches checked and printed."""
+  import numpy as np
+  for line in lines:
+    if line.startswith("step ") and int(line.split()[1]) % 10 in (1, 0):
+      print(f"  {line}")
   recs = [json.loads(line) for line in
           open(os.path.join(workdir, "metrics.jsonl")).read().splitlines()]
   losses = [r["loss"] for r in recs]
@@ -4244,8 +4394,9 @@ def _cls_train_run(workdir, knob: bool, steps: int, per_step: int,
     if launches != expected or sm90 != expected:
       raise AssertionError(f"stage {i}: {launches} K6 launches ({sm90} "
                            f"Hopper), expected {expected}")
-  print(f"{label}, {steps} steps in {wall:.1f} s (the child's start and model "
-        f"build included); loss by stage, first step -> mean of the last 3: "
+  print(f"{label}, {steps} steps in {wall:.1f} s (the model build included; "
+        f"the child's start not); loss by stage, first step -> mean of the "
+        f"last 3: "
         + ", ".join(f"{stage[0]:.4f} -> {np.mean(stage[-3:]):.4f}"
                     for stage in (losses[i * per_stage:(i + 1) * per_stage]
                                   for i in range(len(stage_sizes)))))
@@ -4583,9 +4734,8 @@ def cls_phase(dev, workdir):
         f"{_stride1_depthwise_maps(meta, sizes[0])}, at {sizes[-1]}: "
         f"{_stride1_depthwise_maps(meta, sizes[-1])}")
   steps = 4 * V2S_STAGE_STEPS
-  on, losses_on = _cls_train_run(workdir, True, steps, per_step, sizes)
-  off, losses_off = _cls_train_run(workdir + "_off", False, steps, per_step,
-                                   sizes)
+  (on, losses_on), (off, losses_off) = _cls_train_runs(
+      [(workdir, True), (workdir + "_off", False)], steps, per_step, sizes)
   for (size, ms_on, _, peak_on, _), (_, ms_off, _, peak_off, _) in zip(on,
                                                                        off):
     print(f"V2-S {size}x{size} b{V2S_BATCH}: step {ms_on:.1f} ms knob on vs "
@@ -4605,8 +4755,10 @@ def cls_phase(dev, workdir):
 # eval from TFRecords.
 # ---------------------------------------------------------------------------
 
-DATA_DET_IMAGES = 512      # COCO-like fixtures, 8 shards
-DATA_CLS_IMAGES = 1024     # ImageNet-like fixtures, 8 shards
+# Fixtures (halved from 512 and 1,024 for the script's time; the
+# readers time 8 D0 batches of 16 and 2 V2-S batches of 256 from them).
+DATA_DET_IMAGES = 256      # COCO-like fixtures, 8 shards
+DATA_CLS_IMAGES = 512      # ImageNet-like fixtures, 8 shards
 DATA_SHARDS = 8
 DATA_PSNR_DB = 30.0        # decode(encode(x)) of a fixture, quality 90
 DATA_EVAL_SAMPLES = 128
@@ -4653,10 +4805,11 @@ def _smooth_image(rng, h, w, boxes=()):
 
 
 def _data_fixtures(root):
-  """512 COCO-like JPEGs (640 x 480, 480 x 640, 640 x 427; 1-8 boxes) as
-  a COCO directory, turned into 8 shards by cli/create_coco_tfrecord, and
-  1,024 ImageNet-like 500 x 375 JPEGs in 8 shards, all encoded on this
-  machine (native_loader.jpeg_encode_rgb). Checks decode(encode(x)) on a
+  """DATA_DET_IMAGES COCO-like JPEGs (640 x 480, 480 x 640, 640 x 427; 1-8
+  boxes) as a COCO directory, turned into 8 shards by
+  cli/create_coco_tfrecord, and DATA_CLS_IMAGES ImageNet-like 500 x 375
+  JPEGs in 8 shards, all encoded on this machine
+  (native_loader.jpeg_encode_rgb). Checks decode(encode(x)) on a
   few. Returns (det pattern, cls pattern, {source id: (h, w, annotations)})."""
   import numpy as np
   from automl_tpu_torch.cli import create_coco_tfrecord
@@ -4770,7 +4923,7 @@ def _file_step_ms(workdir) -> float:
 
 def data_phase(dev, root, d0_synthetic_ms=None, v2s_synthetic_ms=None):
   """11. The host library with this machine's codec; the fixtures; each
-  reader's img/s alone; D0 b16 trained 20 steps through cli/main_det from
+  reader's img/s alone; D0 b16 trained 10 steps through cli/main_det from
   files with each reader, its eval mode (AP against an in-process
   evaluate_detection over the same batches, within 1e-4) and test-dev
   JSON; V2-S b256 10 steps at stage 0's size (168 px) through cli/main_cls
@@ -4786,10 +4939,8 @@ def data_phase(dev, root, d0_synthetic_ms=None, v2s_synthetic_ms=None):
   from automl_tpu_torch.train import runners
   t_phase = time.perf_counter()
   shutil.rmtree(root, ignore_errors=True)
-  t0 = time.perf_counter()
-  lib = nl.build_host()
-  print(f"data: host library {lib.name} (codec {nl.codec()}) built in "
-        f"{time.perf_counter() - t0:.1f} s")
+  lib = nl.build_host()        # built beside the kernels at the start
+  print(f"data: host library {lib.name} (codec {nl.codec()})")
   det_pattern, cls_pattern, meta = _data_fixtures(root)
   _check_read_boxes(det_pattern, meta)
   nproc = os.cpu_count() or 1
@@ -4833,7 +4984,7 @@ def data_phase(dev, root, d0_synthetic_ms=None, v2s_synthetic_ms=None):
   flags = ["--mode=train", "--model_name=efficientdet-d0",
            f"--train_file_pattern={det_pattern}",
            f"--hparams=mixed_precision=true,batch_size={D0_BATCH}",
-           "--log_every=1", "--device=cuda", "--train_steps=20"]
+           "--log_every=1", "--device=cuda", "--train_steps=10"]
   step_ms = {}
   for name, extra in (("TF-free reader", []),
                       (f"native loader, {nproc} workers",
@@ -4843,7 +4994,7 @@ def data_phase(dev, root, d0_synthetic_ms=None, v2s_synthetic_ms=None):
     main_det.main(flags + extra + [f"--model_dir={d}"])
     step_ms[name] = _file_step_ms(d)
     print(f"data: D0 b{D0_BATCH} 512x512 bf16 from files ({name}): step "
-          f"{step_ms[name]:.1f} ms (median of steps 5-20), "
+          f"{step_ms[name]:.1f} ms (median of steps 5-10), "
           f"{D0_BATCH / step_ms[name] * 1e3:.1f} img/s; K6 launches "
           f"{dw.depthwise_filter_grad.launches} (knob off)")
   synth = ("not measured in this call" if d0_synthetic_ms is None else
@@ -4874,7 +5025,7 @@ def data_phase(dev, root, d0_synthetic_ms=None, v2s_synthetic_ms=None):
         "1e-4)")
   if set(got) != set(want) or worst > 1e-4:
     raise AssertionError("eval mode's metrics differ from evaluate_detection")
-  # The metrics of 20 steps from random weights are about 0, so the
+  # The metrics of 10 steps from random weights are about 0, so the
   # detections themselves are compared too: the test-dev JSON of the eval
   # mode and of evaluate_detection, as multisets of rows, equal.
   testdev = main_det.main(eval_flags + [
@@ -4925,9 +5076,9 @@ def data_phase(dev, root, d0_synthetic_ms=None, v2s_synthetic_ms=None):
 # ---------------------------------------------------------------------------
 
 SEG_STEPS = 20
-QAT_STEPS = 10
+QAT_STEPS = 6                # 10 until the script outgrew its time limit
 GN_STEPS = 5
-SEARCH_LM_STEPS = 10
+SEARCH_LM_STEPS = 6          # 10 until the script outgrew its time limit
 SEARCH_LM_LR = 1e-4
 # f32 step 1 on efficientdet-test at 128 x 128 (b4; at its own 64 the
 # level-7 maps are 1 x 1 and a train-mode BN there normalises two numbers),
@@ -5349,8 +5500,8 @@ def seg_qat_search_phase(dev, workdir, v2s_bn_ms):
   size, ram, mix, cut = runners._progressive_stage_params(ccfg, 0, 4)
   gn_per_step = sum(_stride1_depthwise_maps(
       EfficientNet(ccfg.model, device="meta"), size).values())
-  gn, _ = _cls_train_run(
-      workdir + "_gn", True, GN_STEPS, gn_per_step, [size],
+  [(gn, _)] = _cls_train_runs(
+      [(workdir + "_gn", True)], GN_STEPS, gn_per_step, [size],
       hparams=(f",model.bn_type=gn,train.stages=1,train.isize={size},"
                f"data.ram={ram},data.mixup_alpha={mix},"
                f"data.cutmix_alpha={cut}"), label="V2-S GroupNorm")
@@ -5376,7 +5527,7 @@ def seg_qat_search_phase(dev, workdir, v2s_bn_ms):
 
 # Requests of (B)'s LMServer runs (phase 12's settings, fewer requests).
 M10_SERVE_REQUESTS = 8
-M10_TRAIN_STEPS = 10
+M10_TRAIN_STEPS = 6          # 10 until the script outgrew its time limit
 # Step 1 on a mesh of one against no mesh: phase 5's tightest limits (the
 # chunked loss against the f32 one).
 M10_STEP1_LIMITS = (1e-5, 5e-5, 0.99995)
@@ -5489,7 +5640,9 @@ def _m10_serving(dev, mesh, flush):
   lm_lib.cast_lm_params_for_serving(bm)
   lm_lib.cast_lm_params_for_serving(tp)
   n_layers, v = cfg.n_layers, cfg.vocab_size
-  batch, t0, new = 8, 512, 512
+  # 256 new tokens (512 until the script outgrew its time limit): a cache
+  # of 768, decode_kernel_min_s.
+  batch, t0, new = 8, 512, 256
   total = t0 + new
   rng = np.random.default_rng(1)
   prompt = torch.from_numpy(rng.integers(3, v, (batch, t0))).to(dev)
@@ -5587,9 +5740,9 @@ def _m10_serving(dev, mesh, flush):
 
 
 def _m10_training(dev, mesh, workdir):
-  """(D): lm-flops1e19 step 1 and 10 steps through main_lm on the mesh of
-  one (gspmd) against no mesh; sp on the same mesh takes the flash path.
-  Returns {kernel: launches} of the mesh run."""
+  """(D): lm-flops1e19 step 1 and M10_TRAIN_STEPS steps through main_lm on
+  the mesh of one (gspmd) against no mesh; sp on the same mesh takes the
+  flash path. Returns {kernel: launches} of the mesh run."""
   import torch
   from automl_tpu_torch import convert
   from automl_tpu_torch.models import lm as lm_lib
@@ -6074,8 +6227,9 @@ def _m10b_cls_start(workdir):
     log = d + ".log"
     with open(log, "w") as f:
       procs[label] = (d, log, subprocess.Popen(
-          [sys.executable, "-c", _CLS_CHILD, "on", *flags,
-           f"--model_dir={d}", *extra], cwd=root, stdout=f,
+          [sys.executable, "-c", _CLS_CHILD, json.dumps(
+              [(True, flags + [f"--model_dir={d}", *extra])])],
+          cwd=root, stdout=f,
           stderr=subprocess.STDOUT, text=True))
   return procs
 
@@ -6092,7 +6246,7 @@ def _m10b_cls_finish(procs):
       raise AssertionError(f"(C) main_cls ({label}) exited "
                            f"{proc.returncode}")
     marks = json.loads(next(l for l in out.splitlines()
-                            if l.startswith("CLS_STAGES "))[11:])
+                            if l.startswith("CLS_RUN "))[8:])["marks"]
     launches[label] = (marks[-1]["launches"] - marks[0]["launches"],
                        marks[-1]["sm90"] - marks[0]["sm90"])
     recs = [json.loads(l) for l in open(os.path.join(d, "metrics.jsonl"))]
@@ -6236,6 +6390,291 @@ def m10b_phase(dev, workdir):
           "K2 sm90": pipe["K2 sm90"] + ep["K2 sm90"], "K6": k6_det + k6_cls}
 
 
+# ---------------------------------------------------------------------------
+# The JAX package's orbax run directories (orbax_phase): ckpt/orbax.py ->
+# ckpt/ocdbt.py -> csrc/host/zstd.cc.
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURE = os.path.join("tests", "fixtures", "jax_lm_test_run")
+ORBAX_DECODES = 200      # passes over the fixture's frames for the rate
+ORBAX_NEW = 16           # tokens the fixture's model decodes
+
+
+def _leaf_digest(t):
+  """(dtype name, shape, sha256) of a tensor as orbax restores it (numpy's
+  dtype names; bfloat16 by its bits)."""
+  import hashlib
+  import torch
+  bf16 = t.dtype == torch.bfloat16
+  arr = (t.view(torch.int16) if bf16 else t).contiguous().numpy()
+  return ("bfloat16" if bf16 else arr.dtype.name, list(arr.shape),
+          hashlib.sha256(arr.tobytes()).hexdigest())
+
+
+def _orbax_fixture(dev):
+  """(a) The committed JAX run directory: its leaves against their
+  digests, generate_lm's tokens with K4 against the plain attention, and
+  the decoder's rate over its frames."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.ckpt import ocdbt, orbax, zstd
+  from automl_tpu_torch.cli import generate_lm
+  from automl_tpu_torch.models import lm as lm_lib
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      ORBAX_FIXTURE)
+  step_dir = os.path.join(root, "ckpt", "3")
+  with open(root + "_leaves.json") as f:
+    digests = json.load(f)
+  leaves = {k: v for k, v in convert.flatten_tree(
+      orbax.read_step(step_dir)).items() if torch.is_tensor(v)}
+  bad = [k for k in digests if k not in leaves or list(
+      _leaf_digest(leaves[k])) != [digests[k]["dtype"], digests[k]["shape"],
+                                   digests[k]["sha256"]]]
+  print(f"(a) {ORBAX_FIXTURE}: {len(leaves)} leaves read, "
+        f"{len(digests) - len(bad)} of {len(digests)} equal to their digests")
+  if bad or len(leaves) != len(digests):
+    raise AssertionError(f"(a) leaves differ from their digests: {bad[:5]}")
+
+  cfg, model = generate_lm.load_model(model_dir=root, device=dev)
+  model.cfg.decode_kernel_min_s = 0       # K4 at the fixture's short cache
+  prompt = torch.from_numpy(np.random.default_rng(5).integers(
+      3, cfg.vocab_size, (2, 24))).to(dev)
+  _k4_reset()
+  tokens = lm_lib.greedy_generate(model, prompt, ORBAX_NEW)
+  launches, _ = _k4_counts()
+  model.cfg.use_decode_kernel = False
+  plain = lm_lib.greedy_generate(model, prompt, ORBAX_NEW)
+  same = int((tokens == plain).all(1).sum())
+  print(f"(a) generate_lm on it ({cfg.activation_dtype}): b2 24 + "
+        f"{ORBAX_NEW} tokens, K4 launches {launches} (expected "
+        f"{cfg.n_layers * ORBAX_NEW}), rows equal to the plain attention's "
+        f"{same} of 2")
+  if launches != cfg.n_layers * ORBAX_NEW or same != 2:
+    raise AssertionError("(a) generate_lm with K4 differs from the plain "
+                         "attention, or K4 did not run")
+
+  store = ocdbt.OcdbtStore(os.path.join(step_dir, "default"))
+  keys = [k for k in store.list() if not k.endswith(".zarray")]
+  frames = store.read_many(keys)
+  out_bytes = sum(len(zstd.decompress(f)) for f in frames)
+  in_bytes = sum(len(f) for f in frames)
+  t = time.perf_counter()
+  for _ in range(ORBAX_DECODES):
+    for f in frames:
+      zstd.decompress(f)
+  secs = time.perf_counter() - t
+  print(f"(a) zstd: {len(frames)} frames ({in_bytes} bytes -> {out_bytes}) "
+        f"decoded {ORBAX_DECODES} times in {secs:.3f} s: "
+        f"{ORBAX_DECODES * out_bytes / secs / 1e6:.1f} MB/s out, "
+        f"{ORBAX_DECODES * in_bytes / secs / 1e6:.1f} MB/s in (one thread)")
+
+
+def _orbax_lm(dev, workdir, fused_dir):
+  """(b) Phase 5's fused lm-flops1e19 state as a JAX run directory: write,
+  read back, serve and resume against its state.pt. Returns {kernel:
+  launches} of the resume from the JAX directory and its K4 launches."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.ckpt import orbax
+  from automl_tpu_torch.cli import generate_lm, main_lm
+  from automl_tpu_torch.models import lm as lm_lib
+  from automl_tpu_torch.train import checkpoint, lm_trainer
+
+  fused_ckpt = os.path.join(fused_dir, "ckpt")
+  step = checkpoint.all_checkpoint_steps(fused_ckpt)[-1]
+  state_pt = os.path.join(fused_ckpt, str(step), "state.pt")
+  t = time.perf_counter()
+  saved = torch.load(state_pt, map_location="cpu", weights_only=True,
+                     mmap=True)
+  lion, _, sched = saved["opt_state"]
+  tree = {"step": np.asarray(saved["step"], np.int32),
+          "params": convert.torch_to_jax_tree(saved["params"]),
+          "opt_state": [
+              {"momentum": convert.torch_to_jax_tree(lion["momentum"])},
+              None, {"count": np.asarray(sched["count"], np.int32)}]}
+  del lion
+  print(f"(b) {state_pt} as JAX's tree in {time.perf_counter() - t:.1f} s")
+  jdir = os.path.join(workdir, "jax_run")
+  os.makedirs(os.path.join(jdir, "ckpt"))
+  shutil.copy(os.path.join(fused_dir, "experiment_config.yaml"), jdir)
+  step_dir = os.path.join(jdir, "ckpt", str(step))
+  t = time.perf_counter()
+  nbytes = orbax.write_step(step_dir, tree)
+  write_s = time.perf_counter() - t
+  t = time.perf_counter()
+  back = orbax.read_step(step_dir)
+  read_s = time.perf_counter() - t
+  want = convert.flatten_tree(tree)
+  got = convert.flatten_tree(back)
+  equal = sum(torch.equal(torch.from_numpy(np.asarray(v)), got[k])
+              for k, v in want.items() if v is not None)
+  n = sum(v is not None for v in want.values())
+  print(f"(b) orbax.write_step: {nbytes} bytes in {write_s:.2f} s "
+        f"({nbytes / write_s / 1e9:.2f} GB/s); read_step {read_s:.2f} s "
+        f"({nbytes / read_s / 1e9:.2f} GB/s, warm page cache); {equal} of "
+        f"{n} leaves read back bit-equal")
+  if equal != n or sorted(got) != sorted(want):
+    raise AssertionError("(b) the written directory reads back otherwise")
+  del tree, back, want, got
+  # What the resume restores beyond the params: Lion's momentum (found
+  # through the chain's index 0), the None entry and the schedule's count,
+  # held tensor by tensor to the state.pt's.
+  template = lm_trainer.LMTrainState(
+      step=0, params={k: torch.empty_like(v)
+                      for k, v in saved["params"].items()},
+      opt_state=saved["opt_state"])
+  restored = checkpoint.CheckpointManager(
+      os.path.join(jdir, "ckpt")).restore(template)
+  want = convert.flatten_tree({f: saved[f] for f in restored._fields})
+  got = convert.flatten_tree(restored._asdict())
+  bad = sorted(set(want) ^ set(got)) + [
+      k for k in want if k in got
+      and not (torch.equal(want[k], got[k]) and want[k].dtype == got[k].dtype
+               if torch.is_tensor(want[k]) else want[k] == got[k])]
+  print(f"(b) CheckpointManager.restore of the JAX directory: {len(want)} "
+        f"leaves of the state.pt's LMTrainState (step, params, Lion's "
+        f"momentum, the schedule's count), differing: {bad[:5]}")
+  if bad:
+    raise AssertionError(f"(b) the restored state differs at {bad[:5]}")
+  del saved, template, restored, want, got
+
+  batch, t0, new = 8, 512, 512
+  prompt = None
+  tokens = {}
+  k4 = 0
+  for name, model_dir in (("the JAX directory", jdir),
+                          ("the state.pt", fused_dir)):
+    t = time.perf_counter()
+    cfg, model = generate_lm.load_model(model_dir=model_dir, device=dev,
+                                        step=step)
+    lm_lib.cast_lm_params_for_serving(model)
+    load_s = time.perf_counter() - t
+    if prompt is None:
+      prompt = torch.from_numpy(np.random.default_rng(1).integers(
+          3, cfg.vocab_size, (batch, t0))).to(dev)
+    _k4_reset()
+    t = time.perf_counter()
+    tokens[name] = lm_lib.greedy_generate(model, prompt, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    print(f"(b) generate_lm from {name}: loaded in {load_s:.2f} s, greedy "
+          f"b{batch} {t0} + {new} in {gen_s:.2f} s")
+    k4 += _k4_expect(f"(b) {name}", cfg.n_layers * new)
+    del model
+    torch.cuda.empty_cache()
+  same = torch.equal(*tokens.values())
+  print(f"(b) tokens from the JAX directory equal to the state.pt's: {same}")
+  if not same:
+    raise AssertionError("(b) the JAX directory serves other tokens")
+
+  port_dir = os.path.join(workdir, "port_run")
+  os.makedirs(os.path.join(port_dir, "ckpt", str(step)))
+  shutil.copy(os.path.join(fused_dir, "experiment_config.yaml"), port_dir)
+  os.link(state_pt, os.path.join(port_dir, "ckpt", str(step), "state.pt"))
+  flags = ["--config_name=lm-flops1e19", f"--batch_size={batch}",
+           "--warmup_steps=3", "--log_every=1", "--device=cuda",
+           f"--learning_rate={FUSED_LR}",
+           "--experiment_config=use_flash_attention=true,"
+           "fused_softmax_loss=pallas", f"--train_steps={step + 2}"]
+  counters = _train_counters()
+  n_layers = lm_lib.get_lm_config("lm-flops1e19").n_layers
+  hopper = lambda k1, k2, k3: {
+      "K1": k1, "K1 sm90": k1, "K2": k2, "K2 sm90": k2,
+      **{f"K3{c}{s}": k3 for c in "abc" for s in ("", " sm90")}}
+  expected = dict(dict.fromkeys(TRAIN_KERNELS, 0),
+                  **hopper(2 * n_layers * 2, n_layers * 2, 2))
+  losses, launches = {}, None
+  for name, model_dir in (("the JAX directory", jdir),
+                          ("the state.pt", port_dir)):
+    for fn, attr in counters.values():
+      setattr(fn, attr, 0)
+    t = time.perf_counter()
+    with _NoCheckpoints():
+      main_lm.main(flags + [f"--model_dir={model_dir}"])
+    got = {kid: getattr(fn, attr) for kid, (fn, attr) in counters.items()}
+    launches = launches or got
+    recs = [json.loads(line) for line in open(
+        os.path.join(model_dir, "metrics.jsonl")).read().splitlines()]
+    losses[name] = [r["loss"] for r in recs if "loss" in r]
+    print(f"(b) main_lm resumed from {name} at step {step}: steps "
+          f"{[r['step'] for r in recs if 'loss' in r]}, losses "
+          f"{losses[name]} in {time.perf_counter() - t:.1f} s; launches "
+          f"{got}")
+    if ([r["step"] for r in recs if "loss" in r] != [step + 1, step + 2]
+        or not all(math.isfinite(x) for x in losses[name])
+        or got != expected):
+      raise AssertionError(f"(b) the resume from {name} did not train "
+                           f"steps {step + 1}-{step + 2} through the "
+                           f"kernels as expected ({expected})")
+  # Step step + 1's loss reads the params alone; step + 2's also the
+  # momentum and the count that the first step's update used.
+  print(f"(b) the resumed steps' losses, JAX directory vs state.pt: "
+        f"{losses['the JAX directory']!r} vs {losses['the state.pt']!r}")
+  if losses["the JAX directory"] != losses["the state.pt"]:
+    raise AssertionError("(b) the resumed losses differ")
+  return launches, k4
+
+
+def _orbax_d0(dev, workdir, det_ckpt):
+  """(c) The 20-step D0 checkpoint written as a JAX step: ServingDriver
+  serves b1 from it as from the state.pt."""
+  import numpy as np
+  import torch
+  from automl_tpu_torch import convert
+  from automl_tpu_torch.ckpt import orbax
+  from automl_tpu_torch.configs.efficientdet_configs import (
+      get_efficientdet_config)
+  from automl_tpu_torch.inference import driver
+  from automl_tpu_torch.models.efficientdet import EfficientDet
+  from automl_tpu_torch.train import checkpoint, train_lib
+
+  step = checkpoint.all_checkpoint_steps(det_ckpt)[-1]
+  saved = torch.load(os.path.join(det_ckpt, str(step), "state.pt"),
+                     map_location="cpu", weights_only=True)
+  state = train_lib.TrainState(**{f: saved[f] for f in
+                                  train_lib.TrainState._fields})
+  j = convert.det_state_to_jax(state, EfficientDet(
+      get_efficientdet_config("efficientdet-d0"), device="cpu"))
+  tree = {"step": np.asarray(j["step"], np.int32), "params": j["params"],
+          "opt_state": {"inner_state": [
+              {"trace": j["trace"]}, {"count": np.asarray(j["count"],
+                                                          np.int32)}]},
+          "ema_params": j["ema_params"],
+          "normalizer": (None if j["normalizer"] is None
+                         else np.asarray(j["normalizer"], np.float32))}
+  jckpt = os.path.join(workdir, "det", "ckpt")
+  os.makedirs(jckpt)
+  nbytes = orbax.write_step(os.path.join(jckpt, str(step)), tree)
+  images = torch.from_numpy(_driver_images(1, 480, 640))
+  out = {}
+  for name, d in (("the JAX directory", jckpt), ("the state.pt", det_ckpt)):
+    drv = driver.ServingDriver("efficientdet-d0", batch_size=1,
+                               device=dev).load(d)
+    with torch.no_grad():
+      out[name] = drv.program(images.to(dev))
+    del drv
+  print(f"(c) D0 step {step} as a JAX step: {nbytes} bytes")
+  _same_detections("(c) ServingDriver D0 b1 from the JAX directory vs the "
+                   "state.pt", *out.values())
+
+
+def orbax_phase(dev, workdir, fused_dir, det_ckpt):
+  """The JAX package's run directories on the card: (a) the committed
+  fixture, (b) lm-flops1e19 at full width, (c) D0 serving. Returns {kernel:
+  launches} of (b)'s resume plus its K4 launches under "K4 sm90"."""
+  shutil.rmtree(workdir, ignore_errors=True)
+  os.makedirs(workdir)
+  try:
+    _orbax_fixture(dev)
+    launches, k4 = _orbax_lm(dev, workdir, fused_dir)
+    _orbax_d0(dev, workdir, det_ckpt)
+  finally:
+    shutil.rmtree(workdir, ignore_errors=True)
+  return dict(launches, **{"K4 sm90": k4})
+
+
 def _entry(name, source, replaces, launches, r):
   return {"name": name, "route": "cuda", "source": source,
           "replaces": replaces, "launches": launches,
@@ -6288,6 +6727,8 @@ def _timed(secs, name, fn, *args):
 
 def main() -> int:
   import torch
+  from automl_tpu_torch.ckpt import zstd
+  from automl_tpu_torch.data import native_loader
   from automl_tpu_torch.ops import cuda_build
 
   if not torch.cuda.is_available():
@@ -6301,7 +6742,7 @@ def main() -> int:
   profile = "--profile" in sys.argv[1:]
   trees = None
   if not profile:
-    # The M6 phase's weights, drawn on the host while the kernels build.
+    # The LM phases' weights, drawn on the host while the kernels build.
     trees = _Trees()
     for cfg, _ in _m6_configs().values():
       trees.prefetch(cfg)
@@ -6318,10 +6759,13 @@ def main() -> int:
   sources = ("decode_attention", "decode_attention_sm90", "flash_attention",
              "flash_attention_sm90", "xent", "xent_sm90", "depthwise",
              "depthwise_sm90")
-  with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+  with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as pool:
+    # The host libraries of phases 16 and 11.
+    hosts = [pool.submit(zstd.build), pool.submit(native_loader.build_host)]
     libs = list(pool.map(cuda_build.build, sources))
-  print(f"build: {', '.join(l.name for l in libs)} in "
-        f"{time.perf_counter() - t:.1f} s (nvcc in parallel)")
+  print(f"build: {', '.join(l.name for l in libs)}, "
+        f"{', '.join(h.result().name for h in hosts)} in "
+        f"{time.perf_counter() - t:.1f} s (nvcc and g++ in parallel)")
   for lib in libs:
     log = lib.parent / (lib.name + ".log")
     for line in log.read_text().splitlines() if log.exists() else ():
@@ -6364,34 +6808,45 @@ def main() -> int:
             os.path.join(build, "chip_smoke_m10_plain"),
             os.path.join(build, "chip_smoke_m10b")):
     shutil.rmtree(d, ignore_errors=True)
-  runs = _timed(secs, "5 training", training_phase, dev, workdir)
-  m6 = _timed(secs, "5b M6", lm_training_m6_phase, dev, m6_dir, trees)
-  k6_launches, d0_synthetic_ms = _timed(secs, "7 detection",
-                                        detection_phase, dev, det_dir)
-  _timed(secs, "8 inference", inference_phase, dev,
-         os.path.join(det_dir + "_off", "ckpt"),
-         os.path.join(build, "chip_smoke_infer"))
-  _timed(secs, "8b driver", driver_phase, dev,
-         os.path.join(det_dir + "_off", "ckpt"),
-         os.path.join(build, "chip_smoke_serve"), card)
-  cls_k6_launches, v2s_synthetic_ms, v2s_on_ms = _timed(
-      secs, "9 classification", cls_phase, dev, cls_dir)
-  _timed(secs, "11 data", data_phase, dev,
-         os.path.join(build, "chip_smoke_data"), d0_synthetic_ms,
-         v2s_synthetic_ms)
-  sqs = _timed(secs, "13 seg/QAT/search", seg_qat_search_phase, dev, sqs_dir,
-               v2s_on_ms)
-  k4_launches = _timed(secs, "10 serving", serving_phase, dev)
-  k4_serving, draft = _timed(
-      secs, "12 LM serving", lm_serving_phase, dev,
-      os.path.join(build, "chip_smoke_lm_serving"), workdir + "_fused")
-  k4_launches += k4_serving
-  k4_launches += m6["K4 sm90"]
-  m10 = _timed(secs, "14 M10", m10_phase, dev,
-               os.path.join(build, "chip_smoke_m10"))
-  k4_launches += m10["K4"]
-  m10b = _timed(secs, "15 M10b", m10b_phase, dev,
-                os.path.join(build, "chip_smoke_m10b"))
+  with trees:
+    runs = _timed(secs, "5 training", training_phase, dev, workdir)
+    m6 = _timed(secs, "5b M6", lm_training_m6_phase, dev, m6_dir, trees)
+    k6_launches, d0_synthetic_ms = _timed(secs, "7 detection",
+                                          detection_phase, dev, det_dir)
+    det_ckpt = os.path.join(det_dir + "_off", "ckpt")
+    serve_dir = os.path.join(build, "chip_smoke_serve")
+    # Phase 8b's torch.export of D0 traces on the host for ~35 s: a process
+    # of its own does it while phase 8 runs.
+    export = _start_export(det_ckpt, serve_dir)
+    try:
+      _timed(secs, "8 inference", inference_phase, dev, det_ckpt,
+             os.path.join(build, "chip_smoke_infer"))
+      _timed(secs, "8b driver", driver_phase, dev, det_ckpt, serve_dir, card,
+             export)
+    finally:
+      _stop_export(export)
+    cls_k6_launches, v2s_synthetic_ms, v2s_on_ms = _timed(
+        secs, "9 classification", cls_phase, dev, cls_dir)
+    _timed(secs, "11 data", data_phase, dev,
+           os.path.join(build, "chip_smoke_data"), d0_synthetic_ms,
+           v2s_synthetic_ms)
+    sqs = _timed(secs, "13 seg/QAT/search", seg_qat_search_phase, dev, sqs_dir,
+                 v2s_on_ms)
+    k4_launches = _timed(secs, "10 serving", serving_phase, dev)
+    k4_serving, draft = _timed(
+        secs, "12 LM serving", lm_serving_phase, dev,
+        os.path.join(build, "chip_smoke_lm_serving"), workdir + "_fused")
+    k4_launches += k4_serving
+    k4_launches += m6["K4 sm90"]
+    m10 = _timed(secs, "14 M10", m10_phase, dev,
+                 os.path.join(build, "chip_smoke_m10"))
+    k4_launches += m10["K4"]
+    m10b = _timed(secs, "15 M10b", m10b_phase, dev,
+                  os.path.join(build, "chip_smoke_m10b"))
+    jax_dirs = _timed(secs, "16 orbax", orbax_phase, dev,
+                      os.path.join(build, "chip_smoke_orbax"),
+                      workdir + "_fused", det_ckpt)
+    k4_launches += jax_dirs["K4 sm90"]
   for label in ("prefill T=512", "verify T=5", "chunk T=256"):
     print(f"K4 {label}: {json.dumps(k4[label])}")
   print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; by "
@@ -6404,12 +6859,14 @@ def main() -> int:
       _entry("flash_fwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:82",
              runs["unfused"]["K1 sm90"] + m6["K1 sm90"] + sqs["K1 sm90"]
-             + m10["K1 sm90"] + m10b["K1 sm90"] + draft["K1 sm90"],
+             + m10["K1 sm90"] + m10b["K1 sm90"] + draft["K1 sm90"]
+             + jax_dirs["K1 sm90"],
              flash["fwd"]),
       _entry("flash_bwd", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:320",
              runs["unfused"]["K2 sm90"] + m6["K2 sm90"] + sqs["K2 sm90"]
-             + m10["K2 sm90"] + m10b["K2 sm90"] + draft["K2 sm90"],
+             + m10["K2 sm90"] + m10b["K2 sm90"] + draft["K2 sm90"]
+             + jax_dirs["K2 sm90"],
              flash["bwd"]),
       _entry("flash_bwd_dq", "automl_tpu_torch/csrc/flash_attention_sm90.cu",
              "automl_tpu/ops/attention.py:240", runs["split"]["K5a sm90"],
@@ -6420,15 +6877,15 @@ def main() -> int:
       _entry("xent_fwd", "automl_tpu_torch/csrc/xent_sm90.cu",
              "automl_tpu/ops/xent.py:66",
              runs["fused"]["K3a sm90"] + m6["K3a sm90"]
-             + draft["K3a sm90"], k3["fwd"]),
+             + draft["K3a sm90"] + jax_dirs["K3a sm90"], k3["fwd"]),
       _entry("xent_dx", "automl_tpu_torch/csrc/xent_sm90.cu",
              "automl_tpu/ops/xent.py:113",
              runs["fused"]["K3b sm90"] + m6["K3b sm90"]
-             + draft["K3b sm90"], k3["dx"]),
+             + draft["K3b sm90"] + jax_dirs["K3b sm90"], k3["dx"]),
       _entry("xent_dw", "automl_tpu_torch/csrc/xent_sm90.cu",
              "automl_tpu/ops/xent.py:138",
              runs["fused"]["K3c sm90"] + m6["K3c sm90"]
-             + draft["K3c sm90"], k3["dw"]),
+             + draft["K3c sm90"] + jax_dirs["K3c sm90"], k3["dw"]),
       _entry("depthwise_filter_grad",
              "automl_tpu_torch/csrc/depthwise_sm90.cu",
              "automl_tpu/ops/depthwise.py:37",

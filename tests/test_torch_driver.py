@@ -237,7 +237,9 @@ def test_serve_files_visualize_and_inference_driver(tmp_path):
 
 def test_load_reads_a_main_det_checkpoint(tmp_path):
   """load() takes the params of the latest (or a given) step that main_det
-  wrote; the JAX package's orbax directories are refused."""
+  wrote, and those of the JAX package's orbax directory of the same
+  params (bit for bit); an orbax step without its OCDBT manifest raises a
+  ValueError naming it."""
   d = str(tmp_path / "det")
   tmain_det.main(["--model_name=efficientdet-test", "--device=cpu",
                   f"--model_dir={d}", "--use_fake_data", "--train_steps=2",
@@ -255,8 +257,18 @@ def test_load_reads_a_main_det_checkpoint(tmp_path):
   orbax = tmp_path / "orbax" / "1"
   orbax.mkdir(parents=True)
   (orbax / "_CHECKPOINT_METADATA").write_text("{}")
-  with pytest.raises(NotImplementedError, match="orbax"):
+  with pytest.raises(ValueError, match="manifest.ocdbt"):
     td.load(str(tmp_path / "orbax"))
+  from automl_tpu.train.checkpoint import CheckpointManager as JMngr
+  jdir = str(tmp_path / "jax")
+  jm = JMngr(jdir)
+  jm.save(5, {"params": jax.tree_util.tree_map(
+      jnp.asarray, convert.det_torch_to_jax_tree(saved, td.model))})
+  jm.wait_until_finished()
+  tj = tdriver.ServingDriver("efficientdet-test", mixed_precision=False,
+                             device="cpu").load(jdir)
+  for k, v in saved.items():
+    assert torch.equal(tj.params[k], v), k
 
 
 def test_inspector_export_round_trip(tmp_path, capsys):

@@ -4,7 +4,8 @@ run directories that the port's run_lm / main_lm write.
 As the JAX package's tests/test_cli_smoke.py::test_generate_lm_cli_end_to_end
 (every assertion, on the port's run directory of lm-test, 4 steps with a
 checkpoint every 2), plus --step, the draft's directory, the refusals, a
-pipeline-trained directory, and parity with the JAX package: JAX's run_lm
+pipeline-trained directory, and parity with the JAX package (JAX's own
+run directory served too): JAX's run_lm
 trains an untied lm-test, its load_model's params at steps 2 and 4 go
 through convert into a port state.pt, the port's loader must give JAX's
 params and prefill logits at each step, and the port's generate_lm JAX's
@@ -339,7 +340,7 @@ def test_speculative_with_a_draft_matches_jax(jax_runs):
 
 
 def test_refuses_a_jax_orbax_run_directory(jax_runs):
+  """Once refused, now served: JAX's run directory itself (orbax
+  checkpoints) gives the tokens of JAX's generate_lm on it."""
   jdir, _ = jax_runs["target"]
-  with pytest.raises(NotImplementedError,
-                     match="orbax checkpoint of the JAX package"):
-    _gen(jdir, *PROMPT)
+  assert _gen(jdir, *PROMPT) == jgen.main(["--model_dir", jdir, *PROMPT])
